@@ -1,0 +1,33 @@
+"""quest_tpu_torch — the PyTorch / NVIDIA H100 port of quest_tpu.
+
+The QuEST-named state-vector API and compiled circuits on one CUDA device,
+with the fused gate-layer kernel written by hand in CUDA C++ for Hopper
+(``csrc/layer_kernel.cu``). The JAX package ``quest_tpu`` is the reference
+this port is tested against; nothing here imports it or JAX.
+
+```python
+import quest_tpu_torch as qt
+
+env = qt.createQuESTEnv()            # cuda:0, SINGLE; raises without CUDA
+q = qt.createQureg(30, env)
+qt.hadamard(q, 0)
+qt.controlledNot(q, 0, 1)
+print(qt.calcProbOfOutcome(q, 1, 1)) # 0.5
+```
+"""
+
+from .api import *  # noqa: F401,F403
+from .api import __all__ as _api_all
+from .circuits import Circuit, CompiledCircuit, Param
+from .config import DOUBLE, SINGLE, Precision
+from .env import QuESTEnv
+from .qureg import Qureg
+from .types import (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, PauliOpType,
+                    QuESTError)
+from .validation import ErrorCode
+
+__all__ = list(_api_all) + [
+    "Circuit", "CompiledCircuit", "Param", "Precision", "SINGLE", "DOUBLE",
+    "QuESTEnv", "Qureg", "PauliOpType", "PAULI_I", "PAULI_X", "PAULI_Y",
+    "PAULI_Z", "QuESTError", "ErrorCode",
+]

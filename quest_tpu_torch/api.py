@@ -1,0 +1,719 @@
+"""The public QuEST-compatible API surface, state-vector half.
+
+Counterpart of the JAX package's ``api.py`` for state vectors on one
+device: the same names, argument orders, validation (the same
+:class:`~quest_tpu_torch.validation.ErrorCode` on the same bad input) and
+numerical conventions. Each function follows the reference's 3-step shape
+(``QuEST.c``): validate -> apply -> record QASM. Gates update the
+register's planes in place (``core/apply.py``); ``calc*`` functions return
+Python floats/complex (a device sync).
+
+Measurement draws come from the env's :class:`torch.Generator`; they are
+not the JAX package's threefry bits, so outcome parity between the two
+packages is held through :func:`collapseToOutcome`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import validation as val
+from .config import Precision
+from .core import matrices as mats
+from .core.apply import apply_diagonal, apply_unitary, bitmask
+from .env import QuESTEnv, create_quest_env, destroy_quest_env
+from .ops import initstates as ist
+from .ops import reductions as red
+from .ops import statevec as sv
+from .qureg import Qureg
+
+__all__ = [
+    # env
+    "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "reportQuESTEnv",
+    "seedQuEST", "seedQuESTDefault",
+    # registers
+    "createQureg", "createCloneQureg", "destroyQureg",
+    "createComplexMatrixN", "destroyComplexMatrixN", "initComplexMatrixN",
+    # init
+    "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
+    "initPureState", "initDebugState", "initStateFromAmps", "setAmps",
+    "cloneQureg", "initStateOfSingleQubit",
+    # 1q gates
+    "phaseShift", "sGate", "tGate", "pauliX", "pauliY", "pauliZ", "hadamard",
+    "compactUnitary", "unitary", "rotateX", "rotateY", "rotateZ",
+    "rotateAroundAxis",
+    # controlled / multi-qubit
+    "controlledPhaseShift", "multiControlledPhaseShift", "controlledPhaseFlip",
+    "multiControlledPhaseFlip", "controlledNot", "controlledPauliY",
+    "controlledRotateX", "controlledRotateY", "controlledRotateZ",
+    "controlledRotateAroundAxis", "controlledCompactUnitary",
+    "controlledUnitary", "multiControlledUnitary", "multiStateControlledUnitary",
+    "swapGate", "sqrtSwapGate", "multiRotateZ",
+    "twoQubitUnitary", "controlledTwoQubitUnitary",
+    "multiControlledTwoQubitUnitary", "multiQubitUnitary",
+    "controlledMultiQubitUnitary", "multiControlledMultiQubitUnitary",
+    # measurement
+    "calcProbOfOutcome", "collapseToOutcome", "measure", "measureWithStats",
+    # calculations
+    "getNumQubits", "getNumAmps", "getAmp", "getRealAmp", "getImagAmp",
+    "getProbAmp", "calcTotalProb", "calcInnerProduct",
+    # QASM
+    "startRecordingQASM", "stopRecordingQASM", "clearRecordedQASM",
+    "printRecordedQASM", "writeRecordedQASMToFile",
+]
+
+
+def _pair(pair) -> float:
+    s, e = pair
+    return float(s) + float(e)
+
+
+def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
+                controls: Sequence[int] = (),
+                flips: Sequence[int] = ()) -> None:
+    apply_unitary(qureg.state, qureg.num_qubits_in_state_vec, u,
+                  tuple(int(t) for t in targets), bitmask(controls),
+                  bitmask(flips))
+
+
+def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
+                     qubits: Sequence[int]) -> None:
+    """Apply a diagonal factor tensor (axis i = i-th qubit of ``qubits``
+    sorted descending)."""
+    qs = tuple(sorted((int(q) for q in qubits), reverse=True))
+    apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs,
+                   np.asarray(tensor, dtype=np.complex128))
+
+
+# ---------------------------------------------------------------------------
+# environment (QuEST.h:785-832)
+# ---------------------------------------------------------------------------
+
+def createQuESTEnv(device=None, precision: Optional[Precision] = None,
+                   seed: Optional[Sequence[int]] = None,
+                   compensated: Optional[bool] = None) -> QuESTEnv:
+    """``device=None`` selects ``cuda:0`` and raises where CUDA is
+    absent; pass ``device="cpu"`` to run on the host."""
+    return create_quest_env(device=device, precision=precision, seed=seed,
+                            compensated=compensated)
+
+
+def destroyQuESTEnv(env: QuESTEnv) -> None:
+    destroy_quest_env(env)
+
+
+def syncQuESTEnv(env: QuESTEnv) -> None:
+    env.sync()
+
+
+def reportQuESTEnv(env: QuESTEnv) -> None:
+    print(env.report())
+
+
+def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
+    env.seed(seeds)
+
+
+def seedQuESTDefault(env: QuESTEnv) -> None:
+    env.seed_default()
+
+
+# ---------------------------------------------------------------------------
+# register management (QuEST.h:224-292)
+# ---------------------------------------------------------------------------
+
+def createQureg(num_qubits: int, env: QuESTEnv) -> Qureg:
+    val.validate_num_qubits(num_qubits, "createQureg")
+    q = Qureg(num_qubits, env)
+    initZeroState(q)
+    return q
+
+
+def createCloneQureg(qureg: Qureg, env: QuESTEnv) -> Qureg:
+    new = Qureg(qureg.num_qubits_represented, env)
+    new.state = qureg.state.clone()
+    return new
+
+
+def destroyQureg(qureg: Qureg, env: QuESTEnv = None) -> None:
+    qureg.state = None
+
+
+def createComplexMatrixN(num_qubits: int) -> np.ndarray:
+    val.validate_num_qubits(num_qubits, "createComplexMatrixN")
+    d = 1 << num_qubits
+    return np.zeros((d, d), dtype=np.complex128)
+
+
+def destroyComplexMatrixN(m: np.ndarray) -> None:
+    pass  # numpy arrays are GC-managed; kept for API parity
+
+
+def initComplexMatrixN(m: np.ndarray, re, im) -> None:
+    m[...] = np.asarray(re, dtype=np.float64) \
+        + 1j * np.asarray(im, dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# state initialisation (QuEST.h:383-506)
+# ---------------------------------------------------------------------------
+
+def _init(qureg: Qureg, fn, *args) -> None:
+    qureg.state = fn(qureg.num_amps_total, qureg.real_dtype, qureg.device,
+                     *args)
+
+
+def initBlankState(qureg: Qureg) -> None:
+    _init(qureg, ist.blank)
+    qureg.qasm_log.record_comment(
+        "the register was set to the unphysical all-zero-amplitudes state")
+
+
+def initZeroState(qureg: Qureg) -> None:
+    _init(qureg, ist.zero)
+    qureg.qasm_log.record_init_zero()
+
+
+def initPlusState(qureg: Qureg) -> None:
+    _init(qureg, ist.plus, 1.0 / np.sqrt(1 << qureg.num_qubits_represented))
+    qureg.qasm_log.record_init_plus()
+
+
+def initClassicalState(qureg: Qureg, state_ind: int) -> None:
+    val.validate_state_index(qureg.num_qubits_represented, state_ind,
+                             "initClassicalState")
+    _init(qureg, ist.classical, int(state_ind))
+    qureg.qasm_log.record_init_classical(state_ind)
+
+
+def initPureState(qureg: Qureg, pure: Qureg) -> None:
+    val.validate_second_qureg_state_vec(pure.is_density_matrix,
+                                        "initPureState")
+    val.validate_matching_precision(qureg.env.precision.quest_prec,
+                                    pure.env.precision.quest_prec,
+                                    "initPureState")
+    val.validate_matching_dims(qureg.num_qubits_represented,
+                               pure.num_qubits_represented, "initPureState")
+    qureg.state = pure.state.to(qureg.device, copy=True)
+    qureg.qasm_log.record_comment(
+        "the register was initialised to an undisclosed pure state")
+
+
+def initDebugState(qureg: Qureg) -> None:
+    _init(qureg, ist.debug)
+
+
+def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
+    val.validate_state_vec(qureg.is_density_matrix, "initStateFromAmps")
+    arr = np.asarray(reals, dtype=np.float64) \
+        + 1j * np.asarray(imags, np.float64)
+    val.validate_num_amps(qureg.num_amps_total, 0, arr.size,
+                          "initStateFromAmps")
+    if arr.size != qureg.num_amps_total:
+        val._fail("the amplitude arrays must cover the full register",
+                  "initStateFromAmps", val.ErrorCode.E_INVALID_NUM_AMPS)
+    qureg.device_put(arr)
+    qureg.qasm_log.record_comment(
+        "the register was initialised to an undisclosed pure state")
+
+
+def setAmps(qureg: Qureg, start_ind: int, reals, imags,
+            num_amps: int) -> None:
+    val.validate_state_vec(qureg.is_density_matrix, "setAmps")
+    val.validate_num_amps(qureg.num_amps_total, start_ind, num_amps,
+                          "setAmps")
+    vals = np.stack([np.asarray(reals, np.float64)[:num_amps],
+                     np.asarray(imags, np.float64)[:num_amps]])
+    qureg.state[:, start_ind:start_ind + num_amps] = torch.as_tensor(
+        vals, dtype=qureg.real_dtype, device=qureg.device)
+    qureg.qasm_log.record_comment("amplitudes were manually edited")
+
+
+def cloneQureg(target: Qureg, copy: Qureg) -> None:
+    val.validate_matching_types(target.is_density_matrix,
+                                copy.is_density_matrix, "cloneQureg")
+    val.validate_matching_precision(target.env.precision.quest_prec,
+                                    copy.env.precision.quest_prec,
+                                    "cloneQureg")
+    val.validate_matching_dims(target.num_qubits_represented,
+                               copy.num_qubits_represented, "cloneQureg")
+    target.state = copy.state.to(target.device, copy=True)
+
+
+def initStateOfSingleQubit(qureg: Qureg, qubit: int, outcome: int) -> None:
+    val.validate_state_vec(qureg.is_density_matrix, "initStateOfSingleQubit")
+    val.validate_target(qureg.num_qubits_represented, qubit,
+                        "initStateOfSingleQubit")
+    val.validate_outcome(outcome, "initStateOfSingleQubit")
+    _init(qureg, ist.single_qubit_outcome, int(qubit), int(outcome))
+
+
+# ---------------------------------------------------------------------------
+# single-qubit gates (QuEST.h:540-1583)
+# ---------------------------------------------------------------------------
+
+def hadamard(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "hadamard")
+    _apply_gate(qureg, mats.hadamard(), (target,))
+    qureg.qasm_log.record_gate("hadamard", target)
+
+
+def pauliX(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "pauliX")
+    _apply_gate(qureg, mats.pauli_x(), (target,))
+    qureg.qasm_log.record_gate("sigma_x", target)
+
+
+def pauliY(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "pauliY")
+    _apply_gate(qureg, mats.pauli_y(), (target,))
+    qureg.qasm_log.record_gate("sigma_y", target)
+
+
+def pauliZ(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "pauliZ")
+    _apply_diag_gate(qureg, np.array([1.0, -1.0]), (target,))
+    qureg.qasm_log.record_gate("sigma_z", target)
+
+
+def sGate(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "sGate")
+    _apply_diag_gate(qureg, np.array([1.0, 1j]), (target,))
+    qureg.qasm_log.record_gate("s", target)
+
+
+def tGate(qureg: Qureg, target: int) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "tGate")
+    _apply_diag_gate(qureg, np.array([1.0, np.exp(1j * np.pi / 4)]),
+                     (target,))
+    qureg.qasm_log.record_gate("t", target)
+
+
+def phaseShift(qureg: Qureg, target: int, angle: float) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "phaseShift")
+    _apply_diag_gate(qureg, np.array([1.0, np.exp(1j * angle)]), (target,))
+    qureg.qasm_log.record_param_gate("phase_shift", target, angle)
+
+
+def compactUnitary(qureg: Qureg, target: int, alpha, beta) -> None:
+    val.validate_target(qureg.num_qubits_represented, target,
+                        "compactUnitary")
+    val.validate_unitary_complex_pair(alpha, beta, "compactUnitary",
+                                      qureg.env.precision.eps)
+    _apply_gate(qureg, mats.compact_unitary(alpha, beta), (target,))
+    qureg.qasm_log.record_compact_unitary(alpha, beta, target)
+
+
+def unitary(qureg: Qureg, target: int, u) -> None:
+    val.validate_target(qureg.num_qubits_represented, target, "unitary")
+    u = mats.matrix2(u)
+    val.validate_unitary(u, "unitary", qureg.env.precision.eps)
+    _apply_gate(qureg, u, (target,))
+    qureg.qasm_log.record_unitary(u, target)
+
+
+def rotateX(qureg: Qureg, target: int, angle: float) -> None:
+    rotateAroundAxis(qureg, target, angle, (1.0, 0.0, 0.0),
+                     _label="rotate_x", _angle=angle)
+
+
+def rotateY(qureg: Qureg, target: int, angle: float) -> None:
+    rotateAroundAxis(qureg, target, angle, (0.0, 1.0, 0.0),
+                     _label="rotate_y", _angle=angle)
+
+
+def rotateZ(qureg: Qureg, target: int, angle: float) -> None:
+    rotateAroundAxis(qureg, target, angle, (0.0, 0.0, 1.0),
+                     _label="rotate_z", _angle=angle)
+
+
+def rotateAroundAxis(qureg: Qureg, target: int, angle: float, axis,
+                     _label: Optional[str] = None,
+                     _angle: Optional[float] = None) -> None:
+    val.validate_target(qureg.num_qubits_represented, target,
+                        "rotateAroundAxis")
+    val.validate_vector(axis, "rotateAroundAxis", qureg.env.precision.eps)
+    _apply_gate(qureg, mats.rotation(angle, axis), (target,))
+    if _label is not None:
+        qureg.qasm_log.record_param_gate(_label, target, _angle)
+    else:
+        qureg.qasm_log.record_axis_rotation(angle, axis, target)
+
+
+# ---------------------------------------------------------------------------
+# controlled gates (QuEST.h:583-1669)
+# ---------------------------------------------------------------------------
+
+def controlledNot(qureg: Qureg, control: int, target: int) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, control,
+                                target, "controlledNot")
+    _apply_gate(qureg, mats.pauli_x(), (target,), (control,))
+    qureg.qasm_log.record_gate("sigma_x", target, (control,))
+
+
+def controlledPauliY(qureg: Qureg, control: int, target: int) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, control,
+                                target, "controlledPauliY")
+    _apply_gate(qureg, mats.pauli_y(), (target,), (control,))
+    qureg.qasm_log.record_gate("sigma_y", target, (control,))
+
+
+def controlledPhaseShift(qureg: Qureg, q1: int, q2: int,
+                         angle: float) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, q1, q2,
+                                "controlledPhaseShift")
+    tensor = np.ones((2, 2), dtype=np.complex128)
+    tensor[1, 1] = np.exp(1j * angle)
+    _apply_diag_gate(qureg, tensor, (q1, q2))
+    qureg.qasm_log.record_param_gate("phase_shift", q2, angle, (q1,))
+
+
+def multiControlledPhaseShift(qureg: Qureg, qubits: Sequence[int],
+                              angle: float) -> None:
+    val.validate_multi_qubits(qureg.num_qubits_represented, qubits,
+                              "multiControlledPhaseShift")
+    k = len(qubits)
+    tensor = np.ones((2,) * k, dtype=np.complex128)
+    tensor[(1,) * k] = np.exp(1j * angle)
+    _apply_diag_gate(qureg, tensor, qubits)
+    qureg.qasm_log.record_param_gate("phase_shift", qubits[-1], angle,
+                                     tuple(qubits[:-1]),
+                                     kind="multicontrolled")
+
+
+def controlledPhaseFlip(qureg: Qureg, q1: int, q2: int) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, q1, q2,
+                                "controlledPhaseFlip")
+    tensor = np.ones((2, 2), dtype=np.complex128)
+    tensor[1, 1] = -1.0
+    _apply_diag_gate(qureg, tensor, (q1, q2))
+    qureg.qasm_log.record_gate("sigma_z", q2, (q1,))
+
+
+def multiControlledPhaseFlip(qureg: Qureg, qubits: Sequence[int]) -> None:
+    val.validate_multi_qubits(qureg.num_qubits_represented, qubits,
+                              "multiControlledPhaseFlip")
+    k = len(qubits)
+    tensor = np.ones((2,) * k, dtype=np.complex128)
+    tensor[(1,) * k] = -1.0
+    _apply_diag_gate(qureg, tensor, qubits)
+    qureg.qasm_log.record_gate("sigma_z", qubits[-1], tuple(qubits[:-1]))
+
+
+def controlledRotateX(qureg, control, target, angle):
+    controlledRotateAroundAxis(qureg, control, target, angle, (1, 0, 0),
+                               _label="rotate_x", _angle=angle)
+
+
+def controlledRotateY(qureg, control, target, angle):
+    controlledRotateAroundAxis(qureg, control, target, angle, (0, 1, 0),
+                               _label="rotate_y", _angle=angle)
+
+
+def controlledRotateZ(qureg, control, target, angle):
+    controlledRotateAroundAxis(qureg, control, target, angle, (0, 0, 1),
+                               _label="rotate_z", _angle=angle)
+
+
+def controlledRotateAroundAxis(qureg: Qureg, control: int, target: int,
+                               angle: float, axis,
+                               _label: Optional[str] = None,
+                               _angle: Optional[float] = None) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, control,
+                                target, "controlledRotateAroundAxis")
+    val.validate_vector(axis, "controlledRotateAroundAxis",
+                        qureg.env.precision.eps)
+    _apply_gate(qureg, mats.rotation(angle, axis), (target,), (control,))
+    if _label is not None:
+        qureg.qasm_log.record_param_gate(_label, target, _angle, (control,))
+    else:
+        qureg.qasm_log.record_axis_rotation(angle, axis, target, (control,))
+
+
+def controlledCompactUnitary(qureg: Qureg, control: int, target: int,
+                             alpha, beta) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, control,
+                                target, "controlledCompactUnitary")
+    val.validate_unitary_complex_pair(alpha, beta, "controlledCompactUnitary",
+                                      qureg.env.precision.eps)
+    _apply_gate(qureg, mats.compact_unitary(alpha, beta), (target,),
+                (control,))
+    qureg.qasm_log.record_compact_unitary(alpha, beta, target, (control,))
+
+
+def controlledUnitary(qureg: Qureg, control: int, target: int, u) -> None:
+    val.validate_control_target(qureg.num_qubits_represented, control,
+                                target, "controlledUnitary")
+    u = mats.matrix2(u)
+    val.validate_unitary(u, "controlledUnitary", qureg.env.precision.eps)
+    _apply_gate(qureg, u, (target,), (control,))
+    qureg.qasm_log.record_unitary(u, target, (control,))
+
+
+def multiControlledUnitary(qureg: Qureg, controls: Sequence[int],
+                           target: int, u) -> None:
+    val.validate_multi_controls_target(
+        qureg.num_qubits_represented, controls, target,
+        "multiControlledUnitary")
+    u = mats.matrix2(u)
+    val.validate_unitary(u, "multiControlledUnitary",
+                         qureg.env.precision.eps)
+    _apply_gate(qureg, u, (target,), tuple(controls))
+    qureg.qasm_log.record_unitary(u, target, tuple(controls),
+                                  kind="multicontrolled")
+
+
+def multiStateControlledUnitary(qureg: Qureg, controls: Sequence[int],
+                                control_state: Sequence[int],
+                                target: int, u) -> None:
+    val.validate_multi_controls_target(
+        qureg.num_qubits_represented, controls, target,
+        "multiStateControlledUnitary")
+    val.validate_control_state(control_state, len(controls),
+                               "multiStateControlledUnitary")
+    u = mats.matrix2(u)
+    val.validate_unitary(u, "multiStateControlledUnitary",
+                         qureg.env.precision.eps)
+    flips = tuple(c for c, s in zip(controls, control_state) if s == 0)
+    _apply_gate(qureg, u, (target,), tuple(controls), flips)
+    qureg.qasm_log.record_multi_state_controlled_unitary(
+        u, tuple(controls), tuple(control_state), target)
+
+
+# ---------------------------------------------------------------------------
+# two-/multi-qubit gates (QuEST.h:2232-3043)
+# ---------------------------------------------------------------------------
+
+def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
+    val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
+                                "swapGate")
+    sv.swap_amps(qureg.state, qureg.num_qubits_in_state_vec, q1, q2)
+    qureg.qasm_log.record_gate("swap", q2, (q1,))
+
+
+def sqrtSwapGate(qureg: Qureg, q1: int, q2: int) -> None:
+    val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
+                                "sqrtSwapGate")
+    _apply_gate(qureg, mats.sqrt_swap(), (q1, q2))
+    qureg.qasm_log.record_gate("sqrt_swap", q2, (q1,))
+
+
+def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
+    val.validate_multi_targets(qureg.num_qubits_represented, qubits,
+                               "multiRotateZ")
+    k = len(qubits)
+    _apply_diag_gate(qureg, sv.multi_rotate_z_diag(k, angle), qubits)
+    qureg.qasm_log.record_comment(
+        f"a {k}-qubit multiRotateZ of angle {angle:g} was applied")
+
+
+def twoQubitUnitary(qureg: Qureg, t1: int, t2: int, u) -> None:
+    val.validate_multi_targets(qureg.num_qubits_represented, (t1, t2),
+                               "twoQubitUnitary")
+    u = mats.matrix4(u)
+    val.validate_unitary(u, "twoQubitUnitary", qureg.env.precision.eps)
+    _apply_gate(qureg, u, (t1, t2))
+    qureg.qasm_log.record_comment(
+        "an undisclosed 2-qubit unitary was applied")
+
+
+def controlledTwoQubitUnitary(qureg: Qureg, control: int, t1: int, t2: int,
+                              u) -> None:
+    val.validate_multi_controls_multi_targets(
+        qureg.num_qubits_represented, (control,), (t1, t2),
+        "controlledTwoQubitUnitary")
+    u = mats.matrix4(u)
+    val.validate_unitary(u, "controlledTwoQubitUnitary",
+                         qureg.env.precision.eps)
+    _apply_gate(qureg, u, (t1, t2), (control,))
+    qureg.qasm_log.record_comment(
+        "an undisclosed controlled 2-qubit unitary was applied")
+
+
+def multiControlledTwoQubitUnitary(qureg: Qureg, controls: Sequence[int],
+                                   t1: int, t2: int, u) -> None:
+    val.validate_multi_controls_multi_targets(
+        qureg.num_qubits_represented, controls, (t1, t2),
+        "multiControlledTwoQubitUnitary")
+    u = mats.matrix4(u)
+    val.validate_unitary(u, "multiControlledTwoQubitUnitary",
+                         qureg.env.precision.eps)
+    _apply_gate(qureg, u, (t1, t2), tuple(controls))
+    qureg.qasm_log.record_comment(
+        "an undisclosed multi-controlled 2-qubit unitary was applied")
+
+
+def multiQubitUnitary(qureg: Qureg, targets: Sequence[int], u) -> None:
+    val.validate_multi_targets(qureg.num_qubits_represented, targets,
+                               "multiQubitUnitary")
+    u = np.asarray(u, dtype=np.complex128)
+    val.validate_matrix_dim(u, len(targets), "multiQubitUnitary")
+    val.validate_unitary(u, "multiQubitUnitary", qureg.env.precision.eps)
+    _apply_gate(qureg, u, tuple(targets))
+    qureg.qasm_log.record_comment(
+        "an undisclosed multi-qubit unitary was applied")
+
+
+def controlledMultiQubitUnitary(qureg: Qureg, control: int,
+                                targets: Sequence[int], u) -> None:
+    multiControlledMultiQubitUnitary(qureg, (control,), targets, u)
+
+
+def multiControlledMultiQubitUnitary(qureg: Qureg, controls: Sequence[int],
+                                     targets: Sequence[int], u) -> None:
+    val.validate_multi_controls_multi_targets(
+        qureg.num_qubits_represented, controls, targets,
+        "multiControlledMultiQubitUnitary")
+    u = np.asarray(u, dtype=np.complex128)
+    val.validate_matrix_dim(u, len(targets),
+                            "multiControlledMultiQubitUnitary")
+    val.validate_unitary(u, "multiControlledMultiQubitUnitary",
+                         qureg.env.precision.eps)
+    _apply_gate(qureg, u, tuple(targets), tuple(controls))
+    qureg.qasm_log.record_comment(
+        "an undisclosed multi-controlled multi-qubit unitary was applied")
+
+
+# ---------------------------------------------------------------------------
+# measurement & collapse (QuEST.h:1694-1753)
+# ---------------------------------------------------------------------------
+
+def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
+    val.validate_target(qureg.num_qubits_represented, qubit,
+                        "calcProbOfOutcome")
+    val.validate_outcome(outcome, "calcProbOfOutcome")
+    n = qureg.num_qubits_in_state_vec
+    if qureg.env.compensated:
+        # outcome-1 probability is 1 - P0, as the reference derives it
+        # (``statevec_calcProbOfOutcome`` QuEST_cpu_local.c:279-285)
+        sub = sv.zero_half(qureg.state, n, qubit)
+        p0 = _pair(red.dot_pair(sub, sub))
+        return p0 if outcome == 0 else 1.0 - p0
+    return float(sv.calc_prob_of_outcome(qureg.state, n, qubit, outcome))
+
+
+def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
+    sv.collapse_to_known_prob_outcome(qureg.state,
+                                      qureg.num_qubits_in_state_vec,
+                                      qubit, outcome, prob)
+
+
+def collapseToOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
+    val.validate_target(qureg.num_qubits_represented, qubit,
+                        "collapseToOutcome")
+    val.validate_outcome(outcome, "collapseToOutcome")
+    prob = calcProbOfOutcome(qureg, qubit, outcome)
+    val.validate_measurement_prob(prob, qureg.env.precision.eps,
+                                  "collapseToOutcome")
+    _collapse(qureg, qubit, outcome, prob)
+    qureg.qasm_log.record_measurement(qubit)
+    return prob
+
+
+def measureWithStats(qureg: Qureg, qubit: int):
+    """Returns (outcome, outcome_prob). The draw comes from the env's
+    torch.Generator (replacing mt19937, ``generateMeasurementOutcome``
+    ``QuEST_common.c:154-169``)."""
+    val.validate_target(qureg.num_qubits_represented, qubit,
+                        "measureWithStats")
+    zero_prob = calcProbOfOutcome(qureg, qubit, 0)
+    eps = qureg.env.precision.eps
+    if zero_prob < eps:
+        outcome = 1
+    elif 1.0 - zero_prob < eps:
+        outcome = 0
+    else:
+        outcome = int(qureg.env.uniform() > zero_prob)
+    prob = zero_prob if outcome == 0 else 1.0 - zero_prob
+    _collapse(qureg, qubit, outcome, prob)
+    qureg.qasm_log.record_measurement(qubit)
+    return outcome, prob
+
+
+def measure(qureg: Qureg, qubit: int) -> int:
+    outcome, _ = measureWithStats(qureg, qubit)
+    return outcome
+
+
+# ---------------------------------------------------------------------------
+# amplitude access & calculations (QuEST.h:366-944)
+# ---------------------------------------------------------------------------
+
+def getNumQubits(qureg: Qureg) -> int:
+    return qureg.num_qubits_represented
+
+
+def getNumAmps(qureg: Qureg) -> int:
+    val.validate_state_vec(qureg.is_density_matrix, "getNumAmps")
+    return qureg.num_amps_total
+
+
+def getAmp(qureg: Qureg, index: int) -> complex:
+    val.validate_state_vec(qureg.is_density_matrix, "getAmp")
+    val.validate_amp_index(qureg.num_amps_total, index, "getAmp")
+    pair = qureg.state[:, int(index)].double().cpu()
+    return complex(float(pair[0]), float(pair[1]))
+
+
+def getRealAmp(qureg: Qureg, index: int) -> float:
+    return getAmp(qureg, index).real
+
+
+def getImagAmp(qureg: Qureg, index: int) -> float:
+    return getAmp(qureg, index).imag
+
+
+def getProbAmp(qureg: Qureg, index: int) -> float:
+    a = getAmp(qureg, index)
+    return a.real * a.real + a.imag * a.imag
+
+
+def calcTotalProb(qureg: Qureg) -> float:
+    if qureg.env.compensated:
+        return _pair(red.dot_pair(qureg.state, qureg.state))
+    return float(sv.calc_total_prob(qureg.state))
+
+
+def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
+    val.validate_state_vec(bra.is_density_matrix, "calcInnerProduct")
+    val.validate_state_vec(ket.is_density_matrix, "calcInnerProduct")
+    val.validate_matching_dims(bra.num_qubits_represented,
+                               ket.num_qubits_represented, "calcInnerProduct")
+    val.validate_matching_precision(bra.env.precision.quest_prec,
+                                    ket.env.precision.quest_prec,
+                                    "calcInnerProduct")
+    if bra.env.compensated:
+        return red.vdot_compensated(bra.state, ket.state)
+    re, im = sv.calc_inner_product(bra.state, ket.state)
+    return complex(float(re), float(im))
+
+
+# ---------------------------------------------------------------------------
+# QASM recording (QuEST.h:1868-1906)
+# ---------------------------------------------------------------------------
+
+def startRecordingQASM(qureg: Qureg) -> None:
+    qureg.qasm_log.is_logging = True
+
+
+def stopRecordingQASM(qureg: Qureg) -> None:
+    qureg.qasm_log.is_logging = False
+
+
+def clearRecordedQASM(qureg: Qureg) -> None:
+    qureg.qasm_log.clear()
+
+
+def printRecordedQASM(qureg: Qureg) -> None:
+    print(qureg.qasm_log.text(), end="")
+
+
+def writeRecordedQASMToFile(qureg: Qureg, filename: str) -> None:
+    try:
+        qureg.qasm_log.write_to_file(filename)
+    except OSError:
+        val.validate_file_opened(False, "writeRecordedQASMToFile")
+

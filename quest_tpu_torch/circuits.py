@@ -1,0 +1,737 @@
+"""Whole-circuit compilation for one device.
+
+Counterpart of the single-device part of the JAX package's ``circuits.py``.
+A :class:`Circuit` records gates; :meth:`Circuit.compile` runs the same
+planning pipeline as the JAX package —
+
+1. gate fusion (``core/fusion.py``): runs of adjacent gates whose support
+   fits in k qubits contract into one dense op, with layer-eligible runs
+   fenced off when the layer pass will claim them;
+2. scheduling (``_schedule``): peephole fusion plus the identity layout
+   plan (the JAX package's pure-Python branch, ``circuits.py:1547-1554``);
+3. super-gate grouping (``_group_supergates``);
+4. layer collection (``_collect_layers_plan``): runs of ops whose footprint
+   fits one kernel tile become :class:`~quest_tpu_torch.ops.layer_kernel.
+   LayerOp` s —
+
+and :meth:`CompiledCircuit.run` walks the plan: every layer through
+``ops.layer_kernel.apply_layer`` (the CUDA kernel on the card, its plain
+version on the CPU), every other op through the gate engine
+(``core/apply.py``). PyTorch runs eagerly, so there is no whole-program
+executable; the plan is the program, applied IN PLACE to the register's
+planes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+
+from .core import matrices as mats
+from .core.apply import apply_diagonal, apply_unitary, bitmask
+from .env import QuESTEnv
+from .ops import layer_kernel as lk
+from .parallel.layout import LayoutPlan, plan_layout
+from .qureg import Qureg
+
+__all__ = ["Circuit", "CompiledCircuit", "Param"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """A named angle placeholder, bound at run time."""
+    name: str
+
+
+Angle = Union[float, Param]
+
+
+@dataclasses.dataclass
+class _Op:
+    """One recorded gate. ``mat`` is a static numpy matrix (fusable) or
+    ``mat_fn`` a ``params -> matrix`` function; likewise ``diag`` /
+    ``diag_fn`` for elementwise (phase-family) factors of shape
+    ``(2,)*k``."""
+    kind: str                      # "u" | "diag"
+    targets: tuple[int, ...]       # user bit order ("u") / sorted desc ("diag")
+    ctrl_mask: int = 0
+    flip_mask: int = 0
+    mat: Optional[np.ndarray] = None
+    mat_fn: Optional[Callable] = None
+    diag: Optional[np.ndarray] = None
+    diag_fn: Optional[Callable] = None
+    kraus: Optional[list] = None   # kept for the fusion pass's field protocol
+
+    @property
+    def is_static(self) -> bool:
+        return self.mat_fn is None and self.diag_fn is None
+
+
+def _angle(params: dict, a: Angle) -> float:
+    return float(params[a.name]) if isinstance(a, Param) else float(a)
+
+
+class Circuit:
+    """A recorded gate program over ``num_qubits`` qubits.
+
+    Builder methods append gates; nothing touches a device until
+    :meth:`compile`. Qubit/control indices follow the reference's
+    conventions (bit ``j`` of a multi-qubit matrix row indexes
+    ``targets[j]``).
+    """
+
+    def __init__(self, num_qubits: int):
+        if num_qubits < 1:
+            raise ValueError("circuit needs at least one qubit")
+        self.num_qubits = num_qubits
+        self.ops: list[_Op] = []
+        self._params: list[str] = []
+
+    # -- parameters --------------------------------------------------------
+
+    def parameter(self, name: str) -> Param:
+        if name not in self._params:
+            self._params.append(name)
+        return Param(name)
+
+    @property
+    def param_names(self) -> tuple[str, ...]:
+        return tuple(self._params)
+
+    def _check(self, qubits: Sequence[int]) -> None:
+        for q in qubits:
+            if not 0 <= q < self.num_qubits:
+                raise ValueError(
+                    f"qubit {q} out of range [0, {self.num_qubits})")
+        if len(set(qubits)) != len(tuple(qubits)):
+            raise ValueError(f"repeated qubit in {tuple(qubits)}")
+
+    def _register_angle(self, a: Angle) -> Angle:
+        if isinstance(a, Param):
+            return self.parameter(a.name)
+        return a
+
+    # -- primitives --------------------------------------------------------
+
+    def gate(self, u, targets: Sequence[int], controls: Sequence[int] = (),
+             control_states: Optional[Sequence[int]] = None) -> "Circuit":
+        """Record an arbitrary k-qubit (controlled) unitary: ``u`` is a
+        ``(2^k, 2^k)`` matrix or a callable ``params -> matrix``;
+        ``control_states`` (default all-1) gives each control's
+        conditioning bit."""
+        targets = tuple(int(t) for t in targets)
+        controls = tuple(int(c) for c in controls)
+        self._check(targets + controls)
+        flip = 0
+        if control_states is not None:
+            if len(control_states) != len(controls):
+                raise ValueError(
+                    f"{len(controls)} controls but "
+                    f"{len(control_states)} control states")
+            for c, s in zip(controls, control_states):
+                if not s:
+                    flip |= 1 << c
+        if callable(u):
+            self.ops.append(_Op("u", targets, bitmask(controls), flip,
+                                mat_fn=u))
+            return self
+        u = np.asarray(u, dtype=np.complex128)
+        dim = 1 << len(targets)
+        if u.shape != (dim, dim):
+            raise ValueError(f"matrix shape {u.shape} != {(dim, dim)}")
+        self.ops.append(_Op("u", targets, bitmask(controls), flip, mat=u))
+        return self
+
+    def diagonal(self, factors, qubits: Sequence[int]) -> "Circuit":
+        """Record an elementwise phase factor: ``factors`` has shape
+        ``(2,)*k`` with axis ``i`` indexed by the bit of ``qubits[i]``, or
+        is a callable ``params -> tensor`` (same axis order). Axes are
+        re-ordered internally to sorted-descending qubits."""
+        qubits = tuple(int(q) for q in qubits)
+        self._check(qubits)
+        desc = tuple(sorted(qubits, reverse=True))
+        axes = tuple(qubits.index(q) for q in desc)
+        if callable(factors):
+            fn = factors if axes == tuple(range(len(qubits))) else \
+                (lambda p, f=factors, a=axes: np.transpose(f(p), a))
+            self.ops.append(_Op("diag", desc, diag_fn=fn))
+            return self
+        t = np.asarray(factors, dtype=np.complex128)
+        if t.shape != (2,) * len(qubits):
+            raise ValueError(f"diagonal tensor shape {t.shape} != "
+                             f"{(2,) * len(qubits)}")
+        self.ops.append(_Op("diag", desc, diag=t.transpose(axes)))
+        return self
+
+    # -- named gates (reference API surface) -------------------------------
+
+    def h(self, q: int) -> "Circuit":
+        return self.gate(mats.hadamard(), (q,))
+
+    def x(self, q: int) -> "Circuit":
+        return self.gate(mats.pauli_x(), (q,))
+
+    def y(self, q: int) -> "Circuit":
+        return self.gate(mats.pauli_y(), (q,))
+
+    def z(self, q: int) -> "Circuit":
+        return self.diagonal(np.array([1.0, -1.0]), (q,))
+
+    def s(self, q: int) -> "Circuit":
+        return self.diagonal(np.array([1.0, 1j]), (q,))
+
+    def t(self, q: int) -> "Circuit":
+        return self.diagonal(np.array([1.0, np.exp(1j * np.pi / 4)]), (q,))
+
+    def phase(self, q: int, angle: Angle) -> "Circuit":
+        angle = self._register_angle(angle)
+        if isinstance(angle, Param):
+            return self.diagonal(
+                lambda p, a=angle: np.array([1.0, np.exp(1j * _angle(p, a))]),
+                (q,))
+        return self.diagonal(np.array([1.0, np.exp(1j * angle)]), (q,))
+
+    def _rot(self, q: int, angle: Angle, axis) -> "Circuit":
+        angle = self._register_angle(angle)
+        if isinstance(angle, Param):
+            return self.gate(
+                lambda p, a=angle: mats.rotation(_angle(p, a), axis), (q,))
+        return self.gate(mats.rotation(float(angle), axis), (q,))
+
+    def rx(self, q: int, angle: Angle) -> "Circuit":
+        return self._rot(q, angle, (1, 0, 0))
+
+    def ry(self, q: int, angle: Angle) -> "Circuit":
+        return self._rot(q, angle, (0, 1, 0))
+
+    def rz(self, q: int, angle: Angle) -> "Circuit":
+        angle = self._register_angle(angle)
+        # diagonal fast path: exp(∓i angle/2)
+
+        def factors(half):
+            return np.array([np.exp(-1j * half), np.exp(1j * half)])
+        if isinstance(angle, Param):
+            return self.diagonal(
+                lambda p, a=angle: factors(_angle(p, a) / 2.0), (q,))
+        return self.diagonal(factors(float(angle) / 2.0), (q,))
+
+    def rotate(self, q: int, angle: Angle, axis) -> "Circuit":
+        return self._rot(q, angle, axis)
+
+    def cnot(self, control: int, target: int) -> "Circuit":
+        return self.gate(mats.pauli_x(), (target,), (control,))
+
+    def cy(self, control: int, target: int) -> "Circuit":
+        return self.gate(mats.pauli_y(), (target,), (control,))
+
+    def cz(self, q1: int, q2: int) -> "Circuit":
+        return self.diagonal(np.array([[1.0, 1.0], [1.0, -1.0]]), (q1, q2))
+
+    def cphase(self, control: int, target: int, angle: Angle) -> "Circuit":
+        """Controlled phase shift (diag(1,1,1,e^{i angle}))."""
+        angle = self._register_angle(angle)
+
+        def factors(a):
+            d = np.ones((2, 2), dtype=np.complex128)
+            d[1, 1] = np.exp(1j * a)
+            return d
+        if isinstance(angle, Param):
+            return self.diagonal(lambda p, a=angle: factors(_angle(p, a)),
+                                 (control, target))
+        return self.diagonal(factors(angle), (control, target))
+
+    def crz(self, control: int, target: int, angle: Angle) -> "Circuit":
+        angle = self._register_angle(angle)
+
+        def factors(half):
+            d = np.ones((2, 2), dtype=np.complex128)
+            d[1, 0], d[1, 1] = np.exp(-1j * half), np.exp(1j * half)
+            return d
+        if isinstance(angle, Param):
+            return self.diagonal(
+                lambda p, a=angle: factors(_angle(p, a) / 2.0),
+                (control, target))
+        return self.diagonal(factors(float(angle) / 2.0), (control, target))
+
+    def swap(self, q1: int, q2: int) -> "Circuit":
+        return self.gate(mats.swap(), (q1, q2))
+
+    def sqrt_swap(self, q1: int, q2: int) -> "Circuit":
+        return self.gate(mats.sqrt_swap(), (q1, q2))
+
+    def multi_rotate_z(self, qubits: Sequence[int],
+                       angle: Angle) -> "Circuit":
+        """exp(-i angle/2 Z⊗…⊗Z): phase by mask parity
+        (``QuEST_cpu.c:3075-3114``)."""
+        angle = self._register_angle(angle)
+        qubits = tuple(qubits)
+        parity = np.indices((2,) * len(qubits)).sum(axis=0) % 2
+        if isinstance(angle, Param):
+            return self.diagonal(
+                lambda p, a=angle: np.exp(
+                    -1j * _angle(p, a) / 2.0 * (1.0 - 2.0 * parity)), qubits)
+        half = float(angle) / 2.0
+        return self.diagonal(np.exp(-1j * half * (1.0 - 2.0 * parity)),
+                             qubits)
+
+    # -- compilation -------------------------------------------------------
+
+    def compile(self, env: QuESTEnv, fuse: bool = True, layers: bool = True,
+                supergate_k: int = 4, fusion: Optional[object] = None,
+                mxu: Optional[bool] = None) -> "CompiledCircuit":
+        """Plan the circuit for ``env``'s device and precision.
+
+        ``layers`` turns the fused-layer pass on (the default; the layer
+        kernel on the card, its plain version on the CPU) or off;
+        ``fusion`` is the gate-fusion support cap k (None = default 3,
+        0/False = off); ``mxu`` forces the packed ``rowmxu`` contraction on
+        (True) or off (False) — None lets the H100 rate model decide
+        (:func:`quest_tpu_torch.parallel.layout.choose_mxu_contraction`)."""
+        return CompiledCircuit(self, env, fuse=fuse, layers=layers,
+                               supergate_k=supergate_k, fusion=fusion,
+                               mxu=mxu)
+
+
+def _peephole_fused(ops: Sequence[_Op], diag_row_cap: int = -1) -> list:
+    """Host-side peephole fusion over static gates: consecutive static
+    diagonals merge (union of qubits, at most 6, and at most
+    ``diag_row_cap`` row qubits when >= 0 so merged factors stay
+    layer-eligible); consecutive static unitaries with identical (targets,
+    controls) merge by matrix product."""
+    fused: list = []
+    for op in ops:
+        if fused and op.is_static and fused[-1].is_static:
+            prev = fused[-1]
+            if (op.kind == "u" and prev.kind == "u"
+                    and op.targets == prev.targets
+                    and op.ctrl_mask == prev.ctrl_mask
+                    and op.flip_mask == prev.flip_mask):
+                fused[-1] = dataclasses.replace(prev, mat=op.mat @ prev.mat)
+                continue
+            if op.kind == "diag" and prev.kind == "diag":
+                union = tuple(sorted(set(op.targets) | set(prev.targets),
+                                     reverse=True))
+                if len(union) <= 6 and (
+                        diag_row_cap < 0
+                        or sum(q >= 7 for q in union) <= diag_row_cap):
+                    def expand(o):
+                        shape = tuple(2 if q in o.targets else 1
+                                      for q in union)
+                        return o.diag.reshape(shape)
+                    fused[-1] = _Op("diag", union,
+                                    diag=expand(prev) * expand(op))
+                    continue
+        fused.append(op)
+    return fused
+
+
+def _group_supergates(ops: list, max_k: int = 4, fold_diags: bool = True,
+                      barrier=None) -> list:
+    """Merge consecutive static gates into k-qubit super-gates: L gates
+    whose combined support fits in ``max_k`` qubits collapse into one
+    ``2^k x 2^k`` operator, one pass instead of L. Parameterized ops,
+    LayerOps and ops matching ``barrier`` break groups."""
+    if max_k < 2:
+        return ops
+    from .core.fusion import compose_in_support, op_support
+
+    out: list = []
+    group: list = []
+    support: set = set()
+
+    def flush():
+        nonlocal support
+        if len(group) <= 1:
+            out.extend(group)
+        else:
+            sup = tuple(sorted(support))
+            out.append(_Op("u", sup, 0, 0,
+                           mat=compose_in_support(group, sup)))
+        group.clear()
+        support = set()
+
+    kinds = ("u", "diag") if fold_diags else ("u",)
+    for op in ops:
+        if (getattr(op, "kind", None) not in kinds or not op.is_static
+                or (barrier is not None and barrier(op))):
+            flush()
+            out.append(op)
+            continue
+        qs = set(op_support(op))
+        if len(qs) > max_k:
+            flush()
+            out.append(op)
+            continue
+        if len(support | qs) > max_k:
+            flush()
+        group.append(op)
+        support |= qs
+    flush()
+    return out
+
+
+def _mxu_policy(enabled: bool, itemsize: int, force: Optional[bool]):
+    """The layer collector's packed-contraction policy: None (off) or a
+    dict with the memoized per-gate crossover ``decide(row_bits,
+    gate_qubits)`` and the row-bit ``cap`` — one table shared by
+    ``_layer_eligible`` and ``_LayerAccum.try_add``, so the fence and the
+    collector never disagree about which gates ``rowmxu`` claims."""
+    if not enabled:
+        return None
+    from .parallel.layout import MXU_ROW_CAP, choose_mxu_contraction
+    memo: dict = {}
+
+    def decide(row_bits: int, gate_qubits: int) -> bool:
+        k = (row_bits, gate_qubits)
+        if k not in memo:
+            memo[k] = choose_mxu_contraction(row_bits, gate_qubits,
+                                             itemsize, force)["use_mxu"]
+        return memo[k]
+
+    return {"decide": decide, "cap": MXU_ROW_CAP}
+
+
+class _LayerAccum:
+    """Stage accumulator for one layer run (ops at PHYSICAL coordinates of
+    a ``num_local``-qubit state).
+
+    ``try_add`` either absorbs an op into the stage list (merging with
+    compatible adjacent stages) and returns True, or rejects it untouched.
+    Lane masks are over the 128-lane index, row masks over the row index
+    (bit p = qubit p+7). ``mxu`` (a :func:`_mxu_policy` dict) turns on
+    packed ``rowmxu`` contractions for dense uncontrolled gates.
+    """
+
+    LANE_MASK = (1 << lk.LANE_QUBITS) - 1
+
+    def __init__(self, num_local: int, hi: int, mxu=None):
+        self.num_local = num_local
+        self.hi = hi
+        self.mxu = mxu
+        self.stages: list = []
+        self.members = 0
+        self.src_items: list = []
+
+    def _append_lane(self, m: np.ndarray) -> None:
+        # merge backward across row stages that do not read lane bits
+        # (disjoint axes commute); stop at anything lane-coupled
+        i = len(self.stages) - 1
+        while i >= 0:
+            st = self.stages[i]
+            if st[0] == "lane":
+                self.stages[i] = ("lane", m @ st[1])
+                return
+            if st[0] in ("row", "rowk") and st[3] == 0:
+                i -= 1               # lane-blind row stage: commutes
+                continue
+            if st[0] == "rowmxu" and self.mxu is not None:
+                # fold the lane matrix into the open packed operator
+                # (kron-embed over its row bits, matrix product)
+                big = np.kron(np.eye(1 << len(st[1])), m)
+                self.stages[i] = ("rowmxu", st[1], big @ st[2])
+                return
+            break
+        self.stages.append(("lane", m))
+
+    def _append_rowmxu(self, bits: tuple, phys_targets, mat) -> None:
+        prev = self.stages[-1] if self.stages else None
+        if prev is not None and prev[0] == "rowmxu":
+            union = tuple(sorted(set(bits) | set(prev[1])))
+            if len(union) <= self.mxu["cap"]:
+                pm = prev[2] if union == prev[1] \
+                    else lk.mxu_expand(prev[2], prev[1], union)
+                m = lk.mxu_group_matrix(mat, phys_targets, union)
+                self.stages[-1] = ("rowmxu", union, m @ pm)
+                return
+        self.stages.append(
+            ("rowmxu", bits, lk.mxu_group_matrix(mat, phys_targets, bits)))
+
+    def _append_row(self, q: int, u: np.ndarray, lane_mask: int,
+                    lane_want: int, row_mask: int, row_want: int) -> None:
+        if self.stages:
+            st = self.stages[-1]
+            if (st[0] == "row" and st[1] == q and st[3:] ==
+                    (lane_mask, lane_want, row_mask, row_want)):
+                self.stages[-1] = ("row", q, np.asarray(u) @ st[2],
+                                   lane_mask, lane_want, row_mask, row_want)
+                return
+        self.stages.append(("row", q, np.asarray(u), lane_mask, lane_want,
+                            row_mask, row_want))
+
+    def _append_rowdiag(self, table: np.ndarray, bits: tuple) -> None:
+        if self.stages:
+            st = self.stages[-1]
+            if st[0] == "rowdiag" and st[2] == bits:
+                self.stages[-1] = ("rowdiag", st[1] * table, bits)
+                return
+        self.stages.append(("rowdiag", table, bits))
+
+    def try_add(self, op, phys_targets, cmask, fmask, axis_order) -> bool:
+        if getattr(op, "kind", None) not in ("u", "diag") or not op.is_static:
+            return False
+        lanes = lk.LANE_QUBITS
+        if op.kind == "u":
+            if cmask >> self.num_local:
+                return False
+            want = cmask & ~fmask
+            lane_cm, lane_want = cmask & self.LANE_MASK, want & self.LANE_MASK
+            row_cm, row_want = cmask >> lanes, want >> lanes
+            row_t = [t for t in phys_targets if t >= lanes]
+            if (self.mxu is not None and cmask == 0 and row_t
+                    and len(row_t) <= self.mxu["cap"]
+                    and all(t <= self.hi for t in row_t)):
+                # packed contraction: fold into an open rowmxu stage for
+                # free, else open one when the crossover says it wins
+                bits = tuple(sorted(t - lanes for t in row_t))
+                prev = self.stages[-1] if self.stages else None
+                fold = (prev is not None and prev[0] == "rowmxu"
+                        and set(bits) <= set(prev[1]))
+                if fold or self.mxu["decide"](len(bits),
+                                              len(phys_targets)):
+                    self._append_rowmxu(bits, phys_targets, op.mat)
+                    self.members += 1
+                    return True
+            if all(t < lanes for t in phys_targets):
+                m = lk.embed_lane_matrix(op.mat, phys_targets, lane_cm,
+                                         fmask & self.LANE_MASK)
+                if row_cm:
+                    self.stages.append(("clane", m, row_cm, row_want))
+                else:
+                    self._append_lane(m)
+            elif (len(phys_targets) == 1
+                    and lanes <= phys_targets[0] <= self.hi):
+                self._append_row(phys_targets[0], op.mat, lane_cm,
+                                 lane_want, row_cm, row_want)
+            elif (2 <= len(phys_targets) <= 3
+                    and all(lanes <= t <= self.hi for t in phys_targets)):
+                # k-qubit dense gate entirely on row bits: "rowk" stage,
+                # normalised to ascending bit order (gate-index bit j
+                # addresses targets[j])
+                k = len(phys_targets)
+                order = sorted(range(k), key=lambda j: phys_targets[j])
+                bits_asc = tuple(phys_targets[j] - lanes for j in order)
+                u = np.asarray(op.mat)
+                omap = [sum(((a >> m) & 1) << order[m] for m in range(k))
+                        for a in range(1 << k)]
+                self.stages.append(("rowk", bits_asc, u[np.ix_(omap, omap)],
+                                    lane_cm, lane_want, row_cm, row_want))
+            else:
+                return False
+            self.members += 1
+            return True
+        # diagonal: phys_targets is sorted-desc; position-indifferent, so
+        # ANY row bit works (no hi bound) — but at most three row bits
+        if any(p >= self.num_local for p in phys_targets):
+            return False
+        row_desc = [p for p in phys_targets if p >= lanes]
+        if len(row_desc) > 3:
+            return False
+        d = np.asarray(op.diag)
+        if axis_order is not None:
+            d = np.transpose(d, axis_order)
+        if not row_desc:
+            self._append_lane(lk.lane_diag_matrix(d, phys_targets))
+            self.members += 1
+            return True
+        lane_desc = [p for p in phys_targets if p < lanes]
+        bits_asc = tuple(sorted(p - lanes for p in row_desc))
+        table = np.empty((1 << len(bits_asc), lk.LANES), dtype=np.complex128)
+        for cfg in range(1 << len(bits_asc)):
+            idx = tuple((cfg >> bits_asc.index(p - lanes)) & 1
+                        for p in row_desc)
+            table[cfg] = lk.lane_diag_vector(d[idx], lane_desc)
+        self._append_rowdiag(table, bits_asc)
+        self.members += 1
+        return True
+
+
+def _tile_hi(num_local: int, tile_rows: int) -> int:
+    total_rows = (1 << num_local) // lk.LANES
+    return lk.max_mid_qubit(min(tile_rows, max(total_rows, 1)))
+
+
+def _collect_layers_plan(items: list, ops: list, num_local: int,
+                         tile_rows: int, min_members: int = 2, mxu=None):
+    """Post-plan peephole: fuse runs of consecutive op items whose physical
+    footprint fits the layer kernel's tile into LayerOps (appended to a
+    copy of the ops table). Returns ``(new_items, new_ops)``."""
+    if num_local < lk.LANE_QUBITS:
+        return items, ops
+    hi = _tile_hi(num_local, tile_rows)
+    ops = list(ops)
+    out: list = []
+    acc = _LayerAccum(num_local, hi, mxu)
+
+    def flush():
+        nonlocal acc
+        if acc.members >= min_members:
+            ops.append(lk.LayerOp(num_local, acc.members, acc.stages))
+            out.append(("op", len(ops) - 1, (), 0, 0, None))
+        else:
+            out.extend(acc.src_items)
+        acc = _LayerAccum(num_local, hi, mxu)
+
+    for item in items:
+        _, i, pt, cm, fm, ao = item
+        if acc.try_add(ops[i], pt, cm, fm, ao):
+            acc.src_items.append(item)
+            continue
+        # rejections are op-intrinsic: no fresh accumulator can take it
+        flush()
+        out.append(item)
+    flush()
+    return out, ops
+
+
+def _layer_eligible(op, num_local: int, hi: int, mxu=None) -> bool:
+    """Mask/target-only mirror of ``_LayerAccum.try_add``'s accept set,
+    cheap enough to run per op during fusion and super-gate grouping."""
+    lanes = lk.LANE_QUBITS
+    if getattr(op, "kind", None) not in ("u", "diag") or not op.is_static:
+        return False
+    if op.kind == "u":
+        if op.ctrl_mask >> num_local:
+            return False
+        if (all(t < lanes for t in op.targets)
+                or (len(op.targets) == 1 and lanes <= op.targets[0] <= hi)
+                or (2 <= len(op.targets) <= 3
+                    and all(lanes <= t <= hi for t in op.targets))):
+            return True
+        if mxu is None or op.ctrl_mask:
+            return False
+        row_t = [t for t in op.targets if t >= lanes]
+        return (bool(row_t) and len(row_t) <= mxu["cap"]
+                and all(t <= hi for t in row_t)
+                and mxu["decide"](len(row_t), len(op.targets)))
+    if any(p >= num_local for p in op.targets):
+        return False
+    return sum(p >= lanes for p in op.targets) <= 3
+
+
+def _layer_barrier(ops: Sequence, num_qubits: int, tile_rows: int,
+                   mxu=None):
+    """Fence set (by op identity) for fusion and super-gate grouping: ops
+    the layer pass fuses more cheaply. Only RUNS of >= 2 adjacent
+    eligible ops are fenced — an isolated eligible gate cannot form a
+    layer and is worth more inside a super-gate. ``hi`` comes from the
+    kernel's tile height for the plane dtype."""
+    hi = _tile_hi(num_qubits, tile_rows)
+    elig = [_layer_eligible(op, num_qubits, hi, mxu) for op in ops]
+    fence = set()
+    for i, op in enumerate(ops):
+        if elig[i] and ((i > 0 and elig[i - 1])
+                        or (i + 1 < len(ops) and elig[i + 1])):
+            fence.add(id(op))
+    return lambda op: id(op) in fence
+
+
+def _schedule(recorded: Sequence[_Op], num_qubits: int, fuse_flag: bool,
+              diag_row_cap: int = -1):
+    """Peephole-fuse + plan the op stream on one device (the JAX package's
+    pure-Python branch). Returns ``(ops_table, LayoutPlan)``."""
+    ops_table = _peephole_fused(recorded, diag_row_cap) if fuse_flag \
+        else list(recorded)
+    return ops_table, plan_layout(ops_table, num_qubits)
+
+
+class CompiledCircuit:
+    """A planned :class:`Circuit`: layers and gates in program order,
+    applied in place to ``(2, 2^N)`` planes on the env's device."""
+
+    def __init__(self, circuit: Circuit, env: QuESTEnv, fuse: bool = True,
+                 layers: bool = True, supergate_k: int = 4,
+                 fusion: Optional[object] = None,
+                 mxu: Optional[bool] = None):
+        from .core.fusion import fuse_ops, resolve_fusion_k
+
+        self.circuit = circuit
+        self.env = env
+        self.num_qubits = n = circuit.num_qubits
+        self.param_names = circuit.param_names
+        dtype = env.precision.real_dtype
+        self.tile_rows = lk.tile_rows_for(dtype)
+        use_layers = bool(layers) and n >= lk.LANE_QUBITS
+        mxu_policy = _mxu_policy(use_layers, dtype.itemsize, mxu)
+        diag_cap = 3 if use_layers else -1
+
+        # record -> FUSE -> schedule -> supergate -> collect layers
+        recorded = list(circuit.ops)
+        self.fusion_stats = None
+        k_fuse = resolve_fusion_k(fusion, n)
+        if k_fuse >= 2:
+            barrier = _layer_barrier(recorded, n, self.tile_rows,
+                                     mxu_policy) if use_layers else None
+            recorded, self.fusion_stats = fuse_ops(
+                recorded, max_k=k_fuse, diag_row_cap=diag_cap,
+                barrier=barrier)
+        ops, plan = _schedule(recorded, n, fuse, diag_row_cap=diag_cap)
+        if supergate_k >= 2:
+            before = len(ops)
+            ops = _group_supergates(
+                ops, supergate_k, fold_diags=True,
+                barrier=_layer_barrier(ops, n, self.tile_rows, mxu_policy)
+                if use_layers else None)
+            if len(ops) != before:
+                plan = plan_layout(ops, n)
+        if use_layers:
+            items, ops = _collect_layers_plan(plan.items, ops, n,
+                                              self.tile_rows,
+                                              mxu=mxu_policy)
+            # prune the table to executed ops (fused members are
+            # superseded by their LayerOp)
+            ref = sorted({it[1] for it in items})
+            remap = {old: new for new, old in enumerate(ref)}
+            ops = [ops[i] for i in ref]
+            items = [(it[0], remap[it[1]], *it[2:]) for it in items]
+            plan = LayoutPlan(items, n)
+        self.plan = plan
+        self._ops = ops
+
+    @property
+    def num_layers(self) -> int:
+        return sum(1 for op in self._ops if op.kind == "layer")
+
+    def _params(self, params: Optional[dict]) -> dict:
+        params = dict(params or {})
+        missing = [p for p in self.param_names if p not in params]
+        if missing:
+            raise ValueError(f"missing circuit parameters {missing}")
+        return params
+
+    def apply(self, planes, params: Optional[dict] = None):
+        """Run the plan on ``(2, 2^N)`` planes, IN PLACE (returned)."""
+        n = self.num_qubits
+        if tuple(planes.shape) != (2, 1 << n):
+            raise ValueError(f"planes have shape {tuple(planes.shape)}; "
+                             f"this circuit needs (2, {1 << n})")
+        params = self._params(params)
+        for _, i, phys_targets, cmask, fmask, axis_order in self.plan.items:
+            op = self._ops[i]
+            if op.kind == "layer":
+                lk.apply_layer(planes, n, op)
+            elif op.kind == "u":
+                u = op.mat_fn(params) if op.mat_fn is not None else op.mat
+                apply_unitary(planes, n, u, phys_targets, cmask, fmask)
+            else:
+                d = op.diag_fn(params) if op.diag_fn is not None \
+                    else op.diag
+                apply_diagonal(planes, n, phys_targets,
+                               np.transpose(np.asarray(d), axis_order))
+        return planes
+
+    def run(self, qureg: Qureg, params: Optional[dict] = None) -> None:
+        """Apply to a register, in place."""
+        if qureg.num_qubits_in_state_vec != self.num_qubits:
+            raise ValueError(
+                f"circuit has {self.num_qubits} qubits; register state "
+                f"vector has {qureg.num_qubits_in_state_vec}")
+        if qureg.state.dtype != self.env.precision.real_dtype:
+            raise ValueError("register precision differs from the "
+                             "circuit's compile-time environment")
+        self.apply(qureg.state, params)
+
+    def __repr__(self) -> str:
+        return (f"CompiledCircuit({self.num_qubits} qubits, "
+                f"{len(self.plan.items)} ops, {self.num_layers} layers)")

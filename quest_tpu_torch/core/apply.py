@@ -1,0 +1,223 @@
+"""Core gate-application engine on split re/im planes.
+
+Counterpart of the JAX package's ``core/apply.py``. A register of ``N``
+qubits is one ``(2, 2^N)`` float tensor (re plane, im plane) where bit ``q``
+of the amplitude index is qubit ``q``. Viewed as ``(2,)*N`` in C order,
+qubit ``q`` is axis ``N-1-q`` of each plane.
+
+A complex ``2^k x 2^k`` operator ``u`` acts on the planes as the real
+``2^(k+1)`` block operator ``[[Re u, -Im u], [Im u, Re u]]`` over the
+stacked (plane, target) index, so every contraction is a real matmul and
+no complex tensor is ever formed. The steps of the generic path:
+
+1. view each plane with the target (and control) axes split out, with the
+   plane axis treated as one more axis;
+2. permute the control, plane and target axes to the front (a view);
+3. index the controlled subspace (a view: only it is touched, the
+   reference's ctrlMask skip, ``QuEST_cpu.c:2146-2210``);
+4. one real matmul of the block operator with that subspace, copied back
+   into the planes IN PLACE.
+
+Two permute-free fast paths (the JAX package's ``core/apply.py:157-182``)
+cover uncontrolled gates on the lowest ``k`` qubits (a right-matmul on the
+``(rest, 2^k)`` view) and on a contiguous block of qubits (a batched
+left-matmul on the ``(pre, 2^k, post)`` view). Both stay ``torch.matmul``
+calls, as the JAX package leaves them to XLA.
+
+Diagonal operators never pair amplitudes; :func:`apply_diagonal` is a
+broadcast complex multiply, in place.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "apply_unitary",
+    "apply_diagonal",
+    "bitmask",
+    "permutation_to_order",
+    "permutation_to_sorted_desc",
+    "split_shape",
+]
+
+
+def bitmask(qubits: Sequence[int]) -> int:
+    """OR of ``1 << q`` (the reference's ``getQubitBitMask``,
+    ``QuEST_common.c:43-51``)."""
+    m = 0
+    for q in qubits:
+        m |= 1 << int(q)
+    return m
+
+
+def split_shape(num_qubits: int,
+                positions_desc: Sequence[int]) -> tuple[int, ...]:
+    """Shape that splits the flat amplitude axis at each qubit position.
+
+    ``positions_desc`` must be strictly descending qubit indices. The
+    returned shape interleaves block axes with the 2-sized qubit axes; the
+    axis of the i-th position is ``2*i + 1``.
+    """
+    shape = []
+    upper = num_qubits
+    for p in positions_desc:
+        shape.append(1 << (upper - p - 1))
+        shape.append(2)
+        upper = p
+    shape.append(1 << upper)
+    return tuple(shape)
+
+
+def permutation_to_order(targets: Sequence[int],
+                         order: Sequence[int]) -> np.ndarray:
+    """Index permutation re-expressing a gate matrix in a new bit order.
+
+    The input matrix indexes bit ``j`` by ``targets[j]``; the output
+    indexes bit ``i`` by ``order[i]`` (same qubit set).
+    ``perm[m_new] = m_old``.
+    """
+    targets = tuple(targets)
+    k = len(targets)
+    perm = np.zeros(1 << k, dtype=np.int64)
+    for mp in range(1 << k):
+        m = 0
+        for i, q in enumerate(order):
+            if (mp >> i) & 1:
+                m |= 1 << targets.index(q)
+        perm[mp] = m
+    return perm
+
+
+def permutation_to_sorted_desc(targets: Sequence[int]) -> np.ndarray:
+    """Index permutation mapping sorted-descending bit order to user
+    order: ``perm[m_sorted] = m_user`` (the engine flattens target axes
+    with the highest qubit as the most significant bit)."""
+    targets = tuple(targets)
+    k = len(targets)
+    desc = sorted(targets, reverse=True)
+    perm = np.zeros(1 << k, dtype=np.int64)
+    for mp in range(1 << k):
+        m = 0
+        for i, q in enumerate(desc):
+            if (mp >> (k - 1 - i)) & 1:
+                m |= 1 << targets.index(q)
+        perm[mp] = m
+    return perm
+
+
+def _real_parts(u: np.ndarray, planes: torch.Tensor):
+    u = np.asarray(u, dtype=np.complex128)
+    return (torch.as_tensor(np.ascontiguousarray(u.real), dtype=planes.dtype,
+                            device=planes.device),
+            torch.as_tensor(np.ascontiguousarray(u.imag), dtype=planes.dtype,
+                            device=planes.device))
+
+
+def _block_operator(u: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """The real operator of ``u`` over the stacked (plane, index) axis."""
+    u = np.asarray(u, dtype=np.complex128)
+    b = np.block([[u.real, -u.imag], [u.imag, u.real]])
+    return torch.as_tensor(b, dtype=planes.dtype, device=planes.device)
+
+
+def apply_unitary(planes: torch.Tensor, num_qubits: int, u,
+                  targets: Sequence[int], ctrl_mask: int = 0,
+                  flip_mask: int = 0) -> torch.Tensor:
+    """Apply a ``2^k x 2^k`` operator to target qubits, IN PLACE on the
+    ``(2, 2^N)`` planes (which are also returned).
+
+    ``u`` is a host matrix (bit ``j`` of its index addresses
+    ``targets[j]``, the reference's ComplexMatrixN convention).
+    ``ctrl_mask`` selects control qubits; a control conditions on bit
+    value 1 unless its bit is also set in ``flip_mask`` (then on 0) — the
+    mask semantics of ``statevec_multiControlledUnitary``
+    (``QuEST_cpu.c:2146``).
+    """
+    targets = tuple(int(t) for t in targets)
+    k = len(targets)
+    d = 1 << k
+    u = np.asarray(u, dtype=np.complex128)
+    controls = tuple(q for q in range(num_qubits) if (ctrl_mask >> q) & 1)
+
+    # --- no-permute fast paths (uncontrolled, contiguous targets) --------
+    if not controls and set(targets) == set(range(k)):
+        # lowest k qubits: right-matmul on the (rest, 2^k) view
+        if targets != tuple(range(k)):
+            perm_asc = permutation_to_order(targets, tuple(range(k)))
+            u = u[perm_asc][:, perm_asc]
+        ur_t, ui_t = _real_parts(u.T, planes)
+        x = planes.view(2, -1, d)
+        re, im = x[0], x[1]
+        new_re = torch.matmul(re, ur_t)
+        new_re.addmm_(im, ui_t, alpha=-1.0)
+        new_im = torch.matmul(re, ui_t)
+        new_im.addmm_(im, ur_t)
+        re.copy_(new_re)
+        im.copy_(new_im)
+        return planes
+    lo = min(targets) if targets else 0
+    if not controls and set(targets) == set(range(lo, lo + k)):
+        # contiguous block [lo, lo+k): batched left-matmul on the
+        # (pre, 2^k, post) view — bit i of the middle index is qubit lo+i
+        order = tuple(range(lo, lo + k))
+        if targets != order:
+            perm_o = permutation_to_order(targets, order)
+            u = u[perm_o][:, perm_o]
+        ur, ui = _real_parts(u, planes)
+        x = planes.view(2, -1, d, 1 << lo)
+        re, im = x[0], x[1]
+        new_re = torch.matmul(ur, re)
+        new_re.sub_(torch.matmul(ui, im))
+        new_im = torch.matmul(ui, re)
+        new_im.add_(torch.matmul(ur, im))
+        re.copy_(new_re)
+        im.copy_(new_im)
+        return planes
+
+    pos_desc = tuple(sorted(targets + controls, reverse=True))
+    # axis 0 is the plane axis; each plane splits as split_shape
+    shape = (2,) + split_shape(num_qubits, pos_desc)
+    axis_of = {p: 2 * i + 2 for i, p in enumerate(pos_desc)}
+    ctrl_axes = [axis_of[c] for c in controls]
+    targ_axes = [axis_of[t] for t in sorted(targets, reverse=True)]
+    moved = set(ctrl_axes) | set(targ_axes)
+    rest_axes = [ax for ax in range(1, len(shape)) if ax not in moved]
+    perm = ctrl_axes + [0] + targ_axes + rest_axes
+
+    arr = planes.view(shape).permute(perm)
+    ctrl_idx = tuple(0 if (flip_mask >> c) & 1 else 1 for c in controls)
+    sub = arr[ctrl_idx] if controls else arr
+
+    row_perm = permutation_to_sorted_desc(targets)
+    if not np.array_equal(row_perm, np.arange(d)):
+        u = u[row_perm][:, row_perm]
+    new = torch.matmul(_block_operator(u, planes), sub.reshape(2 * d, -1))
+    sub.copy_(new.view(sub.shape))
+    return planes
+
+
+def apply_diagonal(planes: torch.Tensor, num_qubits: int,
+                   qubits: Sequence[int], diag_tensor) -> torch.Tensor:
+    """Multiply amplitudes by a per-bit-pattern factor, IN PLACE.
+
+    ``diag_tensor`` has shape ``(2,)*k``; axis ``i`` is indexed by the bit
+    of the i-th qubit of ``qubits`` *sorted descending*. One pass, no
+    amplitude pairing — every phase-family gate.
+    """
+    pos_desc = tuple(sorted((int(q) for q in qubits), reverse=True))
+    shape = split_shape(num_qubits, pos_desc)
+    bshape = [1] * len(shape)
+    for i in range(len(pos_desc)):
+        bshape[2 * i + 1] = 2
+    d = np.asarray(diag_tensor, dtype=np.complex128).reshape(bshape)
+    dr, di = _real_parts(d, planes)
+    re = planes[0].view(shape)
+    im = planes[1].view(shape)
+    t = re * di
+    re.mul_(dr).sub_(im * di)
+    im.mul_(dr).add_(t)
+    return planes

@@ -1,0 +1,344 @@
+// Fused gate-layer kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the JAX package's Pallas TPU kernel
+// quest_tpu/ops/pallas_kernels.py `_layer_kernel`, reached through
+// `apply_layer`: one launch applies a whole fused layer (an ordered list of
+// stages, see quest_tpu_torch/ops/layer_kernel.py) to a state held as split
+// re/im planes, each viewed as (rows, 128).
+//
+// What bounds it on the card. A layer moves 2 planes x (read + write) x
+// itemsize x 2^n bytes of HBM, however many gates it holds: 16 B per
+// amplitude at float32, 5.1 ms for 2^30 amplitudes at 3.35 TB/s. The dense
+// stages (lane/clane: a 128x128 complex operator; rowmxu: (2^j*128)^2) also
+// cost 8 * dim real flops per amplitude, so a lane stage alone is
+// 8 * 128 * 2^30 = 1.1e12 flops, 16 ms at the 67 TFLOP/s float32 CUDA-core
+// rate: dense stages make a layer bound by operations, the others by bytes.
+//
+// How the design answers that. Each block owns a disjoint tile of
+// tile_rows x 128 amplitudes (128 rows at float32, 64 at float64: 128 KiB
+// of dynamic shared memory for both planes). It reads the tile from HBM
+// once, runs every stage on it in shared memory, and writes it back once,
+// so a layer of L gates costs one state pass, not L. Tiles are disjoint
+// and each block touches only its own, so updating the planes in place is
+// safe. Inside a stage every amplitude is owned by one thread (row, rowk,
+// rowdiag) or one warp (dense stages); an owner reads all its inputs into
+// registers before it writes, so no second shared-memory buffer is needed.
+// The dense products are FMA loops on the CUDA cores with the operator
+// read from global memory (L2-resident: a 128x128 complex float32 operator
+// is 128 KiB); each warp works on up to four rows at once so every
+// operator element it loads serves several rows. This is the simple, exact
+// form: no tensor cores, no TMA.
+//
+// Stage descriptors: one row of 8 int64 per stage,
+//   [tag, k_or_j, packed_bits, pool_offset, lane_mask, lane_want,
+//    row_mask, row_want]
+// with bit i of the stage in byte i of packed_bits and row masks in
+// row-bit coordinates (bit p = qubit p + 7). Operands live in one pool of
+// the plane dtype: each is its real part followed by its imaginary part.
+//   DENSE   (lane, clane, rowmxu): j row bits packed with the lanes into a
+//           dim = 128 << j axis; pool holds M^T (dim x dim); clane's row
+//           condition is on the global row index.
+//   ROWK    (row, rowk): dense 2^k x 2^k gate on k <= 3 row bits inside
+//           the tile, under lane and row controls; pool holds U.
+//   ROWDIAG (rowdiag): factor table (2^k, 128) picked by k <= 3 bits of
+//           the global row index.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o layer_kernel.so layer_kernel.cu
+// The C entry points return cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDescWidth = 8;
+
+enum StageTag { kDense = 0, kRowK = 1, kRowDiag = 2 };
+
+__device__ __forceinline__ int bit_at(long long packed, int i) {
+  return static_cast<int>((packed >> (8 * i)) & 0xff);
+}
+
+// Spread the bits of g over the positions that are not in the (ascending)
+// packed bit list, leaving zeros at the listed positions.
+__device__ __forceinline__ int insert_zeros(int g, long long packed, int k) {
+  for (int i = 0; i < k; ++i) {
+    const int low = (1 << bit_at(packed, i)) - 1;
+    g = ((g & ~low) << 1) | (g & low);
+  }
+  return g;
+}
+
+// Row offset of combination m of the listed row bits (bit t of m sets
+// row bit bits[t]).
+__device__ __forceinline__ int combo_offset(int m, long long packed, int k) {
+  int r = 0;
+  for (int t = 0; t < k; ++t) {
+    if ((m >> t) & 1) r |= 1 << bit_at(packed, t);
+  }
+  return r;
+}
+
+// out[e'] = sum_e M[e'][e] v[e] over the packed (row bits, lanes) axis of
+// each group; groups of a warp pass are disjoint, and each warp reads all
+// inputs of its groups before it writes any output.
+template <typename T, int J>
+__device__ void stage_dense(T* sre, T* sim, int tile_rows, long long base_row,
+                            long long packed, const T* __restrict__ op_re,
+                            const T* __restrict__ op_im, long long row_mask,
+                            long long row_want) {
+  constexpr int kDim = kLanes << J;
+  constexpr int kOut = kDim / 32;  // outputs per thread per group
+  constexpr int kGroups = 4 >> J;  // groups per warp pass
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int groups = tile_rows >> J;
+
+  for (int g0 = warp * kGroups; g0 < groups; g0 += kWarps * kGroups) {
+    int row0[kGroups];
+    bool active[kGroups];
+#pragma unroll
+    for (int n = 0; n < kGroups; ++n) {
+      active[n] = g0 + n < groups;
+      row0[n] = active[n] ? insert_zeros(g0 + n, packed, J) : 0;
+    }
+    T acc_re[kGroups][kOut];
+    T acc_im[kGroups][kOut];
+#pragma unroll
+    for (int n = 0; n < kGroups; ++n) {
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        acc_re[n][i] = T(0);
+        acc_im[n][i] = T(0);
+      }
+    }
+#pragma unroll 2
+    for (int e = 0; e < kDim; ++e) {
+      const int roff = combo_offset(e >> 7, packed, J);
+      const int l = e & (kLanes - 1);
+      T xr[kGroups], xi[kGroups];
+#pragma unroll
+      for (int n = 0; n < kGroups; ++n) {
+        const int idx = ((row0[n] | roff) << 7) | l;
+        xr[n] = active[n] ? sre[idx] : T(0);
+        xi[n] = active[n] ? sim[idx] : T(0);
+      }
+      const T* wr = op_re + static_cast<size_t>(e) * kDim + lane;
+      const T* wi = op_im + static_cast<size_t>(e) * kDim + lane;
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        const T a = __ldg(wr + 32 * i);
+        const T b = __ldg(wi + 32 * i);
+#pragma unroll
+        for (int n = 0; n < kGroups; ++n) {
+          acc_re[n][i] = fma(xr[n], a, fma(-xi[n], b, acc_re[n][i]));
+          acc_im[n][i] = fma(xr[n], b, fma(xi[n], a, acc_im[n][i]));
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < kGroups; ++n) {
+      if (!active[n]) continue;
+      if (row_mask && ((base_row + row0[n]) & row_mask) != row_want) continue;
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) {
+        // output column o = lane + 32 i lies in row combination i / 4
+        const int o = lane + 32 * i;
+        const int idx = ((row0[n] | combo_offset(i >> 2, packed, J)) << 7)
+                        | (o & (kLanes - 1));
+        sre[idx] = acc_re[n][i];
+        sim[idx] = acc_im[n][i];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Dense 2^K x 2^K gate on K row bits inside the tile; one thread owns one
+// (group, lane) item and its 2^K amplitudes.
+template <typename T, int K>
+__device__ void stage_rowk(T* sre, T* sim, int tile_rows, long long base_row,
+                           long long packed, const T* __restrict__ u_re,
+                           const T* __restrict__ u_im, int lane_mask,
+                           int lane_want, long long row_mask,
+                           long long row_want) {
+  constexpr int kDim = 1 << K;
+  int offs[kDim];
+#pragma unroll
+  for (int m = 0; m < kDim; ++m) offs[m] = combo_offset(m, packed, K) << 7;
+  const int items = (tile_rows >> K) * kLanes;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int l = it & (kLanes - 1);
+    const int r0 = insert_zeros(it >> 7, packed, K);
+    // controls never include the targets, so the condition read at the
+    // group's first row holds for all of its rows
+    if (lane_mask && (l & lane_mask) != lane_want) continue;
+    if (row_mask && ((base_row + r0) & row_mask) != row_want) continue;
+    const int base = (r0 << 7) | l;
+    T vr[kDim], vi[kDim];
+#pragma unroll
+    for (int m = 0; m < kDim; ++m) {
+      vr[m] = sre[base + offs[m]];
+      vi[m] = sim[base + offs[m]];
+    }
+#pragma unroll
+    for (int mp = 0; mp < kDim; ++mp) {
+      T ar = T(0), ai = T(0);
+#pragma unroll
+      for (int m = 0; m < kDim; ++m) {
+        const T cr = __ldg(u_re + mp * kDim + m);
+        const T ci = __ldg(u_im + mp * kDim + m);
+        ar = fma(cr, vr[m], fma(-ci, vi[m], ar));
+        ai = fma(cr, vi[m], fma(ci, vr[m], ai));
+      }
+      sre[base + offs[mp]] = ar;
+      sim[base + offs[mp]] = ai;
+    }
+  }
+}
+
+// Per-amplitude factor from a (2^k, 128) table row picked by k bits of the
+// global row index (any row bit, inside the tile or not).
+template <typename T>
+__device__ void stage_rowdiag(T* sre, T* sim, int tile_rows, long long base_row,
+                              int k, long long packed,
+                              const T* __restrict__ t_re,
+                              const T* __restrict__ t_im) {
+  const int n = tile_rows * kLanes;
+  for (int it = threadIdx.x; it < n; it += kThreads) {
+    const long long g = base_row + (it >> 7);
+    int cfg = 0;
+    for (int j = 0; j < k; ++j) {
+      cfg |= static_cast<int>((g >> bit_at(packed, j)) & 1) << j;
+    }
+    const int t = cfg * kLanes + (it & (kLanes - 1));
+    const T fr = __ldg(t_re + t);
+    const T fi = __ldg(t_im + t);
+    const T a = sre[it];
+    const T b = sim[it];
+    sre[it] = fma(a, fr, -b * fi);
+    sim[it] = fma(a, fi, b * fr);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    layer_kernel(T* re, T* im, const long long* __restrict__ desc,
+                 int n_stages, const T* __restrict__ pool, int tile_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sre = reinterpret_cast<T*>(smem);
+  T* sim = sre + tile_rows * kLanes;
+  const long long base_row = static_cast<long long>(blockIdx.x) * tile_rows;
+  const size_t first = static_cast<size_t>(base_row) * kLanes;
+
+  // one read of the tile: 16-byte vectors, neighbouring threads on
+  // neighbouring addresses
+  const int nvec = tile_rows * kLanes * static_cast<int>(sizeof(T)) / 16;
+  const uint4* gre = reinterpret_cast<const uint4*>(re + first);
+  const uint4* gim = reinterpret_cast<const uint4*>(im + first);
+  uint4* vre = reinterpret_cast<uint4*>(sre);
+  uint4* vim = reinterpret_cast<uint4*>(sim);
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    vre[i] = gre[i];
+    vim[i] = gim[i];
+  }
+  __syncthreads();
+
+  for (int s = 0; s < n_stages; ++s) {
+    const long long* d = desc + s * kDescWidth;
+    const int tag = static_cast<int>(d[0]);
+    const int kj = static_cast<int>(d[1]);
+    const long long packed = d[2];
+    const T* op = pool + d[3];
+    const int lane_mask = static_cast<int>(d[4]);
+    const int lane_want = static_cast<int>(d[5]);
+    const long long row_mask = d[6];
+    const long long row_want = d[7];
+    if (tag == kDense) {
+      const size_t dim = static_cast<size_t>(kLanes) << kj;
+      const T* op_im = op + dim * dim;
+      if (kj == 0) {
+        stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op, op_im,
+                          row_mask, row_want);
+      } else if (kj == 1) {
+        stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op, op_im,
+                          row_mask, row_want);
+      } else {
+        stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op, op_im,
+                          row_mask, row_want);
+      }
+    } else if (tag == kRowK) {
+      const T* u_im = op + (1 << (2 * kj));
+      if (kj == 1) {
+        stage_rowk<T, 1>(sre, sim, tile_rows, base_row, packed, op, u_im,
+                         lane_mask, lane_want, row_mask, row_want);
+      } else if (kj == 2) {
+        stage_rowk<T, 2>(sre, sim, tile_rows, base_row, packed, op, u_im,
+                         lane_mask, lane_want, row_mask, row_want);
+      } else {
+        stage_rowk<T, 3>(sre, sim, tile_rows, base_row, packed, op, u_im,
+                         lane_mask, lane_want, row_mask, row_want);
+      }
+    } else {
+      stage_rowdiag<T>(sre, sim, tile_rows, base_row, kj, packed, op,
+                       op + (kLanes << kj));
+    }
+    __syncthreads();
+  }
+
+  // one write of the tile
+  uint4* ore = reinterpret_cast<uint4*>(re + first);
+  uint4* oim = reinterpret_cast<uint4*>(im + first);
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    ore[i] = vre[i];
+    oim[i] = vim[i];
+  }
+}
+
+template <typename T>
+int launch(void* re, void* im, const void* desc, int n_stages,
+           const void* pool, long long total_rows, int tile_rows,
+           void* stream) {
+  const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T);
+  cudaGetLastError();  // an error left by earlier work is not this launch's
+  cudaError_t err = cudaFuncSetAttribute(
+      layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>(total_rows / tile_rows);
+  layer_kernel<T><<<blocks, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(re), static_cast<T*>(im),
+      static_cast<const long long*>(desc), n_stages,
+      static_cast<const T*>(pool), tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int quest_layer_apply_f32(void* re, void* im, const void* desc, int n_stages,
+                          const void* pool, long long total_rows,
+                          int tile_rows, void* stream) {
+  return launch<float>(re, im, desc, n_stages, pool, total_rows, tile_rows,
+                       stream);
+}
+
+int quest_layer_apply_f64(void* re, void* im, const void* desc, int n_stages,
+                          const void* pool, long long total_rows,
+                          int tile_rows, void* stream) {
+  return launch<double>(re, im, desc, n_stages, pool, total_rows, tile_rows,
+                        stream);
+}
+
+const char* quest_layer_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

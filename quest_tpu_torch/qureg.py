@@ -1,0 +1,92 @@
+"""The quantum register: one ``(2, 2^N)`` float tensor of amplitudes.
+
+Counterpart of the JAX package's ``qureg.py`` for a state vector on one
+device. The split re/im planes keep the reference's layout (bit ``q`` of
+the amplitude index is qubit ``q``; ``QuEST.h:161-192``). Unlike the JAX
+register, whose arrays are immutable and swapped on every update, the
+planes here are updated IN PLACE by the gate engine and the layer kernel
+wherever that saves a register-sized buffer (``core/apply.py``,
+``ops/statevec.py``, ``ops/layer_kernel.py`` say where).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.packing import pack_host, unpack_host
+from .env import QuESTEnv
+from .qasm import QASMLogger
+
+__all__ = ["Qureg"]
+
+
+class Qureg:
+    """A state-vector register bound to an environment."""
+
+    def __init__(self, num_qubits: int, env: QuESTEnv):
+        self.env = env
+        self.is_density_matrix = False
+        self.num_qubits_represented = num_qubits
+        self.num_qubits_in_state_vec = num_qubits
+        self.num_amps_total = 1 << num_qubits
+        self.qasm_log = QASMLogger(num_qubits)
+        self.state: torch.Tensor = None  # type: ignore[assignment]
+
+    # -- reference struct-field aliases (QuEST.h:161-192 spellings) -------
+
+    @property
+    def isDensityMatrix(self) -> bool:
+        return self.is_density_matrix
+
+    @property
+    def numQubitsRepresented(self) -> int:
+        return self.num_qubits_represented
+
+    @property
+    def numQubitsInStateVec(self) -> int:
+        return self.num_qubits_in_state_vec
+
+    @property
+    def numAmpsTotal(self) -> int:
+        return self.num_amps_total
+
+    # -- state plumbing ----------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.env.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Logical (complex) dtype of the amplitudes."""
+        return self.env.precision.complex_dtype
+
+    @property
+    def real_dtype(self) -> torch.dtype:
+        """Storage dtype of the split re/im planes."""
+        return self.env.precision.real_dtype
+
+    def device_put(self, host_array: np.ndarray) -> None:
+        """Place a host complex array as the register state (packed to
+        float planes on the env's device)."""
+        host_array = np.asarray(host_array)
+        if host_array.shape != (self.num_amps_total,):
+            raise ValueError(
+                f"state array has shape {host_array.shape}; this register "
+                f"holds {self.num_amps_total} amplitudes")
+        np_dtype = np.float32 if self.real_dtype == torch.float32 \
+            else np.float64
+        self.state = torch.from_numpy(
+            pack_host(host_array, np_dtype)).to(self.device)
+
+    def to_numpy(self) -> np.ndarray:
+        """Copy the FULL state to the host as a complex vector — a test
+        and debug seam: O(2^n) host memory. Use ``getAmp`` or the
+        ``calc*`` reductions in real programs."""
+        return unpack_host(self.state.cpu().numpy())
+
+    def __repr__(self) -> str:
+        return (f"Qureg(state-vector, qubits={self.num_qubits_represented}, "
+                f"amps={self.num_amps_total}, dtype={self.dtype}, "
+                f"device={self.device})")

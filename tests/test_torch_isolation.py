@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+asks for a CUDA card unless told to use the CPU, and never runs the plain
+layer version on a CUDA tensor.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import quest_tpu_torch as tq
+from quest_tpu_torch.ops import layer_kernel as lk
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_and_smoke_script_import_no_jax():
+    code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
+            "chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
+            "or m == 'quest_tpu')\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_env_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.createQuESTEnv()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tq.createQuESTEnv(device="cuda")
+    env = tq.createQuESTEnv(device="cpu")
+    assert env.device.type == "cpu" and env.precision is tq.SINGLE
+
+
+class _FakeCudaPlanes(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough to walk the
+    wrapper's CUDA branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    n = 8
+    layer = lk.LayerOp(n, 1, [("lane", np.eye(128))])
+    planes = torch.zeros(2, 1 << n, dtype=torch.float32).as_subclass(
+        _FakeCudaPlanes)
+    assert planes.device.type == "cuda"
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain version reached for a CUDA tensor")
+
+    def no_toolkit():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(lk, "apply_layer_plain", forbidden)
+    monkeypatch.setattr(lk, "_device_operands",
+                        lambda *a: (torch.zeros(1, lk.DESC_WIDTH,
+                                                dtype=torch.int64),
+                                    torch.zeros(1), 2, 2))
+    monkeypatch.setattr(lk, "build_library", no_toolkit)
+    before = lk.apply_layer.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lk.apply_layer(planes, n, layer)
+    assert lk.apply_layer.launches == before
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Run without CUDA (here), or alone in a directory without the
+    package, the smoke script exits non-zero and prints no result."""
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (str(tmp_path), str(tmp_path / "chip_smoke.py"))):
+        if cwd != ROOT:
+            with open(os.path.join(ROOT, "chip_smoke.py")) as src:
+                (tmp_path / "chip_smoke.py").write_text(src.read())
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
