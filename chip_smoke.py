@@ -8,23 +8,50 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any unmet check exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` compiles ``quest_tpu_torch/csrc/layer_kernel.cu``;
+2. build: one ``nvcc`` per ``quest_tpu_torch/csrc/*.cu``, all started
+   together, with each kernel's registers and spills;
 3. the layer kernel against its plain PyTorch version, per stage kind, at
-   20 qubits in float32 and float64 (max |diff| <= 1e-5 / 1e-12);
-4. the main path at 30 qubits, complex64: the random-rotation + CNOT
-   brickwork compiled and run through the layer kernel, against the same
-   gates through the imperative per-gate API;
+   20 qubits in float32 and float64; 3b. the batched layer kernel the same
+   way on B = 4 distinct states; 3c. the fused Kraus kernel at 20 qubits,
+   T = 8, K = 2, 4, 16, 64, with edge uniforms and zero-probability
+   branches: the operator each trajectory's output came from equals the
+   plain version's draw;
+4. the single-state path at 30 qubits, complex64: the random-rotation +
+   CNOT brickwork compiled and run through the layer kernel, against the
+   same gates through the imperative per-gate API;
 5. the 3-qubit tutorial flow on the card, against the same flow on the
    CPU in double precision;
-6. times with CUDA events: the layer kernel on the main path's layers
-   beside its bound, its plain version, a lane-only layer beside one
+6. times with CUDA events: the layer kernel on that path's layers beside
+   its bound, its plain version, a lane-only layer beside one
    ``torch.matmul`` of the same product, and the compiled path's gates/s;
 7. a ``torch.profiler`` breakdown of one compiled run: device time per
-   kernel and the device-busy share.
+   kernel and the device-busy share;
+8. the batched ensemble engine: a 24-qubit, 2-layer hardware-efficient
+   ansatz (bench.py ``build_hea_circuit``), complex64, batch 64, a 24-term
+   Pauli sum, through ``expectation_sweep``; the batched layer kernel
+   launches once per layer, the states and energies match a per-point
+   loop of ``CompiledCircuit.run`` + ``calcExpecPauliSum`` on 4 points,
+   the kernel matches its plain version on every layer over the whole
+   batch, points/s, and the kernel's ms per layer beside its bound, its
+   plain version and one complex64 ``torch.matmul`` of the same lane
+   product;
+9. noisy trajectories: bench.py's trajectory-wave circuit at 22 qubits,
+   complex64, ``expectation`` over 1024 trajectories in waves of 128; both
+   kernels launch once per item per wave, norms stay 1 (<= 1e-4), a
+   12-qubit copy agrees card against CPU (<= 1e-4), both kernels match
+   their plain versions on a whole wave's batch, trajectories/s, the Kraus
+   kernel's ms beside its bound, plain version and one complex64
+   ``torch.matmul``, and a ``torch.profiler`` breakdown of one wave.
 
-The line before the last is a JSON object describing each kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``. Nothing here
-imports JAX or the JAX package.
+Every comparison of a kernel with its plain version holds max |kernel -
+plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
+the largest amplitude, so the bar shrinks with the state's amplitudes and a
+wrong stage, row, state or draw moves the error to order 1.
+
+Every kernel count is set to 0 just before a path runs and read just after
+it. The line before the last is a JSON object describing each kernel; the
+last line is ``{"ok": true, "device": {...}}``. Nothing here imports JAX or
+the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +67,8 @@ MAIN_QUBITS = 30
 MAIN_LAYERS = 2
 CHECK_QUBITS = 20
 PLAIN_QUBITS = 26
+SWEEP_QUBITS, SWEEP_LAYERS, SWEEP_BATCH, SWEEP_TERMS = 24, 2, 64, 24
+TRAJ_QUBITS, TRAJ_WAVE, TRAJ_MAX = 22, 128, 1024
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
 
@@ -143,23 +172,30 @@ def stage_flops(stage, n: int) -> float:
     return 6.0 * amps                          # rowdiag: complex multiply
 
 
-def layer_bound_ms(lk, layer, n: int, dtype):
-    """Least time for one layer on the card: the larger of its HBM bytes
-    (both planes read and written once, plus its operands) over 3.35 TB/s
-    and its flops over the CUDA-core rate. Returns (ms, bound_by,
-    bytes_ms, flops_ms)."""
+def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1):
+    """Least time for one layer on the card over ``batch`` states: the
+    larger of its HBM bytes (both planes of every state read and written
+    once, plus its operands once) over 3.35 TB/s and its flops over the
+    CUDA-core rate. Returns (ms, bound_by, bytes_ms, flops_ms)."""
     itemsize = dtype.itemsize
     kstages, mats, tables, xmats, _, _ = lk.layer_kernel_plan(
         layer, n, lk.tile_rows_for(dtype))
     operands = 2 * itemsize * (sum(m.size for m in mats)
                                + sum(t.size for t in tables)
                                + sum(x.size for x in xmats))
-    bytes_ms = 1e3 * (4.0 * itemsize * (1 << n) + operands) / HBM_BYTES_PER_S
-    flops_ms = 1e3 * sum(stage_flops(st, n) for st in kstages) \
+    bytes_ms = 1e3 * (4.0 * itemsize * batch * (1 << n) + operands) \
+        / HBM_BYTES_PER_S
+    flops_ms = 1e3 * batch * sum(stage_flops(st, n) for st in kstages) \
         / CUDA_CORE_FLOPS[itemsize]
     return max(bytes_ms, flops_ms), \
         ("bytes" if bytes_ms >= flops_ms else "operations"), \
         bytes_ms, flops_ms
+
+
+def rel_err(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = float((got - want).abs().max())
+    return err, err / float(want.abs().max())
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -193,14 +229,17 @@ def phase_device(torch):
     return card
 
 
-def phase_build(lk):
-    print("phase 2: build")
+def phase_build():
+    from quest_tpu_torch.ops import cuda_build
+    print("phase 2: build (one nvcc per source, all started together)")
     t0 = time.perf_counter()
-    _, path, log = lk.build_library()
-    print(f"  built {path} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    libs = cuda_build.build_all()
+    print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    for stem, (_, path, log) in sorted(libs.items()):
+        print(f"  {stem}: {path}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def phase_stages(torch, lk, rng):
@@ -216,11 +255,111 @@ def phase_stages(torch, lk, rng):
             before = lk.apply_layer.launches
             got = lk.apply_layer(base.clone(), n, layer)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(lk.apply_layer.launches == before + 1 and err <= tol
+            err, rel = rel_err(got, want)
+            check(lk.apply_layer.launches == before + 1 and rel <= tol
                   and bool(torch.isfinite(got).all()),
-                  f"{name:14s} {str(dtype):14s} max|diff| {err:.3e} "
-                  f"<= {tol:g}")
+                  f"{name:14s} {str(dtype):14s} max|diff| {err:.3e}, "
+                  f"/ max|plain| {rel:.3e} <= {tol:g}")
+
+
+def random_batch(torch, rng, batch: int, n: int, dtype, device):
+    """``batch`` distinct normalised states, ``(batch, 2, 2^n)``."""
+    z = rng.normal(size=(batch, 2, 1 << n))
+    z /= np.linalg.norm(z.reshape(batch, -1), axis=1)[:, None, None]
+    return torch.as_tensor(z, dtype=dtype, device=device)
+
+
+def phase_batched_stages(torch, lk, rng):
+    n, batch = CHECK_QUBITS, 4
+    print(f"phase 3b: batched layer kernel vs plain version per stage "
+          f"kind, {n} qubits, B = {batch}")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        hi = lk.max_mid_qubit(lk.tile_rows_for(dtype))
+        for name, stages in stage_cases(rng, n, hi).items():
+            layer = lk.LayerOp(n, len(stages), stages)
+            base = random_batch(torch, rng, batch, n, dtype, "cuda")
+            want = lk.apply_layer_batched_plain(base.clone(), n, layer)
+            before = lk.apply_layer_batched.launches
+            got = lk.apply_layer_batched(base.clone(), n, layer)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            # every state moved: a batch stride or per-state row base gone
+            # wrong leaves some states as they were or mixes them
+            moved = float((got - base).abs().amax(dim=(1, 2)).min())
+            check(lk.apply_layer_batched.launches == before + 1
+                  and rel <= tol and moved > 1e-3
+                  and bool(torch.isfinite(got).all()),
+                  f"{name:14s} {str(dtype):14s} max|diff| {err:.3e}, "
+                  f"/ max|plain| {rel:.3e} <= {tol:g}")
+
+
+def kraus_case(rng, num_traj: int, num_ops: int):
+    """Lane-embedded random operators, probabilities with zero-probability
+    branches, and the edge uniforms: u = 0 where branch 0 has probability
+    0 (it must be skipped), u -> 1 where the last branch has probability 0
+    (it must not be drawn), and interior draws."""
+    kemb = rng.normal(size=(num_ops, 128, 128)) \
+        + 1j * rng.normal(size=(num_ops, 128, 128))
+    probs = rng.uniform(0.05, 1.0, size=(num_traj, num_ops))
+    probs /= probs.sum(axis=1, keepdims=True)
+    u = rng.uniform(0.0, 1.0, size=num_traj)
+    if num_ops > 1:
+        probs[0, 0] = 0.0
+        probs[1, -1] = 0.0
+        probs[2, num_ops // 2] = 0.0
+    u[0] = 0.0
+    u[1] = np.nextafter(1.0, 0.0)
+    u[3] = 1.0 - 1e-12
+    return kemb, probs, u
+
+
+def drawn_operators(torch, base, got, kemb, probs):
+    """The operator each trajectory's kernel output came from: per k, the
+    plain product K_k v / sqrt(max(p_k, tiny)) of every trajectory, and the
+    k whose product lies nearest the output. A zero-probability branch
+    scales by 1/sqrt(tiny) and so lies nearest only if it was drawn."""
+    cdt = torch.complex64 if base.dtype == torch.float32 \
+        else torch.complex128
+    num = base.shape[0]
+    v = torch.complex(base[:, 0], base[:, 1]).view(num, -1, 128)
+    out = torch.complex(got[:, 0], got[:, 1]).view(num, -1, 128)
+    tiny = torch.finfo(probs.dtype).tiny
+    dists = []
+    for k in range(len(kemb)):
+        mt = torch.as_tensor(np.ascontiguousarray(kemb[k].T), dtype=cdt,
+                             device=base.device)
+        s = (1.0 / torch.sqrt(torch.clamp(probs[:, k], min=tiny))).to(cdt)
+        cand = torch.matmul(v, mt) * s[:, None, None]
+        dists.append((cand - out).abs().amax(dim=(1, 2)))
+    return torch.stack(dists, dim=1).argmin(dim=1)
+
+
+def phase_kraus(torch, kk, rng):
+    n, num_traj = CHECK_QUBITS, 8
+    print(f"phase 3c: fused Kraus kernel vs plain version, {n} qubits, "
+          f"T = {num_traj}")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for num_ops in (2, 4, 16, 64):
+            kemb, probs_np, u_np = kraus_case(rng, num_traj, num_ops)
+            probs = torch.as_tensor(probs_np, dtype=dtype, device="cuda")
+            u01 = torch.as_tensor(u_np, dtype=dtype, device="cuda")
+            base = random_batch(torch, rng, num_traj, n, dtype, "cuda")
+            j_plain, _ = kk.draw_plain(probs, u01)
+            want = kk.fused_kraus_apply_batched_plain(base.clone(), n, kemb,
+                                                      probs, u01)
+            before = kk.fused_kraus_apply_batched.launches
+            got = kk.fused_kraus_apply_batched(base.clone(), n, kemb, probs,
+                                               u01)
+            torch.cuda.synchronize()
+            j_kernel = drawn_operators(torch, base, got, kemb, probs)
+            zero = probs.gather(1, j_kernel[:, None])[:, 0] == 0
+            _, rel = rel_err(got, want)
+            check(kk.fused_kraus_apply_batched.launches == before + 1
+                  and torch.equal(j_plain, j_kernel)
+                  and not bool(zero.any()) and rel <= tol,
+                  f"K = {num_ops:2d} {str(dtype):14s} draws "
+                  f"{j_kernel.tolist()} identical, none of probability 0; "
+                  f"max|diff| / max|plain| {rel:.3e} <= {tol:g}")
 
 
 def phase_main(torch, qt, lk):
@@ -239,11 +378,12 @@ def phase_main(torch, qt, lk):
           f"ops ({layers} layers) in {compile_s:.2f} s")
     q1 = qt.createQureg(n, env)
     qt.initZeroState(q1)
-    lk.apply_layer.launches = 0
+    from quest_tpu_torch.ops import kraus_kernel as kk
+    reset_counts(lk, kk)
     compiled.run(q1)
     torch.cuda.synchronize()
-    launches = lk.apply_layer.launches
-    check(layers > 0 and launches == layers,
+    launches, batched, kraus = counts(lk, kk)
+    check(layers > 0 and launches == layers and batched == kraus == 0,
           f"layer kernel launched {launches} times for {layers} layer ops")
 
     q2 = qt.createQureg(n, env)
@@ -317,12 +457,15 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
     planes = q1.state
     layer_ops = [op for op in compiled._ops if op.kind == "layer"]
     kernel_ms, plain_ms, bound_ms, errs, bound_by = [], [], [], [], []
+    rels = []
     for i, layer in enumerate(layer_ops):
         a = planes.clone()
         lk.apply_layer(a, n, layer)
         b = lk.apply_layer_plain(planes.clone(), n, layer)
         torch.cuda.synchronize()
-        errs.append(float((a - b).abs().max()))
+        err, rel = rel_err(a, b)
+        errs.append(err)
+        rels.append(rel)
         del a, b
         kernel_ms.append(cuda_ms(torch, lambda: lk.apply_layer(
             planes, n, layer), reps=3))
@@ -335,9 +478,9 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
         print(f"    kernel {kernel_ms[-1]:.3f} ms, bound {ms:.3f} ms ({by}; "
               f"HBM {hbm_ms:.3f} ms, CUDA-core flops {op_ms:.3f} ms), "
               f"plain {plain_ms[-1]:.3f} ms, max|kernel-plain| "
-              f"{errs[-1]:.3e}")
-    check(max(errs) <= 1e-5, f"main-path layers: kernel vs plain max|diff| "
-          f"{max(errs):.3e} <= 1e-5 at {n} qubits")
+              f"{errs[-1]:.3e}, / max|plain| {rels[-1]:.3e}")
+    check(max(rels) <= 1e-5, f"main-path layers: kernel vs plain max|diff| "
+          f"/ max|plain| {max(rels):.3e} <= 1e-5 at {n} qubits")
     torch.cuda.empty_cache()
 
     # the plain version at 26 qubits, on that width's own brickwork plan
@@ -402,19 +545,355 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
     }
 
 
-def phase_profile(torch, compiled, q1, card):
-    """Where one compiled 30-qubit run spends the card's time: device time
-    per kernel name from torch.profiler, and the device-busy share of the
-    host wall time of the profiled run."""
+def hea_circuit(qt, num_qubits: int, layers: int):
+    """bench.py build_hea_circuit: per layer one ry+rz column of named
+    parameters and a CNOT ring — the VQE ensemble workload's circuit."""
+    c = qt.Circuit(num_qubits)
+    for layer in range(layers):
+        for q in range(num_qubits):
+            c.ry(q, c.parameter(f"y{layer}_{q}"))
+            c.rz(q, c.parameter(f"z{layer}_{q}"))
+        for q in range(num_qubits):
+            c.cnot(q, (q + 1) % num_qubits)
+    return c
+
+
+def trajectory_circuit(qt, num_qubits: int, rng):
+    """bench.py's "Pallas trajectory waves" circuit: a ry column,
+    damp(2, 0.2), a CNOT chain, dephase(4, 0.15), a ry column."""
+    c = qt.Circuit(num_qubits)
+    for q in range(num_qubits):
+        c.ry(q, float(rng.uniform(0.2, 2.8)))
+    c.damp(2, 0.2)
+    for q in range(num_qubits - 1):
+        c.cnot(q, q + 1)
+    c.dephase(4, 0.15)
+    for q in range(num_qubits):
+        c.ry(q, float(rng.uniform(0.2, 2.8)))
+    return c
+
+
+def reset_counts(lk, kk):
+    lk.apply_layer.launches = 0
+    lk.apply_layer_batched.launches = 0
+    kk.fused_kraus_apply_batched.launches = 0
+
+
+def counts(lk, kk):
+    return (lk.apply_layer.launches, lk.apply_layer_batched.launches,
+            kk.fused_kraus_apply_batched.launches)
+
+
+def lane_matmul_ms(torch, states, ops):
+    """One complex64 ``torch.matmul`` of the lane product over a ``(B, 2,
+    N)`` batch: ``ops`` is one ``(128, 128)`` operator for every row or a
+    ``(B, 128, 128)`` stack, one per state."""
+    z = torch.complex(states[:, 0], states[:, 1]).view(
+        states.shape[0], -1, 128)
+    mt = torch.as_tensor(np.ascontiguousarray(
+        np.swapaxes(np.asarray(ops), -1, -2)), dtype=torch.complex64,
+        device=states.device)
+    ms = cuda_ms(torch, lambda: torch.matmul(z, mt), reps=3)
+    del z
+    return ms
+
+
+def batched_layer_times(torch, lk, states, n, layer_ops, label):
+    """The batched layer kernel on a path's layers: held against its plain
+    version over the whole batch (max |diff| / max |plain| <= 1e-5), ms
+    (CUDA events), its bound, its plain version's ms, and one complex64
+    torch.matmul of each layer's lane product (where the layer has one)
+    over the whole batch."""
+    rows = []
+    for i, layer in enumerate(layer_ops):
+        a = states.clone()
+        lk.apply_layer_batched(a, n, layer)
+        b = lk.apply_layer_batched_plain(states.clone(), n, layer)
+        torch.cuda.synchronize()
+        err, rel = rel_err(a, b)
+        del a, b
+        torch.cuda.empty_cache()
+        check(rel <= 1e-5, f"{label} layer {i}: batched kernel vs plain "
+              f"over all {states.shape[0]} states: max|diff| {err:.3e}, "
+              f"/ max|plain| {rel:.3e} <= 1e-5")
+        ms = cuda_ms(torch, lambda: lk.apply_layer_batched(states, n, layer),
+                     reps=3)
+        plain = cuda_ms(torch, lambda: lk.apply_layer_batched_plain(
+            states, n, layer), reps=1)
+        bound, by, hbm, ops = layer_bound_ms(lk, layer, n, states.dtype,
+                                             states.shape[0])
+        lanes = [st[1] for st in layer.stages if st[0] == "lane"]
+        lib = lane_matmul_ms(torch, states, lanes[0]) if lanes else None
+        torch.cuda.empty_cache()
+        print(f"  {label} layer {i}: {[st[0] for st in layer.stages]}")
+        print(f"    kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; HBM "
+              f"{hbm:.3f} ms, CUDA-core flops {ops:.3f} ms), plain "
+              f"{plain:.3f} ms, torch.matmul complex64 lane product "
+              f"{'not measured' if lib is None else f'{lib:.3f} ms'}, "
+              f"max|kernel-plain| {err:.3e}")
+        rows.append((ms, bound, by, plain, lib, err))
+    return rows
+
+
+def host_binding_ms(compiled, pm) -> float:
+    """Host milliseconds one sweep spends binding parameter gates: every
+    mat_fn/diag_fn evaluated once per row and stacked."""
+    from quest_tpu_torch.circuits import _bind_rows
+    t0 = time.perf_counter()
+    for op in compiled._ops:
+        fn = getattr(op, "mat_fn", None) or getattr(op, "diag_fn", None)
+        if fn is not None:
+            _bind_rows(fn, compiled.param_names, pm)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_sweep(torch, qt, lk, kk, card):
+    n, batch = SWEEP_QUBITS, SWEEP_BATCH
+    print(f"phase 8: batched ensemble engine, {n}-qubit {SWEEP_LAYERS}-layer "
+          f"HEA, complex64, batch {batch}, {SWEEP_TERMS}-term Pauli sum, "
+          f"on {card}")
+    rng = np.random.default_rng(2026)
+    circ = hea_circuit(qt, n, SWEEP_LAYERS)
+    codes = rng.integers(0, 4, size=(SWEEP_TERMS, n))
+    coeffs = rng.normal(size=SWEEP_TERMS)
+    terms = [[(q, int(codes[t, q])) for q in range(n)]
+             for t in range(SWEEP_TERMS)]
+    codes_flat = [int(c) for c in codes.reshape(-1)]
+    names = circ.param_names
+    pm = rng.uniform(0.0, 2.0 * np.pi, size=(batch, len(names)))
+    env = qt.createQuESTEnv(seed=[2026])
+    t0 = time.perf_counter()
+    compiled = circ.compile(env)
+    layers = compiled.num_layers
+    print(f"  compiled {len(circ.ops)} gates into "
+          f"{len(compiled.plan.items)} ops ({layers} layers) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    energies = compiled.expectation_sweep(pm, (terms, coeffs))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    single, batched, kraus = counts(lk, kk)
+    check(layers > 0 and batched == layers and single == 0 and kraus == 0,
+          f"batched layer kernel launched {batched} times for {layers} "
+          f"layer ops (single-state {single}, Kraus {kraus})")
+    check(energies.shape == (batch,) and bool(np.isfinite(energies).all()),
+          f"{batch} finite energies, first {energies[:3]}")
+
+    # the engine's states and energies against one run per point; the
+    # energies of a random ansatz state are small (|E| ~ 1e-4), so they
+    # are held relative to the largest of them
+    states = compiled.sweep(pm)
+    q = qt.createQureg(n, env)
+    amp_err, e_err = 0.0, 0.0
+    for b in range(4):
+        qt.initZeroState(q)
+        compiled.run(q, dict(zip(names, pm[b])))
+        amp_err = max(amp_err, float((q.state - states[b]).abs().max()))
+        e = qt.calcExpecPauliSum(q, codes_flat, coeffs)
+        e_err = max(e_err, abs(e - float(energies[b])))
+    amp_rel = amp_err / float(states[:4].abs().max())
+    e_rel = e_err / float(np.abs(energies[:4]).max())
+    check(amp_rel <= 1e-5, f"sweep vs per-point run, 4 points: max|state "
+          f"diff| {amp_err:.3e}, / max|amp| {amp_rel:.3e} <= 1e-5")
+    check(e_rel <= 1e-3, f"expectation_sweep vs per-point run + "
+          f"calcExpecPauliSum, 4 points: max|diff| {e_err:.3e}, / max|E| "
+          f"{e_rel:.3e} <= 1e-3")
+    del q
+
+    reps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        compiled.expectation_sweep(pm, (terms, coeffs))
+    torch.cuda.synchronize()
+    sweep_s = (time.perf_counter() - t0) / reps
+    bind_ms = host_binding_ms(compiled, pm)
+    print(f"  expectation_sweep: {sweep_s * 1e3:.1f} ms per {batch}-point "
+          f"sweep, {batch / sweep_s:.2f} points/s (first call "
+          f"{first_s * 1e3:.1f} ms); host parameter binding "
+          f"{bind_ms:.1f} ms of it")
+    torch.cuda.empty_cache()
+
+    layer_ops = [op for op in compiled._ops if op.kind == "layer"]
+    rows = batched_layer_times(torch, lk, states, n, layer_ops, "sweep")
+    del states
+    torch.cuda.empty_cache()
+    return {"launches": batched, "rows": rows, "points_per_s":
+            batch / sweep_s, "sweep_ms": sweep_s * 1e3, "bind_ms": bind_ms}
+
+
+def kraus_bound_ms(n: int, num_traj: int, num_ops: int, itemsize: int):
+    """Least time for one fused Kraus step: every state's planes read and
+    written once, the operator stack and probabilities read once, against
+    8 * 128 real flops per amplitude (the drawn operator's lane product)."""
+    amps = float(num_traj) * (1 << n)
+    nbytes = 4.0 * itemsize * amps + itemsize * (
+        num_ops * 2 * 128 * 128 + num_traj * (num_ops + 1))
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    flops_ms = 1e3 * 8.0 * 128 * amps / CUDA_CORE_FLOPS[itemsize]
+    return max(bytes_ms, flops_ms), \
+        ("bytes" if bytes_ms >= flops_ms else "operations"), \
+        bytes_ms, flops_ms
+
+
+def phase_trajectories(torch, qt, lk, kk, card):
+    n = TRAJ_QUBITS
+    print(f"phase 9: noisy trajectories, {n} qubits, complex64, "
+          f"expectation over {TRAJ_MAX} trajectories in waves of "
+          f"{TRAJ_WAVE}, on {card}")
+    rng = np.random.default_rng(2110)
+    circ = trajectory_circuit(qt, n, rng)
+    terms = [[(q, 3)] for q in range(n)]
+    coeffs = list(rng.normal(size=n))
+    env = qt.createQuESTEnv(seed=[7])
+    tp = circ.compile_trajectories(env)
+    kinds = [item[0] for item in tp._items]
+    n_layers, n_fused = kinds.count("layer"), kinds.count("kraus_fused")
+    print(f"  items: {kinds}")
+    check(n_layers >= 1 and n_fused == 2,
+          f"{n_layers} layers and {n_fused} fused channels on the path")
+
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    mean, err = tp.expectation(terms, coeffs, num_trajectories=TRAJ_MAX,
+                               wave_size=TRAJ_WAVE, seed=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    single, batched, kraus = counts(lk, kk)
+    waves = tp.last_traj_stats["waves"]
+    check(waves == TRAJ_MAX // TRAJ_WAVE
+          and tp.last_traj_stats["trajectories_run"] == TRAJ_MAX
+          and batched == n_layers * waves and kraus == n_fused * waves
+          and single == 0,
+          f"{waves} waves: batched layer kernel launched {batched} times "
+          f"({n_layers} layers x {waves}), Kraus kernel {kraus} times "
+          f"({n_fused} channels x {waves})")
+    check(np.isfinite(mean) and 0.0 < err < 1.0,
+          f"<H> = {mean:.6f} +- {err:.6f}")
+    print(f"  {run_s * 1e3:.1f} ms for {TRAJ_MAX} trajectories: "
+          f"{TRAJ_MAX / run_s:.2f} trajectories/s")
+
+    planes = tp.trajectory_sweep(8)
+    norms = (planes.double() ** 2).sum(dim=(1, 2))
+    dev = float((norms - 1.0).abs().max())
+    check(dev <= 1e-4, f"8-trajectory sweep: max|norm - 1| {dev:.3e} "
+          f"<= 1e-4")
+    del planes
+
+    small = trajectory_circuit(qt, 12, np.random.default_rng(12))
+    tp_card = small.compile_trajectories(env)
+    tp_cpu = small.compile_trajectories(qt.createQuESTEnv(
+        device="cpu", precision=qt.SINGLE, seed=[7]))
+    u = np.random.default_rng(3).uniform(size=(64, tp_card.num_channels))
+    a = tp_card.trajectory_sweep(64, uniforms=u).cpu()
+    b = tp_cpu.trajectory_sweep(64, uniforms=u)
+    diff = float((a - b).abs().max())
+    sterms = [[(q, 3)] for q in range(12)]
+    m_card, _ = tp_card.expectation(sterms, [1.0] * 12,
+                                    num_trajectories=64, seed=5)
+    m_cpu, _ = tp_cpu.expectation(sterms, [1.0] * 12, num_trajectories=64,
+                                  seed=5)
+    check(diff <= 1e-4 and abs(m_card - m_cpu) <= 1e-4,
+          f"12-qubit copy, same uniforms, card vs CPU: max|diff| "
+          f"{diff:.3e}, <H> {m_card:.6f} vs {m_cpu:.6f}")
+
+    # kernel times on one wave's batch at the first fused channel
+    states = tp.trajectory_sweep(TRAJ_WAVE)
+    item = next(it for it in tp._items if it[0] == "kraus_fused")
+    _, targets, (_, estack, kemb), _ = item
+    es = torch.as_tensor(estack, dtype=torch.complex64, device="cuda")
+    probs = tp._channel_probs(states, targets, es)
+    u01 = torch.rand(TRAJ_WAVE, dtype=torch.float32, device="cuda")
+    a = kk.fused_kraus_apply_batched(states.clone(), n, kemb, probs, u01)
+    b = kk.fused_kraus_apply_batched_plain(states.clone(), n, kemb, probs,
+                                           u01)
+    torch.cuda.synchronize()
+    kerr, krel = rel_err(a, b)
+    del a, b
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(torch, lambda: kk.fused_kraus_apply_batched(
+        states, n, kemb, probs, u01), reps=3)
+    k_plain = cuda_ms(torch, lambda: kk.fused_kraus_apply_batched_plain(
+        states, n, kemb, probs, u01), reps=1)
+    k_bound, k_by, k_hbm, k_ops = kraus_bound_ms(n, TRAJ_WAVE, len(kemb), 4)
+    j, _ = kk.draw_plain(probs, u01)
+    k_lib = lane_matmul_ms(torch, states, kemb[j.cpu().numpy()])
+    print(f"  Kraus kernel ({len(kemb)} operators, {TRAJ_WAVE} "
+          f"trajectories): {k_ms:.3f} ms, bound {k_bound:.3f} ms ({k_by}; "
+          f"HBM {k_hbm:.3f} ms, CUDA-core flops {k_ops:.3f} ms), plain "
+          f"{k_plain:.3f} ms, torch.matmul complex64 {k_lib:.3f} ms, "
+          f"max|kernel-plain| {kerr:.3e}")
+    check(krel <= 1e-5, f"main-path channel: Kraus kernel vs plain over "
+          f"all {TRAJ_WAVE} trajectories: max|diff| {kerr:.3e}, / max|plain| "
+          f"{krel:.3e} <= 1e-5")
+    layer_ops = [it[1] for it in tp._items if it[0] == "layer"]
+    rows = batched_layer_times(torch, lk, states, n, layer_ops,
+                               "trajectory")
+    del states
+    torch.cuda.empty_cache()
+    profile_device(torch, lambda: tp.expectation(
+        terms, coeffs, num_trajectories=TRAJ_WAVE, wave_size=TRAJ_WAVE,
+        seed=2), f"one {TRAJ_WAVE}-trajectory wave", top=10)
+    return {"launches_layer": batched, "launches_kraus": kraus,
+            "rows": rows, "traj_per_s": TRAJ_MAX / run_s,
+            "kraus": (k_ms, k_bound, k_by, k_plain, k_lib, kerr)}
+
+
+def kernel_rows(layer_row, sweep, traj):
+    """The JSON rows of the batched layer kernel and the Kraus kernel."""
+    rows = sweep["rows"] + traj["rows"]
+    libs = [r[4] for r in sweep["rows"] if r[4] is not None]
+    by = [r[2] for r in rows]
+    k_ms, k_bound, k_by, k_plain, k_lib, kerr = traj["kraus"]
+    return [layer_row, {
+        "name": "layer_kernel_batched",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/layer_kernel.cu",
+        "replaces": "quest_tpu/ops/pallas_kernels.py:736",
+        "launches": sweep["launches"] + traj["launches_layer"],
+        "launches_sweep": sweep["launches"],
+        "launches_trajectories": traj["launches_layer"],
+        "max_abs_err": max(r[5] for r in rows),
+        "ms": float(np.mean([r[0] for r in sweep["rows"]])),
+        "plain_ms": float(np.mean([r[3] for r in sweep["rows"]])),
+        "bound_ms": float(np.mean([r[1] for r in sweep["rows"]])),
+        "bound_by": max(set(by), key=by.count),
+        "library_ms": float(np.mean(libs)) if libs else None,
+        "trajectory_layer_ms": [r[0] for r in traj["rows"]],
+        "trajectory_layer_bound_ms": [r[1] for r in traj["rows"]],
+        "points_per_s": sweep["points_per_s"],
+    }, {
+        "name": "kraus_kernel",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/kraus_kernel.cu",
+        "replaces": "quest_tpu/ops/pallas_kernels.py:888",
+        "launches": traj["launches_kraus"],
+        "max_abs_err": kerr,
+        "ms": k_ms,
+        "plain_ms": k_plain,
+        "bound_ms": k_bound,
+        "bound_by": k_by,
+        "library_ms": k_lib,
+        "trajectories_per_s": traj["traj_per_s"],
+    }]
+
+
+def profile_device(torch, fn, what: str, top: int = 8):
+    """Where ``fn()`` spends the card's time: device time per kernel name
+    from torch.profiler, and the device-busy share of the host wall time
+    of the profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"phase 7: profile of one compiled run on {card}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compiled.run(q1)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name: dict = {}
@@ -425,15 +904,15 @@ def phase_profile(torch, compiled, q1, card):
             per_name[ev.name][1] += ev.time_range.elapsed_us()
     busy_us = sum(t for _, t in per_name.values())
     if not per_name:
-        print("  device time: not measured (the profiler saw no device "
-              "events)")
+        print(f"  {what}: device time not measured (the profiler saw no "
+              "device events)")
         return
-    print(f"  wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} "
-          f"ms ({100.0 * busy_us / wall_us:.1f}%)")
+    print(f"  {what}: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100.0 * busy_us / wall_us:.1f}%)")
     for name, (count, us) in sorted(per_name.items(),
-                                    key=lambda kv: -kv[1][1])[:8]:
+                                    key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / 1e3:9.1f} ms {100.0 * us / busy_us:5.1f}% "
-              f"x{count:<3d} {name[:90]}")
+              f"x{count:<4d} {name[:90]}")
 
 
 def main() -> int:
@@ -445,15 +924,23 @@ def main() -> int:
     try:
         card = phase_device(torch)
         import quest_tpu_torch as qt
+        from quest_tpu_torch.ops import kraus_kernel as kk
         from quest_tpu_torch.ops import layer_kernel as lk
-        phase_build(lk)
+        phase_build()
         rng = np.random.default_rng(20261016)
         phase_stages(torch, lk, rng)
+        phase_batched_stages(torch, lk, rng)
+        phase_kraus(torch, kk, rng)
         env, compiled, q1, gates, launches = phase_main(torch, qt, lk)
         phase_tutorial(torch, qt)
         row = phase_times(torch, qt, lk, env, compiled, q1, gates, launches,
                           card)
-        phase_profile(torch, compiled, q1, card)
+        print(f"phase 7: profile of one compiled run on {card}")
+        profile_device(torch, lambda: compiled.run(q1), "one compiled run")
+        del compiled, q1
+        torch.cuda.empty_cache()
+        sweep = phase_sweep(torch, qt, lk, kk, card)
+        traj = phase_trajectories(torch, qt, lk, kk, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -461,7 +948,7 @@ def main() -> int:
         print(f"FAIL: {e} (run from the root of a checkout)",
               file=sys.stderr)
         return 2
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": kernel_rows(row, sweep, traj)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

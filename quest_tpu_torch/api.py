@@ -15,6 +15,7 @@ packages is held through :func:`collapseToOutcome`.
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Sequence
 
 import numpy as np
@@ -59,7 +60,7 @@ __all__ = [
     "calcProbOfOutcome", "collapseToOutcome", "measure", "measureWithStats",
     # calculations
     "getNumQubits", "getNumAmps", "getAmp", "getRealAmp", "getImagAmp",
-    "getProbAmp", "calcTotalProb", "calcInnerProduct",
+    "getProbAmp", "calcTotalProb", "calcInnerProduct", "calcExpecPauliSum",
     # QASM
     "startRecordingQASM", "stopRecordingQASM", "clearRecordedQASM",
     "printRecordedQASM", "writeRecordedQASMToFile",
@@ -689,6 +690,32 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
         return red.vdot_compensated(bra.state, ket.state)
     re, im = sv.calc_inner_product(bra.state, ket.state)
     return complex(float(re), float(im))
+
+
+def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
+                      coeffs: Sequence[float], num_sum_terms: int = None,
+                      workspace: Qureg = None) -> float:
+    """``sum_t coeffs[t] <psi|P_t|psi>`` (``QuEST.h:2504``; the 4th
+    positional argument is numSumTerms and may be omitted). The terms
+    become bit masks (``ops/reductions.py``) and the sum is reduced on the
+    device with one scalar transfer, where the reference pays one workspace
+    pass and one sync per term (``QuEST_common.c:464-491``); ``workspace``
+    is accepted for signature parity and unused. State vectors only: the
+    density registers belong to a later slice."""
+    if num_sum_terms is not None and not isinstance(num_sum_terms,
+                                                    numbers.Integral):
+        workspace, num_sum_terms = num_sum_terms, None
+    val.validate_state_vec(qureg.is_density_matrix, "calcExpecPauliSum")
+    n = qureg.num_qubits_represented
+    num_terms = int(num_sum_terms) if num_sum_terms is not None \
+        else len(coeffs)
+    val.validate_num_pauli_sum_terms(num_terms, "calcExpecPauliSum")
+    val.validate_pauli_codes(all_codes, "calcExpecPauliSum")
+    codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    xm, ym, zm, coeffs_np = red.pauli_sum_operands(
+        codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
+    return float(red.pauli_sum_total_sv(qureg.state.unsqueeze(0), xm, ym,
+                                        zm, coeffs_np)[0])
 
 
 # ---------------------------------------------------------------------------

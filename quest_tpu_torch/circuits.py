@@ -20,6 +20,16 @@ version on the CPU), every other op through the gate engine
 (``core/apply.py``). PyTorch runs eagerly, so there is no whole-program
 executable; the plan is the program, applied IN PLACE to the register's
 planes.
+
+The batched ensemble engine (:meth:`CompiledCircuit.sweep`,
+:meth:`~CompiledCircuit.expectation_sweep`,
+:meth:`~CompiledCircuit.sample_sweep`) walks the same plan over a ``(B, 2,
+2^n)`` batch, one parameter binding per row: layers through
+``apply_layer_batched`` (one launch for the batch), other ops through the
+gate engine's batched form. Channels (:meth:`Circuit.kraus` and the named
+channels) are recorded as ``"kraus"`` ops; a state-vector compile rejects
+them, and :meth:`Circuit.compile_trajectories` runs them as trajectory
+ensembles (``ops/trajectories.py``).
 """
 
 from __future__ import annotations
@@ -28,11 +38,15 @@ import dataclasses
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
+from . import validation as val
 from .core import matrices as mats
 from .core.apply import apply_diagonal, apply_unitary, bitmask
 from .env import QuESTEnv
+from .ops import channels as chan
 from .ops import layer_kernel as lk
+from .ops import reductions as red
 from .parallel.layout import LayoutPlan, plan_layout
 from .qureg import Qureg
 
@@ -54,19 +68,22 @@ class _Op:
     ``mat_fn`` a ``params -> matrix`` function; likewise ``diag`` /
     ``diag_fn`` for elementwise (phase-family) factors of shape
     ``(2,)*k``."""
-    kind: str                      # "u" | "diag"
-    targets: tuple[int, ...]       # user bit order ("u") / sorted desc ("diag")
+    kind: str                      # "u" | "diag" | "kraus"
+    targets: tuple[int, ...]       # user bit order ("u", "kraus") /
+    #                                sorted desc ("diag")
     ctrl_mask: int = 0
     flip_mask: int = 0
     mat: Optional[np.ndarray] = None
     mat_fn: Optional[Callable] = None
     diag: Optional[np.ndarray] = None
     diag_fn: Optional[Callable] = None
-    kraus: Optional[list] = None   # kept for the fusion pass's field protocol
+    kraus: Optional[object] = None  # kind "kraus": operator list, or a
+    #                                 params -> operators callable
 
     @property
     def is_static(self) -> bool:
-        return self.mat_fn is None and self.diag_fn is None
+        return (self.mat_fn is None and self.diag_fn is None
+                and not callable(self.kraus))
 
 
 def _angle(params: dict, a: Angle) -> float:
@@ -276,6 +293,157 @@ class Circuit:
         return self.diagonal(np.exp(-1j * half * (1.0 - 2.0 * parity)),
                              qubits)
 
+    # -- channels (trajectory programs) ------------------------------------
+
+    def kraus(self, ops, targets: Sequence[int]) -> "Circuit":
+        """Record a Kraus channel ``rho -> sum_k K_k rho K_k^dag`` on
+        ``targets`` (bit ``j`` of each operator's index addresses
+        ``targets[j]``). :meth:`compile_trajectories` runs it
+        stochastically on state vectors, validating CPTP at the env's
+        precision; a state-vector :meth:`compile` rejects it.
+
+        ``ops`` may be a callable ``params_dict -> [K_k]`` for a
+        PARAMETERIZED channel: the operators are built from the bound
+        strengths at run time, and no CPTP validation is possible for a
+        function."""
+        targets = tuple(int(t) for t in targets)
+        self._check(targets)
+        if callable(ops):
+            self.ops.append(_Op("kraus", targets, kraus=ops))
+            return self
+        self.ops.append(_Op("kraus", targets, kraus=[
+            np.asarray(m, dtype=np.complex128) for m in ops]))
+        return self
+
+    def dephase(self, q: int, prob: Angle) -> "Circuit":
+        """rho -> (1-p) rho + p Z rho Z (mixDephasing semantics; max prob
+        1/2, ``QuEST_validation.c:108``). A Param ``prob`` binds at run
+        time and bypasses the cap; values outside [0, 1] give NaN planes."""
+        if isinstance(prob, Param):
+            nm = self._register_angle(prob).name
+            return self.kraus(
+                lambda p, nm=nm: chan.dephasing_kraus_traceable(p[nm]), (q,))
+        val.validate_prob(prob, "Circuit.dephase", 0.5,
+                          code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPHASE_PROB)
+        return self.kraus([np.sqrt(1 - prob) * np.eye(2),
+                           np.sqrt(prob) * mats.pauli_z()], (q,))
+
+    def depolarise(self, q: int, prob: Angle) -> "Circuit":
+        """Homogeneous depolarising (mixDepolarising semantics; max 3/4).
+        A Param ``prob`` binds at run time (see :meth:`dephase`)."""
+        if isinstance(prob, Param):
+            nm = self._register_angle(prob).name
+            return self.kraus(
+                lambda p, nm=nm: chan.depolarising_kraus_traceable(p[nm]),
+                (q,))
+        val.validate_prob(prob, "Circuit.depolarise", 0.75,
+                          code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPOL_PROB)
+        return self.kraus(chan.depolarising_kraus(prob), (q,))
+
+    def damp(self, q: int, prob: Angle) -> "Circuit":
+        """Amplitude damping at rate ``prob`` (mixDamping semantics). A
+        Param ``prob`` binds at run time (see :meth:`dephase`)."""
+        if isinstance(prob, Param):
+            nm = self._register_angle(prob).name
+            return self.kraus(
+                lambda p, nm=nm: chan.damping_kraus_traceable(p[nm]), (q,))
+        val.validate_prob(prob, "Circuit.damp", 1.0)
+        return self.kraus(chan.damping_kraus(prob), (q,))
+
+    def pauli_channel(self, q: int, prob_x: Angle, prob_y: Angle,
+                      prob_z: Angle) -> "Circuit":
+        """rho -> (1-px-py-pz) rho + px X rho X + py Y rho Y + pz Z rho Z
+        (mixPauli semantics). Any probability may be a Param; the static
+        components (and their sum) validate at record time."""
+        probs = (prob_x, prob_y, prob_z)
+        if any(isinstance(p, Param) for p in probs):
+            # validate every static piece BEFORE registering any Param: a
+            # rejected call must leave no orphan parameter names
+            statics = [float(p) for p in probs if not isinstance(p, Param)]
+            for v in statics:
+                val.validate_prob(v, "Circuit.pauli_channel", 1.0)
+            val.validate_prob_sum(sum(statics), "Circuit.pauli_channel")
+            val.validate_partial_pauli_probs(statics,
+                                             "Circuit.pauli_channel")
+            vals = []
+            for p in probs:
+                if isinstance(p, Param):
+                    nm = self._register_angle(p).name
+                    vals.append(lambda pd, nm=nm: pd[nm])
+                else:
+                    vals.append(lambda pd, v=float(p): v)
+            return self.kraus(
+                lambda pd, vs=tuple(vals): chan.pauli_kraus_traceable(
+                    vs[0](pd), vs[1](pd), vs[2](pd)), (q,))
+        val.validate_one_qubit_pauli_probs(prob_x, prob_y, prob_z,
+                                           "Circuit.pauli_channel")
+        return self.kraus(chan.pauli_kraus(prob_x, prob_y, prob_z), (q,))
+
+    def two_qubit_dephase(self, q1: int, q2: int, prob: float) -> "Circuit":
+        """rho -> (1-p) rho + p/3 (Z1 rho Z1 + Z2 rho Z2 + Z1 Z2 rho Z1 Z2)
+        (mixTwoQubitDephasing semantics; max 3/4)."""
+        val.validate_prob(prob, "Circuit.two_qubit_dephase", 0.75,
+                          code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPHASE_PROB)
+        return self.kraus(chan.two_qubit_dephasing_kraus(prob), (q1, q2))
+
+    def two_qubit_depolarise(self, q1: int, q2: int,
+                             prob: float) -> "Circuit":
+        """Homogeneous two-qubit depolarising (mixTwoQubitDepolarising
+        semantics; max 15/16)."""
+        val.validate_prob(prob, "Circuit.two_qubit_depolarise", 15.0 / 16.0,
+                          code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPOL_PROB)
+        return self.kraus(chan.two_qubit_depolarising_kraus(prob), (q1, q2))
+
+    def mid_measure(self, q: int) -> "Circuit":
+        """A mid-circuit measurement of qubit ``q`` as the projector channel
+        ``{|0><0|, |1><1|}``: through :meth:`compile_trajectories` each
+        trajectory draws a definite outcome with its physical probability
+        and collapses."""
+        p0 = np.zeros((2, 2), dtype=np.complex128)
+        p1 = np.zeros((2, 2), dtype=np.complex128)
+        p0[0, 0] = 1.0
+        p1[1, 1] = 1.0
+        return self.kraus([p0, p1], (q,))
+
+    def with_noise(self, p1: Angle = 0.0, p2: Angle = 0.0,
+                   damping: Angle = 0.0) -> "Circuit":
+        """A copy with a uniform noise model: after every gate, each
+        touched qubit (targets and controls) gets depolarising noise —
+        ``p1`` after single-qubit gates, ``p2`` after multi-qubit ones —
+        then amplitude damping at rate ``damping``. Existing channels are
+        kept and not re-noised. Rates may be Params, shared by every
+        inserted channel."""
+        for name, p, cap in (("p1", p1, 0.75), ("p2", p2, 0.75),
+                             ("damping", damping, 1.0)):
+            if not isinstance(p, Param):
+                val.validate_prob(p, f"Circuit.with_noise({name})", cap)
+        out = Circuit(self.num_qubits)
+        out._params = list(self._params)
+        for p in (p1, p2, damping):
+            if isinstance(p, Param):
+                # a rate whose trigger never fires is still a declared
+                # parameter of the model
+                out.parameter(p.name)
+
+        def on(p):
+            return isinstance(p, Param) or p > 0.0
+
+        for op in self.ops:
+            out.ops.append(op)
+            if op.kind == "kraus":
+                continue
+            touched = sorted(
+                set(op.targets)
+                | {q for q in range(self.num_qubits)
+                   if (op.ctrl_mask >> q) & 1})
+            p = p1 if len(touched) == 1 else p2
+            for q in touched:
+                if on(p):
+                    out.depolarise(q, p)
+                if on(damping):
+                    out.damp(q, damping)
+        return out
+
     # -- compilation -------------------------------------------------------
 
     def compile(self, env: QuESTEnv, fuse: bool = True, layers: bool = True,
@@ -292,6 +460,30 @@ class Circuit:
         return CompiledCircuit(self, env, fuse=fuse, layers=layers,
                                supergate_k=supergate_k, fusion=fusion,
                                mxu=mxu)
+
+    def compile_trajectories(self, env: QuESTEnv) -> "TrajectoryProgram":
+        """Lower to a quantum-trajectory program: channels applied
+        stochastically to STATE VECTORS (Monte-Carlo wavefunction), so a
+        noisy n-qubit circuit costs 2^n amplitudes per trajectory
+        (``ops/trajectories.py``). Static gate runs go through the batched
+        layer kernel and channels on lane qubits through the fused Kraus
+        kernel on the card; on the CPU their plain versions run."""
+        from .ops.trajectories import TrajectoryProgram
+        return TrajectoryProgram(self, env)
+
+
+def _bind_rows(fn: Callable, names: Sequence[str], pm: np.ndarray):
+    """Evaluate a ``params -> operator`` function for the rows of a ``(B,
+    P)`` host parameter matrix: one evaluation, shared by the batch, when
+    every row binds the same values, else one per row stacked into ``(B,
+    ...)`` (moved to the device once by the gate engine)."""
+    def bind(row):
+        return np.asarray(fn({nm: float(row[i])
+                              for i, nm in enumerate(names)}),
+                          dtype=np.complex128)
+    if pm.shape[0] == 1 or not (pm != pm[0]).any():
+        return bind(pm[0])
+    return np.stack([bind(row) for row in pm])
 
 
 def _peephole_fused(ops: Sequence[_Op], diag_row_cap: int = -1) -> list:
@@ -547,6 +739,16 @@ class _LayerAccum:
         return True
 
 
+def _collect_layers(ops: list, num_qubits: int, tile_rows: int,
+                    min_members: int = 2, mxu=None) -> list:
+    """Ops-level view of the layer peephole (identity placement): runs of
+    eligible static gates become LayerOps; channels flush the run."""
+    plan = plan_layout(ops, num_qubits)
+    items, new_ops = _collect_layers_plan(plan.items, ops, num_qubits,
+                                          tile_rows, min_members, mxu=mxu)
+    return [new_ops[item[1]] for item in items]
+
+
 def _tile_hi(num_local: int, tile_rows: int) -> int:
     total_rows = (1 << num_local) // lk.LANES
     return lk.max_mid_qubit(min(tile_rows, max(total_rows, 1)))
@@ -579,6 +781,7 @@ def _collect_layers_plan(items: list, ops: list, num_local: int,
             acc.src_items.append(item)
             continue
         # rejections are op-intrinsic: no fresh accumulator can take it
+        # (a channel is rejected by kind, so it flushes the run)
         flush()
         out.append(item)
     flush()
@@ -646,6 +849,11 @@ class CompiledCircuit:
                  mxu: Optional[bool] = None):
         from .core.fusion import fuse_ops, resolve_fusion_k
 
+        if any(op.kind == "kraus" for op in circuit.ops):
+            raise ValueError(
+                "circuit contains Kraus channels; a state-vector compile "
+                "cannot run them — use Circuit.compile_trajectories (the "
+                "density compile is not ported yet)")
         self.circuit = circuit
         self.env = env
         self.num_qubits = n = circuit.num_qubits
@@ -731,6 +939,146 @@ class CompiledCircuit:
             raise ValueError("register precision differs from the "
                              "circuit's compile-time environment")
         self.apply(qureg.state, params)
+
+
+    # -- batched ensemble engine --------------------------------------------
+    #
+    # Thousands of parameter bindings of ONE circuit (VQE energy surfaces,
+    # shot batches) run as a (B, 2, 2^n) batch through the same plan: a
+    # layer is one launch of the batched layer kernel for all B states,
+    # every other op one batched call of the gate engine, with a parameter
+    # gate's matrix bound on the host once per row and moved to the device
+    # once per op per call.
+
+    def _batched_segments(self):
+        """The plan's items split into sequential segments and batched
+        layer steps: a list of ``("seq", items)`` / ``("layer",
+        op_index)`` entries."""
+        segs: list = []
+        cur: list = []
+        for item in self.plan.items:
+            if self._ops[item[1]].kind == "layer":
+                if cur:
+                    segs.append(("seq", tuple(cur)))
+                    cur = []
+                segs.append(("layer", item[1]))
+            else:
+                cur.append(item)
+        if cur:
+            segs.append(("seq", tuple(cur)))
+        return segs
+
+    def _run_plan_batched(self, states: torch.Tensor,
+                          pm: np.ndarray) -> torch.Tensor:
+        """Walk the plan over ``(B, 2, 2^n)`` states, IN PLACE, row ``b``
+        binding parameter row ``pm[b]``."""
+        n = self.num_qubits
+        names = self.param_names
+        for kind, payload in self._batched_segments():
+            if kind == "layer":
+                lk.apply_layer_batched(states, n, self._ops[payload])
+                continue
+            for _, i, phys_targets, cmask, fmask, axis_order in payload:
+                op = self._ops[i]
+                if op.kind == "u":
+                    u = op.mat if op.mat_fn is None \
+                        else _bind_rows(op.mat_fn, names, pm)
+                    apply_unitary(states, n, u, phys_targets, cmask, fmask)
+                    continue
+                d = np.asarray(op.diag) if op.diag_fn is None \
+                    else _bind_rows(op.diag_fn, names, pm)
+                lead = d.ndim - len(phys_targets)
+                d = np.transpose(d, tuple(range(lead)) + tuple(
+                    lead + a for a in axis_order))
+                apply_diagonal(states, n, phys_targets, d)
+        return states
+
+    def _validated_param_matrix(self, param_matrix) -> np.ndarray:
+        """The ``(B, P)`` parameter matrix as host float64, validated."""
+        pm = np.asarray(param_matrix, dtype=np.float64)
+        if pm.ndim != 2 or pm.shape[1] != len(self.param_names) \
+                or pm.shape[0] < 1:
+            raise ValueError(
+                f"param_matrix must be (batch, {len(self.param_names)}); "
+                f"got {pm.shape}")
+        return pm
+
+    def _pauli_operands(self, hamiltonian):
+        """Validate ``(pauli_terms, coeffs)`` and encode it as the mask
+        operands of :func:`quest_tpu_torch.ops.reductions.
+        pauli_sum_operands`: ``(xm, ym, zm, coeffs)``."""
+        terms, coeffs = red.validated_pauli_terms(*hamiltonian,
+                                                  self.num_qubits)
+        return red.pauli_terms_operands(terms, coeffs, self.num_qubits)
+
+    def _start_states(self, batch: int, state_f) -> torch.Tensor:
+        """The ``(B, 2, 2^n)`` batch a sweep runs on: |0..0> or a shared
+        ``(2, 2^n)`` start state copied per row, or the caller's own
+        ``(B, 2, 2^n)`` batch (used in place when it already lies on the
+        env's device in its dtype)."""
+        n = self.num_qubits
+        dtype, device = self.env.precision.real_dtype, self.env.device
+        if state_f is None:
+            states = torch.zeros((batch, 2, 1 << n), dtype=dtype,
+                                 device=device)
+            states[:, 0, 0] = 1.0
+            return states
+        state_f = torch.as_tensor(state_f)
+        if state_f.dim() == 2:
+            if tuple(state_f.shape) != (2, 1 << n):
+                raise ValueError(f"shared state_f must be (2, {1 << n}); "
+                                 f"got {tuple(state_f.shape)}")
+            return state_f.to(device=device, dtype=dtype).expand(
+                batch, 2, 1 << n).contiguous()
+        if tuple(state_f.shape) != (batch, 2, 1 << n):
+            raise ValueError(
+                f"state_f must be shared (2, {1 << n}) planes or an owned "
+                f"({batch}, 2, {1 << n}) batch; got {tuple(state_f.shape)}")
+        return state_f.to(device=device, dtype=dtype).contiguous()
+
+    def sweep(self, param_matrix, state_f=None) -> torch.Tensor:
+        """Run a whole batch of parameter vectors through the plan.
+
+        ``param_matrix``: ``(B, len(param_names))``. ``state_f``: shared
+        ``(2, 2^n)`` planes every run starts from (default |0..0>), or an
+        OWNED ``(B, 2, 2^n)`` batch, which is updated IN PLACE (the port's
+        answer to donation) when it lies on the env's device in its dtype.
+        Returns the ``(B, 2, 2^n)`` planes."""
+        pm = self._validated_param_matrix(param_matrix)
+        states = self._start_states(pm.shape[0], state_f)
+        return self._run_plan_batched(states, pm)
+
+    def expectation_sweep(self, param_matrix, hamiltonian,
+                          state_f=None) -> np.ndarray:
+        """``(B,)`` energies ``<H>(params_b)`` with one device-to-host
+        transfer. ``hamiltonian``: ``(pauli_terms, coeffs)``, terms as
+        ``(qubit, code)`` pairs (codes 1=X 2=Y 3=Z). Each point runs the
+        plan from |0..0> (or the shared ``state_f``) and the Pauli sum is
+        reduced on the device, term after term (``ops/reductions.py``)."""
+        xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
+        pm = self._validated_param_matrix(param_matrix)
+        if state_f is not None and tuple(torch.as_tensor(
+                state_f).shape) != (2, 1 << self.num_qubits):
+            raise ValueError(
+                f"expectation_sweep state_f must be shared (2, "
+                f"{1 << self.num_qubits}) planes (run batched planes "
+                "through sweep(), then reduce)")
+        states = self._run_plan_batched(
+            self._start_states(pm.shape[0], state_f), pm)
+        vals = red.pauli_sum_total_sv(states, xm, ym, zm, coeffs)
+        return vals.cpu().numpy().astype(np.float64)
+
+    def sample_sweep(self, param_matrix, num_shots: int,
+                     generator: Optional[torch.Generator] = None):
+        """Shot batches over a parameter sweep: run the batch, then draw
+        ``num_shots`` basis outcomes per point from ``|amp|^2``
+        (:func:`quest_tpu_torch.parallel.sampling.sample_batched`, uniforms
+        from ``generator``, default the env's). Returns ``(indices,
+        totals)``: int64 ``(B, num_shots)`` and the ``(B,)`` norms."""
+        from .parallel.sampling import sample_batched
+        planes = self.sweep(param_matrix)
+        return sample_batched(planes, generator or self.env.generator,
+                              int(num_shots))
 
     def __repr__(self) -> str:
         return (f"CompiledCircuit({self.num_qubits} qubits, "

@@ -26,6 +26,13 @@ calls, as the JAX package leaves them to XLA.
 
 Diagonal operators never pair amplitudes; :func:`apply_diagonal` is a
 broadcast complex multiply, in place.
+
+Both functions also take a BATCH of states, ``(B, 2, 2^N)`` planes: the
+batched ensemble engine's form of the JAX package's ``jax.vmap`` over a
+plan segment (``circuits.py:2600-2623``). The operator is then shared,
+``(d, d)``, or one per state, ``(B, d, d)`` (a bound parameter per row);
+the batch is a leading tensor dimension of every view and matmul, never a
+Python loop, and the two fast paths stay permute-free.
 """
 
 from __future__ import annotations
@@ -109,67 +116,101 @@ def permutation_to_sorted_desc(targets: Sequence[int]) -> np.ndarray:
     return perm
 
 
-def _real_parts(u: np.ndarray, planes: torch.Tensor):
+def _operator(u, planes: torch.Tensor):
+    """``(re, im)`` of a ``(d, d)`` or ``(B, d, d)`` operator — numpy, or a
+    (complex) tensor already on the device — in the planes' dtype and on
+    their device."""
+    if isinstance(u, torch.Tensor):
+        return (u.real.to(planes.dtype, copy=False),
+                u.imag.to(planes.dtype, copy=False)) if u.is_complex() \
+            else (u.to(planes.dtype), torch.zeros_like(u, dtype=planes.dtype))
     u = np.asarray(u, dtype=np.complex128)
-    return (torch.as_tensor(np.ascontiguousarray(u.real), dtype=planes.dtype,
-                            device=planes.device),
-            torch.as_tensor(np.ascontiguousarray(u.imag), dtype=planes.dtype,
-                            device=planes.device))
+    return tuple(torch.as_tensor(np.ascontiguousarray(p), dtype=planes.dtype,
+                                 device=planes.device)
+                 for p in (u.real, u.imag))
 
 
-def _block_operator(u: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
-    """The real operator of ``u`` over the stacked (plane, index) axis."""
-    u = np.asarray(u, dtype=np.complex128)
-    b = np.block([[u.real, -u.imag], [u.imag, u.real]])
-    return torch.as_tensor(b, dtype=planes.dtype, device=planes.device)
+def _permuted(ur, ui, perm: np.ndarray):
+    """Re-index both operator axes by ``perm`` (``u[perm][:, perm]``)."""
+    idx = torch.as_tensor(perm, device=ur.device)
+    return (ur.index_select(-2, idx).index_select(-1, idx),
+            ui.index_select(-2, idx).index_select(-1, idx))
+
+
+def _as_batch(planes: torch.Tensor, num_qubits: int):
+    """``(B, 2, 2^N)`` view of one register's ``(2, 2^N)`` planes or of a
+    batch."""
+    if planes.dim() == 2:
+        planes = planes.unsqueeze(0)
+    if planes.dim() != 3 or tuple(planes.shape[1:]) != (2, 1 << num_qubits):
+        raise ValueError(f"planes have shape {tuple(planes.shape)}; expected "
+                         f"(2, {1 << num_qubits}) or (B, 2, "
+                         f"{1 << num_qubits})")
+    return planes
 
 
 def apply_unitary(planes: torch.Tensor, num_qubits: int, u,
                   targets: Sequence[int], ctrl_mask: int = 0,
                   flip_mask: int = 0) -> torch.Tensor:
     """Apply a ``2^k x 2^k`` operator to target qubits, IN PLACE on the
-    ``(2, 2^N)`` planes (which are also returned).
+    ``(2, 2^N)`` planes or ``(B, 2, 2^N)`` batch (which is also returned).
 
-    ``u`` is a host matrix (bit ``j`` of its index addresses
-    ``targets[j]``, the reference's ComplexMatrixN convention).
-    ``ctrl_mask`` selects control qubits; a control conditions on bit
-    value 1 unless its bit is also set in ``flip_mask`` (then on 0) — the
-    mask semantics of ``statevec_multiControlledUnitary``
-    (``QuEST_cpu.c:2146``).
+    ``u`` is a ``(d, d)`` operator shared by the batch or a ``(B, d, d)``
+    stack with one per state, as numpy or as a (complex) device tensor
+    (bit ``j`` of its index addresses ``targets[j]``, the reference's
+    ComplexMatrixN convention). ``ctrl_mask`` selects control qubits; a
+    control conditions on bit value 1 unless its bit is also set in
+    ``flip_mask`` (then on 0) — the mask semantics of
+    ``statevec_multiControlledUnitary`` (``QuEST_cpu.c:2146``).
     """
+    x = _as_batch(planes, num_qubits)
+    batch = x.shape[0]
     targets = tuple(int(t) for t in targets)
     k = len(targets)
     d = 1 << k
-    u = np.asarray(u, dtype=np.complex128)
+    ur, ui = _operator(u, x)
+    if ur.dim() == 3 and ur.shape[0] != batch:
+        raise ValueError(f"{ur.shape[0]} operators for a batch of {batch}")
+    per_row = ur.dim() == 3
     controls = tuple(q for q in range(num_qubits) if (ctrl_mask >> q) & 1)
 
     # --- no-permute fast paths (uncontrolled, contiguous targets) --------
     if not controls and set(targets) == set(range(k)):
-        # lowest k qubits: right-matmul on the (rest, 2^k) view
+        # lowest k qubits: right-matmul on the (B, rest, 2^k) view
         if targets != tuple(range(k)):
-            perm_asc = permutation_to_order(targets, tuple(range(k)))
-            u = u[perm_asc][:, perm_asc]
-        ur_t, ui_t = _real_parts(u.T, planes)
-        x = planes.view(2, -1, d)
-        re, im = x[0], x[1]
-        new_re = torch.matmul(re, ur_t)
-        new_re.addmm_(im, ui_t, alpha=-1.0)
-        new_im = torch.matmul(re, ui_t)
-        new_im.addmm_(im, ur_t)
+            ur, ui = _permuted(ur, ui,
+                               permutation_to_order(targets, tuple(range(k))))
+        ur_t, ui_t = ur.transpose(-1, -2), ui.transpose(-1, -2)
+        v = x.view(batch, 2, -1, d)
+        re, im = v[:, 0], v[:, 1]
+        if per_row:
+            new_re = torch.bmm(re, ur_t)
+            new_re.baddbmm_(im, ui_t, alpha=-1.0)
+            new_im = torch.bmm(re, ui_t)
+            new_im.baddbmm_(im, ur_t)
+        else:
+            # one (B * rest, 2^k) matrix (a view when B == 1)
+            re2, im2 = re.reshape(-1, d), im.reshape(-1, d)
+            new_re = torch.matmul(re2, ur_t)
+            new_re.addmm_(im2, ui_t, alpha=-1.0)
+            new_im = torch.matmul(re2, ui_t)
+            new_im.addmm_(im2, ur_t)
+            new_re, new_im = new_re.view(re.shape), new_im.view(im.shape)
         re.copy_(new_re)
         im.copy_(new_im)
         return planes
     lo = min(targets) if targets else 0
     if not controls and set(targets) == set(range(lo, lo + k)):
         # contiguous block [lo, lo+k): batched left-matmul on the
-        # (pre, 2^k, post) view — bit i of the middle index is qubit lo+i
+        # (B, pre, 2^k, post) view — bit i of the middle index is qubit
+        # lo+i; a per-state operator broadcasts over pre as (B, 1, d, d)
         order = tuple(range(lo, lo + k))
         if targets != order:
-            perm_o = permutation_to_order(targets, order)
-            u = u[perm_o][:, perm_o]
-        ur, ui = _real_parts(u, planes)
-        x = planes.view(2, -1, d, 1 << lo)
-        re, im = x[0], x[1]
+            ur, ui = _permuted(ur, ui, permutation_to_order(targets, order))
+        if per_row:
+            ur, ui = ur.unsqueeze(1), ui.unsqueeze(1)
+        v = x.view(batch, 2, -1, d, 1 << lo)
+        re, im = v[:, 0], v[:, 1]
         new_re = torch.matmul(ur, re)
         new_re.sub_(torch.matmul(ui, im))
         new_im = torch.matmul(ui, re)
@@ -179,44 +220,55 @@ def apply_unitary(planes: torch.Tensor, num_qubits: int, u,
         return planes
 
     pos_desc = tuple(sorted(targets + controls, reverse=True))
-    # axis 0 is the plane axis; each plane splits as split_shape
-    shape = (2,) + split_shape(num_qubits, pos_desc)
-    axis_of = {p: 2 * i + 2 for i, p in enumerate(pos_desc)}
+    # axes 0 and 1 are the batch and plane axes; each plane splits as
+    # split_shape
+    shape = (batch, 2) + split_shape(num_qubits, pos_desc)
+    axis_of = {p: 2 * i + 3 for i, p in enumerate(pos_desc)}
     ctrl_axes = [axis_of[c] for c in controls]
     targ_axes = [axis_of[t] for t in sorted(targets, reverse=True)]
     moved = set(ctrl_axes) | set(targ_axes)
-    rest_axes = [ax for ax in range(1, len(shape)) if ax not in moved]
-    perm = ctrl_axes + [0] + targ_axes + rest_axes
+    rest_axes = [ax for ax in range(2, len(shape)) if ax not in moved]
+    perm = ctrl_axes + [0, 1] + targ_axes + rest_axes
 
-    arr = planes.view(shape).permute(perm)
+    arr = x.view(shape).permute(perm)
     ctrl_idx = tuple(0 if (flip_mask >> c) & 1 else 1 for c in controls)
     sub = arr[ctrl_idx] if controls else arr
 
     row_perm = permutation_to_sorted_desc(targets)
     if not np.array_equal(row_perm, np.arange(d)):
-        u = u[row_perm][:, row_perm]
-    new = torch.matmul(_block_operator(u, planes), sub.reshape(2 * d, -1))
+        ur, ui = _permuted(ur, ui, row_perm)
+    block = torch.cat([torch.cat([ur, -ui], -1), torch.cat([ui, ur], -1)],
+                      -2)
+    new = torch.matmul(block, sub.reshape(batch, 2 * d, -1))
     sub.copy_(new.view(sub.shape))
     return planes
 
 
 def apply_diagonal(planes: torch.Tensor, num_qubits: int,
                    qubits: Sequence[int], diag_tensor) -> torch.Tensor:
-    """Multiply amplitudes by a per-bit-pattern factor, IN PLACE.
+    """Multiply amplitudes by a per-bit-pattern factor, IN PLACE on the
+    ``(2, 2^N)`` planes or ``(B, 2, 2^N)`` batch.
 
-    ``diag_tensor`` has shape ``(2,)*k``; axis ``i`` is indexed by the bit
-    of the i-th qubit of ``qubits`` *sorted descending*. One pass, no
-    amplitude pairing — every phase-family gate.
+    ``diag_tensor`` has shape ``(2,)*k`` (shared) or ``(B,) + (2,)*k`` (one
+    per state); axis ``i`` of the factor is indexed by the bit of the i-th
+    qubit of ``qubits`` *sorted descending*. One pass, no amplitude
+    pairing — every phase-family gate.
     """
+    x = _as_batch(planes, num_qubits)
+    batch = x.shape[0]
     pos_desc = tuple(sorted((int(q) for q in qubits), reverse=True))
+    k = len(pos_desc)
     shape = split_shape(num_qubits, pos_desc)
-    bshape = [1] * len(shape)
-    for i in range(len(pos_desc)):
-        bshape[2 * i + 1] = 2
-    d = np.asarray(diag_tensor, dtype=np.complex128).reshape(bshape)
-    dr, di = _real_parts(d, planes)
-    re = planes[0].view(shape)
-    im = planes[1].view(shape)
+    dr, di = _operator(diag_tensor, x)
+    lead = dr.shape[0] if dr.dim() == k + 1 else 1
+    if lead not in (1, batch):
+        raise ValueError(f"{lead} diagonal factors for a batch of {batch}")
+    bshape = [lead] + [1] * len(shape)
+    for i in range(k):
+        bshape[2 * i + 2] = 2
+    dr, di = dr.reshape(bshape), di.reshape(bshape)
+    re = x[:, 0].view((batch,) + shape)
+    im = x[:, 1].view((batch,) + shape)
     t = re * di
     re.mul_(dr).sub_(im * di)
     im.mul_(dr).add_(t)

@@ -2,9 +2,12 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // quest_tpu/ops/pallas_kernels.py `_layer_kernel`, reached through
-// `apply_layer`: one launch applies a whole fused layer (an ordered list of
-// stages, see quest_tpu_torch/ops/layer_kernel.py) to a state held as split
-// re/im planes, each viewed as (rows, 128).
+// `apply_layer` and, with its batch grid, `apply_layer_batched`: one launch
+// applies a whole fused layer (an ordered list of stages, see
+// quest_tpu_torch/ops/layer_kernel.py) to a batch of B states, each held as
+// split re/im planes viewed as (rows, 128). State b's re plane starts
+// b * state_stride elements after state 0's, its im plane likewise; the
+// unbatched entry is the B = 1 case.
 //
 // What bounds it on the card. A layer moves 2 planes x (read + write) x
 // itemsize x 2^n bytes of HBM, however many gates it holds: 16 B per
@@ -37,11 +40,18 @@
 // the plane dtype: each is its real part followed by its imaginary part.
 //   DENSE   (lane, clane, rowmxu): j row bits packed with the lanes into a
 //           dim = 128 << j axis; pool holds M^T (dim x dim); clane's row
-//           condition is on the global row index.
+//           condition is on the row index within the state.
 //   ROWK    (row, rowk): dense 2^k x 2^k gate on k <= 3 row bits inside
 //           the tile, under lane and row controls; pool holds U.
 //   ROWDIAG (rowdiag): factor table (2^k, 128) picked by k <= 3 bits of
-//           the global row index.
+//           the row index within the state.
+//
+// Batch: block x = b * tiles_per_state + tile, so the grid never meets the
+// 65535 cap of gridDim.y. Row coordinates stay per state: base_row is the
+// tile's first row inside its own state, and every row mask, row want and
+// rowdiag table addresses rows of that state, as in the TPU kernel's
+// batched form (pallas_kernels.py:302-307). One descriptor and operand
+// pool serve the whole batch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o layer_kernel.so layer_kernel.cu
@@ -50,114 +60,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_stage.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using quest::bit_at;
+using quest::combo_offset;
+using quest::insert_zeros;
+using quest::kLanes;
+using quest::kThreads;
+
 constexpr int kDescWidth = 8;
 
 enum StageTag { kDense = 0, kRowK = 1, kRowDiag = 2 };
-
-__device__ __forceinline__ int bit_at(long long packed, int i) {
-  return static_cast<int>((packed >> (8 * i)) & 0xff);
-}
-
-// Spread the bits of g over the positions that are not in the (ascending)
-// packed bit list, leaving zeros at the listed positions.
-__device__ __forceinline__ int insert_zeros(int g, long long packed, int k) {
-  for (int i = 0; i < k; ++i) {
-    const int low = (1 << bit_at(packed, i)) - 1;
-    g = ((g & ~low) << 1) | (g & low);
-  }
-  return g;
-}
-
-// Row offset of combination m of the listed row bits (bit t of m sets
-// row bit bits[t]).
-__device__ __forceinline__ int combo_offset(int m, long long packed, int k) {
-  int r = 0;
-  for (int t = 0; t < k; ++t) {
-    if ((m >> t) & 1) r |= 1 << bit_at(packed, t);
-  }
-  return r;
-}
-
-// out[e'] = sum_e M[e'][e] v[e] over the packed (row bits, lanes) axis of
-// each group; groups of a warp pass are disjoint, and each warp reads all
-// inputs of its groups before it writes any output.
-template <typename T, int J>
-__device__ void stage_dense(T* sre, T* sim, int tile_rows, long long base_row,
-                            long long packed, const T* __restrict__ op_re,
-                            const T* __restrict__ op_im, long long row_mask,
-                            long long row_want) {
-  constexpr int kDim = kLanes << J;
-  constexpr int kOut = kDim / 32;  // outputs per thread per group
-  constexpr int kGroups = 4 >> J;  // groups per warp pass
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int groups = tile_rows >> J;
-
-  for (int g0 = warp * kGroups; g0 < groups; g0 += kWarps * kGroups) {
-    int row0[kGroups];
-    bool active[kGroups];
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-      active[n] = g0 + n < groups;
-      row0[n] = active[n] ? insert_zeros(g0 + n, packed, J) : 0;
-    }
-    T acc_re[kGroups][kOut];
-    T acc_im[kGroups][kOut];
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        acc_re[n][i] = T(0);
-        acc_im[n][i] = T(0);
-      }
-    }
-#pragma unroll 2
-    for (int e = 0; e < kDim; ++e) {
-      const int roff = combo_offset(e >> 7, packed, J);
-      const int l = e & (kLanes - 1);
-      T xr[kGroups], xi[kGroups];
-#pragma unroll
-      for (int n = 0; n < kGroups; ++n) {
-        const int idx = ((row0[n] | roff) << 7) | l;
-        xr[n] = active[n] ? sre[idx] : T(0);
-        xi[n] = active[n] ? sim[idx] : T(0);
-      }
-      const T* wr = op_re + static_cast<size_t>(e) * kDim + lane;
-      const T* wi = op_im + static_cast<size_t>(e) * kDim + lane;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        const T a = __ldg(wr + 32 * i);
-        const T b = __ldg(wi + 32 * i);
-#pragma unroll
-        for (int n = 0; n < kGroups; ++n) {
-          acc_re[n][i] = fma(xr[n], a, fma(-xi[n], b, acc_re[n][i]));
-          acc_im[n][i] = fma(xr[n], b, fma(xi[n], a, acc_im[n][i]));
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-      if (!active[n]) continue;
-      if (row_mask && ((base_row + row0[n]) & row_mask) != row_want) continue;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        // output column o = lane + 32 i lies in row combination i / 4
-        const int o = lane + 32 * i;
-        const int idx = ((row0[n] | combo_offset(i >> 2, packed, J)) << 7)
-                        | (o & (kLanes - 1));
-        sre[idx] = acc_re[n][i];
-        sim[idx] = acc_im[n][i];
-      }
-    }
-    __syncwarp();
-  }
-}
 
 // Dense 2^K x 2^K gate on K row bits inside the tile; one thread owns one
 // (group, lane) item and its 2^K amplitudes.
@@ -203,7 +118,7 @@ __device__ void stage_rowk(T* sre, T* sim, int tile_rows, long long base_row,
 }
 
 // Per-amplitude factor from a (2^k, 128) table row picked by k bits of the
-// global row index (any row bit, inside the tile or not).
+// state's row index (any row bit, inside the tile or not).
 template <typename T>
 __device__ void stage_rowdiag(T* sre, T* sim, int tile_rows, long long base_row,
                               int k, long long packed,
@@ -229,24 +144,18 @@ __device__ void stage_rowdiag(T* sre, T* sim, int tile_rows, long long base_row,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     layer_kernel(T* re, T* im, const long long* __restrict__ desc,
-                 int n_stages, const T* __restrict__ pool, int tile_rows) {
+                 int n_stages, const T* __restrict__ pool, int tile_rows,
+                 long long tiles_per_state, long long state_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sre = reinterpret_cast<T*>(smem);
   T* sim = sre + tile_rows * kLanes;
-  const long long base_row = static_cast<long long>(blockIdx.x) * tile_rows;
-  const size_t first = static_cast<size_t>(base_row) * kLanes;
+  const long long state = blockIdx.x / tiles_per_state;
+  const long long base_row = (blockIdx.x % tiles_per_state) * tile_rows;
+  const size_t first = static_cast<size_t>(state * state_stride
+                                           + base_row * kLanes);
 
-  // one read of the tile: 16-byte vectors, neighbouring threads on
-  // neighbouring addresses
-  const int nvec = tile_rows * kLanes * static_cast<int>(sizeof(T)) / 16;
-  const uint4* gre = reinterpret_cast<const uint4*>(re + first);
-  const uint4* gim = reinterpret_cast<const uint4*>(im + first);
-  uint4* vre = reinterpret_cast<uint4*>(sre);
-  uint4* vim = reinterpret_cast<uint4*>(sim);
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    vre[i] = gre[i];
-    vim[i] = gim[i];
-  }
+  // one read of the tile
+  quest::copy_tile(sre, sim, re + first, im + first, tile_rows);
   __syncthreads();
 
   for (int s = 0; s < n_stages; ++s) {
@@ -263,14 +172,14 @@ __global__ void __launch_bounds__(kThreads)
       const size_t dim = static_cast<size_t>(kLanes) << kj;
       const T* op_im = op + dim * dim;
       if (kj == 0) {
-        stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op, op_im,
-                          row_mask, row_want);
+        quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op,
+                                 op_im, row_mask, row_want, T(1));
       } else if (kj == 1) {
-        stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op, op_im,
-                          row_mask, row_want);
+        quest::stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op,
+                                 op_im, row_mask, row_want, T(1));
       } else {
-        stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op, op_im,
-                          row_mask, row_want);
+        quest::stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op,
+                                 op_im, row_mask, row_want, T(1));
       }
     } else if (tag == kRowK) {
       const T* u_im = op + (1 << (2 * kj));
@@ -292,30 +201,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // one write of the tile
-  uint4* ore = reinterpret_cast<uint4*>(re + first);
-  uint4* oim = reinterpret_cast<uint4*>(im + first);
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    ore[i] = vre[i];
-    oim[i] = vim[i];
-  }
+  quest::copy_tile(re + first, im + first, sre, sim, tile_rows);
 }
 
 template <typename T>
 int launch(void* re, void* im, const void* desc, int n_stages,
            const void* pool, long long total_rows, int tile_rows,
-           void* stream) {
+           long long batch, long long state_stride, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T);
   cudaGetLastError();  // an error left by earlier work is not this launch's
   cudaError_t err = cudaFuncSetAttribute(
       layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>(total_rows / tile_rows);
+  const long long tiles = total_rows / tile_rows;
+  if (batch < 1 || batch * tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const unsigned blocks = static_cast<unsigned>(batch * tiles);
   layer_kernel<T><<<blocks, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(re), static_cast<T*>(im),
       static_cast<const long long*>(desc), n_stages,
-      static_cast<const T*>(pool), tile_rows);
+      static_cast<const T*>(pool), tile_rows, tiles, state_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,16 +233,18 @@ extern "C" {
 
 int quest_layer_apply_f32(void* re, void* im, const void* desc, int n_stages,
                           const void* pool, long long total_rows,
-                          int tile_rows, void* stream) {
+                          int tile_rows, long long batch,
+                          long long state_stride, void* stream) {
   return launch<float>(re, im, desc, n_stages, pool, total_rows, tile_rows,
-                       stream);
+                       batch, state_stride, stream);
 }
 
 int quest_layer_apply_f64(void* re, void* im, const void* desc, int n_stages,
                           const void* pool, long long total_rows,
-                          int tile_rows, void* stream) {
+                          int tile_rows, long long batch,
+                          long long state_stride, void* stream) {
   return launch<double>(re, im, desc, n_stages, pool, total_rows, tile_rows,
-                        stream);
+                        batch, state_stride, stream);
 }
 
 const char* quest_layer_error_string(int code) {

@@ -22,9 +22,14 @@ Qubit classes, with the state viewed as ``(rows, 128)`` float planes:
 A layer is an ordered list of stages (:class:`LayerOp`), collected by
 ``circuits._collect_layers_plan``. On a CUDA tensor :func:`apply_layer`
 launches the hand-written kernel in ``csrc/layer_kernel.cu`` (built with
-``nvcc`` at first use); on a CPU tensor it runs :func:`apply_layer_plain`,
-a plain PyTorch version of the same function. A CUDA tensor never reaches
-the plain version: the kernel launches or the call raises.
+``nvcc`` at first use, ``ops/cuda_build.py``); on a CPU tensor it runs
+:func:`apply_layer_plain`, a plain PyTorch version of the same function. A
+CUDA tensor never reaches the plain version: the kernel launches or the
+call raises. :func:`apply_layer_batched` applies one layer to every state
+of a ``(B, 2, 2^n)`` batch in one launch of the same kernel (the TPU
+kernel's batch grid, ``pallas_kernels.apply_layer_batched``); row
+coordinates stay per state, and :func:`apply_layer_batched_plain` is its
+plain version.
 
 The tile height comes from Hopper's shared memory, not from TPU VMEM: one
 block holds a ``tile_rows x 128`` tile of both planes (128 KiB at either
@@ -37,11 +42,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,6 +49,7 @@ import torch
 
 from ..core import matrices as mats
 from ..core.apply import split_shape
+from . import cuda_build
 
 LANE_QUBITS = 7          # 2^7 = 128 lanes
 LANES = 1 << LANE_QUBITS
@@ -68,15 +69,12 @@ TAG_DENSE, TAG_ROWK, TAG_ROWDIAG = 0, 1, 2
 # 0..2 row bits (the collector's MXU_ROW_CAP), rowk on 1..3 row bits
 MAX_DENSE_ROW_BITS, MAX_ROWK_BITS = 2, 3
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "layer_kernel.cu"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
            "lane_diag_matrix", "lane_diag_vector", "max_mid_qubit",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
            "layer_kernel_plan", "shared_memory_bytes", "apply_layer",
-           "apply_layer_plain", "build_library"]
+           "apply_layer_plain", "apply_layer_batched",
+           "apply_layer_batched_plain", "build_library"]
 
 
 def embed_lane_matrix(u: np.ndarray, targets: Sequence[int],
@@ -341,23 +339,23 @@ def _block(u: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped(x: torch.Tensor, rlog: int, bits: tuple, with_lanes: bool):
-    """Permuted view of the (2, rows, 128) planes bringing the plane axis,
-    the row-bit axes ``bits`` (descending, so bit m of the combined index
-    is ``bits[m]``) and optionally the lane axis to the front. Returns
-    ``(view, rest_row_axes)``."""
+    """Permuted view of the (B, 2, rows, 128) planes bringing the batch and
+    plane axes, the row-bit axes ``bits`` (descending, so bit m of the
+    combined index is ``bits[m]``) and optionally the lane axis to the
+    front. Returns ``(view, rest_row_axes)``."""
     desc = tuple(sorted(bits, reverse=True))
-    shape = (2,) + split_shape(rlog, desc) + (LANES,)
+    shape = (x.shape[0], 2) + split_shape(rlog, desc) + (LANES,)
     lane_axis = len(shape) - 1
-    targ = [2 * i + 2 for i in range(len(desc))]
-    rest = [a for a in range(1, lane_axis) if a not in targ]
-    front = [0] + targ + ([lane_axis] if with_lanes else [])
+    targ = [2 * i + 3 for i in range(len(desc))]
+    rest = [a for a in range(2, lane_axis) if a not in targ]
+    front = [0, 1] + targ + ([lane_axis] if with_lanes else [])
     back = rest + ([] if with_lanes else [lane_axis])
     return x.view(shape).permute(front + back), desc
 
 
 def _row_index_rest(total_rows: int, desc: tuple, device) -> torch.Tensor:
-    """Global row index of each group's first row (target bits zero), in
-    the order of the rest axes of :func:`_grouped`."""
+    """Row index (within the state) of each group's first row (target bits
+    zero), in the order of the rest axes of :func:`_grouped`."""
     rlog = total_rows.bit_length() - 1
     g = torch.arange(total_rows, device=device).view(split_shape(rlog, desc))
     return g[tuple(slice(None) if a % 2 == 0 else 0
@@ -366,16 +364,16 @@ def _row_index_rest(total_rows: int, desc: tuple, device) -> torch.Tensor:
 
 def _dense_plain(x, total_rows, bits, m, row_mask=0, row_want=0):
     """out = M v over the packed (row bits, lanes) axis; ``bits == ()`` is
-    the lane stage, run permute-free on the (rows, 128) views."""
+    the lane stage, run permute-free on the (B, rows, 128) views."""
     if not bits:
-        re, im = x[0], x[1]
+        re, im = x[:, 0], x[:, 1]
         mr_t, mi_t = (torch.as_tensor(np.ascontiguousarray(p.T),
                                       dtype=x.dtype, device=x.device)
                       for p in (m.real, m.imag))
         new_re = torch.matmul(re, mr_t)
-        new_re.addmm_(im, mi_t, alpha=-1.0)
+        new_re.sub_(torch.matmul(im, mi_t))
         new_im = torch.matmul(re, mi_t)
-        new_im.addmm_(im, mr_t)
+        new_im.add_(torch.matmul(im, mr_t))
         if row_mask:
             g = torch.arange(total_rows, device=x.device).view(-1, 1)
             cond = (g & row_mask) == row_want
@@ -387,7 +385,7 @@ def _dense_plain(x, total_rows, bits, m, row_mask=0, row_want=0):
     rlog = total_rows.bit_length() - 1
     sub, _ = _grouped(x, rlog, bits, with_lanes=True)
     dim = (1 << len(bits)) * LANES
-    new = torch.matmul(_block(m, x), sub.reshape(2 * dim, -1))
+    new = torch.matmul(_block(m, x), sub.reshape(x.shape[0], 2 * dim, -1))
     sub.copy_(new.view(sub.shape))
 
 
@@ -396,10 +394,10 @@ def _rowk_plain(x, total_rows, bits, u, lane_mask, lane_want, row_mask,
     rlog = total_rows.bit_length() - 1
     sub, desc = _grouped(x, rlog, bits, with_lanes=False)
     dim = 1 << len(bits)
-    flat = sub.reshape(2 * dim, -1)
+    flat = sub.reshape(x.shape[0], 2 * dim, -1)
     new = torch.matmul(_block(u, x), flat)
     if lane_mask or row_mask:
-        rest_shape = sub.shape[1 + len(bits):]
+        rest_shape = sub.shape[2 + len(bits):]
         cond = torch.ones(rest_shape, dtype=torch.bool, device=x.device)
         if row_mask:
             g0 = _row_index_rest(total_rows, desc, x.device)
@@ -407,7 +405,7 @@ def _rowk_plain(x, total_rows, bits, u, lane_mask, lane_want, row_mask,
         if lane_mask:
             lane = torch.arange(LANES, device=x.device)
             cond = cond & ((lane & lane_mask) == lane_want)
-        new = torch.where(cond.reshape(1, -1), new, flat)
+        new = torch.where(cond.reshape(1, 1, -1), new, flat)
     sub.copy_(new.view(sub.shape))
 
 
@@ -419,21 +417,22 @@ def _rowdiag_plain(x, total_rows, table, bits):
     t = np.asarray(table)
     fr = torch.as_tensor(t.real, dtype=x.dtype, device=x.device)[cfg]
     fi = torch.as_tensor(t.imag, dtype=x.dtype, device=x.device)[cfg]
-    re, im = x[0], x[1]
+    re, im = x[:, 0], x[:, 1]
     new_re = re * fr - im * fi
     im.mul_(fr).add_(re * fi)
     re.copy_(new_re)
 
 
-def apply_layer_plain(planes: torch.Tensor, num_qubits: int,
-                      layer: LayerOp) -> torch.Tensor:
-    """The fused layer as plain PyTorch tensor ops, stage after stage over
-    the whole state, IN PLACE on the ``(2, 2^n)`` planes. It computes what
-    the kernel computes (the same plan, the same ``hi``) and is the
-    reference the kernel is held against."""
+def apply_layer_batched_plain(states: torch.Tensor, num_qubits: int,
+                              layer: LayerOp) -> torch.Tensor:
+    """The fused layer as plain PyTorch tensor ops on every state of a
+    ``(B, 2, 2^n)`` batch, stage after stage over the whole states, IN
+    PLACE. It computes what the kernel computes (the same plan, the same
+    ``hi``; rows counted within each state) and is the reference the
+    kernel is held against."""
     kstages, lane_mats, tables, xmats, _, total_rows = layer_kernel_plan(
-        layer, num_qubits, tile_rows_for(planes.dtype))
-    x = planes.view(2, total_rows, LANES)
+        layer, num_qubits, tile_rows_for(states.dtype))
+    x = states.view(states.shape[0], 2, total_rows, LANES)
     for st in kstages:
         tag = st[0]
         if tag == "lane":
@@ -457,6 +456,14 @@ def apply_layer_plain(planes: torch.Tensor, num_qubits: int,
             _rowdiag_plain(x, total_rows,
                            np.stack(tables[toff:toff + (1 << len(bits))]),
                            bits)
+    return states
+
+
+def apply_layer_plain(planes: torch.Tensor, num_qubits: int,
+                      layer: LayerOp) -> torch.Tensor:
+    """The fused layer as plain PyTorch tensor ops on ``(2, 2^n)`` planes,
+    IN PLACE: :func:`apply_layer_batched_plain` on a batch of one."""
+    apply_layer_batched_plain(planes.unsqueeze(0), num_qubits, layer)
     return planes
 
 
@@ -464,51 +471,23 @@ def apply_layer_plain(planes: torch.Tensor, num_qubits: int,
 # the CUDA kernel: build, operands, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the layer kernel is built from "
-                       "csrc/layer_kernel.cu with the CUDA toolkit")
-
-
-def _build_dir() -> Path:
-    return Path(__file__).resolve().parents[2] / "build" / "quest_tpu_torch"
-
-
 @functools.lru_cache(maxsize=None)
 def build_library() -> tuple:
-    """Compile ``csrc/layer_kernel.cu`` into a shared library keyed by a
-    hash of the source and flags (reused when present) and load it.
-    Returns ``(ctypes.CDLL, path, compiler_output)``."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out_dir = _build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"layer_kernel-{key[:16]}.so"
-    log = ""
-    if not lib_path.exists():
-        tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    """Build (all of the port's kernels, ``ops/cuda_build.py``) and load
+    ``csrc/layer_kernel.cu``. Returns ``(ctypes.CDLL, path,
+    compiler_output)``."""
+    lib, path, log = cuda_build.library("layer_kernel")
     argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p]
     for name in ("quest_layer_apply_f32", "quest_layer_apply_f64"):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.quest_layer_error_string.argtypes = [ctypes.c_int]
     lib.quest_layer_error_string.restype = ctypes.c_char_p
-    return lib, str(lib_path), log
+    return lib, path, log
 
 
 def _pack_bits(bits) -> int:
@@ -583,20 +562,49 @@ def _device_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
     return packed
 
 
-def _check_planes(planes: torch.Tensor, num_qubits: int) -> None:
-    if not isinstance(planes, torch.Tensor):
-        raise TypeError("apply_layer: planes must be a torch.Tensor")
+def _check_states(states: torch.Tensor, num_qubits: int, batched: bool,
+                  where: str) -> None:
+    if not isinstance(states, torch.Tensor):
+        raise TypeError(f"{where}: planes must be a torch.Tensor")
     if num_qubits < LANE_QUBITS:
         raise ValueError("fused layers need at least 7 qubits")
-    if tuple(planes.shape) != (2, 1 << num_qubits):
-        raise ValueError(f"apply_layer: planes have shape "
-                         f"{tuple(planes.shape)}, expected "
-                         f"(2, {1 << num_qubits})")
-    if planes.dtype not in TILE_ROWS:
-        raise ValueError(f"apply_layer: planes must be float32 or float64, "
-                         f"got {planes.dtype}")
-    if not planes.is_contiguous():
-        raise ValueError("apply_layer: planes must be contiguous")
+    want = "(B, 2, {})" if batched else "(2, {})"
+    got = tuple(states.shape[1:]) if batched and states.dim() == 3 \
+        else tuple(states.shape) if not batched else None
+    if got != (2, 1 << num_qubits):
+        raise ValueError(f"{where}: planes have shape {tuple(states.shape)}, "
+                         f"expected {want.format(1 << num_qubits)}")
+    if states.dtype not in TILE_ROWS:
+        raise ValueError(f"{where}: planes must be float32 or float64, "
+                         f"got {states.dtype}")
+    if not states.is_contiguous():
+        raise ValueError(f"{where}: planes must be contiguous")
+
+
+def _launch(states: torch.Tensor, num_qubits: int, layer: LayerOp,
+            where: str) -> None:
+    """One launch of the layer kernel over the ``(B, 2, 2^n)`` batch."""
+    if states.device.type != "cuda":
+        raise ValueError(f"{where}: unsupported device {states.device}")
+    desc, pool, tile_rows, total_rows = _device_operands(
+        layer, num_qubits, states.dtype, states.device)
+    shared_memory_bytes(tile_rows, states.element_size())
+    if states.data_ptr() % 16:
+        raise ValueError(f"{where}: planes must be 16-byte aligned")
+    lib = build_library()[0]
+    fn = lib.quest_layer_apply_f32 if states.dtype == torch.float32 \
+        else lib.quest_layer_apply_f64
+    num_amps = 1 << num_qubits
+    with torch.cuda.device(states.device):
+        stream = torch.cuda.current_stream(states.device).cuda_stream
+        err = fn(states.data_ptr(),
+                 states.data_ptr() + num_amps * states.element_size(),
+                 desc.data_ptr(), desc.shape[0], pool.data_ptr(),
+                 total_rows, tile_rows, states.shape[0], 2 * num_amps,
+                 stream)
+    if err != 0:
+        raise RuntimeError("layer kernel launch failed: "
+                           + lib.quest_layer_error_string(err).decode())
 
 
 def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
@@ -607,7 +615,7 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
     in ``apply_layer.launches``; a CPU tensor runs
     :func:`apply_layer_plain`. ``fast=True`` (the FAST tier's reduced-
     precision inputs) belongs to a later slice and raises."""
-    _check_planes(planes, num_qubits)
+    _check_states(planes, num_qubits, False, "apply_layer")
     if fast:
         raise NotImplementedError(
             "apply_layer: the FAST tier's layer kernel is not ported yet")
@@ -616,27 +624,34 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
                          f"qubits, planes hold {num_qubits}")
     if planes.device.type == "cpu":
         return apply_layer_plain(planes, num_qubits, layer)
-    if planes.device.type != "cuda":
-        raise ValueError(f"apply_layer: unsupported device {planes.device}")
-    desc, pool, tile_rows, total_rows = _device_operands(
-        layer, num_qubits, planes.dtype, planes.device)
-    shared_memory_bytes(tile_rows, planes.element_size())
-    re, im = planes[0], planes[1]
-    if re.data_ptr() % 16 or im.data_ptr() % 16:
-        raise ValueError("apply_layer: planes must be 16-byte aligned")
-    lib = build_library()[0]
-    fn = lib.quest_layer_apply_f32 if planes.dtype == torch.float32 \
-        else lib.quest_layer_apply_f64
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = fn(re.data_ptr(), im.data_ptr(), desc.data_ptr(),
-                 desc.shape[0], pool.data_ptr(), total_rows, tile_rows,
-                 stream)
-    if err != 0:
-        raise RuntimeError("layer kernel launch failed: "
-                           + lib.quest_layer_error_string(err).decode())
+    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_layer")
     apply_layer.launches += 1
     return planes
 
 
 apply_layer.launches = 0
+
+
+def apply_layer_batched(states: torch.Tensor, num_qubits: int,
+                        layer: LayerOp) -> torch.Tensor:
+    """Apply a fused layer IN PLACE to every state of a ``(B, 2, 2^n)``
+    batch (returned) in ONE launch: the kernel's grid grows the batch
+    (block x = b * tiles + tile), one descriptor and operand upload serves
+    every state, and row masks, wants and ``rowdiag`` tables address rows
+    within each state.
+
+    A CUDA tensor launches the kernel and counts the launch in
+    ``apply_layer_batched.launches``; a CPU tensor runs
+    :func:`apply_layer_batched_plain`."""
+    _check_states(states, num_qubits, True, "apply_layer_batched")
+    if layer.num_qubits != num_qubits:
+        raise ValueError(f"layer was collected for {layer.num_qubits} "
+                         f"qubits, planes hold {num_qubits}")
+    if states.device.type == "cpu":
+        return apply_layer_batched_plain(states, num_qubits, layer)
+    _launch(states, num_qubits, layer, "apply_layer_batched")
+    apply_layer_batched.launches += 1
+    return states
+
+
+apply_layer_batched.launches = 0

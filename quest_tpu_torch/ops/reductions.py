@@ -21,14 +21,24 @@ in chunks (``_CHUNK`` elements) and combines the chunk pairs with one more
 TwoSum cascade. The pairing tree differs from the JAX package's; both are
 error-free transformations, so the totals agree to the compensated
 accuracy, not bit for bit.
+
+The Pauli-sum reductions (``calcExpecPauliSum``, the batched engine's
+``expectation_sweep``, the trajectory waves) and the running (count, mean,
+M2) statistics of the trajectory convergence loop follow the JAX package's
+``ops/reductions.py`` below.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["sum_compensated", "sum_pair", "dot_pair", "vdot_pair",
-           "vdot_compensated"]
+           "vdot_compensated", "pauli_masks", "pauli_term_bucket",
+           "pauli_sum_operands", "validated_pauli_terms",
+           "pauli_terms_operands", "pauli_sum_expvals_sv",
+           "pauli_sum_total_sv", "welford_wave", "welford_merge",
+           "welford_stderr"]
 
 # elements of each dot_pair input processed per step: the four product
 # streams and the cascade's first level then take 6 * 2^24 values, a few
@@ -120,3 +130,181 @@ def vdot_compensated(a_planes, b_planes) -> complex:
     precision."""
     (re, re_e), (im, im_e) = vdot_pair(a_planes, b_planes)
     return complex(float(re) + float(re_e), float(im) + float(im_e))
+
+
+# ---------------------------------------------------------------------------
+# Pauli sums as bit masks
+# ---------------------------------------------------------------------------
+#
+# A Pauli string P = i^|y| X^x Z^(y|z) acts on a basis state by one xor and
+# one sign: (P z)[k] = i^popcount(y) (-1)^popcount(j & (y|z)) z[j] with
+# j = k ^ (x|y). So <z|P|z> is one gather, one sign and one reduce per
+# term: no gate applications and no per-term workspace state.
+
+
+def pauli_masks(codes_flat, num_qubits: int):
+    """Flat pauli codes (term-major, code of qubit q of term t at
+    ``codes_flat[t*n + q]``; 0=I 1=X 2=Y 3=Z) -> (xmask, ymask, zmask)
+    int64 arrays of shape ``(num_terms,)``. Host-side."""
+    codes = np.asarray(codes_flat, dtype=np.int64).reshape(-1, num_qubits)
+    bits = np.int64(1) << np.arange(num_qubits, dtype=np.int64)
+    return ((codes == 1) @ bits, (codes == 2) @ bits, (codes == 3) @ bits)
+
+
+def pauli_term_bucket(num_terms: int) -> int:
+    """Term-count bucket: next power of two at or above (floor 8). Padding
+    terms are all-identity with coefficient zero (their expectation, the
+    state norm, is multiplied away exactly)."""
+    b = 8
+    while b < num_terms:
+        b <<= 1
+    return b
+
+
+def pauli_sum_operands(codes_flat, num_qubits: int, coeffs):
+    """The operand set of a Pauli-sum reduction: masks from
+    :func:`pauli_masks`, term count padded to :func:`pauli_term_bucket`
+    with zero-coefficient identity terms. ONE encoder for every consumer,
+    so the mask convention cannot desynchronise between call sites.
+    Returns ``(xmask, ymask, zmask, coeffs)`` numpy arrays of the bucketed
+    length."""
+    xm, ym, zm = pauli_masks(codes_flat, num_qubits)
+    num_terms = xm.shape[0]
+    bucket = pauli_term_bucket(num_terms)
+    coeffs = np.pad(np.asarray(coeffs, dtype=np.float64)[:num_terms],
+                    (0, bucket - num_terms))
+    if bucket > num_terms:
+        xm, ym, zm = (np.pad(m, (0, bucket - num_terms))
+                      for m in (xm, ym, zm))
+    return xm, ym, zm, coeffs
+
+
+def validated_pauli_terms(pauli_terms, coeffs, num_qubits: int):
+    """``(terms, coeffs)`` of a Hamiltonian given as ``(qubit, code)`` pair
+    lists, with identity factors dropped AFTER validation (a malformed
+    ``(qubit, 0)`` pair still errors)."""
+    for t in pauli_terms:
+        for q, code in t:
+            if not 0 <= int(q) < num_qubits:
+                raise ValueError(
+                    f"pauli qubit {q} out of range [0, {num_qubits})")
+            if int(code) not in (0, 1, 2, 3):
+                raise ValueError(f"invalid pauli code {code}")
+    terms = [tuple((int(q), int(c)) for q, c in t if int(c) != 0)
+             for t in pauli_terms]
+    coeffs = np.asarray(coeffs, dtype=np.float64)
+    if len(coeffs) != len(terms):
+        raise ValueError(f"{len(terms)} pauli terms but {len(coeffs)} "
+                         "coefficients")
+    return terms, coeffs
+
+
+def pauli_terms_operands(terms, coeffs, num_qubits: int):
+    """Validated ``(qubit, code)`` terms -> the operands of
+    :func:`pauli_sum_operands`; no terms at all is one zero-coefficient
+    identity term."""
+    codes = np.zeros((max(len(terms), 1), num_qubits), np.int64)
+    for t, term in enumerate(terms):
+        for q, code in term:
+            if codes[t, q]:
+                raise ValueError(
+                    f"pauli term {t} repeats qubit {q} (a product of Paulis "
+                    "on one qubit is not a Pauli string)")
+            codes[t, q] = code
+    coeffs = np.asarray(coeffs, dtype=np.float64) if terms \
+        else np.zeros((1,), np.float64)
+    return pauli_sum_operands(codes.reshape(-1), num_qubits, coeffs)
+
+
+def _parity(v: torch.Tensor) -> torch.Tensor:
+    """popcount(v) & 1 of a non-negative int64 tensor (xor folding)."""
+    for shift in (32, 16, 8, 4, 2, 1):
+        v = v ^ (v >> shift)
+    return v & 1
+
+
+def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask,
+                         zmask) -> torch.Tensor:
+    """Per-term ``<z_b|P_t|z_b>`` for a ``(B, 2, N)`` batch of planes and
+    host mask arrays of shape ``(T,)``: a real ``(B, T)`` tensor on the
+    states' device. The terms run one after another, so the scratch is one
+    state batch whatever the term count; each term is one xor-gather pass
+    over the batch. A term whose ``i^|y|`` is real needs only the real
+    part of the sum, one whose ``i^|y|`` is imaginary only the imaginary
+    part (the value of a Hermitian string is real)."""
+    num_amps = states.shape[-1]
+    idx = torch.arange(num_amps, device=states.device)
+    out = []
+    for xm, ym, zm in zip(xmask, ymask, zmask):
+        xy, yz = int(xm) | int(ym), int(ym) | int(zm)
+        # sign(j) = (-1)^parity(j & yz) with j = k ^ xy
+        sign = 1 - 2 * _parity((idx ^ xy) & yz)
+        zj = states.index_select(-1, idx ^ xy) if xy else states
+        ph = bin(int(ym)).count("1") % 4
+        if ph % 2 == 0:
+            # Re sum conj(z) z[j] sign = sum (zr zjr + zi zji) sign
+            part = (states * zj).sum(1)
+        else:
+            # Im sum conj(z) z[j] sign = sum (zr zji - zi zjr) sign
+            part = states[:, 0] * zj[:, 1] - states[:, 1] * zj[:, 0]
+        acc = torch.matmul(part, sign.to(states.dtype))
+        # i^|y| times the real (ph even) or i times the imaginary part
+        out.append(acc if ph in (0, 3) else -acc)
+    return torch.stack(out, dim=1)
+
+
+def pauli_sum_total_sv(states: torch.Tensor, xmask, ymask, zmask,
+                       coeffs) -> torch.Tensor:
+    """``sum_t coeffs[t] * <z_b|P_t|z_b>`` for each state of a ``(B, 2,
+    N)`` batch: a ``(B,)`` tensor, on the device."""
+    vals = pauli_sum_expvals_sv(states, xmask, ymask, zmask)
+    cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
+                         dtype=vals.dtype, device=vals.device)
+    return (vals * cf).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# running statistics of the trajectory convergence loop
+# ---------------------------------------------------------------------------
+#
+# The trajectory program runs ensembles in WAVES and stops once the
+# standard error of the running mean fits the caller's budget. The running
+# (count, mean, M2) triple stays on the device; each wave folds its values
+# in with Chan's parallel merge, so the only device->host traffic per wave
+# is the triple the stop decision reads. Padded wave rows carry weight 0
+# and drop out of the statistics exactly.
+
+
+def welford_wave(vals: torch.Tensor, weights: torch.Tensor):
+    """(count, mean, M2) of one wave of per-trajectory values under a 0/1
+    ``weights`` mask, reduced over the last axis (``vals`` ``(W,)`` or
+    ``(B, W)``)."""
+    w = torch.broadcast_to(weights.to(vals.dtype), vals.shape)
+    n = w.sum(-1)
+    safe = torch.clamp(n, min=1.0)
+    mean = (vals * w).sum(-1) / safe
+    m2 = (w * (vals - mean[..., None]) ** 2).sum(-1)
+    return n, mean, m2
+
+
+def welford_merge(a, b):
+    """Chan's parallel combine of two (count, mean, M2) triples: exact
+    pooled statistics, no pass over the underlying samples."""
+    na, ma, sa = a
+    nb, mb, sb = b
+    n = na + nb
+    safe = torch.clamp(n, min=1.0)
+    delta = mb - ma
+    mean = ma + delta * nb / safe
+    m2 = sa + sb + delta * delta * na * nb / safe
+    return n, mean, m2
+
+
+def welford_stderr(n, m2):
+    """Standard error of the mean from a (count, M2) pair (inf below two
+    samples). Host-side, on numpy arrays or scalars."""
+    n = np.asarray(n, dtype=np.float64)
+    m2 = np.asarray(m2, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        se = np.sqrt(m2 / np.maximum(n - 1.0, 1e-300) / np.maximum(n, 1.0))
+    return np.where(n >= 2.0, se, np.inf)

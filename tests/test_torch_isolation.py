@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-asks for a CUDA card unless told to use the CPU, and never runs the plain
-layer version on a CUDA tensor.
+asks for a CUDA card unless told to use the CPU, and never runs a kernel's
+plain version (the layer kernel's, the batched layer kernel's, the fused
+Kraus kernel's) on a CUDA tensor.
 """
 
 import os
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import quest_tpu_torch as tq
+from quest_tpu_torch.ops import kraus_kernel as kk
 from quest_tpu_torch.ops import layer_kernel as lk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -19,7 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_and_smoke_script_import_no_jax():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
-            "chip_smoke\n"
+            "quest_tpu_torch.ops.trajectories, quest_tpu_torch.ops.channels, "
+            "quest_tpu_torch.ops.kraus_kernel, quest_tpu_torch.ops.cuda_build, "
+            "quest_tpu_torch.parallel.sampling, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
             "or m == 'quest_tpu')\n"
@@ -73,6 +77,63 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         lk.apply_layer(planes, n, layer)
     assert lk.apply_layer.launches == before
+
+
+def _no_toolkit():
+    raise RuntimeError("nvcc not found")
+
+
+def _forbidden(*args, **kwargs):
+    raise AssertionError("plain version reached for a CUDA tensor")
+
+
+def test_cuda_batch_never_reaches_the_batched_plain_version(monkeypatch):
+    n = 8
+    layer = lk.LayerOp(n, 1, [("lane", np.eye(128))])
+    states = torch.zeros(3, 2, 1 << n, dtype=torch.float32).as_subclass(
+        _FakeCudaPlanes)
+    monkeypatch.setattr(lk, "apply_layer_batched_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_plain", _forbidden)
+    monkeypatch.setattr(lk, "_device_operands",
+                        lambda *a: (torch.zeros(1, lk.DESC_WIDTH,
+                                                dtype=torch.int64),
+                                    torch.zeros(1), 2, 2))
+    monkeypatch.setattr(lk, "build_library", _no_toolkit)
+    before = lk.apply_layer_batched.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lk.apply_layer_batched(states, n, layer)
+    assert lk.apply_layer_batched.launches == before
+
+
+def test_cuda_batch_never_reaches_the_kraus_plain_version(monkeypatch):
+    n, num_traj = 8, 4
+    states = torch.zeros(num_traj, 2, 1 << n,
+                         dtype=torch.float32).as_subclass(_FakeCudaPlanes)
+    probs = torch.full((num_traj, 2), 0.5).as_subclass(_FakeCudaPlanes)
+    u01 = torch.zeros(num_traj).as_subclass(_FakeCudaPlanes)
+    kemb = np.stack([np.eye(128), np.eye(128)])
+    monkeypatch.setattr(kk, "fused_kraus_apply_batched_plain", _forbidden)
+    monkeypatch.setattr(kk, "draw_plain", _forbidden)
+    monkeypatch.setattr(kk, "build_library", _no_toolkit)
+    before = kk.fused_kraus_apply_batched.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kk.fused_kraus_apply_batched(states, n, kemb, probs, u01)
+    assert kk.fused_kraus_apply_batched.launches == before
+
+
+def test_every_kernel_source_is_in_the_build_key(tmp_path, monkeypatch):
+    """One key over every csrc source: a change to the shared header
+    rebuilds both libraries."""
+    from quest_tpu_torch.ops import cuda_build
+    for src in cuda_build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    key = cuda_build.sources_key()
+    header = tmp_path / "dense_stage.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert cuda_build.sources_key() != key
+    assert {p.name for p in cuda_build._sources()} >= {
+        "layer_kernel.cu", "kraus_kernel.cu", "dense_stage.cuh"}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
