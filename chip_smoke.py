@@ -15,7 +15,12 @@ Phases (any unmet check exits non-zero and prints no result line):
    way on B = 4 distinct states; 3c. the fused Kraus kernel at 20 qubits,
    T = 8, K = 2, 4, 16, 64, with edge uniforms and zero-probability
    branches: the operator each trajectory's output came from equals the
-   plain version's draw;
+   plain version's draw; 3d. the FAST layer kernel (bf16 tensor cores in
+   the dense stages) against its plain version, single and B = 4, on lane,
+   clane and rowmxu stages alone and mixed with row and rowdiag stages,
+   with FAST against full precision inside the tier's per-gate drift;
+   3e. the MXU-tile kernel (``apply_mxu_tile``) against its plain version
+   on five target sets at float32, float64 and FAST, and its times;
 4. the single-state path at 30 qubits, complex64: the random-rotation +
    CNOT brickwork compiled and run through the layer kernel, against the
    same gates through the imperative per-gate API;
@@ -41,7 +46,21 @@ Phases (any unmet check exits non-zero and prints no result line):
    12-qubit copy agrees card against CPU (<= 1e-4), both kernels match
    their plain versions on a whole wave's batch, trajectories/s, the Kraus
    kernel's ms beside its bound, plain version and one complex64
-   ``torch.matmul``, and a ``torch.profiler`` breakdown of one wave.
+   ``torch.matmul``, and a ``torch.profiler`` breakdown of one wave;
+10. the FAST tier on the main path: the 30-qubit brickwork compiled with
+    ``tier="fast"`` (and by an error budget that selects FAST), its
+    ``rowmxu`` stages, one FAST launch per layer, every layer against
+    its FAST plain version, the final state against the SINGLE compiled
+    state within the modeled tier error, gates/s at both tiers, and per
+    layer the FAST kernel's ms beside its bound (HBM or bf16
+    tensor-core operations), its plain version and one bf16
+    ``torch.matmul`` of the stacked real lane product;
+11. tiers in the batched engine: phase 8's HEA sweep through
+    ``expectation_sweep(tier="fast")`` and ``tier="single"``: launches
+    per tier, FAST energies against SINGLE's within the modeled bound,
+    SINGLE's compensated energies against a float64 host reduction of the
+    same states (<= 1e-6 of max|E|), points/s per tier, and the batched
+    FAST kernel against its plain version over the whole batch.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -71,6 +90,9 @@ SWEEP_QUBITS, SWEEP_LAYERS, SWEEP_BATCH, SWEEP_TERMS = 24, 2, 64, 24
 TRAJ_QUBITS, TRAJ_WAVE, TRAJ_MAX = 22, 128, 1024
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
+BF16_TENSOR_FLOPS = 989.0e12           # dense bf16 tensor cores
+MXU_TILE_TARGETS = ((3,), (8,), (3, 8), (7, 8), (2, 5, 7))
+FAST_BUDGET = 0.1                      # an error budget only FAST needs
 
 
 class SmokeFailure(Exception):
@@ -172,21 +194,33 @@ def stage_flops(stage, n: int) -> float:
     return 6.0 * amps                          # rowdiag: complex multiply
 
 
-def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1):
+def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1,
+                   fast: bool = False):
     """Least time for one layer on the card over ``batch`` states: the
     larger of its HBM bytes (both planes of every state read and written
     once, plus its operands once) over 3.35 TB/s and its flops over the
-    CUDA-core rate. Returns (ms, bound_by, bytes_ms, flops_ms)."""
+    CUDA-core rate. With ``fast`` (the FAST tier) the dense stages do the
+    bf16-split form's twice the products at the bf16 tensor-core rate and
+    their operators are bf16. Returns (ms, bound_by, bytes_ms, flops_ms)."""
     itemsize = dtype.itemsize
     kstages, mats, tables, xmats, _, _ = lk.layer_kernel_plan(
         layer, n, lk.tile_rows_for(dtype))
-    operands = 2 * itemsize * (sum(m.size for m in mats)
-                               + sum(t.size for t in tables)
-                               + sum(x.size for x in xmats))
+    dense_item = 2 if fast else itemsize
+    operands = 2 * dense_item * (sum(m.size for m in mats)
+                                 + sum(x.size for x in xmats)) \
+        + 2 * itemsize * sum(t.size for t in tables)
     bytes_ms = 1e3 * (4.0 * itemsize * batch * (1 << n) + operands) \
         / HBM_BYTES_PER_S
-    flops_ms = 1e3 * batch * sum(stage_flops(st, n) for st in kstages) \
-        / CUDA_CORE_FLOPS[itemsize]
+    dense = sum(stage_flops(st, n) for st in kstages
+                if st[0] in ("lane", "rowmxu"))
+    other = sum(stage_flops(st, n) for st in kstages
+                if st[0] not in ("lane", "rowmxu"))
+    if fast:
+        flops_s = 2.0 * dense / BF16_TENSOR_FLOPS \
+            + other / CUDA_CORE_FLOPS[itemsize]
+    else:
+        flops_s = (dense + other) / CUDA_CORE_FLOPS[itemsize]
+    flops_ms = 1e3 * batch * flops_s
     return max(bytes_ms, flops_ms), \
         ("bytes" if bytes_ms >= flops_ms else "operations"), \
         bytes_ms, flops_ms
@@ -291,6 +325,139 @@ def phase_batched_stages(torch, lk, rng):
                   and bool(torch.isfinite(got).all()),
                   f"{name:14s} {str(dtype):14s} max|diff| {err:.3e}, "
                   f"/ max|plain| {rel:.3e} <= {tol:g}")
+
+
+def fast_cases(rng, n: int, hi: int):
+    """The FAST tier's dense stages (lane, clane on a row bit beyond the
+    tile, rowmxu on one and two row bits) alone, then all of them mixed
+    with row and rowdiag stages."""
+    cases = stage_cases(rng, n, hi)
+    dense = ("lane", "clane", "rowmxu1", "rowmxu2")
+    out = {name: cases[name] for name in dense}
+    out["mixed"] = [st for name in ("lane", "row_lane_ctrl", "rowmxu1",
+                                    "rowdiag2", "rowmxu2", "clane",
+                                    "row_row_ctrl", "rowdiag1")
+                    for st in cases[name]]
+    return out
+
+
+def phase_fast_stages(torch, qt, lk, rng):
+    n, batch = CHECK_QUBITS, 4
+    drift = qt.FAST_TIER.drift_per_gate
+    print(f"phase 3d: FAST layer kernel vs its plain version, {n} qubits, "
+          f"single and B = {batch}")
+    hi = lk.max_mid_qubit(lk.tile_rows_for(torch.float32))
+    for name, stages in fast_cases(rng, n, hi).items():
+        layer = lk.LayerOp(n, len(stages), stages)
+        for batched in (False, True):
+            base = random_batch(torch, rng, batch if batched else 1, n,
+                                torch.float32, "cuda")
+            if batched:
+                fn, plain = lk.apply_layer_batched, \
+                    lk.apply_layer_batched_plain
+            else:
+                base = base[0]
+                fn, plain = lk.apply_layer, lk.apply_layer_plain
+            want = plain(base.clone(), n, layer, fast=True)
+            before = fn.fast_launches
+            got = fn(base.clone(), n, layer, fast=True)
+            highest = fn(base.clone(), n, layer)
+            torch.cuda.synchronize()
+            _, rel = rel_err(got, want)
+            # FAST against full precision: the bf16 rounding of the operator
+            # alone moves each amplitude by ~2e-3 of its size, so it is held
+            # in the tier model's own unit (max amplitude error of a
+            # normalised state per gate pass) and printed relative too
+            dev, dev_rel = rel_err(got, highest)
+            # every state of the batch moved (a stride gone wrong would
+            # leave some as they were)
+            moved = float((got - base).abs().reshape(
+                batch, -1).amax(dim=1).min()) if batched else 1.0
+            check(fn.fast_launches == before + 1 and rel <= 1e-5
+                  and 0.0 < dev <= drift * len(stages) and moved > 1e-3
+                  and bool(torch.isfinite(got).all()),
+                  f"{name:8s} {'B=4' if batched else 'B=1'} max|diff| / "
+                  f"max|plain| {rel:.3e} <= 1e-5; FAST vs HIGHEST "
+                  f"max|diff| {dev:.3e} (0 < it <= {drift:g} x "
+                  f"{len(stages)} stages), / max|amp| {dev_rel:.3e}")
+
+
+def phase_mxu_tile(torch, qt, lk, kk, rng, card):
+    """The standalone MXU-tile kernel: its path is the five target sets at
+    HIGHEST float32 and float64 and at FAST, counted from 0; then each
+    output is held against the plain version, and one target set timed."""
+    n = CHECK_QUBITS
+    print(f"phase 3e: apply_mxu_tile vs its plain version, {n} qubits, "
+          f"targets {list(MXU_TILE_TARGETS)}")
+    modes = ((torch.float32, False, 1e-5), (torch.float64, False, 1e-12),
+             (torch.float32, True, 1e-5))
+    runs = []
+    reset_counts(lk, kk)
+    for dtype, fast, tol in modes:
+        for targets in MXU_TILE_TARGETS:
+            u = random_unitary(rng, 1 << len(targets))
+            base = random_planes(torch, rng, n, dtype, "cuda")
+            got = lk.apply_mxu_tile(base.clone(), n, u, targets, fast=fast)
+            runs.append((dtype, fast, tol, targets, u, base, got))
+    torch.cuda.synchronize()
+    launches = lk.apply_mxu_tile.launches
+    check(launches == len(runs) and counts(lk, kk) == (0, 0, 0),
+          f"MXU-tile kernel launched {launches} times for {len(runs)} calls")
+    errs = []
+    for dtype, fast, tol, targets, u, base, got in runs:
+        want = lk.apply_mxu_tile_plain(base.clone(), n, u, targets, fast)
+        err, rel = rel_err(got, want)
+        errs.append(err)
+        check(rel <= tol and bool(torch.isfinite(got).all()),
+              f"{str(targets):10s} {str(dtype):14s} "
+              f"{'FAST   ' if fast else 'HIGHEST'} max|diff| {err:.3e}, "
+              f"/ max|plain| {rel:.3e} <= {tol:g}")
+    top = lk.max_mid_qubit(lk.tile_rows_for(torch.float32)) + 1
+    try:
+        lk.apply_mxu_tile(random_planes(torch, rng, n, torch.float32,
+                                        "cuda"), n, np.eye(2), (top,))
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, f"a row target beyond the tile (qubit {top}) raises "
+          "ValueError")
+
+    # times on one lane-only tile, the one target set that a single
+    # library call computes too (a row bit needs a permute first)
+    targets, u = MXU_TILE_TARGETS[0], random_unitary(rng, 2)
+    planes = random_planes(torch, rng, n, torch.float32, "cuda")
+    ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(planes, n, u, targets),
+                 reps=20)
+    fast_ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(
+        planes, n, u, targets, fast=True), reps=20)
+    plain = cuda_ms(torch, lambda: lk.apply_mxu_tile_plain(
+        planes, n, u, targets), reps=5)
+    layer = lk._mxu_tile_layer(n, u, targets, torch.float32)
+    bound, by, hbm, ops = layer_bound_ms(lk, layer, n, torch.float32)
+    m = layer.stages[0][2]
+    z = torch.complex(planes[0], planes[1]).view(-1, 128)
+    mt = torch.as_tensor(np.ascontiguousarray(m.T), dtype=torch.complex64,
+                         device="cuda")
+    lib = cuda_ms(torch, lambda: torch.matmul(z, mt), reps=20)
+    print(f"  targets {targets} on {card}: kernel {ms:.4f} ms (FAST "
+          f"{fast_ms:.4f} ms), bound {bound:.4f} ms ({by}; HBM {hbm:.4f} "
+          f"ms, CUDA-core flops {ops:.4f} ms), plain {plain:.4f} ms, "
+          f"torch.matmul complex64 {lib:.4f} ms")
+    return {
+        "name": "mxu_tile",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/layer_kernel.cu",
+        "replaces": "quest_tpu/ops/pallas_kernels.py:813",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib,
+        "fast_ms": fast_ms,
+        "qubits": n,
+    }
 
 
 def kraus_case(rng, num_traj: int, num_ops: int):
@@ -574,14 +741,22 @@ def trajectory_circuit(qt, num_qubits: int, rng):
 
 
 def reset_counts(lk, kk):
-    lk.apply_layer.launches = 0
-    lk.apply_layer_batched.launches = 0
+    for fn in (lk.apply_layer, lk.apply_layer_batched):
+        fn.launches = fn.fast_launches = 0
+    lk.apply_mxu_tile.launches = 0
     kk.fused_kraus_apply_batched.launches = 0
 
 
 def counts(lk, kk):
+    """Full-precision launches: (layer kernel, batched, Kraus)."""
     return (lk.apply_layer.launches, lk.apply_layer_batched.launches,
             kk.fused_kraus_apply_batched.launches)
+
+
+def fast_counts(lk):
+    """FAST and MXU-tile launches: (layer kernel, batched, MXU tile)."""
+    return (lk.apply_layer.fast_launches, lk.apply_layer_batched.fast_launches,
+            lk.apply_mxu_tile.launches)
 
 
 def lane_matmul_ms(torch, states, ops):
@@ -598,17 +773,32 @@ def lane_matmul_ms(torch, states, ops):
     return ms
 
 
-def batched_layer_times(torch, lk, states, n, layer_ops, label):
+def bf16_lane_ms(torch, states):
+    """One bf16 ``torch.matmul`` of the stacked real lane product over a
+    ``(B, 2, N)`` batch: ``[re | im]`` rows times a ``(256, 256)`` block
+    operator. Its bf16 output makes it a time yardstick only."""
+    x = torch.cat([states[:, 0].reshape(-1, 128),
+                   states[:, 1].reshape(-1, 128)], dim=1).to(torch.bfloat16)
+    w = torch.randn(256, 256, device=states.device).to(torch.bfloat16)
+    ms = cuda_ms(torch, lambda: torch.matmul(x, w), reps=3)
+    del x
+    return ms
+
+
+def batched_layer_times(torch, lk, states, n, layer_ops, label,
+                        fast=False):
     """The batched layer kernel on a path's layers: held against its plain
     version over the whole batch (max |diff| / max |plain| <= 1e-5), ms
     (CUDA events), its bound, its plain version's ms, and one complex64
     torch.matmul of each layer's lane product (where the layer has one)
-    over the whole batch."""
+    over the whole batch — for the FAST kernel (``fast``) one bf16
+    torch.matmul of the stacked real lane product."""
     rows = []
+    lib_fast = bf16_lane_ms(torch, states) if fast else None
     for i, layer in enumerate(layer_ops):
         a = states.clone()
-        lk.apply_layer_batched(a, n, layer)
-        b = lk.apply_layer_batched_plain(states.clone(), n, layer)
+        lk.apply_layer_batched(a, n, layer, fast=fast)
+        b = lk.apply_layer_batched_plain(states.clone(), n, layer, fast)
         torch.cuda.synchronize()
         err, rel = rel_err(a, b)
         del a, b
@@ -616,19 +806,24 @@ def batched_layer_times(torch, lk, states, n, layer_ops, label):
         check(rel <= 1e-5, f"{label} layer {i}: batched kernel vs plain "
               f"over all {states.shape[0]} states: max|diff| {err:.3e}, "
               f"/ max|plain| {rel:.3e} <= 1e-5")
-        ms = cuda_ms(torch, lambda: lk.apply_layer_batched(states, n, layer),
-                     reps=3)
+        ms = cuda_ms(torch, lambda: lk.apply_layer_batched(
+            states, n, layer, fast=fast), reps=3)
         plain = cuda_ms(torch, lambda: lk.apply_layer_batched_plain(
-            states, n, layer), reps=1)
+            states, n, layer, fast), reps=1)
         bound, by, hbm, ops = layer_bound_ms(lk, layer, n, states.dtype,
-                                             states.shape[0])
+                                             states.shape[0], fast)
         lanes = [st[1] for st in layer.stages if st[0] == "lane"]
-        lib = lane_matmul_ms(torch, states, lanes[0]) if lanes else None
+        if fast:
+            lib, lib_name = lib_fast, "bf16 stacked real"
+        else:
+            lib = lane_matmul_ms(torch, states, lanes[0]) if lanes else None
+            lib_name = "complex64"
         torch.cuda.empty_cache()
         print(f"  {label} layer {i}: {[st[0] for st in layer.stages]}")
         print(f"    kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; HBM "
-              f"{hbm:.3f} ms, CUDA-core flops {ops:.3f} ms), plain "
-              f"{plain:.3f} ms, torch.matmul complex64 lane product "
+              f"{hbm:.3f} ms, {'bf16 tensor-core + ' if fast else ''}"
+              f"CUDA-core flops {ops:.3f} ms), plain {plain:.3f} ms, "
+              f"torch.matmul {lib_name} lane product "
               f"{'not measured' if lib is None else f'{lib:.3f} ms'}, "
               f"max|kernel-plain| {err:.3e}")
         rows.append((ms, bound, by, plain, lib, err))
@@ -647,11 +842,11 @@ def host_binding_ms(compiled, pm) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_sweep(torch, qt, lk, kk, card):
-    n, batch = SWEEP_QUBITS, SWEEP_BATCH
-    print(f"phase 8: batched ensemble engine, {n}-qubit {SWEEP_LAYERS}-layer "
-          f"HEA, complex64, batch {batch}, {SWEEP_TERMS}-term Pauli sum, "
-          f"on {card}")
+def hea_problem(qt):
+    """The ensemble cell: the HEA circuit, a seeded Pauli sum (terms,
+    coefficients and the flat codes calcExpecPauliSum takes) and the
+    parameter matrix."""
+    n = SWEEP_QUBITS
     rng = np.random.default_rng(2026)
     circ = hea_circuit(qt, n, SWEEP_LAYERS)
     codes = rng.integers(0, 4, size=(SWEEP_TERMS, n))
@@ -659,8 +854,18 @@ def phase_sweep(torch, qt, lk, kk, card):
     terms = [[(q, int(codes[t, q])) for q in range(n)]
              for t in range(SWEEP_TERMS)]
     codes_flat = [int(c) for c in codes.reshape(-1)]
+    pm = rng.uniform(0.0, 2.0 * np.pi,
+                     size=(SWEEP_BATCH, len(circ.param_names)))
+    return circ, terms, coeffs, codes_flat, pm
+
+
+def phase_sweep(torch, qt, lk, kk, card):
+    n, batch = SWEEP_QUBITS, SWEEP_BATCH
+    print(f"phase 8: batched ensemble engine, {n}-qubit {SWEEP_LAYERS}-layer "
+          f"HEA, complex64, batch {batch}, {SWEEP_TERMS}-term Pauli sum, "
+          f"on {card}")
+    circ, terms, coeffs, codes_flat, pm = hea_problem(qt)
     names = circ.param_names
-    pm = rng.uniform(0.0, 2.0 * np.pi, size=(batch, len(names)))
     env = qt.createQuESTEnv(seed=[2026])
     t0 = time.perf_counter()
     compiled = circ.compile(env)
@@ -843,6 +1048,193 @@ def phase_trajectories(torch, qt, lk, kk, card):
             "kraus": (k_ms, k_bound, k_by, k_plain, k_lib, kerr)}
 
 
+def timed_runs(torch, fn, reps: int = 2) -> float:
+    """Host seconds per synchronised call of fn, over reps warm calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_fast_main(torch, qt, lk, kk, card):
+    n = MAIN_QUBITS
+    print(f"phase 10: the FAST tier on the main path, {n} qubits, "
+          f"{MAIN_LAYERS}-layer brickwork, on {card}")
+    env = qt.createQuESTEnv()
+    gates = brickwork(n, MAIN_LAYERS)
+    circ = as_circuit(qt, n, gates)
+    t0 = time.perf_counter()
+    cc = circ.compile(env, tier="fast")
+    compile_s = time.perf_counter() - t0
+    by_budget = circ.compile(env, error_budget=FAST_BUDGET)
+    check(cc.tier.name == "fast" and by_budget.tier.name == "fast",
+          f"tier='fast' and error_budget={FAST_BUDGET} both compile at "
+          f"{by_budget.tier.name}")
+    del by_budget
+    layer_ops = [op for op in cc._ops if op.kind == "layer"]
+    n_mxu = sum(st[0] == "rowmxu" for op in layer_ops for st in op.stages)
+    print(f"  compiled {len(gates)} gates into {len(cc.plan.items)} ops "
+          f"({len(layer_ops)} layers, {n_mxu} rowmxu stages) in "
+          f"{compile_s:.2f} s")
+    check(layer_ops and n_mxu > 0, f"{n_mxu} rowmxu stages on the FAST "
+          "path")
+
+    q = qt.createQureg(n, env)
+    qt.initZeroState(q)
+    reset_counts(lk, kk)
+    cc.run(q)
+    torch.cuda.synchronize()
+    fast = fast_counts(lk)
+    check(fast == (len(layer_ops), 0, 0) and counts(lk, kk) == (0, 0, 0),
+          f"FAST layer kernel launched {fast[0]} times for "
+          f"{len(layer_ops)} layer ops, no full-precision launch")
+
+    single = circ.compile(env)
+    q2 = qt.createQureg(n, env)
+    qt.initZeroState(q2)
+    single.run(q2)
+    torch.cuda.synchronize()
+    dev, dev_rel = rel_err(q.state, q2.state)
+    bound = qt.modeled_tier_error(qt.FAST_TIER, len(gates))
+    check(0.0 < dev_rel <= bound,
+          f"FAST vs SINGLE final state: max|diff| {dev:.3e}, / max|amp| "
+          f"{dev_rel:.3e} (0 < it <= modeled {bound:.3e})")
+    fast_s = timed_runs(torch, lambda: cc.run(q))
+    single_s = timed_runs(torch, lambda: single.run(q2))
+    print(f"  compiled run: FAST {fast_s * 1e3:.1f} ms "
+          f"({len(gates) / fast_s:.1f} gates/s), SINGLE "
+          f"{single_s * 1e3:.1f} ms ({len(gates) / single_s:.1f} gates/s)")
+    del q2, single
+    torch.cuda.empty_cache()
+
+    planes = q.state
+    lib = bf16_lane_ms(torch, planes.unsqueeze(0))
+    torch.cuda.empty_cache()
+    rows = []
+    for i, layer in enumerate(layer_ops):
+        a = planes.clone()
+        lk.apply_layer(a, n, layer, fast=True)
+        b = lk.apply_layer_plain(planes.clone(), n, layer, fast=True)
+        torch.cuda.synchronize()
+        err, rel = rel_err(a, b)
+        del a, b
+        torch.cuda.empty_cache()
+        check(rel <= 1e-5, f"FAST layer {i}: kernel vs plain max|diff| "
+              f"{err:.3e}, / max|plain| {rel:.3e} <= 1e-5")
+        ms = cuda_ms(torch, lambda: lk.apply_layer(planes, n, layer,
+                                                   fast=True), reps=3)
+        plain = cuda_ms(torch, lambda: lk.apply_layer_plain(
+            planes, n, layer, fast=True), reps=1)
+        torch.cuda.empty_cache()
+        b_ms, by, hbm, ops = layer_bound_ms(lk, layer, n, torch.float32,
+                                            fast=True)
+        print(f"  FAST layer {i}: {[st[0] for st in layer.stages]}")
+        print(f"    kernel {ms:.3f} ms, bound {b_ms:.3f} ms ({by}; HBM "
+              f"{hbm:.3f} ms, bf16 tensor-core + CUDA-core flops "
+              f"{ops:.3f} ms), plain {plain:.3f} ms, torch.matmul bf16 "
+              f"stacked real lane product {lib:.3f} ms")
+        rows.append((ms, b_ms, by, plain, lib, err))
+    by = [r[2] for r in rows]
+    return {
+        "name": "layer_kernel_fast",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/layer_kernel.cu",
+        "replaces": "quest_tpu/ops/pallas_kernels.py:339",
+        "launches": fast[0],
+        "max_abs_err": max(r[5] for r in rows),
+        "ms": float(np.mean([r[0] for r in rows])),
+        "plain_ms": float(np.mean([r[3] for r in rows])),
+        "bound_ms": float(np.mean([r[1] for r in rows])),
+        "bound_by": max(set(by), key=by.count),
+        "library_ms": lib,
+        "qubits": n,
+        "rowmxu_stages": n_mxu,
+        "gates_per_s": len(gates) / fast_s,
+        "single_gates_per_s": len(gates) / single_s,
+    }
+
+
+def phase_fast_sweep(torch, qt, lk, kk, card):
+    from quest_tpu_torch.ops import reductions as red
+    n, batch = SWEEP_QUBITS, SWEEP_BATCH
+    print(f"phase 11: tiers in the batched engine, {n}-qubit "
+          f"{SWEEP_LAYERS}-layer HEA, batch {batch}, {SWEEP_TERMS}-term "
+          f"Pauli sum, on {card}")
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    env = qt.createQuESTEnv(seed=[2026])
+    cc = circ.compile(env)
+    n_fast = sum(op.kind == "layer" for op in cc._plan_for(qt.FAST_TIER)[1])
+    ham = (terms, coeffs)
+    energies, secs = {}, {}
+    for tier in ("fast", "single"):
+        reset_counts(lk, kk)
+        t0 = time.perf_counter()
+        energies[tier] = cc.expectation_sweep(pm, ham, tier=tier)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = (fast_counts(lk), counts(lk, kk))
+        if tier == "fast":
+            fast_launches = launched[0][1]
+            want = ((0, n_fast, 0), (0, 0, 0))
+        else:
+            want = ((0, 0, 0), (0, cc.num_layers, 0))
+        check(launched == want and energies[tier].shape == (batch,)
+              and bool(np.isfinite(energies[tier]).all()),
+              f"tier {tier}: (FAST, MXU tile) and full-precision launches "
+              f"{launched} for its layers; first call {first_s * 1e3:.1f} "
+              f"ms")
+        secs[tier] = timed_runs(
+            torch, lambda: cc.expectation_sweep(pm, ham, tier=tier), reps=1)
+        print(f"  tier {tier}: {secs[tier] * 1e3:.1f} ms per sweep, "
+              f"{batch / secs[tier]:.2f} points/s")
+    ef, es = energies["fast"], energies["single"]
+    d_rel = float(np.abs(ef - es).max() / np.abs(es).max())
+    bound = qt.modeled_tier_error(qt.FAST_TIER, len(circ.ops))
+    check(d_rel <= bound, f"FAST vs SINGLE energies: max|dE| / max|E| "
+          f"{d_rel:.3e} <= modeled {bound:.3e}")
+
+    # SINGLE's compensated energies against a float64 host reduction of
+    # the same states
+    states4 = cc.sweep(pm[:4], tier="single")
+    e4 = cc.expectation_sweep(pm[:4], ham, tier="single")
+    xm, ym, zm, cf = cc._pauli_operands(ham)
+    host = red.pauli_sum_total_sv(states4.double().cpu(), xm, ym, zm,
+                                  cf).numpy()
+    naive = red.pauli_sum_total_sv(states4, xm, ym, zm, cf).cpu().numpy()
+    c_rel = float(np.abs(e4 - host).max() / np.abs(host).max())
+    n_rel = float(np.abs(naive - host).max() / np.abs(host).max())
+    check(c_rel <= 1e-6, f"SINGLE compensated energies vs float64 host "
+          f"reduction, 4 points: max|dE| / max|E| {c_rel:.3e} <= 1e-6 "
+          f"(naive float32 reduce: {n_rel:.3e})")
+    del states4
+
+    states = cc.sweep(pm, tier="fast")
+    fast_layers = [op for op in cc._plan_for(qt.FAST_TIER)[1]
+                   if op.kind == "layer"]
+    rows = batched_layer_times(torch, lk, states, n, fast_layers,
+                               "FAST sweep", fast=True)
+    del states
+    torch.cuda.empty_cache()
+    by = [r[2] for r in rows]
+    return {
+        "name": "layer_kernel_batched_fast",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/layer_kernel.cu",
+        "replaces": "quest_tpu/ops/pallas_kernels.py:768",
+        "launches": fast_launches,
+        "max_abs_err": max(r[5] for r in rows),
+        "ms": float(np.mean([r[0] for r in rows])),
+        "plain_ms": float(np.mean([r[3] for r in rows])),
+        "bound_ms": float(np.mean([r[1] for r in rows])),
+        "bound_by": max(set(by), key=by.count),
+        "library_ms": rows[0][4],
+        "points_per_s_fast": batch / secs["fast"],
+        "points_per_s_single": batch / secs["single"],
+    }
+
+
 def kernel_rows(layer_row, sweep, traj):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"]
@@ -931,6 +1323,8 @@ def main() -> int:
         phase_stages(torch, lk, rng)
         phase_batched_stages(torch, lk, rng)
         phase_kraus(torch, kk, rng)
+        phase_fast_stages(torch, qt, lk, rng)
+        mxu_row = phase_mxu_tile(torch, qt, lk, kk, rng, card)
         env, compiled, q1, gates, launches = phase_main(torch, qt, lk)
         phase_tutorial(torch, qt)
         row = phase_times(torch, qt, lk, env, compiled, q1, gates, launches,
@@ -941,6 +1335,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         sweep = phase_sweep(torch, qt, lk, kk, card)
         traj = phase_trajectories(torch, qt, lk, kk, card)
+        fast_row = phase_fast_main(torch, qt, lk, kk, card)
+        torch.cuda.empty_cache()
+        fast_batched_row = phase_fast_sweep(torch, qt, lk, kk, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -948,7 +1345,8 @@ def main() -> int:
         print(f"FAIL: {e} (run from the root of a checkout)",
               file=sys.stderr)
         return 2
-    print(json.dumps({"kernels": kernel_rows(row, sweep, traj)}))
+    print(json.dumps({"kernels": kernel_rows(row, sweep, traj)
+                      + [fast_row, fast_batched_row, mxu_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 The QuEST-named state-vector API and compiled circuits on one CUDA device,
 with the fused gate-layer kernel written by hand in CUDA C++ for Hopper
-(``csrc/layer_kernel.cu``). The JAX package ``quest_tpu`` is the reference
-this port is tested against; nothing here imports it or JAX.
+(``csrc/layer_kernel.cu``), and the precision-tier ladder (FAST, SINGLE,
+DOUBLE; ``Circuit.compile(tier=/error_budget=)``, ``sweep(tier=)``). The
+JAX package ``quest_tpu`` is the reference this port is tested against;
+nothing here imports it or JAX.
 
 ```python
 import quest_tpu_torch as qt
@@ -19,7 +21,11 @@ print(qt.calcProbOfOutcome(q, 1, 1)) # 0.5
 from .api import *  # noqa: F401,F403
 from .api import __all__ as _api_all
 from .circuits import Circuit, CompiledCircuit, Param
-from .config import DOUBLE, SINGLE, Precision
+from .config import (DOUBLE, DOUBLE_TIER, FAST_TIER, QUAD_TIER, SINGLE,
+                     SINGLE_TIER, TIER_LADDER, Precision, PrecisionTier,
+                     tier_by_name)
+from .profiling import (choose_tier, engine_tiers, modeled_tier_error,
+                        tier_runtime_tol)
 from .env import QuESTEnv
 from .qureg import Qureg
 from .types import (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, PauliOpType,
@@ -28,6 +34,9 @@ from .validation import ErrorCode
 
 __all__ = list(_api_all) + [
     "Circuit", "CompiledCircuit", "Param", "Precision", "SINGLE", "DOUBLE",
+    "PrecisionTier", "FAST_TIER", "SINGLE_TIER", "DOUBLE_TIER", "QUAD_TIER",
+    "TIER_LADDER", "tier_by_name", "choose_tier", "modeled_tier_error",
+    "engine_tiers", "tier_runtime_tol",
     "QuESTEnv", "Qureg", "PauliOpType", "PAULI_I", "PAULI_X", "PAULI_Y",
     "PAULI_Z", "QuESTError", "ErrorCode",
 ]

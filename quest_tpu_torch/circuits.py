@@ -30,6 +30,20 @@ gate engine's batched form. Channels (:meth:`Circuit.kraus` and the named
 channels) are recorded as ``"kraus"`` ops; a state-vector compile rejects
 them, and :meth:`Circuit.compile_trajectories` runs them as trajectory
 ensembles (``ops/trajectories.py``).
+
+Precision tiers (``config.TIER_LADDER``): ``Circuit.compile(tier=...)`` or
+``error_budget=...`` pins the tier ``run``/``apply`` execute at, and the
+engine's entry points take a per-dispatch ``tier=``. One rule maps a tier
+to its execution mode (:meth:`CompiledCircuit._tier_exec_mode`): FAST runs
+the fused layers' dense stages on bf16 inputs (the layer kernel's FAST
+branch) in float32 planes, SINGLE runs float32 with compensated Pauli
+energies, DOUBLE float64 (an f64-storage environment only). A tier whose
+plane dtype differs from the environment's is cast in and out: callers
+always see env-dtype planes. The FAST tier's crossover prices the packed
+``rowmxu`` contraction at the bf16 tensor-core rate, so it collects other
+stages than SINGLE: each (plane dtype, FAST) pair plans its own layers,
+built once and kept (the port runs eagerly, so there is no executable
+cache to key).
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import numpy as np
 import torch
 
 from . import validation as val
+from .config import QUAD_NOT_PORTED, tier_by_name
 from .core import matrices as mats
 from .core.apply import apply_diagonal, apply_unitary, bitmask
 from .env import QuESTEnv
@@ -448,7 +463,9 @@ class Circuit:
 
     def compile(self, env: QuESTEnv, fuse: bool = True, layers: bool = True,
                 supergate_k: int = 4, fusion: Optional[object] = None,
-                mxu: Optional[bool] = None) -> "CompiledCircuit":
+                mxu: Optional[bool] = None,
+                error_budget: Optional[float] = None,
+                tier=None) -> "CompiledCircuit":
         """Plan the circuit for ``env``'s device and precision.
 
         ``layers`` turns the fused-layer pass on (the default; the layer
@@ -456,10 +473,24 @@ class Circuit:
         ``fusion`` is the gate-fusion support cap k (None = default 3,
         0/False = off); ``mxu`` forces the packed ``rowmxu`` contraction on
         (True) or off (False) — None lets the H100 rate model decide
-        (:func:`quest_tpu_torch.parallel.layout.choose_mxu_contraction`)."""
-        return CompiledCircuit(self, env, fuse=fuse, layers=layers,
-                               supergate_k=supergate_k, fusion=fusion,
-                               mxu=mxu)
+        (:func:`quest_tpu_torch.parallel.layout.choose_mxu_contraction`).
+
+        ``error_budget`` is the precision-tier dial: state the max
+        amplitude error the results may carry and the CHEAPEST tier whose
+        modeled error (drift per gate x recorded gates,
+        :func:`quest_tpu_torch.profiling.modeled_tier_error`) fits is
+        chosen; an unmeetable budget raises ``ValueError`` here. ``tier``
+        pins a rung explicitly (a ``PrecisionTier`` or its name). Both
+        default to the environment's precision."""
+        if tier is None and error_budget is not None:
+            from .profiling import choose_tier
+            tier = choose_tier(float(error_budget), max(len(self.ops), 1),
+                               env)
+        cc = CompiledCircuit(self, env, fuse=fuse, layers=layers,
+                             supergate_k=supergate_k, fusion=fusion,
+                             mxu=mxu, tier=tier)
+        cc.error_budget = error_budget
+        return cc
 
     def compile_trajectories(self, env: QuESTEnv) -> "TrajectoryProgram":
         """Lower to a quantum-trajectory program: channels applied
@@ -564,12 +595,15 @@ def _group_supergates(ops: list, max_k: int = 4, fold_diags: bool = True,
     return out
 
 
-def _mxu_policy(enabled: bool, itemsize: int, force: Optional[bool]):
+def _mxu_policy(enabled: bool, itemsize: int, force: Optional[bool],
+                fast: bool = False):
     """The layer collector's packed-contraction policy: None (off) or a
     dict with the memoized per-gate crossover ``decide(row_bits,
     gate_qubits)`` and the row-bit ``cap`` — one table shared by
     ``_layer_eligible`` and ``_LayerAccum.try_add``, so the fence and the
-    collector never disagree about which gates ``rowmxu`` claims."""
+    collector never disagree about which gates ``rowmxu`` claims. ``fast``
+    (the tier's FAST flag) prices the packed side at the bf16 tensor-core
+    rate."""
     if not enabled:
         return None
     from .parallel.layout import MXU_ROW_CAP, choose_mxu_contraction
@@ -579,7 +613,8 @@ def _mxu_policy(enabled: bool, itemsize: int, force: Optional[bool]):
         k = (row_bits, gate_qubits)
         if k not in memo:
             memo[k] = choose_mxu_contraction(row_bits, gate_qubits,
-                                             itemsize, force)["use_mxu"]
+                                             itemsize, force,
+                                             fast)["use_mxu"]
         return memo[k]
 
     return {"decide": decide, "cap": MXU_ROW_CAP}
@@ -841,14 +876,16 @@ def _schedule(recorded: Sequence[_Op], num_qubits: int, fuse_flag: bool,
 
 class CompiledCircuit:
     """A planned :class:`Circuit`: layers and gates in program order,
-    applied in place to ``(2, 2^N)`` planes on the env's device."""
+    applied in place to ``(2, 2^N)`` planes on the env's device, at the
+    compile-time precision tier (``tier``; None = the environment's
+    precision)."""
+
+    error_budget = None  # set by Circuit.compile(error_budget=...)
 
     def __init__(self, circuit: Circuit, env: QuESTEnv, fuse: bool = True,
                  layers: bool = True, supergate_k: int = 4,
                  fusion: Optional[object] = None,
-                 mxu: Optional[bool] = None):
-        from .core.fusion import fuse_ops, resolve_fusion_k
-
+                 mxu: Optional[bool] = None, tier=None):
         if any(op.kind == "kraus" for op in circuit.ops):
             raise ValueError(
                 "circuit contains Kraus channels; a state-vector compile "
@@ -856,36 +893,65 @@ class CompiledCircuit:
                 "density compile is not ported yet)")
         self.circuit = circuit
         self.env = env
-        self.num_qubits = n = circuit.num_qubits
+        self.num_qubits = circuit.num_qubits
         self.param_names = circuit.param_names
-        dtype = env.precision.real_dtype
-        self.tile_rows = lk.tile_rows_for(dtype)
-        use_layers = bool(layers) and n >= lk.LANE_QUBITS
-        mxu_policy = _mxu_policy(use_layers, dtype.itemsize, mxu)
+        self.tier = self._resolve_tier(tier)
+        self._compile_opts = {"fuse": fuse, "layers": layers,
+                              "supergate_k": supergate_k, "fusion": fusion,
+                              "mxu": mxu}
+        # collected plans per (plane dtype, FAST flag): the compile-time
+        # tier's now, a per-dispatch tier's at its first dispatch
+        self._plans: dict = {}
+        self.plan, self._ops, self.fusion_stats = self._plan_for(self.tier)
+        self.tile_rows = lk.tile_rows_for(
+            self._tier_dtypes(self.tier, env)[0])
+
+    def _plan_for(self, tier):
+        """``(plan, ops, fusion_stats)`` of the layer plan a tier executes:
+        built once per (plane dtype, FAST flag) — the tile height follows
+        the plane dtype and the crossover the FAST flag — and kept."""
+        key = (self._tier_dtypes(tier, self.env)[0],
+               self._tier_exec_mode(tier)[1])
+        if key not in self._plans:
+            self._plans[key] = self._build_plan(*key)
+        return self._plans[key]
+
+    def _build_plan(self, dtype: torch.dtype, fast: bool):
+        """record -> FUSE -> schedule -> supergate -> collect layers, for
+        planes of ``dtype`` (the kernel's tile height) with the crossover
+        priced for the FAST tier or not."""
+        from .core.fusion import fuse_ops, resolve_fusion_k
+
+        opts = self._compile_opts
+        n = self.num_qubits
+        tile_rows = lk.tile_rows_for(dtype)
+        use_layers = bool(opts["layers"]) and n >= lk.LANE_QUBITS
+        mxu_policy = _mxu_policy(use_layers, dtype.itemsize, opts["mxu"],
+                                 fast)
         diag_cap = 3 if use_layers else -1
 
-        # record -> FUSE -> schedule -> supergate -> collect layers
-        recorded = list(circuit.ops)
-        self.fusion_stats = None
-        k_fuse = resolve_fusion_k(fusion, n)
+        recorded = list(self.circuit.ops)
+        fusion_stats = None
+        k_fuse = resolve_fusion_k(opts["fusion"], n)
         if k_fuse >= 2:
-            barrier = _layer_barrier(recorded, n, self.tile_rows,
+            barrier = _layer_barrier(recorded, n, tile_rows,
                                      mxu_policy) if use_layers else None
-            recorded, self.fusion_stats = fuse_ops(
+            recorded, fusion_stats = fuse_ops(
                 recorded, max_k=k_fuse, diag_row_cap=diag_cap,
                 barrier=barrier)
-        ops, plan = _schedule(recorded, n, fuse, diag_row_cap=diag_cap)
+        ops, plan = _schedule(recorded, n, opts["fuse"],
+                              diag_row_cap=diag_cap)
+        supergate_k = opts["supergate_k"]
         if supergate_k >= 2:
             before = len(ops)
             ops = _group_supergates(
                 ops, supergate_k, fold_diags=True,
-                barrier=_layer_barrier(ops, n, self.tile_rows, mxu_policy)
+                barrier=_layer_barrier(ops, n, tile_rows, mxu_policy)
                 if use_layers else None)
             if len(ops) != before:
                 plan = plan_layout(ops, n)
         if use_layers:
-            items, ops = _collect_layers_plan(plan.items, ops, n,
-                                              self.tile_rows,
+            items, ops = _collect_layers_plan(plan.items, ops, n, tile_rows,
                                               mxu=mxu_policy)
             # prune the table to executed ops (fused members are
             # superseded by their LayerOp)
@@ -894,8 +960,59 @@ class CompiledCircuit:
             ops = [ops[i] for i in ref]
             items = [(it[0], remap[it[1]], *it[2:]) for it in items]
             plan = LayoutPlan(items, n)
-        self.plan = plan
-        self._ops = ops
+        return plan, ops, fusion_stats
+
+    # -- precision tiers -----------------------------------------------------
+
+    def _resolve_tier(self, tier):
+        """Validate a tier request (None passes through). QUAD is not
+        ported and raises; DOUBLE needs an f64-storage environment,
+        because results leave the engine as env-dtype planes."""
+        if tier is None:
+            return None
+        tier = tier_by_name(tier)
+        if tier.name == "quad":
+            raise NotImplementedError(QUAD_NOT_PORTED)
+        if tier.real_dtype == torch.float64 and \
+                self.env.precision.real_dtype != torch.float64:
+            raise ValueError(
+                "the DOUBLE tier needs an f64-storage environment: results "
+                "are returned as env-dtype planes, so on this f32 env the "
+                "f64 execution would round back to f32 on exit — create "
+                "the env with precision=DOUBLE")
+        return tier
+
+    def _effective_tier(self, tier):
+        """The tier one dispatch runs at: the per-call override, else the
+        compile-time tier, else None (the environment's precision)."""
+        if tier is None:
+            return self.tier
+        return self._resolve_tier(tier)
+
+    @staticmethod
+    def _tier_exec_mode(tier) -> tuple:
+        """(matmul precision, FAST flag) for one tier: the ONE definition
+        of the tier -> execution-mode rule, shared by ``run``/``apply`` and
+        the batched engine."""
+        fast = tier is not None and tier.matmul_precision == "default"
+        return ("default" if fast else None), fast
+
+    @staticmethod
+    def _tier_dtypes(tier, env) -> tuple:
+        """(real, complex) EXECUTION dtypes for one dispatch."""
+        rdt = tier.real_dtype if tier is not None \
+            else env.precision.real_dtype
+        return rdt, (torch.complex64 if rdt == torch.float32
+                     else torch.complex128)
+
+    def _modeled_tier_error(self) -> float:
+        """The budget model's per-run error bound for the compile-time
+        tier (0.0 when no tier is selected)."""
+        if self.tier is None:
+            return 0.0
+        from .profiling import modeled_tier_error
+        return float(modeled_tier_error(self.tier,
+                                        max(len(self.circuit.ops), 1)))
 
     @property
     def num_layers(self) -> int:
@@ -909,24 +1026,32 @@ class CompiledCircuit:
         return params
 
     def apply(self, planes, params: Optional[dict] = None):
-        """Run the plan on ``(2, 2^N)`` planes, IN PLACE (returned)."""
+        """Run the plan on ``(2, 2^N)`` planes, IN PLACE (returned), at the
+        compile-time tier: planes of another dtype than the tier's are
+        cast in and the result copied back."""
         n = self.num_qubits
         if tuple(planes.shape) != (2, 1 << n):
             raise ValueError(f"planes have shape {tuple(planes.shape)}; "
                              f"this circuit needs (2, {1 << n})")
         params = self._params(params)
+        prec, fast = self._tier_exec_mode(self.tier)
+        rdt = self._tier_dtypes(self.tier, self.env)[0]
+        work = planes if planes.dtype == rdt else planes.to(rdt)
         for _, i, phys_targets, cmask, fmask, axis_order in self.plan.items:
             op = self._ops[i]
             if op.kind == "layer":
-                lk.apply_layer(planes, n, op)
+                lk.apply_layer(work, n, op, fast=fast)
             elif op.kind == "u":
                 u = op.mat_fn(params) if op.mat_fn is not None else op.mat
-                apply_unitary(planes, n, u, phys_targets, cmask, fmask)
+                apply_unitary(work, n, u, phys_targets, cmask, fmask,
+                              precision=prec)
             else:
                 d = op.diag_fn(params) if op.diag_fn is not None \
                     else op.diag
-                apply_diagonal(planes, n, phys_targets,
+                apply_diagonal(work, n, phys_targets,
                                np.transpose(np.asarray(d), axis_order))
+        if work is not planes:
+            planes.copy_(work)
         return planes
 
     def run(self, qureg: Qureg, params: Optional[dict] = None) -> None:
@@ -950,14 +1075,15 @@ class CompiledCircuit:
     # gate's matrix bound on the host once per row and moved to the device
     # once per op per call.
 
-    def _batched_segments(self):
+    @staticmethod
+    def _batched_segments(plan, ops):
         """The plan's items split into sequential segments and batched
         layer steps: a list of ``("seq", items)`` / ``("layer",
         op_index)`` entries."""
         segs: list = []
         cur: list = []
-        for item in self.plan.items:
-            if self._ops[item[1]].kind == "layer":
+        for item in plan.items:
+            if ops[item[1]].kind == "layer":
                 if cur:
                     segs.append(("seq", tuple(cur)))
                     cur = []
@@ -968,22 +1094,26 @@ class CompiledCircuit:
             segs.append(("seq", tuple(cur)))
         return segs
 
-    def _run_plan_batched(self, states: torch.Tensor,
-                          pm: np.ndarray) -> torch.Tensor:
-        """Walk the plan over ``(B, 2, 2^n)`` states, IN PLACE, row ``b``
-        binding parameter row ``pm[b]``."""
+    def _run_plan_batched(self, states: torch.Tensor, pm: np.ndarray,
+                          tier=None) -> torch.Tensor:
+        """Walk ``tier``'s plan over ``(B, 2, 2^n)`` states (already in the
+        tier's plane dtype), IN PLACE, row ``b`` binding parameter row
+        ``pm[b]``."""
         n = self.num_qubits
         names = self.param_names
-        for kind, payload in self._batched_segments():
+        plan, ops, _ = self._plan_for(tier)
+        prec, fast = self._tier_exec_mode(tier)
+        for kind, payload in self._batched_segments(plan, ops):
             if kind == "layer":
-                lk.apply_layer_batched(states, n, self._ops[payload])
+                lk.apply_layer_batched(states, n, ops[payload], fast=fast)
                 continue
             for _, i, phys_targets, cmask, fmask, axis_order in payload:
-                op = self._ops[i]
+                op = ops[i]
                 if op.kind == "u":
                     u = op.mat if op.mat_fn is None \
                         else _bind_rows(op.mat_fn, names, pm)
-                    apply_unitary(states, n, u, phys_targets, cmask, fmask)
+                    apply_unitary(states, n, u, phys_targets, cmask, fmask,
+                                  precision=prec)
                     continue
                 d = np.asarray(op.diag) if op.diag_fn is None \
                     else _bind_rows(op.diag_fn, names, pm)
@@ -1011,13 +1141,14 @@ class CompiledCircuit:
                                                   self.num_qubits)
         return red.pauli_terms_operands(terms, coeffs, self.num_qubits)
 
-    def _start_states(self, batch: int, state_f) -> torch.Tensor:
-        """The ``(B, 2, 2^n)`` batch a sweep runs on: |0..0> or a shared
-        ``(2, 2^n)`` start state copied per row, or the caller's own
-        ``(B, 2, 2^n)`` batch (used in place when it already lies on the
-        env's device in its dtype)."""
+    def _start_states(self, batch: int, state_f,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """The ``(B, 2, 2^n)`` batch a sweep runs on, in ``dtype``: |0..0>
+        or a shared ``(2, 2^n)`` start state copied per row, or the
+        caller's own ``(B, 2, 2^n)`` batch (used in place when it already
+        lies on the env's device in ``dtype``)."""
         n = self.num_qubits
-        dtype, device = self.env.precision.real_dtype, self.env.device
+        device = self.env.device
         if state_f is None:
             states = torch.zeros((batch, 2, 1 << n), dtype=dtype,
                                  device=device)
@@ -1036,25 +1167,38 @@ class CompiledCircuit:
                 f"({batch}, 2, {1 << n}) batch; got {tuple(state_f.shape)}")
         return state_f.to(device=device, dtype=dtype).contiguous()
 
-    def sweep(self, param_matrix, state_f=None) -> torch.Tensor:
+    def sweep(self, param_matrix, state_f=None, tier=None) -> torch.Tensor:
         """Run a whole batch of parameter vectors through the plan.
 
         ``param_matrix``: ``(B, len(param_names))``. ``state_f``: shared
         ``(2, 2^n)`` planes every run starts from (default |0..0>), or an
         OWNED ``(B, 2, 2^n)`` batch, which is updated IN PLACE (the port's
         answer to donation) when it lies on the env's device in its dtype.
-        Returns the ``(B, 2, 2^n)`` planes."""
+        ``tier`` runs this dispatch at one precision-tier rung (a
+        ``PrecisionTier`` or name; default the compile-time tier, else the
+        env precision). Returns the ``(B, 2, 2^n)`` planes in the env's
+        dtype."""
+        tier = self._effective_tier(tier)
         pm = self._validated_param_matrix(param_matrix)
-        states = self._start_states(pm.shape[0], state_f)
-        return self._run_plan_batched(states, pm)
+        env_dt = self.env.precision.real_dtype
+        states = self._start_states(pm.shape[0], state_f, env_dt)
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        if rdt == env_dt:
+            return self._run_plan_batched(states, pm, tier)
+        out = self._run_plan_batched(states.to(rdt), pm, tier)
+        return states.copy_(out)
 
     def expectation_sweep(self, param_matrix, hamiltonian,
-                          state_f=None) -> np.ndarray:
+                          state_f=None, tier=None) -> np.ndarray:
         """``(B,)`` energies ``<H>(params_b)`` with one device-to-host
         transfer. ``hamiltonian``: ``(pauli_terms, coeffs)``, terms as
         ``(qubit, code)`` pairs (codes 1=X 2=Y 3=Z). Each point runs the
         plan from |0..0> (or the shared ``state_f``) and the Pauli sum is
-        reduced on the device, term after term (``ops/reductions.py``)."""
+        reduced on the device, term after term (``ops/reductions.py``).
+        ``tier`` as in :meth:`sweep`; a compensated tier (SINGLE) reduces
+        each term through the compensated pair path, FAST and DOUBLE
+        through the naive reduce their budgets cover."""
+        tier = self._effective_tier(tier)
         xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
         pm = self._validated_param_matrix(param_matrix)
         if state_f is not None and tuple(torch.as_tensor(
@@ -1063,23 +1207,30 @@ class CompiledCircuit:
                 f"expectation_sweep state_f must be shared (2, "
                 f"{1 << self.num_qubits}) planes (run batched planes "
                 "through sweep(), then reduce)")
+        rdt = self._tier_dtypes(tier, self.env)[0]
         states = self._run_plan_batched(
-            self._start_states(pm.shape[0], state_f), pm)
-        vals = red.pauli_sum_total_sv(states, xm, ym, zm, coeffs)
+            self._start_states(pm.shape[0], state_f, rdt), pm, tier)
+        vals = red.pauli_sum_total_sv(
+            states, xm, ym, zm, coeffs,
+            compensated=tier is not None and tier.compensated)
         return vals.cpu().numpy().astype(np.float64)
 
     def sample_sweep(self, param_matrix, num_shots: int,
-                     generator: Optional[torch.Generator] = None):
-        """Shot batches over a parameter sweep: run the batch, then draw
-        ``num_shots`` basis outcomes per point from ``|amp|^2``
+                     generator: Optional[torch.Generator] = None,
+                     tier=None):
+        """Shot batches over a parameter sweep: run the batch (at ``tier``,
+        as in :meth:`sweep`), then draw ``num_shots`` basis outcomes per
+        point from ``|amp|^2``
         (:func:`quest_tpu_torch.parallel.sampling.sample_batched`, uniforms
         from ``generator``, default the env's). Returns ``(indices,
         totals)``: int64 ``(B, num_shots)`` and the ``(B,)`` norms."""
         from .parallel.sampling import sample_batched
-        planes = self.sweep(param_matrix)
+        planes = self.sweep(param_matrix, tier=tier)
         return sample_batched(planes, generator or self.env.generator,
                               int(num_shots))
 
     def __repr__(self) -> str:
+        tier = self.tier.name if self.tier is not None else "env"
         return (f"CompiledCircuit({self.num_qubits} qubits, "
-                f"{len(self.plan.items)} ops, {self.num_layers} layers)")
+                f"{len(self.plan.items)} ops, {self.num_layers} layers, "
+                f"tier {tier})")

@@ -37,7 +37,7 @@ Python loop, and the two fast paths stay permute-free.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -151,7 +151,8 @@ def _as_batch(planes: torch.Tensor, num_qubits: int):
 
 def apply_unitary(planes: torch.Tensor, num_qubits: int, u,
                   targets: Sequence[int], ctrl_mask: int = 0,
-                  flip_mask: int = 0) -> torch.Tensor:
+                  flip_mask: int = 0,
+                  precision: Optional[str] = None) -> torch.Tensor:
     """Apply a ``2^k x 2^k`` operator to target qubits, IN PLACE on the
     ``(2, 2^N)`` planes or ``(B, 2, 2^N)`` batch (which is also returned).
 
@@ -162,7 +163,17 @@ def apply_unitary(planes: torch.Tensor, num_qubits: int, u,
     control conditions on bit value 1 unless its bit is also set in
     ``flip_mask`` (then on 0) — the mask semantics of
     ``statevec_multiControlledUnitary`` (``QuEST_cpu.c:2146``).
+
+    ``precision`` is the tier's matmul precision, ``"highest"`` (the
+    default) or ``"default"`` (the FAST tier). Both run full float32
+    products here: the FAST tier's reduced-precision inputs live in the
+    fused layers' dense stages (``ops/layer_kernel.py``), and the plain
+    gate path keeps the precision the environment pins
+    (``allow_tf32 = False``, ``env.py``), well inside the tier's budget.
     """
+    if precision not in (None, "highest", "default"):
+        raise ValueError(f"unknown matmul precision {precision!r}; expected "
+                         "'highest' or 'default'")
     x = _as_batch(planes, num_qubits)
     batch = x.shape[0]
     targets = tuple(int(t) for t in targets)

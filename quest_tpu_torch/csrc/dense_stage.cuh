@@ -15,10 +15,37 @@
 // writes any output, and the groups of different warps are disjoint, so no
 // second shared-memory buffer is needed. FMA loops on the CUDA cores, the
 // operator L2-resident (a 128 x 128 complex float32 operator is 128 KiB).
+//
+// stage_dense_fast<J> is the FAST tier's form of the same stage (float32
+// tiles only), the TPU kernel's bf16-split products
+// (quest_tpu/ops/pallas_kernels.py:237-260, 339-355) on the bf16 tensor
+// cores: each input splits into hi = bf16(v) and lo = bf16(v - hi), the
+// operator is bf16 (rounded on the host), and the four real products of
+// each part accumulate in float32 (nvcuda::wmma 16x16x16 bf16 fragments).
+// bf16 products are exact in float32, so the stage differs from the plain
+// version's (rr_h - ii_h) + (rr_l - ii_l) only in the order of the sums.
+// A fragment covers 16 groups and 16 output columns, and the 8 warps of
+// the block split a group's dim outputs, so no warp can own its groups'
+// inputs as the CUDA-core stage does. Instead the stage walks the tile in
+// chunks of 16 groups: all threads gather a chunk's inputs (groups of
+// rows strided by the packed row bits, as combo_offset addresses them)
+// into bf16 hi/lo planes in shared memory, synchronise, and every warp
+// then computes its output fragments from those copies and scatters them
+// into the float32 tile, which no longer holds an input anyone reads.
+// Shared memory beside the tile: 4 x 16 x (dim + 8) bf16 (65 KiB at
+// dim = 512) plus one 16 x 16 float32 output pair per warp (16 KiB).
+// What bounds this simple form: every chunk streams the whole bf16
+// operator from L2 (4 * dim^2 bytes per 16 groups, 64 bytes per amplitude
+// at dim = 512, four times the state's own HBM traffic), with one block of
+// 8 warps per SM to hide it; the packed stages run far above their
+// tensor-core bound (PERF.md). Larger chunks and wgmma with the operator
+// in shared memory are the next steps.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 namespace quest {
@@ -121,6 +148,122 @@ __device__ void stage_dense(T* sre, T* sim, int tile_rows, long long base_row,
       }
     }
     __syncwarp();
+  }
+}
+
+// Groups per FAST chunk (a fragment's rows), the float32 scratch each
+// warp stages its output fragment pair in, and the padding of each staged
+// bf16 row: a row of 128 << J values is a multiple of 256 bytes, so
+// without it the 16 rows a fragment load reads would all fall in one
+// shared-memory bank.
+constexpr int kFastChunk = 16;
+constexpr int kFastOutFloats = 2 * 16 * 16;
+constexpr int kFastPad = 8;
+
+// Shared memory of a FAST stage's scratch: the output pairs of every warp,
+// then the bf16 hi/lo copies of one chunk of a dense stage on up to
+// max_j row bits.
+__host__ __device__ constexpr size_t fast_scratch_bytes(int max_j) {
+  return static_cast<size_t>(kWarps) * kFastOutFloats * sizeof(float)
+         + 4 * static_cast<size_t>(kFastChunk)
+               * ((kLanes << max_j) + kFastPad) * sizeof(__nv_bfloat16);
+}
+
+template <int J>
+__device__ void stage_dense_fast(float* sre, float* sim, float* scratch,
+                                 int tile_rows, long long base_row,
+                                 long long packed,
+                                 const __nv_bfloat16* __restrict__ op_re,
+                                 const __nv_bfloat16* __restrict__ op_im,
+                                 long long row_mask, long long row_want) {
+  using namespace nvcuda;
+  constexpr int kDim = kLanes << J;
+  constexpr int kLd = kDim + kFastPad;        // staged row stride
+  constexpr int kPlane = kFastChunk * kLd;    // bf16 values per copy
+  constexpr int kFrags = kDim / 16 / kWarps;  // output fragments per warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int groups = tile_rows >> J;
+  float* out_re = scratch + warp * kFastOutFloats;
+  float* out_im = out_re + 16 * 16;
+  __nv_bfloat16* hre =
+      reinterpret_cast<__nv_bfloat16*>(scratch + kWarps * kFastOutFloats);
+  __nv_bfloat16* him = hre + kPlane;
+  __nv_bfloat16* lre = hre + 2 * kPlane;
+  __nv_bfloat16* lim = hre + 3 * kPlane;
+
+  for (int c0 = 0; c0 < groups; c0 += kFastChunk) {
+    // the chunk's inputs, split: row r of a copy is group c0 + r
+    for (int i = threadIdx.x; i < kFastChunk * kDim; i += kThreads) {
+      const int r = i / kDim;
+      const int e = i & (kDim - 1);
+      const int g = c0 + r;
+      const int at = r * kLd + e;
+      float vr = 0.0f, vi = 0.0f;
+      if (g < groups) {
+        const int idx = ((insert_zeros(g, packed, J)
+                          | combo_offset(e >> 7, packed, J)) << 7)
+                        | (e & (kLanes - 1));
+        vr = sre[idx];
+        vi = sim[idx];
+      }
+      const __nv_bfloat16 hr = __float2bfloat16_rn(vr);
+      const __nv_bfloat16 hi = __float2bfloat16_rn(vi);
+      hre[at] = hr;
+      him[at] = hi;
+      lre[at] = __float2bfloat16_rn(vr - __bfloat162float(hr));
+      lim[at] = __float2bfloat16_rn(vi - __bfloat162float(hi));
+    }
+    __syncthreads();
+    for (int f = 0; f < kFrags; ++f) {
+      const int o0 = (warp * kFrags + f) * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_re, acc_im;
+      wmma::fill_fragment(acc_re, 0.0f);
+      wmma::fill_fragment(acc_im, 0.0f);
+      for (int e0 = 0; e0 < kDim; e0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> a_hr, a_hi, a_lr, a_li;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> b_re, b_im, b_nim;
+        wmma::load_matrix_sync(a_hr, hre + e0, kLd);
+        wmma::load_matrix_sync(a_hi, him + e0, kLd);
+        wmma::load_matrix_sync(a_lr, lre + e0, kLd);
+        wmma::load_matrix_sync(a_li, lim + e0, kLd);
+        // the operator is stored transposed: rows e, columns o
+        const size_t off = static_cast<size_t>(e0) * kDim + o0;
+        wmma::load_matrix_sync(b_re, op_re + off, kDim);
+        wmma::load_matrix_sync(b_im, op_im + off, kDim);
+        for (int t = 0; t < b_im.num_elements; ++t) {
+          b_nim.x[t] = __hneg(b_im.x[t]);
+        }
+        // re += hr Mr - hi Mi + lr Mr - li Mi; im += hr Mi + hi Mr + ...
+        wmma::mma_sync(acc_re, a_hr, b_re, acc_re);
+        wmma::mma_sync(acc_re, a_hi, b_nim, acc_re);
+        wmma::mma_sync(acc_re, a_lr, b_re, acc_re);
+        wmma::mma_sync(acc_re, a_li, b_nim, acc_re);
+        wmma::mma_sync(acc_im, a_hr, b_im, acc_im);
+        wmma::mma_sync(acc_im, a_hi, b_re, acc_im);
+        wmma::mma_sync(acc_im, a_lr, b_im, acc_im);
+        wmma::mma_sync(acc_im, a_li, b_re, acc_im);
+      }
+      wmma::store_matrix_sync(out_re, acc_re, 16, wmma::mem_row_major);
+      wmma::store_matrix_sync(out_im, acc_im, 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int t = lane; t < 16 * 16; t += 32) {
+        const int g = c0 + (t >> 4);
+        if (g >= groups) continue;
+        const int r0 = insert_zeros(g, packed, J);
+        if (row_mask && ((base_row + r0) & row_mask) != row_want) continue;
+        const int o = o0 + (t & 15);
+        const int idx = ((r0 | combo_offset(o >> 7, packed, J)) << 7)
+                        | (o & (kLanes - 1));
+        sre[idx] = out_re[t];
+        sim[idx] = out_im[t];
+      }
+      __syncwarp();
+    }
+    // the next chunk's gather overwrites the copies
+    __syncthreads();
   }
 }
 

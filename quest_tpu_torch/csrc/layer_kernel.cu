@@ -32,6 +32,17 @@
 // operator element it loads serves several rows. This is the simple, exact
 // form: no tensor cores, no TMA.
 //
+// The FAST tier (quest_layer_apply_fast_f32; the TPU kernel's fast=True,
+// pallas_kernels.py:237-260, 339-355) runs the dense stages on the bf16
+// tensor cores instead (stage_dense_fast, dense_stage.cuh): the
+// bf16-split form doubles the products, 16 * dim flops per amplitude, but
+// at 989 TFLOP/s a 128-wide lane stage over 2^30 amplitudes is ~2.2 ms of
+// operations, under the 5.1 ms HBM pass, so FAST is the tier at which a
+// fused layer can be bound by bytes on this card. Its dense operators come
+// from a second pool, in bf16; row, rowk and rowdiag stages stay float32.
+// The tile stays 128 rows: the bf16 copies of one 16-group chunk and the
+// warps' output fragments (at most 81 KiB) fit beside it.
+//
 // Stage descriptors: one row of 8 int64 per stage,
 //   [tag, k_or_j, packed_bits, pool_offset, lane_mask, lane_want,
 //    row_mask, row_want]
@@ -52,6 +63,10 @@
 // rowdiag table addresses rows of that state, as in the TPU kernel's
 // batched form (pallas_kernels.py:302-307). One descriptor and operand
 // pool serve the whole batch.
+//
+// FAST descriptors are the same, but a dense stage's pool_offset indexes
+// the bf16 pool, which holds M^T rounded to bf16 (real part, imaginary
+// part).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o layer_kernel.so layer_kernel.cu
@@ -141,12 +156,14 @@ __device__ void stage_rowdiag(T* sre, T* sim, int tile_rows, long long base_row,
   }
 }
 
-template <typename T>
+template <typename T, bool Fast>
 __global__ void __launch_bounds__(kThreads)
     layer_kernel(T* re, T* im, const long long* __restrict__ desc,
-                 int n_stages, const T* __restrict__ pool, int tile_rows,
+                 int n_stages, const T* __restrict__ pool,
+                 const __nv_bfloat16* __restrict__ fast_pool, int tile_rows,
                  long long tiles_per_state, long long state_stride) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  // 128-byte alignment: the FAST stage's wmma loads and stores need 32
+  extern __shared__ __align__(128) unsigned char smem[];
   T* sre = reinterpret_cast<T*>(smem);
   T* sim = sre + tile_rows * kLanes;
   const long long state = blockIdx.x / tiles_per_state;
@@ -170,16 +187,32 @@ __global__ void __launch_bounds__(kThreads)
     const long long row_want = d[7];
     if (tag == kDense) {
       const size_t dim = static_cast<size_t>(kLanes) << kj;
-      const T* op_im = op + dim * dim;
-      if (kj == 0) {
-        quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op,
-                                 op_im, row_mask, row_want, T(1));
-      } else if (kj == 1) {
-        quest::stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op,
-                                 op_im, row_mask, row_want, T(1));
+      if constexpr (Fast) {
+        const __nv_bfloat16* f_re = fast_pool + d[3];
+        const __nv_bfloat16* f_im = f_re + dim * dim;
+        float* scratch = sim + tile_rows * kLanes;
+        if (kj == 0) {
+          quest::stage_dense_fast<0>(sre, sim, scratch, tile_rows, base_row,
+                                     packed, f_re, f_im, row_mask, row_want);
+        } else if (kj == 1) {
+          quest::stage_dense_fast<1>(sre, sim, scratch, tile_rows, base_row,
+                                     packed, f_re, f_im, row_mask, row_want);
+        } else {
+          quest::stage_dense_fast<2>(sre, sim, scratch, tile_rows, base_row,
+                                     packed, f_re, f_im, row_mask, row_want);
+        }
       } else {
-        quest::stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op,
-                                 op_im, row_mask, row_want, T(1));
+        const T* op_im = op + dim * dim;
+        if (kj == 0) {
+          quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op,
+                                   op_im, row_mask, row_want, T(1));
+        } else if (kj == 1) {
+          quest::stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op,
+                                   op_im, row_mask, row_want, T(1));
+        } else {
+          quest::stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op,
+                                   op_im, row_mask, row_want, T(1));
+        }
       }
     } else if (tag == kRowK) {
       const T* u_im = op + (1 << (2 * kj));
@@ -204,14 +237,21 @@ __global__ void __launch_bounds__(kThreads)
   quest::copy_tile(re + first, im + first, sre, sim, tile_rows);
 }
 
-template <typename T>
+template <typename T, bool Fast>
 int launch(void* re, void* im, const void* desc, int n_stages,
-           const void* pool, long long total_rows, int tile_rows,
-           long long batch, long long state_stride, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T);
+           const void* pool, const void* fast_pool, int max_j,
+           long long total_rows, int tile_rows, long long batch,
+           long long state_stride, void* stream) {
+  size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T);
+  if (Fast) {
+    if (max_j < 0 || max_j > 2) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    smem += quest::fast_scratch_bytes(max_j);
+  }
   cudaGetLastError();  // an error left by earlier work is not this launch's
   cudaError_t err = cudaFuncSetAttribute(
-      layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      layer_kernel<T, Fast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = total_rows / tile_rows;
@@ -219,11 +259,13 @@ int launch(void* re, void* im, const void* desc, int n_stages,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const unsigned blocks = static_cast<unsigned>(batch * tiles);
-  layer_kernel<T><<<blocks, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  layer_kernel<T, Fast><<<blocks, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(re), static_cast<T*>(im),
       static_cast<const long long*>(desc), n_stages,
-      static_cast<const T*>(pool), tile_rows, tiles, state_stride);
+      static_cast<const T*>(pool),
+      static_cast<const __nv_bfloat16*>(fast_pool), tile_rows, tiles,
+      state_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,16 +277,31 @@ int quest_layer_apply_f32(void* re, void* im, const void* desc, int n_stages,
                           const void* pool, long long total_rows,
                           int tile_rows, long long batch,
                           long long state_stride, void* stream) {
-  return launch<float>(re, im, desc, n_stages, pool, total_rows, tile_rows,
-                       batch, state_stride, stream);
+  return launch<float, false>(re, im, desc, n_stages, pool, nullptr, 0,
+                              total_rows, tile_rows, batch, state_stride,
+                              stream);
 }
 
 int quest_layer_apply_f64(void* re, void* im, const void* desc, int n_stages,
                           const void* pool, long long total_rows,
                           int tile_rows, long long batch,
                           long long state_stride, void* stream) {
-  return launch<double>(re, im, desc, n_stages, pool, total_rows, tile_rows,
-                        batch, state_stride, stream);
+  return launch<double, false>(re, im, desc, n_stages, pool, nullptr, 0,
+                               total_rows, tile_rows, batch, state_stride,
+                               stream);
+}
+
+// The FAST tier: dense stages on the bf16 tensor cores, their operators
+// from fast_pool; max_j (0..2) is the widest dense stage's row-bit count.
+int quest_layer_apply_fast_f32(void* re, void* im, const void* desc,
+                               int n_stages, const void* pool,
+                               const void* fast_pool, int max_j,
+                               long long total_rows, int tile_rows,
+                               long long batch, long long state_stride,
+                               void* stream) {
+  return launch<float, true>(re, im, desc, n_stages, pool, fast_pool, max_j,
+                             total_rows, tile_rows, batch, state_stride,
+                             stream);
 }
 
 const char* quest_layer_error_string(int code) {

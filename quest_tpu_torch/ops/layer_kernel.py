@@ -36,6 +36,19 @@ block holds a ``tile_rows x 128`` tile of both planes (128 KiB at either
 dtype: 128 rows of float32, 64 of float64). ``max_mid_qubit(tile_rows)``
 bounds which row bits a dense stage may target, and the collector reads it
 through :func:`tile_rows_for`, so the CPU and the card plan one plan.
+
+``fast=True`` is the FAST precision tier (the TPU kernel's ``fast`` flag,
+``pallas_kernels.py:237-260, 339-355``): the dense stages (``lane``,
+``clane``, ``rowmxu``) split the state into ``hi = bf16(v)`` and ``lo =
+bf16(v - hi)``, round the operator to bf16 and take the four real products
+for each part with float32 accumulation, combined as ``(rr_h - ii_h) +
+(rr_l - ii_l)`` and ``(ri_h + ir_h) + (ri_l + ir_l)``. On the card these
+products run on the bf16 tensor cores; ``row``, ``rowk`` and ``rowdiag``
+stay full float32. FAST planes are float32, and the FAST kernel keeps the
+float32 tile of 128 rows: its bf16 staging and output fragments (at most
+81 KiB, see ``csrc/dense_stage.cuh``) fit beside the tile. :func:`apply_mxu_tile` is
+the standalone form of one ``rowmxu`` stage (``pallas_kernels.
+apply_mxu_tile``), at either precision.
 """
 
 from __future__ import annotations
@@ -74,7 +87,8 @@ __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
            "layer_kernel_plan", "shared_memory_bytes", "apply_layer",
            "apply_layer_plain", "apply_layer_batched",
-           "apply_layer_batched_plain", "build_library"]
+           "apply_layer_batched_plain", "apply_mxu_tile",
+           "apply_mxu_tile_plain", "build_library"]
 
 
 def embed_lane_matrix(u: np.ndarray, targets: Sequence[int],
@@ -313,7 +327,8 @@ def shared_memory_bytes(tile_rows: int, itemsize: int) -> int:
     """Dynamic shared memory one block needs: the tile of both planes.
     Every stage updates the tile in place (through registers), so the
     need does not grow with the stage count — the TPU kernel's VMEM
-    working-set estimate has no counterpart here."""
+    working-set estimate has no counterpart here. (A FAST launch adds at
+    most 81 KiB of staging, sized by the kernel itself: 209 KiB in all.)"""
     need = 2 * tile_rows * LANES * itemsize
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -362,18 +377,56 @@ def _row_index_rest(total_rows: int, desc: tuple, device) -> torch.Tensor:
                    for a in range(g.dim()))]
 
 
-def _dense_plain(x, total_rows, bits, m, row_mask=0, row_want=0):
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and back: the value a bf16 operand of
+    the tensor cores (or of the TPU's matrix unit) holds."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _complex_product(a_re, a_im, b_re, b_im, fast: bool, left: bool):
+    """``(a_re + i a_im)`` times ``(b_re + i b_im)`` as real matmuls: the
+    state ``a`` on the left (``left=False``: ``v @ M^T``, the lane stage)
+    or the operator ``b`` on the left (``left=True``: ``M @ v``, the
+    grouped stages). ``fast`` takes the FAST function of the TPU kernel's
+    ``_mxu_matmuls``: bf16 hi and lo parts of the state, a bf16 operator,
+    four float32-accumulated products for each part, combined as
+    ``(rr_h - ii_h) + (rr_l - ii_l)``, ``(ri_h + ir_h) + (ri_l + ir_l)``."""
+    def mm(v, w):
+        return torch.matmul(w, v) if left else torch.matmul(v, w)
+
+    if not fast:
+        new_re = mm(a_re, b_re)
+        new_re.sub_(mm(a_im, b_im))
+        new_im = mm(a_re, b_im)
+        new_im.add_(mm(a_im, b_re))
+        return new_re, new_im
+    # in-place sums in the order of the expressions above, so a 30-qubit
+    # state's temporaries stay a few planes
+    b_re, b_im = _bf16(b_re), _bf16(b_im)
+    h_re, h_im = _bf16(a_re), _bf16(a_im)
+    new_re = mm(h_re, b_re).sub_(mm(h_im, b_im))
+    new_im = mm(h_re, b_im).add_(mm(h_im, b_re))
+    l_re = _bf16(a_re - h_re)
+    del h_re
+    l_im = _bf16(a_im - h_im)
+    del h_im
+    new_re.add_(mm(l_re, b_re).sub_(mm(l_im, b_im)))
+    new_im.add_(mm(l_re, b_im).add_(mm(l_im, b_re)))
+    return new_re, new_im
+
+
+def _dense_plain(x, total_rows, bits, m, row_mask=0, row_want=0,
+                 fast=False):
     """out = M v over the packed (row bits, lanes) axis; ``bits == ()`` is
-    the lane stage, run permute-free on the (B, rows, 128) views."""
+    the lane stage, run permute-free on the (B, rows, 128) views. ``fast``
+    as in :func:`_complex_product`."""
     if not bits:
         re, im = x[:, 0], x[:, 1]
         mr_t, mi_t = (torch.as_tensor(np.ascontiguousarray(p.T),
                                       dtype=x.dtype, device=x.device)
                       for p in (m.real, m.imag))
-        new_re = torch.matmul(re, mr_t)
-        new_re.sub_(torch.matmul(im, mi_t))
-        new_im = torch.matmul(re, mi_t)
-        new_im.add_(torch.matmul(im, mr_t))
+        new_re, new_im = _complex_product(re, im, mr_t, mi_t, fast,
+                                          left=False)
         if row_mask:
             g = torch.arange(total_rows, device=x.device).view(-1, 1)
             cond = (g & row_mask) == row_want
@@ -385,8 +438,18 @@ def _dense_plain(x, total_rows, bits, m, row_mask=0, row_want=0):
     rlog = total_rows.bit_length() - 1
     sub, _ = _grouped(x, rlog, bits, with_lanes=True)
     dim = (1 << len(bits)) * LANES
-    new = torch.matmul(_block(m, x), sub.reshape(x.shape[0], 2 * dim, -1))
-    sub.copy_(new.view(sub.shape))
+    if not fast:
+        new = torch.matmul(_block(m, x),
+                           sub.reshape(x.shape[0], 2 * dim, -1))
+        sub.copy_(new.view(sub.shape))
+        return
+    v = sub.reshape(x.shape[0], 2, dim, -1)
+    mr, mi = (torch.as_tensor(np.ascontiguousarray(p), dtype=x.dtype,
+                              device=x.device) for p in (m.real, m.imag))
+    new_re, new_im = _complex_product(v[:, 0], v[:, 1], mr, mi, fast,
+                                      left=True)
+    sub[:, 0].copy_(new_re.view(sub[:, 0].shape))
+    sub[:, 1].copy_(new_im.view(sub[:, 1].shape))
 
 
 def _rowk_plain(x, total_rows, bits, u, lane_mask, lane_want, row_mask,
@@ -424,12 +487,16 @@ def _rowdiag_plain(x, total_rows, table, bits):
 
 
 def apply_layer_batched_plain(states: torch.Tensor, num_qubits: int,
-                              layer: LayerOp) -> torch.Tensor:
+                              layer: LayerOp,
+                              fast: bool = False) -> torch.Tensor:
     """The fused layer as plain PyTorch tensor ops on every state of a
     ``(B, 2, 2^n)`` batch, stage after stage over the whole states, IN
     PLACE. It computes what the kernel computes (the same plan, the same
     ``hi``; rows counted within each state) and is the reference the
-    kernel is held against."""
+    kernel is held against. ``fast`` runs the dense stages as the FAST
+    tier's bf16-split products (float32 planes only)."""
+    if fast:
+        _check_fast_dtype(states.dtype, "apply_layer_batched_plain")
     kstages, lane_mats, tables, xmats, _, total_rows = layer_kernel_plan(
         layer, num_qubits, tile_rows_for(states.dtype))
     x = states.view(states.shape[0], 2, total_rows, LANES)
@@ -438,10 +505,10 @@ def apply_layer_batched_plain(states: torch.Tensor, num_qubits: int,
         if tag == "lane":
             _, mi, row_mask, row_want = st
             _dense_plain(x, total_rows, (), lane_mats[mi], row_mask,
-                         row_want)
+                         row_want, fast)
         elif tag == "rowmxu":
             _, bits, xi, _ = st
-            _dense_plain(x, total_rows, bits, xmats[xi])
+            _dense_plain(x, total_rows, bits, xmats[xi], fast=fast)
         elif tag == "row":
             _, stride, coefs, lm, lw, rm, rw = st
             _rowk_plain(x, total_rows, (stride.bit_length() - 1,),
@@ -460,11 +527,44 @@ def apply_layer_batched_plain(states: torch.Tensor, num_qubits: int,
 
 
 def apply_layer_plain(planes: torch.Tensor, num_qubits: int,
-                      layer: LayerOp) -> torch.Tensor:
+                      layer: LayerOp, fast: bool = False) -> torch.Tensor:
     """The fused layer as plain PyTorch tensor ops on ``(2, 2^n)`` planes,
     IN PLACE: :func:`apply_layer_batched_plain` on a batch of one."""
-    apply_layer_batched_plain(planes.unsqueeze(0), num_qubits, layer)
+    apply_layer_batched_plain(planes.unsqueeze(0), num_qubits, layer, fast)
     return planes
+
+
+def _mxu_tile_layer(num_qubits: int, u, targets: Sequence[int],
+                    dtype: torch.dtype) -> LayerOp:
+    """The one-stage layer of :func:`apply_mxu_tile`: the gate embedded
+    over (lanes + its row bits), validated against the kernel's tile."""
+    targets = tuple(int(t) for t in targets)
+    if len(set(targets)) != len(targets) or not targets or any(
+            not 0 <= t < num_qubits for t in targets):
+        raise ValueError(f"targets {targets} must be distinct qubits in "
+                         f"[0, {num_qubits})")
+    bits = tuple(sorted(t - LANE_QUBITS for t in targets
+                        if t >= LANE_QUBITS))
+    total_rows = (1 << num_qubits) // LANES
+    tile_rows = min(tile_rows_for(dtype), total_rows)
+    if bits and bits[-1] + LANE_QUBITS > max_mid_qubit(tile_rows):
+        raise ValueError(
+            f"row target {bits[-1] + LANE_QUBITS} outside the "
+            f"{tile_rows}-row tile range")
+    if len(bits) > MAX_DENSE_ROW_BITS:
+        raise ValueError(f"an MXU tile packs at most {MAX_DENSE_ROW_BITS} "
+                         f"row bits with the lanes, got {len(bits)}")
+    m = mxu_group_matrix(np.asarray(u, dtype=np.complex128), targets, bits)
+    return LayerOp(num_qubits, 1, [("rowmxu", bits, m)])
+
+
+def apply_mxu_tile_plain(planes: torch.Tensor, num_qubits: int, u,
+                         targets: Sequence[int],
+                         fast: bool = False) -> torch.Tensor:
+    """:func:`apply_mxu_tile` as plain PyTorch tensor ops, IN PLACE."""
+    _check_states(planes, num_qubits, False, "apply_mxu_tile_plain")
+    layer = _mxu_tile_layer(num_qubits, u, targets, planes.dtype)
+    return apply_layer_plain(planes, num_qubits, layer, fast)
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +585,11 @@ def build_library() -> tuple:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # the FAST entry adds the bf16 operand pool and the widest dense
+    # stage's row-bit count after the float32 pool
+    lib.quest_layer_apply_fast_f32.argtypes = (
+        argtypes[:5] + [ctypes.c_void_p, ctypes.c_int] + argtypes[5:])
+    lib.quest_layer_apply_fast_f32.restype = ctypes.c_int
     lib.quest_layer_error_string.argtypes = [ctypes.c_int]
     lib.quest_layer_error_string.restype = ctypes.c_char_p
     return lib, path, log
@@ -500,33 +605,53 @@ def _pack_bits(bits) -> int:
 def _device_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
                      device: torch.device):
     """Stage descriptors (int64, ``(stages, DESC_WIDTH)``) and the operand
-    pool (one plane-dtype vector) for the kernel, cached on the layer.
+    pool (one plane-dtype vector) for the kernel, cached on the layer:
+    ``(desc, pool, tile_rows, total_rows)``.
 
     Pool layout per operand: the real part then the imaginary part, each
     row-major. Dense operators are stored transposed (``M^T``), so the
     threads of a warp read neighbouring output columns."""
-    key = (num_qubits, dtype, device)
+    desc, pool, _, _, tile_rows, total_rows = _operands(
+        layer, num_qubits, dtype, device, fast=False)
+    return desc, pool, tile_rows, total_rows
+
+
+def _fast_operands(layer: LayerOp, num_qubits: int, device: torch.device):
+    """The FAST launch's operands, cached on the layer: ``(desc, pool,
+    fast_pool, max_j, tile_rows, total_rows)``. The dense stages' ``M^T``
+    live in ``fast_pool``, rounded to bf16 (their descriptors' offsets
+    index it); the other stages' operands stay in the float32 ``pool``.
+    ``max_j`` is the widest dense stage's row-bit count (it sizes the
+    kernel's bf16 staging)."""
+    return _operands(layer, num_qubits, torch.float32, device, fast=True)
+
+
+def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
+              device: torch.device, fast: bool):
+    key = (num_qubits, dtype, device, fast)
     if key in layer._packed:
         return layer._packed[key]
     kstages, lane_mats, tables, xmats, tile_rows, total_rows = \
         layer_kernel_plan(layer, num_qubits, tile_rows_for(dtype))
-    pool: list[np.ndarray] = []
-    size = 0
+    pools: dict = {False: [], True: []}
+    sizes = {False: 0, True: 0}
 
-    def put(c: np.ndarray) -> int:
-        nonlocal size
+    def put(c: np.ndarray, dense: bool = False) -> int:
+        # a FAST launch keeps its dense operators in the bf16 pool
+        which = dense and fast
         c = np.asarray(c, dtype=np.complex128)
-        off = size
-        pool.extend([c.real.reshape(-1), c.imag.reshape(-1)])
-        size += 2 * c.size
+        off = sizes[which]
+        pools[which].extend([c.real.reshape(-1), c.imag.reshape(-1)])
+        sizes[which] += 2 * c.size
         return off
 
     desc = []
+    max_j = 0
     for st in kstages:
         tag = st[0]
         if tag == "lane":
             _, mi, row_mask, row_want = st
-            desc.append([TAG_DENSE, 0, 0, put(lane_mats[mi].T), 0, 0,
+            desc.append([TAG_DENSE, 0, 0, put(lane_mats[mi].T, True), 0, 0,
                          row_mask, row_want])
         elif tag == "rowmxu":
             _, bits, xi, _ = st
@@ -534,8 +659,9 @@ def _device_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
                 raise ValueError(f"the layer kernel packs at most "
                                  f"{MAX_DENSE_ROW_BITS} row bits into a "
                                  f"rowmxu stage, got {len(bits)}")
+            max_j = max(max_j, len(bits))
             desc.append([TAG_DENSE, len(bits), _pack_bits(bits),
-                         put(xmats[xi].T), 0, 0, 0, 0])
+                         put(xmats[xi].T, True), 0, 0, 0, 0])
         elif tag == "row":
             _, stride, coefs, lm, lw, rm, rw = st
             desc.append([TAG_ROWK, 1, stride.bit_length() - 1,
@@ -555,11 +681,25 @@ def _device_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
                          put(table), 0, 0, 0, 0])
     desc_t = torch.as_tensor(np.asarray(desc, dtype=np.int64).reshape(
         -1, DESC_WIDTH), device=device)
-    pool_t = torch.as_tensor(np.concatenate(pool) if pool
-                             else np.zeros(1), dtype=dtype, device=device)
-    packed = (desc_t, pool_t, tile_rows, total_rows)
+
+    def as_pool(parts, pool_dtype):
+        return torch.as_tensor(np.concatenate(parts) if parts
+                               else np.zeros(1), dtype=pool_dtype,
+                               device=device)
+
+    # the bf16 operators round through float32, as the plain version's do
+    packed = (desc_t, as_pool(pools[False], dtype),
+              as_pool(pools[True], torch.float32).to(torch.bfloat16)
+              if fast else None, max_j, tile_rows, total_rows)
     layer._packed[key] = packed
     return packed
+
+
+def _check_fast_dtype(dtype: torch.dtype, where: str) -> None:
+    if dtype != torch.float32:
+        raise ValueError(f"{where}: FAST planes are float32, got {dtype} "
+                         "(the circuit engine casts a FAST dispatch in and "
+                         "out)")
 
 
 def _check_states(states: torch.Tensor, num_qubits: int, batched: bool,
@@ -582,26 +722,40 @@ def _check_states(states: torch.Tensor, num_qubits: int, batched: bool,
 
 
 def _launch(states: torch.Tensor, num_qubits: int, layer: LayerOp,
-            where: str) -> None:
-    """One launch of the layer kernel over the ``(B, 2, 2^n)`` batch."""
+            where: str, fast: bool = False) -> None:
+    """One launch of the layer kernel over the ``(B, 2, 2^n)`` batch: the
+    full-precision kernel, or with ``fast`` the FAST one (bf16 tensor
+    cores in the dense stages)."""
     if states.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {states.device}")
-    desc, pool, tile_rows, total_rows = _device_operands(
-        layer, num_qubits, states.dtype, states.device)
-    shared_memory_bytes(tile_rows, states.element_size())
+    if fast:
+        _check_fast_dtype(states.dtype, where)
+        desc, pool, fast_pool, max_j, tile_rows, total_rows = \
+            _fast_operands(layer, num_qubits, states.device)
+        shared_memory_bytes(tile_rows, 4)
+    else:
+        desc, pool, tile_rows, total_rows = _device_operands(
+            layer, num_qubits, states.dtype, states.device)
+        shared_memory_bytes(tile_rows, states.element_size())
     if states.data_ptr() % 16:
         raise ValueError(f"{where}: planes must be 16-byte aligned")
     lib = build_library()[0]
-    fn = lib.quest_layer_apply_f32 if states.dtype == torch.float32 \
-        else lib.quest_layer_apply_f64
     num_amps = 1 << num_qubits
+    re_ptr = states.data_ptr()
+    im_ptr = re_ptr + num_amps * states.element_size()
+    tail = (total_rows, tile_rows, states.shape[0], 2 * num_amps)
     with torch.cuda.device(states.device):
         stream = torch.cuda.current_stream(states.device).cuda_stream
-        err = fn(states.data_ptr(),
-                 states.data_ptr() + num_amps * states.element_size(),
-                 desc.data_ptr(), desc.shape[0], pool.data_ptr(),
-                 total_rows, tile_rows, states.shape[0], 2 * num_amps,
-                 stream)
+        if fast:
+            err = lib.quest_layer_apply_fast_f32(
+                re_ptr, im_ptr, desc.data_ptr(), desc.shape[0],
+                pool.data_ptr(), fast_pool.data_ptr(), max_j, *tail, stream)
+        else:
+            fn = lib.quest_layer_apply_f32 \
+                if states.dtype == torch.float32 \
+                else lib.quest_layer_apply_f64
+            err = fn(re_ptr, im_ptr, desc.data_ptr(), desc.shape[0],
+                     pool.data_ptr(), *tail, stream)
     if err != 0:
         raise RuntimeError("layer kernel launch failed: "
                            + lib.quest_layer_error_string(err).decode())
@@ -612,28 +766,31 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
     """Apply a fused layer IN PLACE to the ``(2, 2^n)`` planes (returned).
 
     A CUDA tensor launches the hand-written kernel and counts the launch
-    in ``apply_layer.launches``; a CPU tensor runs
-    :func:`apply_layer_plain`. ``fast=True`` (the FAST tier's reduced-
-    precision inputs) belongs to a later slice and raises."""
+    in ``apply_layer.launches`` (``apply_layer.fast_launches`` for the
+    FAST kernel, ``fast=True``: float32 planes, bf16 tensor cores in the
+    dense stages); a CPU tensor runs :func:`apply_layer_plain`."""
     _check_states(planes, num_qubits, False, "apply_layer")
     if fast:
-        raise NotImplementedError(
-            "apply_layer: the FAST tier's layer kernel is not ported yet")
+        _check_fast_dtype(planes.dtype, "apply_layer")
     if layer.num_qubits != num_qubits:
         raise ValueError(f"layer was collected for {layer.num_qubits} "
                          f"qubits, planes hold {num_qubits}")
     if planes.device.type == "cpu":
-        return apply_layer_plain(planes, num_qubits, layer)
-    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_layer")
-    apply_layer.launches += 1
+        return apply_layer_plain(planes, num_qubits, layer, fast)
+    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_layer", fast)
+    if fast:
+        apply_layer.fast_launches += 1
+    else:
+        apply_layer.launches += 1
     return planes
 
 
 apply_layer.launches = 0
+apply_layer.fast_launches = 0
 
 
 def apply_layer_batched(states: torch.Tensor, num_qubits: int,
-                        layer: LayerOp) -> torch.Tensor:
+                        layer: LayerOp, fast: bool = False) -> torch.Tensor:
     """Apply a fused layer IN PLACE to every state of a ``(B, 2, 2^n)``
     batch (returned) in ONE launch: the kernel's grid grows the batch
     (block x = b * tiles + tile), one descriptor and operand upload serves
@@ -641,17 +798,53 @@ def apply_layer_batched(states: torch.Tensor, num_qubits: int,
     within each state.
 
     A CUDA tensor launches the kernel and counts the launch in
-    ``apply_layer_batched.launches``; a CPU tensor runs
+    ``apply_layer_batched.launches`` (``.fast_launches`` with ``fast``,
+    as in :func:`apply_layer`); a CPU tensor runs
     :func:`apply_layer_batched_plain`."""
     _check_states(states, num_qubits, True, "apply_layer_batched")
+    if fast:
+        _check_fast_dtype(states.dtype, "apply_layer_batched")
     if layer.num_qubits != num_qubits:
         raise ValueError(f"layer was collected for {layer.num_qubits} "
                          f"qubits, planes hold {num_qubits}")
     if states.device.type == "cpu":
-        return apply_layer_batched_plain(states, num_qubits, layer)
-    _launch(states, num_qubits, layer, "apply_layer_batched")
-    apply_layer_batched.launches += 1
+        return apply_layer_batched_plain(states, num_qubits, layer, fast)
+    _launch(states, num_qubits, layer, "apply_layer_batched", fast)
+    if fast:
+        apply_layer_batched.fast_launches += 1
+    else:
+        apply_layer_batched.launches += 1
     return states
 
 
 apply_layer_batched.launches = 0
+apply_layer_batched.fast_launches = 0
+
+
+def apply_mxu_tile(planes: torch.Tensor, num_qubits: int, u,
+                   targets: Sequence[int], fast: bool = False) -> torch.Tensor:
+    """Apply ONE dense uncontrolled gate IN PLACE to ``(2, 2^n)`` planes
+    as a packed contraction (returned): the gate (any mix of lane targets
+    and up to two row targets inside the tile) embeds over (lane qubits +
+    its row bits) into a ``(2^j * 128)``-square operator
+    (:func:`mxu_group_matrix`) and runs as one ``rowmxu`` stage of the
+    layer kernel in one pass — the standalone form of the stage compiled
+    programs get through the layer collector (``pallas_kernels.
+    apply_mxu_tile``). ``fast`` selects the FAST bf16-split form.
+
+    A CUDA tensor launches the layer kernel and counts the launch in
+    ``apply_mxu_tile.launches``; a CPU tensor runs
+    :func:`apply_mxu_tile_plain`. A row target outside the tile raises
+    ``ValueError``."""
+    _check_states(planes, num_qubits, False, "apply_mxu_tile")
+    if fast:
+        _check_fast_dtype(planes.dtype, "apply_mxu_tile")
+    if planes.device.type == "cpu":
+        return apply_mxu_tile_plain(planes, num_qubits, u, targets, fast)
+    layer = _mxu_tile_layer(num_qubits, u, targets, planes.dtype)
+    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_mxu_tile", fast)
+    apply_mxu_tile.launches += 1
+    return planes
+
+
+apply_mxu_tile.launches = 0

@@ -33,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sum_compensated", "sum_pair", "dot_pair", "vdot_pair",
+__all__ = ["sum_compensated", "sum_pair", "dot_pair", "dot_pair_rows",
+           "vdot_pair",
            "vdot_compensated", "pauli_masks", "pauli_term_bucket",
            "pauli_sum_operands", "validated_pauli_terms",
            "pauli_terms_operands", "pauli_sum_expvals_sv",
@@ -44,6 +45,9 @@ __all__ = ["sum_compensated", "sum_pair", "dot_pair", "vdot_pair",
 # streams and the cascade's first level then take 6 * 2^24 values, a few
 # hundred MiB at float32, whatever the register size
 _CHUNK = 1 << 24
+# amplitudes of each row chunk of the compensated Pauli terms: the four
+# product streams of a chunk then hold 8 * 2^26 values, 2 GiB at float32
+_ROWS_AMPS = 1 << 26
 
 
 def _two_sum(a, b):
@@ -65,20 +69,26 @@ def _split(x):
     return hi, x - hi
 
 
+def _sum_pair_rows(x):
+    """Compensated sum of every row of a real ``(R, M)`` tensor: the
+    unadded ``(R,)`` sums and errors."""
+    err = x.new_zeros(x.shape[0])
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, x.new_zeros(x.shape[0], 1)], dim=1)
+        s, e = _two_sum(x[:, 0::2], x[:, 1::2])
+        # the e's are O(eps)·|s| each; their naive sum contributes only a
+        # second-order O(eps²·n) error to the final result
+        err = err + e.sum(1)
+        x = s
+    return x[:, 0], err
+
+
 def sum_pair(x):
     """Compensated sum of a real tensor; returns the unadded (sum, err)
     pair of 0-dim tensors so callers can combine at higher precision."""
-    x = x.reshape(-1)
-    err = torch.zeros((), dtype=x.dtype, device=x.device)
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, x.new_zeros(1)])
-        s, e = _two_sum(x[0::2], x[1::2])
-        # the e's are O(eps)·|s| each; their naive sum contributes only a
-        # second-order O(eps²·n) error to the final result
-        err = err + e.sum()
-        x = s
-    return x[0], err
+    s, e = _sum_pair_rows(x.reshape(1, -1))
+    return s[0], e[0]
 
 
 def sum_compensated(x) -> torch.Tensor:
@@ -87,24 +97,25 @@ def sum_compensated(x) -> torch.Tensor:
     return s + e
 
 
-def _dot_pair_chunk(a, b):
+def dot_pair_rows(a, b):
+    """sum(a*b) over every row of two real ``(R, M)`` tensors with exact
+    partial products: ``(R,)`` (sum, err) pairs."""
     a_hi, a_lo = _split(a)
     b_hi, b_lo = _split(b)
-    streams = torch.cat([a_hi * b_hi, a_hi * b_lo, a_lo * b_hi,
-                         a_lo * b_lo])
-    return sum_pair(streams)
+    return _sum_pair_rows(torch.cat([a_hi * b_hi, a_hi * b_lo,
+                                     a_lo * b_hi, a_lo * b_lo], dim=1))
 
 
 def dot_pair(a, b):
     """sum(a*b) for real tensors with exact partial products: returns the
     (sum, err) pair."""
-    a = a.reshape(-1)
-    b = b.reshape(-1)
+    a = a.reshape(1, -1)
+    b = b.reshape(1, -1)
     sums, errs = [], []
-    for lo in range(0, a.shape[0], _CHUNK):
-        s, e = _dot_pair_chunk(a[lo:lo + _CHUNK], b[lo:lo + _CHUNK])
-        sums.append(s)
-        errs.append(e)
+    for lo in range(0, a.shape[1], _CHUNK):
+        s, e = dot_pair_rows(a[:, lo:lo + _CHUNK], b[:, lo:lo + _CHUNK])
+        sums.append(s[0])
+        errs.append(e[0])
     if len(sums) == 1:
         return sums[0], errs[0]
     s, e = sum_pair(torch.stack(sums))
@@ -223,41 +234,74 @@ def _parity(v: torch.Tensor) -> torch.Tensor:
     return v & 1
 
 
-def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask,
-                         zmask) -> torch.Tensor:
+def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask, zmask,
+                         compensated: bool = False) -> torch.Tensor:
     """Per-term ``<z_b|P_t|z_b>`` for a ``(B, 2, N)`` batch of planes and
     host mask arrays of shape ``(T,)``: a real ``(B, T)`` tensor on the
     states' device. The terms run one after another, so the scratch is one
     state batch whatever the term count; each term is one xor-gather pass
     over the batch. A term whose ``i^|y|`` is real needs only the real
     part of the sum, one whose ``i^|y|`` is imaginary only the imaginary
-    part (the value of a Hermitian string is real)."""
+    part (the value of a Hermitian string is real).
+
+    ``compensated=True`` (the SINGLE tier's observables) accumulates each
+    term through :func:`dot_pair_rows` instead of a naive reduce: exact
+    partial products and a TwoSum cascade, combined once in the plane
+    dtype. It walks the batch in chunks of rows so its temporaries (the
+    gathered rows, the Veltkamp pieces, the four product streams) stay a
+    few GiB whatever the batch: a 24-qubit batch of 64 would otherwise
+    make 8 GiB per gathered term and 4 GiB per temporary."""
     num_amps = states.shape[-1]
     idx = torch.arange(num_amps, device=states.device)
+    rows = max(1, _ROWS_AMPS // num_amps)
     out = []
     for xm, ym, zm in zip(xmask, ymask, zmask):
         xy, yz = int(xm) | int(ym), int(ym) | int(zm)
         # sign(j) = (-1)^parity(j & yz) with j = k ^ xy
-        sign = 1 - 2 * _parity((idx ^ xy) & yz)
-        zj = states.index_select(-1, idx ^ xy) if xy else states
+        sign = (1 - 2 * _parity((idx ^ xy) & yz)).to(states.dtype)
         ph = bin(int(ym)).count("1") % 4
-        if ph % 2 == 0:
-            # Re sum conj(z) z[j] sign = sum (zr zjr + zi zji) sign
-            part = (states * zj).sum(1)
+        if compensated:
+            acc = torch.cat([_term_compensated(states[r:r + rows], idx, xy,
+                                               sign, ph % 2)
+                             for r in range(0, states.shape[0], rows)])
         else:
-            # Im sum conj(z) z[j] sign = sum (zr zji - zi zjr) sign
-            part = states[:, 0] * zj[:, 1] - states[:, 1] * zj[:, 0]
-        acc = torch.matmul(part, sign.to(states.dtype))
+            zj = states.index_select(-1, idx ^ xy) if xy else states
+            if ph % 2 == 0:
+                # Re sum conj(z) z[j] sign = sum (zr zjr + zi zji) sign
+                part = (states * zj).sum(1)
+            else:
+                # Im sum conj(z) z[j] sign = sum (zr zji - zi zjr) sign
+                part = states[:, 0] * zj[:, 1] - states[:, 1] * zj[:, 0]
+            acc = torch.matmul(part, sign)
         # i^|y| times the real (ph even) or i times the imaginary part
         out.append(acc if ph in (0, 3) else -acc)
     return torch.stack(out, dim=1)
 
 
+
+def _term_compensated(states, idx, xy: int, sign, imag: int):
+    """One Pauli term's compensated real (``imag == 0``) or imaginary part
+    of ``sum conj(z) z[j] sign`` for each row of a ``(R, 2, N)`` chunk, as
+    one :func:`dot_pair_rows` over the stacked planes."""
+    zj = states.index_select(-1, idx ^ xy) if xy else states
+    zjs = zj * sign
+    if imag:
+        # zr zji - zi zjr: negation is exact
+        a = torch.cat([states[:, 0], -states[:, 1]], dim=1)
+        b = torch.cat([zjs[:, 1], zjs[:, 0]], dim=1)
+    else:
+        a = states.reshape(states.shape[0], -1)
+        b = zjs.reshape(states.shape[0], -1)
+    s, e = dot_pair_rows(a, b)
+    return s + e
+
+
 def pauli_sum_total_sv(states: torch.Tensor, xmask, ymask, zmask,
-                       coeffs) -> torch.Tensor:
+                       coeffs, compensated: bool = False) -> torch.Tensor:
     """``sum_t coeffs[t] * <z_b|P_t|z_b>`` for each state of a ``(B, 2,
-    N)`` batch: a ``(B,)`` tensor, on the device."""
-    vals = pauli_sum_expvals_sv(states, xmask, ymask, zmask)
+    N)`` batch: a ``(B,)`` tensor, on the device. ``compensated`` as in
+    :func:`pauli_sum_expvals_sv`."""
+    vals = pauli_sum_expvals_sv(states, xmask, ymask, zmask, compensated)
     cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
                          dtype=vals.dtype, device=vals.device)
     return (vals * cf).sum(-1)

@@ -7,7 +7,9 @@ the identity placement (its ``plan_layout`` at ``shard_bits == 0``): one
 
 :func:`choose_mxu_contraction` keeps the JAX package's decision rule (pick
 the packed ``rowmxu`` contraction only when its modeled time is no worse
-than the row path's) with the H100's rates in place of the TPU's.
+than the row path's) with the H100's rates in place of the TPU's: the
+packed product runs on the CUDA cores at full precision and on the bf16
+tensor cores at the FAST tier.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 __all__ = ["LayoutPlan", "plan_layout", "choose_mxu_contraction",
-           "MXU_ROW_CAP", "HBM_BYTES_PER_S", "CUDA_CORE_FLOPS"]
+           "MXU_ROW_CAP", "HBM_BYTES_PER_S", "CUDA_CORE_FLOPS",
+           "BF16_TENSOR_FLOPS"]
 
 
 @dataclasses.dataclass
@@ -76,12 +79,15 @@ def plan_layout(ops: Sequence, num_qubits: int) -> LayoutPlan:
 # ---------------------------------------------------------------------------
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3; 67 TFLOP/s float32 and
-# 34 TFLOP/s float64 on the CUDA cores (no tensor cores). The layer kernel
-# of this slice runs every stage — the packed rowmxu product included — as
-# FMA loops on the CUDA cores, so both sides of the crossover take the
-# CUDA-core rate of the plane dtype.
+# 34 TFLOP/s float64 on the CUDA cores; 989 TFLOP/s dense bf16 on the
+# tensor cores. At full precision the layer kernel runs every stage — the
+# packed rowmxu product included — as FMA loops on the CUDA cores, so both
+# sides of the crossover take the CUDA-core rate of the plane dtype. At
+# the FAST tier the dense stages run on the bf16 tensor cores, and the
+# packed side takes that rate.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
+BF16_TENSOR_FLOPS = 989.0e12
 
 # Row-bit budget for one packed contraction: j row bits pack with the
 # 128-lane axis into a (2^j * 128)-dim operator, 512 x 512 at the cap.
@@ -90,14 +96,16 @@ MXU_ROW_CAP = 2
 
 def choose_mxu_contraction(num_row_bits: int, gate_qubits: int,
                            itemsize: int = 4,
-                           force: Optional[bool] = None) -> dict:
+                           force: Optional[bool] = None,
+                           fast: bool = False) -> dict:
     """The modeled flops-vs-bytes crossover for ONE dense gate inside a
     fused layer: the packed ``rowmxu`` contraction (``8 * 2^j * 128`` real
-    flops per amplitude) against the ``row``/``rowk`` path
-    (``8 * 2^gate_qubits``). Both stream the state once, so each side's
-    time is ``max(flop_time, memory_time)``, and the packed form wins only
-    when it is no slower. ``force`` pins the decision (tests); None lets
-    the model decide.
+    flops per amplitude, at the bf16 tensor-core rate when ``fast`` — the
+    FAST tier — else at the CUDA-core rate) against the ``row``/``rowk``
+    path (``8 * 2^gate_qubits`` at the CUDA-core rate). Both stream the
+    state once, so each side's time is ``max(flop_time, memory_time)``,
+    and the packed form wins only when it is no slower. ``force`` pins the
+    decision (tests); None lets the model decide.
 
     Returns ``{"use_mxu", "mxu_seconds", "alt_seconds", "mem_seconds",
     "source"}`` in modeled seconds per amplitude.
@@ -106,7 +114,7 @@ def choose_mxu_contraction(num_row_bits: int, gate_qubits: int,
     mem_s = 4.0 * itemsize / HBM_BYTES_PER_S
     rate = CUDA_CORE_FLOPS[itemsize]
     dim = (1 << max(int(num_row_bits), 0)) * 128
-    mxu_s = max(8.0 * dim / rate, mem_s)
+    mxu_s = max(8.0 * dim / (BF16_TENSOR_FLOPS if fast else rate), mem_s)
     alt_s = max(8.0 * (1 << max(int(gate_qubits), 0)) / rate, mem_s)
     if force is None:
         use, source = mxu_s <= alt_s, "modeled"

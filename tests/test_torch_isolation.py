@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 asks for a CUDA card unless told to use the CPU, and never runs a kernel's
-plain version (the layer kernel's, the batched layer kernel's, the fused
-Kraus kernel's) on a CUDA tensor.
+plain version (the layer kernel's at either precision, the batched layer
+kernel's, the MXU-tile kernel's, the fused Kraus kernel's) on a CUDA tensor.
 """
 
 import os
@@ -23,7 +23,8 @@ def test_port_and_smoke_script_import_no_jax():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
             "quest_tpu_torch.ops.trajectories, quest_tpu_torch.ops.channels, "
             "quest_tpu_torch.ops.kraus_kernel, quest_tpu_torch.ops.cuda_build, "
-            "quest_tpu_torch.parallel.sampling, chip_smoke\n"
+            "quest_tpu_torch.parallel.sampling, quest_tpu_torch.profiling, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
             "or m == 'quest_tpu')\n"
@@ -103,6 +104,51 @@ def test_cuda_batch_never_reaches_the_batched_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         lk.apply_layer_batched(states, n, layer)
     assert lk.apply_layer_batched.launches == before
+
+
+def _fast_operands_stub(*args):
+    return (torch.zeros(1, lk.DESC_WIDTH, dtype=torch.int64), torch.zeros(1),
+            torch.zeros(1, dtype=torch.bfloat16), 0, 2, 2)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_cuda_fast_never_reaches_the_plain_version(monkeypatch, batched):
+    """fast=True on a CUDA tensor launches the FAST kernel or raises: a
+    missing toolkit is an error, never a quiet bf16 emulation."""
+    n = 8
+    layer = lk.LayerOp(n, 1, [("lane", np.eye(128))])
+    shape = (3, 2, 1 << n) if batched else (2, 1 << n)
+    states = torch.zeros(shape, dtype=torch.float32).as_subclass(
+        _FakeCudaPlanes)
+    monkeypatch.setattr(lk, "apply_layer_batched_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_plain", _forbidden)
+    monkeypatch.setattr(lk, "_fast_operands", _fast_operands_stub)
+    monkeypatch.setattr(lk, "build_library", _no_toolkit)
+    fn = lk.apply_layer_batched if batched else lk.apply_layer
+    before = (fn.launches, fn.fast_launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fn(states, n, layer, fast=True)
+    assert (fn.launches, fn.fast_launches) == before
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["highest", "fast"])
+def test_cuda_mxu_tile_never_reaches_the_plain_version(monkeypatch, fast):
+    n = 9
+    planes = torch.zeros(2, 1 << n, dtype=torch.float32).as_subclass(
+        _FakeCudaPlanes)
+    monkeypatch.setattr(lk, "apply_mxu_tile_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_batched_plain", _forbidden)
+    monkeypatch.setattr(lk, "_device_operands",
+                        lambda *a: (torch.zeros(1, lk.DESC_WIDTH,
+                                                dtype=torch.int64),
+                                    torch.zeros(1), 2, 2))
+    monkeypatch.setattr(lk, "_fast_operands", _fast_operands_stub)
+    monkeypatch.setattr(lk, "build_library", _no_toolkit)
+    before = lk.apply_mxu_tile.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lk.apply_mxu_tile(planes, n, np.eye(4), (3, 8), fast=fast)
+    assert lk.apply_mxu_tile.launches == before
 
 
 def test_cuda_batch_never_reaches_the_kraus_plain_version(monkeypatch):

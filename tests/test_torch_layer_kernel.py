@@ -193,7 +193,8 @@ def test_wrapper_checks_its_inputs():
         lk.apply_layer(torch.stack([planes[1], planes[0]], 1).T, N, layer)
     with pytest.raises(ValueError, match="collected for"):
         lk.apply_layer(_planes(_state(0, N + 1)), N + 1, layer)
-    with pytest.raises(NotImplementedError):
+    # the FAST tier runs on float32 planes only (the engine casts)
+    with pytest.raises(ValueError, match="FAST planes are float32"):
         lk.apply_layer(planes, N, layer, fast=True)
 
 
