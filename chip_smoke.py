@@ -3,13 +3,21 @@
 
 Run from the root of a checkout on a machine with one CUDA card::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase: the whole check
+    python3 chip_smoke.py --only 3d,3e,10 # the build, then just these
+
+``--only`` takes a comma-separated list of the phase names below (phases 1
+and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
+it exits non-zero on any failed check like the whole run, prints the JSON
+rows of the kernels it timed, and never prints the ``{"ok": ...}`` result
+line, which only the whole run gives.
 
 Phases (any unmet check exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: one ``nvcc`` per ``quest_tpu_torch/csrc/*.cu``, all started
-   together, with each kernel's registers and spills;
+   together, with each kernel's registers and spills (the FAST instance
+   must spill nothing);
 3. the layer kernel against its plain PyTorch version, per stage kind, at
    20 qubits in float32 and float64; 3b. the batched layer kernel the same
    way on B = 4 distinct states; 3c. the fused Kraus kernel at 20 qubits,
@@ -18,7 +26,8 @@ Phases (any unmet check exits non-zero and prints no result line):
    plain version's draw; 3d. the FAST layer kernel (bf16 tensor cores in
    the dense stages) against its plain version, single and B = 4, on lane,
    clane and rowmxu stages alone and mixed with row and rowdiag stages,
-   with FAST against full precision inside the tier's per-gate drift;
+   with FAST against full precision inside the tier's per-gate drift,
+   and the kernel's FAST ring size against its Python mirror;
    3e. the MXU-tile kernel (``apply_mxu_tile``) against its plain version
    on five target sets at float32, float64 and FAST, and its times;
 4. the single-state path at 30 qubits, complex64: the random-rotation +
@@ -53,8 +62,9 @@ Phases (any unmet check exits non-zero and prints no result line):
     its FAST plain version, the final state against the SINGLE compiled
     state within the modeled tier error, gates/s at both tiers, and per
     layer the FAST kernel's ms beside its bound (HBM or bf16
-    tensor-core operations), its plain version and one bf16
-    ``torch.matmul`` of the stacked real lane product;
+    tensor-core operations), its plain version, one bf16
+    ``torch.matmul`` of the stacked real lane product and one of the
+    layer's widest dense stage in stacked real hi/lo form;
 11. tiers in the batched engine: phase 8's HEA sweep through
     ``expectation_sweep(tier="fast")`` and ``tier="single"``: launches
     per tier, FAST energies against SINGLE's within the modeled bound,
@@ -269,11 +279,24 @@ def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    fast_spills = []
     for stem, (_, path, log) in sorted(libs.items()):
         print(f"  {stem}: {path}")
+        function = ""
         for line in log.splitlines():
+            if "Function properties for" in line:
+                function = line.rsplit(" ", 1)[-1]
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+            # layer_kernel<float, true>: the FAST instance
+            if "spill" in line and "layer_kernelIfLb1E" in function:
+                fast_spills.append(line.strip())
+    if libs["layer_kernel"][2]:
+        check(len(fast_spills) == 1 and "0 bytes spill stores, 0 bytes "
+              "spill loads" in fast_spills[0],
+              f"FAST layer kernel instance spills nothing: {fast_spills}")
+    else:
+        print("  spills not read: the libraries were already built")
 
 
 def phase_stages(torch, lk, rng):
@@ -346,6 +369,11 @@ def phase_fast_stages(torch, qt, lk, rng):
     drift = qt.FAST_TIER.drift_per_gate
     print(f"phase 3d: FAST layer kernel vs its plain version, {n} qubits, "
           f"single and B = {batch}")
+    lib = lk.build_library()[0]
+    ring = [(lib.quest_layer_fast_scratch_bytes(j), lk.fast_scratch_bytes(j))
+            for j in range(lk.MAX_DENSE_ROW_BITS + 1)]
+    check(all(a == b for a, b in ring),
+          f"FAST ring bytes per max_j, kernel vs Python mirror: {ring}")
     hi = lk.max_mid_qubit(lk.tile_rows_for(torch.float32))
     for name, stages in fast_cases(rng, n, hi).items():
         layer = lk.LayerOp(n, len(stages), stages)
@@ -773,6 +801,26 @@ def lane_matmul_ms(torch, states, ops):
     return ms
 
 
+def bf16_stage_ms(torch, num_amps: int, dim: int):
+    """One bf16 ``torch.matmul`` of a FAST dense stage of width ``dim``
+    over ``num_amps`` amplitudes in stacked real hi/lo form, ``(2 *
+    num_amps / dim, 2 * dim) @ (2 * dim, 2 * dim)``: the FAST stage's
+    products in one library call, a time yardstick only (random bf16
+    data). Where the card lacks room for its input and output, a quarter
+    of the rows, timed and scaled by 4. Returns (ms, scaled)."""
+    rows = 2 * num_amps // dim
+    need = 2 * rows * 2 * dim * 2            # input and output, bf16
+    scaled = need > torch.cuda.mem_get_info()[0] // 2
+    if scaled:
+        rows //= 4
+    x = torch.randn(rows, 2 * dim, device="cuda").to(torch.bfloat16)
+    w = torch.randn(2 * dim, 2 * dim, device="cuda").to(torch.bfloat16)
+    ms = cuda_ms(torch, lambda: torch.matmul(x, w), reps=3)
+    del x
+    torch.cuda.empty_cache()
+    return (4 * ms if scaled else ms), scaled
+
+
 def bf16_lane_ms(torch, states):
     """One bf16 ``torch.matmul`` of the stacked real lane product over a
     ``(B, 2, N)`` batch: ``[re | im]`` rows times a ``(256, 256)`` block
@@ -1112,6 +1160,7 @@ def phase_fast_main(torch, qt, lk, kk, card):
     planes = q.state
     lib = bf16_lane_ms(torch, planes.unsqueeze(0))
     torch.cuda.empty_cache()
+    stage_lib = {}
     rows = []
     for i, layer in enumerate(layer_ops):
         a = planes.clone()
@@ -1130,12 +1179,20 @@ def phase_fast_main(torch, qt, lk, kk, card):
         torch.cuda.empty_cache()
         b_ms, by, hbm, ops = layer_bound_ms(lk, layer, n, torch.float32,
                                             fast=True)
+        dim = max(128 << (len(st[1]) if st[0] == "rowmxu" else 0)
+                  for st in layer.stages
+                  if st[0] in ("lane", "clane", "rowmxu"))
+        if dim not in stage_lib:
+            stage_lib[dim] = bf16_stage_ms(torch, 1 << n, dim)
+        wide, scaled = stage_lib[dim]
         print(f"  FAST layer {i}: {[st[0] for st in layer.stages]}")
         print(f"    kernel {ms:.3f} ms, bound {b_ms:.3f} ms ({by}; HBM "
               f"{hbm:.3f} ms, bf16 tensor-core + CUDA-core flops "
               f"{ops:.3f} ms), plain {plain:.3f} ms, torch.matmul bf16 "
-              f"stacked real lane product {lib:.3f} ms")
-        rows.append((ms, b_ms, by, plain, lib, err))
+              f"stacked real lane product {lib:.3f} ms, widest dense stage "
+              f"(dim {dim}) stacked real hi/lo {wide:.3f} ms"
+              f"{' (a quarter of the rows, x4)' if scaled else ''}")
+        rows.append((ms, b_ms, by, plain, wide, err))
     by = [r[2] for r in rows]
     return {
         "name": "layer_kernel_fast",
@@ -1148,7 +1205,11 @@ def phase_fast_main(torch, qt, lk, kk, card):
         "plain_ms": float(np.mean([r[3] for r in rows])),
         "bound_ms": float(np.mean([r[1] for r in rows])),
         "bound_by": max(set(by), key=by.count),
-        "library_ms": lib,
+        "library_ms": float(np.mean([r[4] for r in rows])),
+        "layer_ms": [r[0] for r in rows],
+        "layer_bound_ms": [r[1] for r in rows],
+        "layer_library_ms": [r[4] for r in rows],
+        "lane_library_ms": lib,
         "qubits": n,
         "rowmxu_stages": n_mxu,
         "gates_per_s": len(gates) / fast_s,
@@ -1307,37 +1368,77 @@ def profile_device(torch, fn, what: str, top: int = 8):
               f"x{count:<4d} {name[:90]}")
 
 
-def main() -> int:
+PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "10",
+          "11")
+
+
+def parse_only(argv):
+    """The phases ``--only a,b,...`` names (None: every phase). 6 and 7
+    time and profile phase 4's compiled circuit, so they bring 4."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SmokeFailure(f"usage: chip_smoke.py [--only {','.join(PHASES)}]"
+                           f", got {argv}")
+    only = set(argv[1].split(","))
+    unknown = only - set(PHASES)
+    if unknown or not only:
+        raise SmokeFailure(f"unknown phases {sorted(unknown)}; phases are "
+                           f"{', '.join(PHASES)}")
+    if only & {"6", "7"}:
+        only.add("4")
+    return only
+
+
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
         print("FAIL: torch is not importable", file=sys.stderr)
         return 2
     try:
+        only = parse_only(argv)
+        runs = lambda phase: only is None or phase in only
         card = phase_device(torch)
         import quest_tpu_torch as qt
         from quest_tpu_torch.ops import kraus_kernel as kk
         from quest_tpu_torch.ops import layer_kernel as lk
         phase_build()
         rng = np.random.default_rng(20261016)
-        phase_stages(torch, lk, rng)
-        phase_batched_stages(torch, lk, rng)
-        phase_kraus(torch, kk, rng)
-        phase_fast_stages(torch, qt, lk, rng)
-        mxu_row = phase_mxu_tile(torch, qt, lk, kk, rng, card)
-        env, compiled, q1, gates, launches = phase_main(torch, qt, lk)
-        phase_tutorial(torch, qt)
+        if runs("3"):
+            phase_stages(torch, lk, rng)
+        if runs("3b"):
+            phase_batched_stages(torch, lk, rng)
+        if runs("3c"):
+            phase_kraus(torch, kk, rng)
+        if runs("3d"):
+            phase_fast_stages(torch, qt, lk, rng)
+        mxu_row = phase_mxu_tile(torch, qt, lk, kk, rng, card) \
+            if runs("3e") else None
+        if runs("4"):
+            env, compiled, q1, gates, launches = phase_main(torch, qt, lk)
+        if runs("5"):
+            phase_tutorial(torch, qt)
         row = phase_times(torch, qt, lk, env, compiled, q1, gates, launches,
-                          card)
-        print(f"phase 7: profile of one compiled run on {card}")
-        profile_device(torch, lambda: compiled.run(q1), "one compiled run")
-        del compiled, q1
+                          card) if runs("6") else None
+        if runs("7"):
+            print(f"phase 7: profile of one compiled run on {card}")
+            profile_device(torch, lambda: compiled.run(q1),
+                           "one compiled run")
+        if runs("4"):
+            del compiled, q1
+            torch.cuda.empty_cache()
+        sweep = phase_sweep(torch, qt, lk, kk, card) if runs("8") else None
+        traj = phase_trajectories(torch, qt, lk, kk, card) \
+            if runs("9") else None
+        fast_row = phase_fast_main(torch, qt, lk, kk, card) \
+            if runs("10") else None
         torch.cuda.empty_cache()
-        sweep = phase_sweep(torch, qt, lk, kk, card)
-        traj = phase_trajectories(torch, qt, lk, kk, card)
-        fast_row = phase_fast_main(torch, qt, lk, kk, card)
-        torch.cuda.empty_cache()
-        fast_batched_row = phase_fast_sweep(torch, qt, lk, kk, card)
+        fast_batched_row = phase_fast_sweep(torch, qt, lk, kk, card) \
+            if runs("11") else None
+        tail = [fast_row, fast_batched_row, mxu_row]
+        rows = kernel_rows(row, sweep, traj) + tail if only is None \
+            else [r for r in [row] + tail if r is not None]
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1345,8 +1446,15 @@ def main() -> int:
         print(f"FAIL: {e} (run from the root of a checkout)",
               file=sys.stderr)
         return 2
-    print(json.dumps({"kernels": kernel_rows(row, sweep, traj)
-                      + [fast_row, fast_batched_row, mxu_row]}))
+    if only is not None:
+        # a partial run: its rows, and never the result line
+        print(json.dumps({"only": sorted(only, key=PHASES.index),
+                          "kernels": rows}))
+        print(f"partial run ({','.join(sorted(only, key=PHASES.index))}): "
+              "every check passed; the whole check is the run without "
+              "--only")
+        return 0
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1354,4 +1462,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -20,32 +20,39 @@
 // tiles only), the TPU kernel's bf16-split products
 // (quest_tpu/ops/pallas_kernels.py:237-260, 339-355) on the bf16 tensor
 // cores: each input splits into hi = bf16(v) and lo = bf16(v - hi), the
-// operator is bf16 (rounded on the host), and the four real products of
-// each part accumulate in float32 (nvcuda::wmma 16x16x16 bf16 fragments).
-// bf16 products are exact in float32, so the stage differs from the plain
-// version's (rr_h - ii_h) + (rr_l - ii_l) only in the order of the sums.
-// A fragment covers 16 groups and 16 output columns, and the 8 warps of
-// the block split a group's dim outputs, so no warp can own its groups'
-// inputs as the CUDA-core stage does. Instead the stage walks the tile in
-// chunks of 16 groups: all threads gather a chunk's inputs (groups of
-// rows strided by the packed row bits, as combo_offset addresses them)
-// into bf16 hi/lo planes in shared memory, synchronise, and every warp
-// then computes its output fragments from those copies and scatters them
-// into the float32 tile, which no longer holds an input anyone reads.
-// Shared memory beside the tile: 4 x 16 x (dim + 8) bf16 (65 KiB at
-// dim = 512) plus one 16 x 16 float32 output pair per warp (16 KiB).
-// What bounds this simple form: every chunk streams the whole bf16
-// operator from L2 (4 * dim^2 bytes per 16 groups, 64 bytes per amplitude
-// at dim = 512, four times the state's own HBM traffic), with one block of
-// 8 warps per SM to hide it; the packed stages run far above their
-// tensor-core bound (PERF.md). Larger chunks and wgmma with the operator
-// in shared memory are the next steps.
+// operator is bf16 (rounded on the host through float32), and the four real
+// products of each part accumulate in float32. bf16 products are exact in
+// float32, so the stage differs from the plain version's
+// (rr_h - ii_h) + (rr_l - ii_l) only in the order of the sums.
+// What bounds it: 16 * dim flops per amplitude on the tensor cores (8.8
+// TFLOP for a 30-qubit stage at dim = 512), and the operator, 4 * dim^2
+// bytes, read from L2 by every tile. The design:
+// - The whole tile is one chunk and the outputs live in registers: each
+//   warp owns 32 groups x 64 outputs (2 M-tiles x 8 n-tiles of raw
+//   mma.sync.m16n8k16 bf16 -> f32), 64 complex accumulators per thread for
+//   every J, so the operator is read from L2 once per tile per stage
+//   (64 bytes per amplitude at dim = 512, 4 at dim = 128).
+// - The K loop walks slabs of 16 inputs through a two-stage ring in shared
+//   memory. The operator slab is one contiguous block (the host packs it in
+//   B-fragment order), copied by cp.async.cg while the previous slab's
+//   products run; each lane then reads its B fragments as one 16-byte load.
+//   The A slab (every group's 16 inputs, split into bf16 hi/lo, re/im) is
+//   written by all threads from the float32 tile in A-fragment order, so its
+//   fragment loads are 512 contiguous bytes. One barrier per slab.
+// - The -Mi terms flip the sign bits of the Mi fragment (exact), so the
+//   pool holds Mr and Mi only.
+// - The tile holds inputs until the last slab is gathered, which every
+//   thread does before the last barrier; after the last products every
+//   thread writes its accumulators straight into the tile, an (output,
+//   group) pair at ((insert_zeros(g) | combo_offset(o >> 7)) << 7) | (o & 127),
+//   only for groups that pass the row condition.
+// Shared memory beside the 128 KiB tile: 2 x (64 * dim + (128 >> J) * 128)
+// bytes, 72 KiB for a layer with a dim = 512 stage (fast_scratch_bytes).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace quest {
@@ -151,119 +158,253 @@ __device__ void stage_dense(T* sre, T* sim, int tile_rows, long long base_row,
   }
 }
 
-// Groups per FAST chunk (a fragment's rows), the float32 scratch each
-// warp stages its output fragment pair in, and the padding of each staged
-// bf16 row: a row of 128 << J values is a multiple of 256 bytes, so
-// without it the 16 rows a fragment load reads would all fall in one
-// shared-memory bank.
-constexpr int kFastChunk = 16;
-constexpr int kFastOutFloats = 2 * 16 * 16;
-constexpr int kFastPad = 8;
+// ---------------------------------------------------------------------------
+// The FAST stage: bf16 mma.sync fed by a cp.async K-slab ring
+// ---------------------------------------------------------------------------
 
-// Shared memory of a FAST stage's scratch: the output pairs of every warp,
-// then the bf16 hi/lo copies of one chunk of a dense stage on up to
-// max_j row bits.
-__host__ __device__ constexpr size_t fast_scratch_bytes(int max_j) {
-  return static_cast<size_t>(kWarps) * kFastOutFloats * sizeof(float)
-         + 4 * static_cast<size_t>(kFastChunk)
-               * ((kLanes << max_j) + kFastPad) * sizeof(__nv_bfloat16);
+// The FAST tile is float32, 128 rows: groups of one stage = 128 >> J.
+constexpr int kFastTileRows = 128;
+// Inputs per K slab: one k-step of mma.m16n8k16.
+constexpr int kFastK = 16;
+// Every warp computes 2 M-tiles (32 groups) x 8 n-tiles (64 outputs):
+// 64 complex float32 accumulators per thread for every J.
+constexpr int kFastWarpMTiles = 2;
+constexpr int kFastWarpNTiles = 8;
+constexpr uint32_t kBf16x2Sign = 0x80008000u;
+
+// One ring stage at J: the operator slab (16 inputs x dim outputs x (re,
+// im), bf16, in B-fragment order) then the A slab (128 >> J groups x 16
+// inputs x (hi re, hi im, lo re, lo im), bf16, in A-fragment order).
+__host__ __device__ constexpr size_t fast_op_slab_bytes(int j) {
+  return static_cast<size_t>(kFastK) * 2 * (kLanes << j) * 2;
+}
+__host__ __device__ constexpr size_t fast_a_slab_bytes(int j) {
+  return static_cast<size_t>(kFastTileRows >> j) * kFastK * 4 * 2;
+}
+__host__ __device__ constexpr size_t fast_stage_bytes(int j) {
+  return fast_op_slab_bytes(j) + fast_a_slab_bytes(j);
 }
 
+// Shared memory of the FAST ring beside the tile: two stages of the
+// largest stage any dense stage on up to max_j row bits needs (48 KiB at
+// max_j 0 and 1, 72 KiB at 2).
+__host__ __device__ constexpr size_t fast_scratch_bytes(int max_j) {
+  size_t widest = 0;
+  for (int j = 0; j <= max_j; ++j) {
+    widest = fast_stage_bytes(j) > widest ? fast_stage_bytes(j) : widest;
+  }
+  return 2 * widest;
+}
+
+// d += a b on the bf16 tensor cores, one m16n8k16 fragment triple. The
+// fragment layouts are the PTX ISA's: with gid = lane / 4 and tig = lane % 4,
+// a holds rows (gid, gid + 8) x columns (2 tig, 2 tig + 8) (+0, +1 in each
+// register), b columns gid x rows (2 tig, 2 tig + 8) (+0, +1), d rows
+// (gid, gid + 8) x columns (2 tig, 2 tig + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Start the copy of operator slab k into the ring: one contiguous block
+// of fast_op_slab_bytes(J), 16 bytes per cp.async, all threads.
 template <int J>
-__device__ void stage_dense_fast(float* sre, float* sim, float* scratch,
-                                 int tile_rows, long long base_row,
-                                 long long packed,
-                                 const __nv_bfloat16* __restrict__ op_re,
-                                 const __nv_bfloat16* __restrict__ op_im,
+__device__ __forceinline__ void fast_fetch_op(unsigned char* dst,
+                                              const __nv_bfloat16* ops,
+                                              int k) {
+  constexpr int kChunks = static_cast<int>(fast_op_slab_bytes(J) / 16);
+  const uint4* src = reinterpret_cast<const uint4*>(ops) +
+                     static_cast<size_t>(k) * kChunks;
+  uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int s = 0; s < kChunks / kThreads; ++s) {
+    const int c = threadIdx.x + s * kThreads;
+    cp_async_16(out + c, src + c);
+  }
+  cp_async_commit();
+}
+
+// Write A slab k: the tile's inputs [16k, 16k + 16) of every group, split
+// into bf16 hi and lo. Item s of this thread is one register (a bf16 pair
+// of neighbouring inputs) of one lane's A fragment of one M-tile, for all
+// four parts; row0[s] is its group's first row (-1 past the last group).
+template <int J>
+__device__ __forceinline__ void fast_gather(uint32_t* a_slab,
+                                            const float* sre, const float* sim,
+                                            const int (&row0)[4 >> J],
+                                            long long packed, int k) {
+  constexpr int kItems = 4 >> J;
+  const int roff = combo_offset((k * kFastK) >> 7, packed, J);
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    const int it = threadIdx.x + s * kThreads;
+    const int i = it & 3;               // register of the fragment
+    const int l = (it >> 2) & 31;       // lane that holds it
+    const int mt = it >> 7;             // M-tile
+    const int col =
+        ((k * kFastK) & (kLanes - 1)) + 2 * (l & 3) + 8 * (i >> 1);
+    float2 vr = make_float2(0.0f, 0.0f), vi = vr;
+    if (row0[s] >= 0) {
+      const int idx = ((row0[s] | roff) << 7) | col;
+      vr = *reinterpret_cast<const float2*>(sre + idx);
+      vi = *reinterpret_cast<const float2*>(sim + idx);
+    }
+    const __nv_bfloat162 hr = __floats2bfloat162_rn(vr.x, vr.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(vi.x, vi.y);
+    const __nv_bfloat162 lr = __floats2bfloat162_rn(
+        vr.x - __low2float(hr), vr.y - __high2float(hr));
+    const __nv_bfloat162 li = __floats2bfloat162_rn(
+        vi.x - __low2float(hi), vi.y - __high2float(hi));
+    // [M-tile][part][lane][register]: a warp's stores and each part's
+    // fragment loads are 128 / 512 contiguous bytes
+    uint32_t* at = a_slab + ((mt * 4) * 32 + l) * 4 + i;
+    at[0] = bf16x2_bits(hr);
+    at[32 * 4] = bf16x2_bits(hi);
+    at[2 * 32 * 4] = bf16x2_bits(lr);
+    at[3 * 32 * 4] = bf16x2_bits(li);
+  }
+}
+
+// ops: the stage's operator M (not M^T) in bf16, packed by the host
+// (ops/layer_kernel.py fast_operator_slabs) slab after slab (inputs
+// [16k, 16k + 16)), within a slab n-tile after n-tile (outputs [8t, 8t + 8)),
+// within an n-tile lane after lane, each lane's 16 bytes its B fragments
+// {re b0, re b1, im b0, im b1}. scratch: fast_scratch_bytes(max_j) bytes,
+// 16-aligned.
+template <int J>
+__device__ void stage_dense_fast(float* sre, float* sim,
+                                 unsigned char* scratch, int tile_rows,
+                                 long long base_row, long long packed,
+                                 const __nv_bfloat16* __restrict__ ops,
                                  long long row_mask, long long row_want) {
-  using namespace nvcuda;
   constexpr int kDim = kLanes << J;
-  constexpr int kLd = kDim + kFastPad;        // staged row stride
-  constexpr int kPlane = kFastChunk * kLd;    // bf16 values per copy
-  constexpr int kFrags = kDim / 16 / kWarps;  // output fragments per warp
+  constexpr int kSteps = kDim / kFastK;
+  constexpr int kItems = 4 >> J;
+  constexpr int kWarpsN = 2 << J;  // warps along the outputs
+  constexpr size_t kStage = fast_stage_bytes(J);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int wn = warp % kWarpsN;
+  const int wm = warp / kWarpsN;
   const int groups = tile_rows >> J;
-  float* out_re = scratch + warp * kFastOutFloats;
-  float* out_im = out_re + 16 * 16;
-  __nv_bfloat16* hre =
-      reinterpret_cast<__nv_bfloat16*>(scratch + kWarps * kFastOutFloats);
-  __nv_bfloat16* him = hre + kPlane;
-  __nv_bfloat16* lre = hre + 2 * kPlane;
-  __nv_bfloat16* lim = hre + 3 * kPlane;
 
-  for (int c0 = 0; c0 < groups; c0 += kFastChunk) {
-    // the chunk's inputs, split: row r of a copy is group c0 + r
-    for (int i = threadIdx.x; i < kFastChunk * kDim; i += kThreads) {
-      const int r = i / kDim;
-      const int e = i & (kDim - 1);
-      const int g = c0 + r;
-      const int at = r * kLd + e;
-      float vr = 0.0f, vi = 0.0f;
-      if (g < groups) {
-        const int idx = ((insert_zeros(g, packed, J)
-                          | combo_offset(e >> 7, packed, J)) << 7)
-                        | (e & (kLanes - 1));
-        vr = sre[idx];
-        vi = sim[idx];
+  int row0[kItems];
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    const int it = threadIdx.x + s * kThreads;
+    const int g = 16 * (it >> 7) + ((it >> 4) & 7) + 8 * (it & 1);
+    row0[s] = g < groups ? insert_zeros(g, packed, J) : -1;
+  }
+
+  float acc_re[kFastWarpMTiles][kFastWarpNTiles][4];
+  float acc_im[kFastWarpMTiles][kFastWarpNTiles][4];
+#pragma unroll
+  for (int m = 0; m < kFastWarpMTiles; ++m) {
+#pragma unroll
+    for (int n = 0; n < kFastWarpNTiles; ++n) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc_re[m][n][r] = 0.0f;
+        acc_im[m][n][r] = 0.0f;
       }
-      const __nv_bfloat16 hr = __float2bfloat16_rn(vr);
-      const __nv_bfloat16 hi = __float2bfloat16_rn(vi);
-      hre[at] = hr;
-      him[at] = hi;
-      lre[at] = __float2bfloat16_rn(vr - __bfloat162float(hr));
-      lim[at] = __float2bfloat16_rn(vi - __bfloat162float(hi));
     }
+  }
+
+  fast_fetch_op<J>(scratch, ops, 0);
+  fast_gather<J>(reinterpret_cast<uint32_t*>(scratch + fast_op_slab_bytes(J)),
+                 sre, sim, row0, packed, 0);
+  for (int k = 0; k < kSteps; ++k) {
+    // slab k has landed (this thread's copies, then everyone's); the
+    // other ring stage was last read by the mma of slab k - 1
+    cp_async_wait_all();
     __syncthreads();
-    for (int f = 0; f < kFrags; ++f) {
-      const int o0 = (warp * kFrags + f) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_re, acc_im;
-      wmma::fill_fragment(acc_re, 0.0f);
-      wmma::fill_fragment(acc_im, 0.0f);
-      for (int e0 = 0; e0 < kDim; e0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a_hr, a_hi, a_lr, a_li;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b_re, b_im, b_nim;
-        wmma::load_matrix_sync(a_hr, hre + e0, kLd);
-        wmma::load_matrix_sync(a_hi, him + e0, kLd);
-        wmma::load_matrix_sync(a_lr, lre + e0, kLd);
-        wmma::load_matrix_sync(a_li, lim + e0, kLd);
-        // the operator is stored transposed: rows e, columns o
-        const size_t off = static_cast<size_t>(e0) * kDim + o0;
-        wmma::load_matrix_sync(b_re, op_re + off, kDim);
-        wmma::load_matrix_sync(b_im, op_im + off, kDim);
-        for (int t = 0; t < b_im.num_elements; ++t) {
-          b_nim.x[t] = __hneg(b_im.x[t]);
+    unsigned char* cur = scratch + (k & 1) * kStage;
+    unsigned char* nxt = scratch + ((k + 1) & 1) * kStage;
+    if (k + 1 < kSteps) fast_fetch_op<J>(nxt, ops, k + 1);
+
+    const uint4* a_s =
+        reinterpret_cast<const uint4*>(cur + fast_op_slab_bytes(J));
+    const uint4* b_s = reinterpret_cast<const uint4*>(cur);
+    uint4 a[kFastWarpMTiles][4];  // hi re, hi im, lo re, lo im
+#pragma unroll
+    for (int m = 0; m < kFastWarpMTiles; ++m) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        a[m][p] = a_s[((kFastWarpMTiles * wm + m) * 4 + p) * 32 + lane];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kFastWarpNTiles; ++n) {
+      const uint4 b = b_s[(kFastWarpNTiles * wn + n) * 32 + lane];
+      // -Mi: the sign bits flipped (exact)
+      const uint32_t ni0 = b.z ^ kBf16x2Sign, ni1 = b.w ^ kBf16x2Sign;
+      // re += hr Mr - hi Mi + lr Mr - li Mi; im += hr Mi + hi Mr + lr Mi +
+      // li Mr, in this order for every accumulator; the independent
+      // accumulators interleave
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const bool imag = p & 1;
+#pragma unroll
+        for (int m = 0; m < kFastWarpMTiles; ++m) {
+          mma_bf16(acc_re[m][n], a[m][p], imag ? ni0 : b.x, imag ? ni1 : b.y);
+          mma_bf16(acc_im[m][n], a[m][p], imag ? b.x : b.z, imag ? b.y : b.w);
         }
-        // re += hr Mr - hi Mi + lr Mr - li Mi; im += hr Mi + hi Mr + ...
-        wmma::mma_sync(acc_re, a_hr, b_re, acc_re);
-        wmma::mma_sync(acc_re, a_hi, b_nim, acc_re);
-        wmma::mma_sync(acc_re, a_lr, b_re, acc_re);
-        wmma::mma_sync(acc_re, a_li, b_nim, acc_re);
-        wmma::mma_sync(acc_im, a_hr, b_im, acc_im);
-        wmma::mma_sync(acc_im, a_hi, b_re, acc_im);
-        wmma::mma_sync(acc_im, a_lr, b_im, acc_im);
-        wmma::mma_sync(acc_im, a_li, b_re, acc_im);
       }
-      wmma::store_matrix_sync(out_re, acc_re, 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(out_im, acc_im, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int t = lane; t < 16 * 16; t += 32) {
-        const int g = c0 + (t >> 4);
-        if (g >= groups) continue;
-        const int r0 = insert_zeros(g, packed, J);
-        if (row_mask && ((base_row + r0) & row_mask) != row_want) continue;
-        const int o = o0 + (t & 15);
-        const int idx = ((r0 | combo_offset(o >> 7, packed, J)) << 7)
-                        | (o & (kLanes - 1));
-        sre[idx] = out_re[t];
-        sim[idx] = out_im[t];
-      }
-      __syncwarp();
     }
-    // the next chunk's gather overwrites the copies
-    __syncthreads();
+    if (k + 1 < kSteps) {
+      fast_gather<J>(reinterpret_cast<uint32_t*>(nxt + fast_op_slab_bytes(J)),
+                     sre, sim, row0, packed, k + 1);
+    }
+  }
+
+  // Every thread passed the last barrier after its last read of the tile
+  // (the gather of the last slab), so the outputs go straight in: rows
+  // gid and gid + 8 of each M-tile, outputs 2 tig, 2 tig + 1 of each
+  // n-tile. A warp's 64 outputs lie in one row combination.
+  const int roff = combo_offset(wn >> 1, packed, J);
+  const int col0 =
+      ((kFastWarpNTiles * 8 * wn) & (kLanes - 1)) + 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < kFastWarpMTiles; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = 16 * (kFastWarpMTiles * wm + m) + (lane >> 2) + 8 * h;
+      if (g >= groups) continue;
+      const int r0 = insert_zeros(g, packed, J);
+      if (row_mask && ((base_row + r0) & row_mask) != row_want) continue;
+      float* out_re = sre + ((r0 | roff) << 7) + col0;
+      float* out_im = sim + ((r0 | roff) << 7) + col0;
+#pragma unroll
+      for (int n = 0; n < kFastWarpNTiles; ++n) {
+        *reinterpret_cast<float2*>(out_re + 8 * n) =
+            make_float2(acc_re[m][n][2 * h], acc_re[m][n][2 * h + 1]);
+        *reinterpret_cast<float2*>(out_im + 8 * n) =
+            make_float2(acc_im[m][n][2 * h], acc_im[m][n][2 * h + 1]);
+      }
+    }
   }
 }
 

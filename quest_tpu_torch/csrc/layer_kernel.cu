@@ -24,8 +24,9 @@
 // so a layer of L gates costs one state pass, not L. Tiles are disjoint
 // and each block touches only its own, so updating the planes in place is
 // safe. Inside a stage every amplitude is owned by one thread (row, rowk,
-// rowdiag) or one warp (dense stages); an owner reads all its inputs into
-// registers before it writes, so no second shared-memory buffer is needed.
+// rowdiag) or one warp (full-precision dense stages); an owner reads all
+// its inputs into registers before it writes, so no second shared-memory
+// buffer is needed.
 // The dense products are FMA loops on the CUDA cores with the operator
 // read from global memory (L2-resident: a 128x128 complex float32 operator
 // is 128 KiB); each warp works on up to four rows at once so every
@@ -40,8 +41,10 @@
 // operations, under the 5.1 ms HBM pass, so FAST is the tier at which a
 // fused layer can be bound by bytes on this card. Its dense operators come
 // from a second pool, in bf16; row, rowk and rowdiag stages stay float32.
-// The tile stays 128 rows: the bf16 copies of one 16-group chunk and the
-// warps' output fragments (at most 81 KiB) fit beside it.
+// The tile stays 128 rows: a dense stage keeps its outputs in registers
+// (the whole tile is one chunk) and streams its operator and its bf16
+// inputs through a two-stage cp.async ring beside the tile, at most 72 KiB
+// (fast_scratch_bytes of the layer's widest dense stage), 200 KiB in all.
 //
 // Stage descriptors: one row of 8 int64 per stage,
 //   [tag, k_or_j, packed_bits, pool_offset, lane_mask, lane_want,
@@ -65,8 +68,8 @@
 // pool serve the whole batch.
 //
 // FAST descriptors are the same, but a dense stage's pool_offset indexes
-// the bf16 pool, which holds M^T rounded to bf16 (real part, imaginary
-// part).
+// the bf16 pool (16-byte aligned), which holds M rounded to bf16 in the
+// FAST stage's slab and fragment order (dense_stage.cuh stage_dense_fast).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o layer_kernel.so layer_kernel.cu
@@ -162,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
                  int n_stages, const T* __restrict__ pool,
                  const __nv_bfloat16* __restrict__ fast_pool, int tile_rows,
                  long long tiles_per_state, long long state_stride) {
-  // 128-byte alignment: the FAST stage's wmma loads and stores need 32
+  // 128-byte alignment: the FAST ring's cp.async and fragment loads need 16
   extern __shared__ __align__(128) unsigned char smem[];
   T* sre = reinterpret_cast<T*>(smem);
   T* sim = sre + tile_rows * kLanes;
@@ -186,22 +189,22 @@ __global__ void __launch_bounds__(kThreads)
     const long long row_mask = d[6];
     const long long row_want = d[7];
     if (tag == kDense) {
-      const size_t dim = static_cast<size_t>(kLanes) << kj;
       if constexpr (Fast) {
-        const __nv_bfloat16* f_re = fast_pool + d[3];
-        const __nv_bfloat16* f_im = f_re + dim * dim;
-        float* scratch = sim + tile_rows * kLanes;
+        const __nv_bfloat16* f_ops = fast_pool + d[3];
+        unsigned char* scratch =
+            reinterpret_cast<unsigned char*>(sim + tile_rows * kLanes);
         if (kj == 0) {
           quest::stage_dense_fast<0>(sre, sim, scratch, tile_rows, base_row,
-                                     packed, f_re, f_im, row_mask, row_want);
+                                     packed, f_ops, row_mask, row_want);
         } else if (kj == 1) {
           quest::stage_dense_fast<1>(sre, sim, scratch, tile_rows, base_row,
-                                     packed, f_re, f_im, row_mask, row_want);
+                                     packed, f_ops, row_mask, row_want);
         } else {
           quest::stage_dense_fast<2>(sre, sim, scratch, tile_rows, base_row,
-                                     packed, f_re, f_im, row_mask, row_want);
+                                     packed, f_ops, row_mask, row_want);
         }
       } else {
+        const size_t dim = static_cast<size_t>(kLanes) << kj;
         const T* op_im = op + dim * dim;
         if (kj == 0) {
           quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op,
@@ -302,6 +305,12 @@ int quest_layer_apply_fast_f32(void* re, void* im, const void* desc,
   return launch<float, true>(re, im, desc, n_stages, pool, fast_pool, max_j,
                              total_rows, tile_rows, batch, state_stride,
                              stream);
+}
+
+// Shared memory of the FAST ring beside the tile for a layer whose widest
+// dense stage has max_j row bits (the Python side mirrors it).
+long long quest_layer_fast_scratch_bytes(int max_j) {
+  return static_cast<long long>(quest::fast_scratch_bytes(max_j));
 }
 
 const char* quest_layer_error_string(int code) {

@@ -45,10 +45,12 @@ for each part with float32 accumulation, combined as ``(rr_h - ii_h) +
 (rr_l - ii_l)`` and ``(ri_h + ir_h) + (ri_l + ir_l)``. On the card these
 products run on the bf16 tensor cores; ``row``, ``rowk`` and ``rowdiag``
 stay full float32. FAST planes are float32, and the FAST kernel keeps the
-float32 tile of 128 rows: its bf16 staging and output fragments (at most
-81 KiB, see ``csrc/dense_stage.cuh``) fit beside the tile. :func:`apply_mxu_tile` is
-the standalone form of one ``rowmxu`` stage (``pallas_kernels.
-apply_mxu_tile``), at either precision.
+float32 tile of 128 rows: a dense stage holds its outputs in registers and
+streams its bf16 operator (packed by :func:`fast_operator_slabs`) and its
+bf16 inputs through a two-stage ring beside the tile
+(:func:`fast_scratch_bytes`, at most 72 KiB; see ``csrc/dense_stage.cuh``).
+:func:`apply_mxu_tile` is the standalone form of one ``rowmxu`` stage
+(``pallas_kernels.apply_mxu_tile``), at either precision.
 """
 
 from __future__ import annotations
@@ -81,11 +83,15 @@ TAG_DENSE, TAG_ROWK, TAG_ROWDIAG = 0, 1, 2
 # the kernel's template instances: dense stages over the lanes plus
 # 0..2 row bits (the collector's MXU_ROW_CAP), rowk on 1..3 row bits
 MAX_DENSE_ROW_BITS, MAX_ROWK_BITS = 2, 3
+# the FAST dense stage (csrc/dense_stage.cuh stage_dense_fast): inputs per
+# K slab, one mma.m16n8k16 k-step
+FAST_K = 16
 
 __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
            "lane_diag_matrix", "lane_diag_vector", "max_mid_qubit",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
-           "layer_kernel_plan", "shared_memory_bytes", "apply_layer",
+           "layer_kernel_plan", "shared_memory_bytes", "fast_scratch_bytes",
+           "fast_operator_slabs", "apply_layer",
            "apply_layer_plain", "apply_layer_batched",
            "apply_layer_batched_plain", "apply_mxu_tile",
            "apply_mxu_tile_plain", "build_library"]
@@ -323,13 +329,33 @@ def layer_kernel_plan(layer: LayerOp, num_qubits: int, tile_rows: int):
     return kstages, lane_mats, tables, xmats, tile_rows, total_rows
 
 
-def shared_memory_bytes(tile_rows: int, itemsize: int) -> int:
-    """Dynamic shared memory one block needs: the tile of both planes.
-    Every stage updates the tile in place (through registers), so the
-    need does not grow with the stage count — the TPU kernel's VMEM
-    working-set estimate has no counterpart here. (A FAST launch adds at
-    most 81 KiB of staging, sized by the kernel itself: 209 KiB in all.)"""
+def fast_scratch_bytes(max_j: int) -> int:
+    """Shared memory of the FAST dense stage's ring beside the tile, for a
+    layer whose widest dense stage packs ``max_j`` row bits: two stages of
+    the largest (operator slab + A slab) a dense stage on ``0..max_j`` row
+    bits needs. Mirrors ``fast_scratch_bytes`` in
+    ``csrc/dense_stage.cuh``."""
+    if not 0 <= max_j <= MAX_DENSE_ROW_BITS:
+        raise ValueError(f"max_j {max_j} outside [0, {MAX_DENSE_ROW_BITS}]")
+    rows = TILE_ROWS[torch.float32]
+
+    def stage(j: int) -> int:
+        op_slab = FAST_K * 2 * (LANES << j) * 2     # (re, im) x bf16
+        a_slab = (rows >> j) * FAST_K * 4 * 2       # (hi, lo) x (re, im)
+        return op_slab + a_slab
+    return 2 * max(stage(j) for j in range(max_j + 1))
+
+
+def shared_memory_bytes(tile_rows: int, itemsize: int,
+                        fast_max_j: Optional[int] = None) -> int:
+    """Dynamic shared memory one block needs: the tile of both planes,
+    plus with ``fast_max_j`` (a FAST launch) the ring of
+    :func:`fast_scratch_bytes`. Every stage updates the tile in place
+    (through registers), so the need does not grow with the stage count —
+    the TPU kernel's VMEM working-set estimate has no counterpart here."""
     need = 2 * tile_rows * LANES * itemsize
+    if fast_max_j is not None:
+        need += fast_scratch_bytes(fast_max_j)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"a {tile_rows}-row tile needs {need} B of shared memory; "
@@ -590,9 +616,32 @@ def build_library() -> tuple:
     lib.quest_layer_apply_fast_f32.argtypes = (
         argtypes[:5] + [ctypes.c_void_p, ctypes.c_int] + argtypes[5:])
     lib.quest_layer_apply_fast_f32.restype = ctypes.c_int
+    lib.quest_layer_fast_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.quest_layer_fast_scratch_bytes.restype = ctypes.c_longlong
     lib.quest_layer_error_string.argtypes = [ctypes.c_int]
     lib.quest_layer_error_string.restype = ctypes.c_char_p
     return lib, path, log
+
+
+def fast_operator_slabs(m: np.ndarray) -> np.ndarray:
+    """The FAST dense stage's operator ``M`` (``dim x dim``, outputs by
+    inputs; not ``M^T``) as the kernel reads it: a flat real vector of
+    ``2 * dim^2`` values (rounded to bf16 by the caller).
+
+    Element ``(((k * dim / 8 + t) * 32 + lane) * 4 + w) * 2 + p`` is
+    ``part[8 t + lane // 4][16 k + 8 h + 2 (lane % 4) + p]`` with ``part =
+    (M.real, M.imag)[w // 2]`` and ``h = w % 2``: K slab ``k`` (inputs
+    ``[16k, 16k + 16)``) is one contiguous block, within it n-tile ``t``
+    (outputs ``[8t, 8t + 8)``), within that each lane's 16 bytes are its
+    ``mma.m16n8k16`` B fragments ``{re b0, re b1, im b0, im b1}``."""
+    m = np.asarray(m, dtype=np.complex128)
+    dim = m.shape[0]
+    # axes (part, t, gid, k, h, q, p): output 8t + gid, input 16k + 8h + 2q + p
+    parts = np.stack([m.real, m.imag]).reshape(
+        2, dim // 8, 8, dim // FAST_K, 2, 4, 2)
+    # -> (k, t, gid, q, part, h, p): lane = 4 gid + q, word = 2 part + h
+    return np.ascontiguousarray(
+        parts.transpose(3, 1, 2, 5, 0, 4, 6)).reshape(-1)
 
 
 def _pack_bits(bits) -> int:
@@ -618,11 +667,11 @@ def _device_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
 
 def _fast_operands(layer: LayerOp, num_qubits: int, device: torch.device):
     """The FAST launch's operands, cached on the layer: ``(desc, pool,
-    fast_pool, max_j, tile_rows, total_rows)``. The dense stages' ``M^T``
-    live in ``fast_pool``, rounded to bf16 (their descriptors' offsets
-    index it); the other stages' operands stay in the float32 ``pool``.
-    ``max_j`` is the widest dense stage's row-bit count (it sizes the
-    kernel's bf16 staging)."""
+    fast_pool, max_j, tile_rows, total_rows)``. The dense stages' ``M``
+    live in ``fast_pool``, rounded to bf16 and laid out by
+    :func:`fast_operator_slabs` (their descriptors' offsets index it); the
+    other stages' operands stay in the float32 ``pool``. ``max_j`` is the
+    widest dense stage's row-bit count (it sizes the kernel's ring)."""
     return _operands(layer, num_qubits, torch.float32, device, fast=True)
 
 
@@ -636,13 +685,23 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
     pools: dict = {False: [], True: []}
     sizes = {False: 0, True: 0}
 
-    def put(c: np.ndarray, dense: bool = False) -> int:
-        # a FAST launch keeps its dense operators in the bf16 pool
-        which = dense and fast
+    def put(c: np.ndarray) -> int:
         c = np.asarray(c, dtype=np.complex128)
-        off = sizes[which]
-        pools[which].extend([c.real.reshape(-1), c.imag.reshape(-1)])
-        sizes[which] += 2 * c.size
+        off = sizes[False]
+        pools[False].extend([c.real.reshape(-1), c.imag.reshape(-1)])
+        sizes[False] += 2 * c.size
+        return off
+
+    def put_dense(m: np.ndarray) -> int:
+        # full precision: M^T, so a warp's threads read neighbouring
+        # outputs; FAST: M in the bf16 pool, in the kernel's slab order.
+        # Every FAST operator is 2 * dim^2 values, a multiple of 8, so each
+        # offset is 16-byte aligned, as cp.async needs
+        if not fast:
+            return put(np.asarray(m).T)
+        off = sizes[True]
+        pools[True].append(fast_operator_slabs(m))
+        sizes[True] += 2 * np.asarray(m).size
         return off
 
     desc = []
@@ -651,7 +710,7 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
         tag = st[0]
         if tag == "lane":
             _, mi, row_mask, row_want = st
-            desc.append([TAG_DENSE, 0, 0, put(lane_mats[mi].T, True), 0, 0,
+            desc.append([TAG_DENSE, 0, 0, put_dense(lane_mats[mi]), 0, 0,
                          row_mask, row_want])
         elif tag == "rowmxu":
             _, bits, xi, _ = st
@@ -661,7 +720,7 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
                                  f"rowmxu stage, got {len(bits)}")
             max_j = max(max_j, len(bits))
             desc.append([TAG_DENSE, len(bits), _pack_bits(bits),
-                         put(xmats[xi].T, True), 0, 0, 0, 0])
+                         put_dense(xmats[xi]), 0, 0, 0, 0])
         elif tag == "row":
             _, stride, coefs, lm, lw, rm, rw = st
             desc.append([TAG_ROWK, 1, stride.bit_length() - 1,
@@ -732,7 +791,7 @@ def _launch(states: torch.Tensor, num_qubits: int, layer: LayerOp,
         _check_fast_dtype(states.dtype, where)
         desc, pool, fast_pool, max_j, tile_rows, total_rows = \
             _fast_operands(layer, num_qubits, states.device)
-        shared_memory_bytes(tile_rows, 4)
+        shared_memory_bytes(tile_rows, 4, max_j)
     else:
         desc, pool, tile_rows, total_rows = _device_operands(
             layer, num_qubits, states.dtype, states.device)
