@@ -17,7 +17,9 @@ Phases (any unmet check exits non-zero and prints no result line):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: one ``nvcc`` per ``quest_tpu_torch/csrc/*.cu``, all started
    together, with each kernel's registers and spills (the FAST instance
-   must spill nothing);
+   and the four full-precision instances, layer and Kraus kernel at
+   float32 and float64, must spill nothing), and the lane stage's ring
+   bytes from both libraries' C entry points against the Python sizing;
 3. the layer kernel against its plain PyTorch version, per stage kind, at
    20 qubits in float32 and float64; 3b. the batched layer kernel the same
    way on B = 4 distinct states; 3c. the fused Kraus kernel at 20 qubits,
@@ -37,7 +39,9 @@ Phases (any unmet check exits non-zero and prints no result line):
    CPU in double precision;
 6. times with CUDA events: the layer kernel on that path's layers beside
    its bound, its plain version, a lane-only layer beside one
-   ``torch.matmul`` of the same product, and the compiled path's gates/s;
+   ``torch.matmul`` of the same product (at float32 on the 30-qubit state,
+   and at float64 on 29 qubits, its first 2^24 amplitudes held against
+   the plain version), and the compiled path's gates/s;
 7. a ``torch.profiler`` breakdown of one compiled run: device time per
    kernel and the device-busy share;
 8. the batched ensemble engine: a 24-qubit, 2-layer hardware-efficient
@@ -273,30 +277,67 @@ def phase_device(torch):
     return card
 
 
-def phase_build():
+# the kernel instances that must spill nothing, by a piece of their
+# mangled names
+NO_SPILL_INSTANCES = {
+    "layer_kernelIfLb1E": "layer_kernel<float, FAST>",
+    "layer_kernelIfLb0E": "layer_kernel<float>",
+    "layer_kernelIdLb0E": "layer_kernel<double>",
+    "kraus_kernelIfE": "kraus_kernel<float>",
+    "kraus_kernelIdE": "kraus_kernel<double>",
+}
+
+
+def instance_of(mangled: str):
+    return next((name for key, name in NO_SPILL_INSTANCES.items()
+                 if key in mangled), None)
+
+
+def phase_build(torch):
     from quest_tpu_torch.ops import cuda_build
+    from quest_tpu_torch.ops import kraus_kernel as kk
+    from quest_tpu_torch.ops import layer_kernel as lk
     print("phase 2: build (one nvcc per source, all started together)")
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
-    fast_spills = []
+    spills = {name: [] for name in NO_SPILL_INSTANCES.values()}
+    registers = {}
     for stem, (_, path, log) in sorted(libs.items()):
         print(f"  {stem}: {path}")
-        function = ""
+        function = entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "Function properties for" in line:
                 function = line.rsplit(" ", 1)[-1]
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
-            # layer_kernel<float, true>: the FAST instance
-            if "spill" in line and "layer_kernelIfLb1E" in function:
-                fast_spills.append(line.strip())
-    if libs["layer_kernel"][2]:
-        check(len(fast_spills) == 1 and "0 bytes spill stores, 0 bytes "
-              "spill loads" in fast_spills[0],
-              f"FAST layer kernel instance spills nothing: {fast_spills}")
+            if "spill" in line and instance_of(function):
+                spills[instance_of(function)].append(line.strip())
+            if "Used" in line and "registers" in line and instance_of(entry):
+                registers[instance_of(entry)] = int(
+                    line.split("Used", 1)[1].split()[0])
+    if all(log for _, _, log in libs.values()):
+        for name, found in spills.items():
+            check(len(found) == 1 and "0 bytes spill stores, 0 bytes "
+                  "spill loads" in found[0],
+                  f"{name} spills nothing ({registers.get(name)} "
+                  f"registers): {found}")
     else:
         print("  spills not read: the libraries were already built")
+    # the lane stage's ring: the kernels' sizing against the Python mirror
+    layer_lib, kraus_lib = lk.build_library()[0], kk.build_library()[0]
+    for dtype in (torch.float32, torch.float64):
+        itemsize, rows = dtype.itemsize, lk.TILE_ROWS[dtype]
+        tile = 2 * rows * lk.LANES * itemsize
+        got = (layer_lib.quest_layer_lane_scratch_bytes(itemsize),
+               kraus_lib.quest_kraus_lane_scratch_bytes(itemsize))
+        want = (lk.shared_memory_bytes(rows, itemsize) - tile,
+                kk.shared_memory_for(MAIN_QUBITS, dtype) - tile)
+        check(got == want and want[0] == lk.lane_scratch_bytes(itemsize),
+              f"lane ring bytes at {dtype}, layer and Kraus kernels "
+              f"{got} vs Python {want}")
 
 
 def phase_stages(torch, lk, rng):
@@ -708,6 +749,39 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
           f"{lane_bound:.3f} ms ({lane_by}), torch.matmul complex64 "
           f"{lib_ms:.3f} ms")
 
+    # the same at float64 on 29 qubits: its planes and a complex128
+    # torch.matmul fit beside the live float32 state. The stage is
+    # row-local, so its first 2^24 amplitudes are a 24-qubit state that
+    # the plain version checks
+    n64, n_check = n - 1, 24
+    p64 = torch.randn(2, 1 << n64, dtype=torch.float64, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(29))
+    p64.mul_(2.0 ** (-(n64 + 1) / 2))
+    lane64 = lk.LayerOp(n64, 1, [("lane", m)])
+    head = p64[:, :1 << n_check].contiguous()
+    lk.apply_layer(p64, n64, lane64)
+    want = lk.apply_layer_plain(head, n_check,
+                                lk.LayerOp(n_check, 1, [("lane", m)]))
+    torch.cuda.synchronize()
+    err64, rel64 = rel_err(p64[:, :1 << n_check], want)
+    del head, want
+    check(rel64 <= 1e-12, f"float64 lane-only layer at {n64} qubits, first "
+          f"2^{n_check} amplitudes: kernel vs plain max|diff| {err64:.3e}, "
+          f"/ max|plain| {rel64:.3e} <= 1e-12")
+    lane64_ms = cuda_ms(torch, lambda: lk.apply_layer(p64, n64, lane64),
+                        reps=3)
+    lane64_bound, lane64_by, _, _ = layer_bound_ms(lk, lane64, n64,
+                                                   torch.float64)
+    z = torch.complex(p64[0], p64[1]).view(-1, 128)
+    del p64
+    mt = torch.as_tensor(m.T, dtype=torch.complex128, device=planes.device)
+    lib64_ms = cuda_ms(torch, lambda: torch.matmul(z, mt), reps=3)
+    del z
+    torch.cuda.empty_cache()
+    print(f"  float64 lane-only layer, {n64} qubits: kernel "
+          f"{lane64_ms:.3f} ms, bound {lane64_bound:.3f} ms ({lane64_by}), "
+          f"torch.matmul complex128 {lib64_ms:.3f} ms")
+
     # the compiled path end to end, host clock around synchronised runs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -735,6 +809,10 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
         "library_ms": lib_ms,
         "lane_only_ms": lane_ms,
         "lane_only_bound_ms": lane_bound,
+        "lane_only_f64_ms": lane64_ms,
+        "lane_only_f64_bound_ms": lane64_bound,
+        "lane_only_f64_library_ms": lib64_ms,
+        "lane_only_f64_max_abs_err": err64,
         "qubits": n,
         "gates_per_s": len(gates) / run_s,
     }
@@ -1403,7 +1481,7 @@ def main(argv) -> int:
         import quest_tpu_torch as qt
         from quest_tpu_torch.ops import kraus_kernel as kk
         from quest_tpu_torch.ops import layer_kernel as lk
-        phase_build()
+        phase_build(torch)
         rng = np.random.default_rng(20261016)
         if runs("3"):
             phase_stages(torch, lk, rng)

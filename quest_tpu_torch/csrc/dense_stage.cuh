@@ -9,12 +9,17 @@
 // `scale` (1 in the layer kernel; the Kraus kernel's 1/sqrt(p_j)) and
 // written only to groups whose global row passes the row condition.
 //
-// Work split: a warp owns up to four groups at once (each operator element
-// it loads serves all of them), thread `lane` accumulates output columns
-// lane, lane + 32, ...; each warp reads all inputs of its groups before it
-// writes any output, and the groups of different warps are disjoint, so no
-// second shared-memory buffer is needed. FMA loops on the CUDA cores, the
-// operator L2-resident (a 128 x 128 complex float32 operator is 128 KiB).
+// Work split of stage_dense<T, J>, which serves J = 1, 2 (full-precision
+// rowmxu stages): a warp owns up to four groups at once (each operator
+// element it loads serves all of them), thread `lane` accumulates output
+// columns lane, lane + 32, ...; each warp reads all inputs of its groups
+// before it writes any output, and the groups of different warps are
+// disjoint, so no second shared-memory buffer is needed. FMA loops on the
+// CUDA cores, the operator read from L2 through __ldg by every pass.
+//
+// stage_dense_lane<T> is the same function at J = 0 (the lane and clane
+// stages, the Kraus kernel's drawn operator, the MXU tile on lane targets),
+// redesigned for Hopper; its header below has the details.
 //
 // stage_dense_fast<J> is the FAST tier's form of the same stage (float32
 // tiles only), the TPU kernel's bf16-split products
@@ -404,6 +409,217 @@ __device__ void stage_dense_fast(float* sre, float* sim,
         *reinterpret_cast<float2*>(out_im + 8 * n) =
             make_float2(acc_im[m][n][2 * h], acc_im[m][n][2 * h + 1]);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The full-precision lane stage: exact FMA fed by a cp.async K-slab ring
+// ---------------------------------------------------------------------------
+//
+// stage_dense_lane<T> computes stage_dense<T, 0>'s function: every row of
+// the tile (a group at J = 0) becomes scale * M v over its 128 lanes, in
+// place, written only to rows that pass the row condition. What bounds it:
+// 8 * 128 real flops per amplitude on the CUDA cores (a 30-qubit float32
+// stage is 1.1e12 flops, 16.4 ms at 67 TFLOP/s; float64 runs at half the
+// rate), against a 128 KiB (float32) / 256 KiB (float64) operator that
+// every tile needs whole. The old loop (stage_dense<T, 0>) streamed that
+// operator from L2 once per four rows: 4 MiB of L2 reads per 128 KiB
+// tile, 8 loads per 64 FMAs. The design:
+// - The whole tile is one chunk and the outputs live in registers. Thread
+//   (gb, ob) = (tid / 16, tid % 16) owns rows gb + 16 n (n < kLaneRows: 8
+//   at float32, 4 at float64, so the 128 / 64-row tile) and the 8 outputs
+//   q * (128 / kRuns) + kVec * ob + i, i < kVec, in kRuns runs of one
+//   128-bit vector (kVec = 4 floats or 2 doubles): 64 / 32 complex
+//   accumulators, 128 registers at either dtype. The operator is read from
+//   L2 once per tile per stage.
+// - The operator streams in K slabs (32 inputs at float32, 16 at float64)
+//   through a two-stage ring beside the tile. The pool stores M^T, so a
+//   slab is two contiguous 16 KiB blocks (op_re and op_im rows [K k,
+//   K k + K)), copied by cp.async.cg; the next slab's copy is issued right
+//   after the barrier that opens the current slab's products, one barrier
+//   per slab. Ring: 2 x 32 KiB = 64 KiB (lane_scratch_bytes), 192 KiB
+//   with the tile.
+// - Shared loads are 128 bits. The 16 threads of a half warp read one
+//   operator row's 256 contiguous bytes per run (conflict-free; the other
+//   half warp reads the same bytes, a broadcast). For the inputs the warp's
+//   lanes share their rows (a broadcast): a warp holds two row blocks,
+//   gb = 2w and 2w + 1, so each 128-bit read of x[g][e .. e + kVec) has two
+//   addresses. They lie in one bank quad (rows are 512 B / 1 KiB apart):
+//   two wavefronts per load, against 8 (float32) / 4 (float64) FMA
+//   instructions per loaded value. The inputs are read one block ahead:
+//   a row's next kVec inputs right after its last product with the
+//   current ones, so the reads overlap the other rows' products.
+// - In place: the tile's inputs are read from the tile in every slab, so
+//   after the last slab's products one barrier separates every thread's
+//   last read from the writes; then each thread writes its accumulators,
+//   times scale, for the rows that pass the row condition. Rows past a
+//   small tile (fewer than 16 * kLaneRows rows) read the tile's last row and
+//   are never written.
+// - Exact: every accumulator takes the old loop's complex multiply-add,
+//   re = fma(xr, a, fma(-xi, b, re)), im = fma(xr, b, fma(xi, a, im)),
+//   over e = 0, 1, ..., 127 in order, in fp32 or fp64: the same sums in
+//   the same order as stage_dense<T, 0>. No tensor cores.
+
+// Inputs per K slab of the lane stage: 16 KiB of each operator plane.
+__host__ __device__ constexpr int lane_k(int itemsize) {
+  return kLanes / itemsize;
+}
+// Shared memory of the lane stage's ring beside the tile: two stages, each
+// a K slab of op_re then the same rows of op_im, 64 KiB at either dtype.
+// Every full-precision launch reserves it (the Python side mirrors it:
+// ops/layer_kernel.py lane_scratch_bytes).
+__host__ __device__ constexpr size_t lane_scratch_bytes(int itemsize) {
+  return 2 * static_cast<size_t>(lane_k(itemsize)) * kLanes * 2 * itemsize;
+}
+
+__device__ __forceinline__ void load_128(float* d, const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+__device__ __forceinline__ void load_128(double* d, const double* s) {
+  const double2 v = *reinterpret_cast<const double2*>(s);
+  d[0] = v.x;
+  d[1] = v.y;
+}
+__device__ __forceinline__ void store_128(float* d, const float* s) {
+  *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+}
+__device__ __forceinline__ void store_128(double* d, const double* s) {
+  *reinterpret_cast<double2*>(d) = make_double2(s[0], s[1]);
+}
+
+// Start the copy of lane slab k into a ring stage: rows [K k, K k + K) of
+// op_re, then of op_im, 16 bytes per cp.async, all threads.
+template <typename T>
+__device__ __forceinline__ void lane_fetch_op(T* dst, const T* op_re,
+                                              const T* op_im, int k) {
+  constexpr int kK = lane_k(sizeof(T));
+  constexpr int kChunks = kK * kLanes * static_cast<int>(sizeof(T)) / 16;
+  const size_t first = static_cast<size_t>(k) * kK * kLanes;
+  const uint4* src_re = reinterpret_cast<const uint4*>(op_re + first);
+  const uint4* src_im = reinterpret_cast<const uint4*>(op_im + first);
+  uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int s = 0; s < kChunks / kThreads; ++s) {
+    const int c = threadIdx.x + s * kThreads;
+    cp_async_16(out + c, src_re + c);
+    cp_async_16(out + kChunks + c, src_im + c);
+  }
+  cp_async_commit();
+}
+
+// op_re / op_im: the operator's M^T planes (op[e * 128 + o] = M[o][e]),
+// 16-byte aligned. ring: lane_scratch_bytes(sizeof(T)) bytes, 16-aligned.
+template <typename T>
+__device__ __forceinline__ void stage_dense_lane(
+    T* sre, T* sim, T* ring, int tile_rows, long long base_row,
+    const T* __restrict__ op_re, const T* __restrict__ op_im,
+    long long row_mask, long long row_want, T scale) {
+  constexpr int kK = lane_k(sizeof(T));
+  constexpr int kSlabs = kLanes / kK;
+  constexpr int kStage = 2 * kK * kLanes;           // ring stage, elements
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kLaneRows = 32 / static_cast<int>(sizeof(T));
+  constexpr int kOuts = 8;                          // outputs per thread
+  constexpr int kRuns = kOuts / kVec;
+  constexpr int kRunStride = kLanes / kRuns;
+  const int ob = threadIdx.x & 15;
+  const int gb = threadIdx.x >> 4;
+  const int col = kVec * ob;
+
+  int xoff[kLaneRows];
+#pragma unroll
+  for (int n = 0; n < kLaneRows; ++n) {
+    xoff[n] = min(gb + 16 * n, tile_rows - 1) * kLanes;
+  }
+  T acc_re[kLaneRows][kOuts];
+  T acc_im[kLaneRows][kOuts];
+#pragma unroll
+  for (int n = 0; n < kLaneRows; ++n) {
+#pragma unroll
+    for (int p = 0; p < kOuts; ++p) {
+      acc_re[n][p] = T(0);
+      acc_im[n][p] = T(0);
+    }
+  }
+
+  // inputs [e, e + kVec) of every row of this thread, one block ahead:
+  // a row's next block is read right after the row's last product with
+  // the current one, so the reads overlap the other rows' products
+  T xr[kLaneRows][kVec], xi[kLaneRows][kVec];
+#pragma unroll
+  for (int n = 0; n < kLaneRows; ++n) {
+    load_128(xr[n], sre + xoff[n]);
+    load_128(xi[n], sim + xoff[n]);
+  }
+
+  lane_fetch_op<T>(ring, op_re, op_im, 0);
+#pragma unroll 1
+  for (int k = 0; k < kSlabs; ++k) {
+    // slab k has landed (this thread's copies, then everyone's); the
+    // other ring stage was last read by the products of slab k - 1
+    cp_async_wait_all();
+    __syncthreads();
+    const T* w_re = ring + (k & 1) * kStage;
+    const T* w_im = w_re + kK * kLanes;
+    if (k + 1 < kSlabs) {
+      lane_fetch_op<T>(ring + ((k + 1) & 1) * kStage, op_re, op_im, k + 1);
+    }
+#pragma unroll 1
+    for (int e0 = 0; e0 < kK; e0 += kVec) {
+      // the block after [K k + e0, K k + e0 + kVec); past the last one the
+      // last again (read, never used)
+      const int next = min(k * kK + e0 + kVec, kLanes - kVec);
+#pragma unroll
+      for (int t = 0; t < kVec; ++t) {
+        // operator row e of this thread's outputs
+        const T* wr = w_re + (e0 + t) * kLanes + col;
+        const T* wi = w_im + (e0 + t) * kLanes + col;
+        T a[kOuts], b[kOuts];
+#pragma unroll
+        for (int q = 0; q < kRuns; ++q) {
+          load_128(a + q * kVec, wr + q * kRunStride);
+          load_128(b + q * kVec, wi + q * kRunStride);
+        }
+#pragma unroll
+        for (int n = 0; n < kLaneRows; ++n) {
+#pragma unroll
+          for (int p = 0; p < kOuts; ++p) {
+            acc_re[n][p] = fma(xr[n][t], a[p],
+                               fma(-xi[n][t], b[p], acc_re[n][p]));
+            acc_im[n][p] = fma(xr[n][t], b[p],
+                               fma(xi[n][t], a[p], acc_im[n][p]));
+          }
+          if (t == kVec - 1) {
+            load_128(xr[n], sre + xoff[n] + next);
+            load_128(xi[n], sim + xoff[n] + next);
+          }
+        }
+      }
+    }
+  }
+
+  // every thread has read all of its inputs from the tile
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < kLaneRows; ++n) {
+    const int g = gb + 16 * n;
+    if (g >= tile_rows) continue;
+    if (row_mask && ((base_row + g) & row_mask) != row_want) continue;
+#pragma unroll
+    for (int q = 0; q < kRuns; ++q) {
+      T out_re[kVec], out_im[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        out_re[i] = acc_re[n][q * kVec + i] * scale;
+        out_im[i] = acc_im[n][q * kVec + i] * scale;
+      }
+      store_128(sre + g * kLanes + q * kRunStride + col, out_re);
+      store_128(sim + g * kLanes + q * kRunStride + col, out_im);
     }
   }
 }

@@ -25,8 +25,11 @@
 // on its own (the _rn intrinsics), never contracted into an FMA, so the
 // draw is the one the plain version makes. Selecting K_j is the TPU's
 // one-hot blend: the block reads operator j of the stack. The tile is read
-// into shared memory, replaced in place by scale * (K_j v) per row, and
-// written back; tiles are disjoint, so the states are updated in place.
+// into shared memory, replaced in place by scale * (K_j v) per row by the
+// layer kernel's lane stage (stage_dense_lane: the outputs in registers,
+// K_j streamed once per tile through a 64 KiB cp.async ring beside the
+// tile), and written back; tiles are disjoint, so the states are updated
+// in place.
 //
 // Layouts: states (T, 2, 2^n) contiguous, trajectory t's re plane at
 // t * state_stride, its im plane 2^n later; the operator stack holds, per
@@ -118,8 +121,8 @@ __global__ void __launch_bounds__(kThreads)
 
   quest::copy_tile(sre, sim, re + first, im + first, tile_rows);
   __syncthreads();
-  quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, 0, op_re, op_im,
-                           0, 0, scale);
+  quest::stage_dense_lane<T>(sre, sim, sim + tile_rows * kLanes, tile_rows,
+                             base_row, op_re, op_im, 0, 0, scale);
   __syncthreads();
   quest::copy_tile(re + first, im + first, sre, sim, tile_rows);
 }
@@ -132,7 +135,8 @@ int launch(void* re, void* im, const void* kstack, const void* probs,
   if (num_ops < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T);
+  const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T)
+                      + quest::lane_scratch_bytes(sizeof(T));
   cudaGetLastError();  // an error left by earlier work is not this launch's
   cudaError_t err = cudaFuncSetAttribute(
       kraus_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -170,6 +174,12 @@ int quest_kraus_apply_f64(void* re, void* im, const void* kstack,
                           void* stream) {
   return launch<double>(re, im, kstack, probs, u01, num_ops, num_traj,
                         total_rows, tile_rows, state_stride, stream);
+}
+
+// Shared memory of the lane stage's ring beside the tile, for planes of
+// itemsize bytes (the Python side mirrors it).
+long long quest_kraus_lane_scratch_bytes(int itemsize) {
+  return static_cast<long long>(quest::lane_scratch_bytes(itemsize));
 }
 
 const char* quest_kraus_error_string(int code) {

@@ -24,14 +24,18 @@
 // so a layer of L gates costs one state pass, not L. Tiles are disjoint
 // and each block touches only its own, so updating the planes in place is
 // safe. Inside a stage every amplitude is owned by one thread (row, rowk,
-// rowdiag) or one warp (full-precision dense stages); an owner reads all
-// its inputs into registers before it writes, so no second shared-memory
-// buffer is needed.
-// The dense products are FMA loops on the CUDA cores with the operator
-// read from global memory (L2-resident: a 128x128 complex float32 operator
-// is 128 KiB); each warp works on up to four rows at once so every
-// operator element it loads serves several rows. This is the simple, exact
-// form: no tensor cores, no TMA.
+// rowdiag, and the lane stages' outputs) or one warp (full-precision rowmxu
+// stages); an owner reads all its inputs into registers before it writes
+// (the lane stages: every thread reads, one barrier, every thread writes),
+// so no second shared-memory buffer is needed.
+// The dense products are exact FMA loops on the CUDA cores. The lane and
+// clane stages (stage_dense_lane, dense_stage.cuh) keep the whole tile's
+// outputs in registers and stream their operator once per tile through a
+// two-stage cp.async ring of 32 KiB K slabs beside the tile (64 KiB,
+// lane_scratch_bytes, reserved by every full-precision launch: 192 KiB in
+// all). The rowmxu stages (stage_dense<T, J>, J = 1, 2) read their
+// operator from L2 through __ldg, each warp on up to 4 >> J rows at once.
+// No tensor cores, no TMA.
 //
 // The FAST tier (quest_layer_apply_fast_f32; the TPU kernel's fast=True,
 // pallas_kernels.py:237-260, 339-355) runs the dense stages on the bf16
@@ -207,8 +211,10 @@ __global__ void __launch_bounds__(kThreads)
         const size_t dim = static_cast<size_t>(kLanes) << kj;
         const T* op_im = op + dim * dim;
         if (kj == 0) {
-          quest::stage_dense<T, 0>(sre, sim, tile_rows, base_row, packed, op,
-                                   op_im, row_mask, row_want, T(1));
+          T* lane_ring = sim + tile_rows * kLanes;
+          quest::stage_dense_lane<T>(sre, sim, lane_ring, tile_rows,
+                                     base_row, op, op_im, row_mask, row_want,
+                                     T(1));
         } else if (kj == 1) {
           quest::stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op,
                                    op_im, row_mask, row_want, T(1));
@@ -251,6 +257,8 @@ int launch(void* re, void* im, const void* desc, int n_stages,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     smem += quest::fast_scratch_bytes(max_j);
+  } else {
+    smem += quest::lane_scratch_bytes(sizeof(T));
   }
   cudaGetLastError();  // an error left by earlier work is not this launch's
   cudaError_t err = cudaFuncSetAttribute(
@@ -311,6 +319,12 @@ int quest_layer_apply_fast_f32(void* re, void* im, const void* desc,
 // dense stage has max_j row bits (the Python side mirrors it).
 long long quest_layer_fast_scratch_bytes(int max_j) {
   return static_cast<long long>(quest::fast_scratch_bytes(max_j));
+}
+
+// Shared memory of the full-precision lane stage's ring beside the tile,
+// for planes of itemsize bytes (the Python side mirrors it).
+long long quest_layer_lane_scratch_bytes(int itemsize) {
+  return static_cast<long long>(quest::lane_scratch_bytes(itemsize));
 }
 
 const char* quest_layer_error_string(int code) {

@@ -35,7 +35,8 @@ from . import cuda_build
 from .layer_kernel import LANES, shared_memory_bytes, tile_rows_for
 
 __all__ = ["draw_plain", "fused_kraus_apply_batched",
-           "fused_kraus_apply_batched_plain", "build_library"]
+           "fused_kraus_apply_batched_plain", "shared_memory_for",
+           "build_library"]
 
 
 def draw_plain(probs: torch.Tensor, u01: torch.Tensor):
@@ -128,6 +129,8 @@ def build_library() -> tuple:
         fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
+    lib.quest_kraus_lane_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.quest_kraus_lane_scratch_bytes.restype = ctypes.c_longlong
     lib.quest_kraus_error_string.argtypes = [ctypes.c_int]
     lib.quest_kraus_error_string.restype = ctypes.c_char_p
     return lib, path, log
@@ -137,6 +140,15 @@ def _raise_on(lib, err: int) -> None:
     if err != 0:
         raise RuntimeError("Kraus kernel launch failed: "
                            + lib.quest_kraus_error_string(err).decode())
+
+
+def shared_memory_for(num_qubits: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel on ``2^n``-amplitude
+    states: its row tile of both planes and the lane stage's operator ring,
+    sized as the layer kernel's full-precision launches are
+    (``layer_kernel.shared_memory_bytes``)."""
+    tile_rows = min(tile_rows_for(dtype), (1 << num_qubits) // LANES)
+    return shared_memory_bytes(tile_rows, dtype.itemsize)
 
 
 def _device_stack(kstack: np.ndarray, dtype, device) -> torch.Tensor:
@@ -169,7 +181,7 @@ def fused_kraus_apply_batched(states: torch.Tensor, num_qubits: int,
                          f"{states.device}")
     total_rows = (1 << num_qubits) // LANES
     tile_rows = min(tile_rows_for(states.dtype), total_rows)
-    shared_memory_bytes(tile_rows, states.element_size())
+    shared_memory_for(num_qubits, states.dtype)
     if states.data_ptr() % 16:
         raise ValueError("fused_kraus_apply_batched: states must be 16-byte "
                          "aligned")

@@ -33,7 +33,9 @@ plain version.
 
 The tile height comes from Hopper's shared memory, not from TPU VMEM: one
 block holds a ``tile_rows x 128`` tile of both planes (128 KiB at either
-dtype: 128 rows of float32, 64 of float64). ``max_mid_qubit(tile_rows)``
+dtype: 128 rows of float32, 64 of float64), and beside it the ring through
+which the full-precision lane stage streams its operator
+(:func:`lane_scratch_bytes`, 64 KiB). ``max_mid_qubit(tile_rows)``
 bounds which row bits a dense stage may target, and the collector reads it
 through :func:`tile_rows_for`, so the CPU and the card plan one plan.
 
@@ -86,11 +88,15 @@ MAX_DENSE_ROW_BITS, MAX_ROWK_BITS = 2, 3
 # the FAST dense stage (csrc/dense_stage.cuh stage_dense_fast): inputs per
 # K slab, one mma.m16n8k16 k-step
 FAST_K = 16
+# the full-precision lane stage (csrc/dense_stage.cuh stage_dense_lane):
+# inputs per K slab by plane itemsize, 16 KiB of each operator plane
+LANE_K = {4: 32, 8: 16}
 
 __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
            "lane_diag_matrix", "lane_diag_vector", "max_mid_qubit",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
            "layer_kernel_plan", "shared_memory_bytes", "fast_scratch_bytes",
+           "lane_scratch_bytes",
            "fast_operator_slabs", "apply_layer",
            "apply_layer_plain", "apply_layer_batched",
            "apply_layer_batched_plain", "apply_mxu_tile",
@@ -346,15 +352,30 @@ def fast_scratch_bytes(max_j: int) -> int:
     return 2 * max(stage(j) for j in range(max_j + 1))
 
 
+def lane_scratch_bytes(itemsize: int) -> int:
+    """Shared memory of the full-precision lane stage's ring beside the
+    tile: two stages of one K slab of both operator planes (``LANE_K``
+    inputs x 128 outputs x (re, im)), 64 KiB at either dtype. Mirrors
+    ``lane_scratch_bytes`` in ``csrc/dense_stage.cuh``."""
+    if itemsize not in LANE_K:
+        raise ValueError(f"planes of {itemsize}-byte values have no lane "
+                         f"stage; itemsize is one of {sorted(LANE_K)}")
+    return 2 * LANE_K[itemsize] * LANES * 2 * itemsize
+
+
 def shared_memory_bytes(tile_rows: int, itemsize: int,
                         fast_max_j: Optional[int] = None) -> int:
     """Dynamic shared memory one block needs: the tile of both planes,
-    plus with ``fast_max_j`` (a FAST launch) the ring of
-    :func:`fast_scratch_bytes`. Every stage updates the tile in place
+    plus the ring of its dense stages: with ``fast_max_j`` (a FAST
+    launch) :func:`fast_scratch_bytes`, else (every full-precision launch
+    of the layer kernel, and the Kraus kernel) the lane stage's
+    :func:`lane_scratch_bytes`. Every stage updates the tile in place
     (through registers), so the need does not grow with the stage count —
     the TPU kernel's VMEM working-set estimate has no counterpart here."""
     need = 2 * tile_rows * LANES * itemsize
-    if fast_max_j is not None:
+    if fast_max_j is None:
+        need += lane_scratch_bytes(itemsize)
+    else:
         need += fast_scratch_bytes(fast_max_j)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -616,8 +637,10 @@ def build_library() -> tuple:
     lib.quest_layer_apply_fast_f32.argtypes = (
         argtypes[:5] + [ctypes.c_void_p, ctypes.c_int] + argtypes[5:])
     lib.quest_layer_apply_fast_f32.restype = ctypes.c_int
-    lib.quest_layer_fast_scratch_bytes.argtypes = [ctypes.c_int]
-    lib.quest_layer_fast_scratch_bytes.restype = ctypes.c_longlong
+    for name in ("quest_layer_fast_scratch_bytes",
+                 "quest_layer_lane_scratch_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.quest_layer_error_string.argtypes = [ctypes.c_int]
     lib.quest_layer_error_string.restype = ctypes.c_char_p
     return lib, path, log
@@ -682,6 +705,7 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
         return layer._packed[key]
     kstages, lane_mats, tables, xmats, tile_rows, total_rows = \
         layer_kernel_plan(layer, num_qubits, tile_rows_for(dtype))
+    itemsize = dtype.itemsize
     pools: dict = {False: [], True: []}
     sizes = {False: 0, True: 0}
 
@@ -698,7 +722,13 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
         # Every FAST operator is 2 * dim^2 values, a multiple of 8, so each
         # offset is 16-byte aligned, as cp.async needs
         if not fast:
-            return put(np.asarray(m).T)
+            off = put(np.asarray(m).T)
+            # the lane stage copies its operator with cp.async too; every
+            # operand before it is a multiple of 8 values
+            if off * itemsize % 16:
+                raise ValueError(f"dense operand at pool offset {off} is "
+                                 "not 16-byte aligned")
+            return off
         off = sizes[True]
         pools[True].append(fast_operator_slabs(m))
         sizes[True] += 2 * np.asarray(m).size
