@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card::
 
     python3 chip_smoke.py                 # every phase: the whole check
     python3 chip_smoke.py --only 3d,3e,10 # the build, then just these
+    python3 chip_smoke.py --only 12       # the density phase
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -74,7 +75,26 @@ Phases (any unmet check exits non-zero and prints no result line):
     per tier, FAST energies against SINGLE's within the modeled bound,
     SINGLE's compensated energies against a float64 host reduction of the
     same states (<= 1e-6 of max|E|), points/s per tier, and the batched
-    FAST kernel against its plain version over the whole batch.
+    FAST kernel against its plain version over the whole batch;
+12. density registers at 15 qubits (2^30 flat amplitudes, 8 GiB of
+    complex64 planes), run with ``compile(density=True)``:
+    12a. the noisy QFT (the QFT ladder of ``algorithms._append_qft``, then
+    dephasing 0.01 and damping 0.005 on every qubit) from a basis state:
+    the layer kernel
+    launches once per layer of the lifted plan (> 0), each layer's kernel
+    output on its own input within 1e-5 of max|plain| of its plain
+    version, the result within 1e-4 of max|amp| of the same program
+    through the imperative density API, trace within 1e-4 of 1, purity in
+    (0, 1], ops/s (counted as bench.py:3514 counts them), each layer's ms
+    beside its bound, its plain version and one complex64 broadcast
+    multiply by the layer's merged diagonal (the library yardstick, held
+    against the plain version first), and a ``torch.profiler``
+    breakdown; 12b. ``BASELINE.json`` config 4 (bench.py:3514
+    ``bench_density_noise``) from |+><+| the same way, with no kernel
+    count asserted
+    (its plan has no layer); 12c. every density function of the API on 8
+    qubits (a complex pure state) on the card against the CPU in float64
+    (within 1e-5 of the largest value, and of the largest amplitude).
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -1374,6 +1394,350 @@ def phase_fast_sweep(torch, qt, lk, kk, card):
     }
 
 
+DENSITY_QUBITS = 15            # BASELINE.json config 4: 2^30 flat amps
+DENSITY_CHECK_QUBITS = 8
+
+
+def qft_ops(n: int):
+    """The gate order of the JAX package's ``algorithms._append_qft`` on
+    qubits 0..n-1, as (kind, a, b, angle)."""
+    ops = []
+    for i in range(n - 1, -1, -1):
+        ops.append(("h", i, None, None))
+        for k, j in enumerate(range(i - 1, -1, -1), start=2):
+            ops.append(("cphase", j, i, 2.0 * np.pi / (1 << k)))
+    for i in range(n // 2):
+        ops.append(("swap", i, n - 1 - i, None))
+    return ops
+
+
+def noisy_qft(qt, n: int):
+    """The noisy QFT: the QFT ladder, then dephasing (0.01) and amplitude
+    damping (0.005) on every qubit. Returns the circuit and the same
+    program as imperative density-API calls."""
+    c = qt.Circuit(n)
+    calls = []
+    for kind, a, b, angle in qft_ops(n):
+        if kind == "h":
+            c.h(a)
+            calls.append((qt.hadamard, (a,)))
+        elif kind == "swap":
+            c.swap(a, b)
+            calls.append((qt.swapGate, (a, b)))
+        else:
+            c.cphase(a, b, angle)
+            calls.append((qt.controlledPhaseShift, (a, b, angle)))
+    for q in range(n):
+        c.dephase(q, 0.01).damp(q, 0.005)
+        calls += [(qt.mixDephasing, (q, 0.01)), (qt.mixDamping, (q, 0.005))]
+    return c, calls
+
+
+def density_noise(qt, n: int):
+    """bench.py:3514 ``bench_density_noise`` (BASELINE.json config 4): a
+    random rotation on every qubit (rng 2026), CNOTs on (0,1), (2,3), ...,
+    then dephasing (0.05) and damping (0.02) on every qubit. Returns the
+    circuit and the imperative calls."""
+    rng = np.random.default_rng(2026)
+    c = qt.Circuit(n)
+    calls = []
+    for q in range(n):
+        angle, axis = float(rng.uniform(0, 2 * np.pi)), rng.normal(size=3)
+        c.rotate(q, angle, axis)
+        calls.append((qt.rotateAroundAxis, (q, angle, tuple(axis))))
+    for q in range(0, n - 1, 2):
+        c.cnot(q, q + 1)
+        calls.append((qt.controlledNot, (q, q + 1)))
+    for q in range(n):
+        c.dephase(q, 0.05).damp(q, 0.02)
+        calls += [(qt.mixDephasing, (q, 0.05)), (qt.mixDamping, (q, 0.02))]
+    return c, calls
+
+
+def diagonal_layer_factor(torch, lk, layer, n: int, dtype):
+    """A layer of ``rowdiag`` stages as one diagonal: (its row bits
+    ascending, the complex64 factor ``(2^u, 128)`` over their
+    configurations and the lanes, on the card), or None when a stage is
+    not diagonal."""
+    kstages, _, tables, _, _, _ = lk.layer_kernel_plan(
+        layer, n, lk.tile_rows_for(dtype))
+    if any(st[0] != "rowdiag" for st in kstages):
+        return None
+    bits = sorted({b for st in kstages for b in st[2]})
+    cfg = np.arange(1 << len(bits))
+    fac = np.ones((1 << len(bits), lk.LANES), dtype=np.complex128)
+    for _, toff, sbits in kstages:
+        sub = np.zeros_like(cfg)
+        for j, b in enumerate(sbits):
+            sub |= ((cfg >> bits.index(b)) & 1) << j
+        fac *= np.stack(tables[toff:toff + (1 << len(sbits))])[sub]
+    return bits, torch.as_tensor(fac, dtype=torch.complex64, device="cuda")
+
+
+def diagonal_views(z, fac, bits, lanes: int):
+    """``z`` (complex, ``rows * lanes``) and ``fac`` (``(2^u, lanes)``)
+    viewed so that ``z * fac`` broadcasts the diagonal over the rows."""
+    zs, fs, prev = [], [], (z.numel() // lanes).bit_length() - 1
+    for b in reversed(bits):
+        zs += [1 << (prev - b - 1), 2]
+        fs += [1, 2]
+        prev = b
+    return z.view(zs + [1 << prev, lanes]), fac.view(fs + [1, lanes])
+
+
+def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
+                 expect_layers: bool):
+    """One density cell at DENSITY_QUBITS: compile with density=True, run
+    from ``init(qureg)`` with the kernel counts from 0, and hold the result
+    against
+    the same program through the imperative density API; with
+    ``expect_layers`` also each layer's kernel output against its plain
+    version on that layer's own input. Returns the cell's numbers."""
+    n = DENSITY_QUBITS
+    env = qt.createQuESTEnv()
+    t0 = time.perf_counter()
+    cc = circuit.compile(env, density=True)
+    compile_s = time.perf_counter() - t0
+    layer_ops = [op for op in cc._ops if op.kind == "layer"]
+    plain_ops = len(cc.plan.items) - len(layer_ops)
+    print(f"  {label}: {len(circuit.ops)} ops, lifted to "
+          f"{2 * n} qubits, planned as {len(layer_ops)} layers and "
+          f"{plain_ops} plain ops in {compile_s:.2f} s; stages "
+          f"{sorted({st[0] for op in layer_ops for st in op.stages})}")
+    q = qt.createDensityQureg(n, env)
+    init(q)
+    reset_counts(lk, kk)
+    cc.run(q)
+    torch.cuda.synchronize()
+    launches, batched, kraus = counts(lk, kk)
+    if expect_layers:
+        check(len(layer_ops) > 0 and launches == len(layer_ops)
+              and batched == kraus == 0,
+              f"{label}: layer kernel launched {launches} times for "
+              f"{len(layer_ops)} layer ops")
+    else:
+        print(f"  {label}: layer kernel launched {launches} times for "
+              f"{len(layer_ops)} layer ops (no count asserted)")
+    errs, rels = [], []
+    if layer_ops:
+        # a second run with each layer held against its plain version on
+        # that layer's own input, by a hook on the executor's kernel call
+        launch = lk.apply_layer
+
+        def held(planes, num_qubits, layer, fast=False):
+            plain = planes.clone()
+            launch(planes, num_qubits, layer, fast=fast)
+            lk.apply_layer_plain(plain, num_qubits, layer, fast=fast)
+            torch.cuda.synchronize()
+            err, rel = rel_err(planes, plain)
+            errs.append(err)
+            rels.append(rel)
+
+        walked = qt.createDensityQureg(n, env)
+        init(walked)
+        # the wrapper counts through its module-level name, so while the
+        # hook stands in, the hook holds these launches' counts
+        held.launches = held.fast_launches = 0
+        lk.apply_layer = held
+        try:
+            cc.run(walked)
+        finally:
+            lk.apply_layer = launch
+        del walked
+        torch.cuda.empty_cache()
+        check(len(rels) == len(layer_ops) and max(rels) <= 1e-5,
+              f"{label}: each of {len(rels)} layers' kernel vs plain version "
+              f"on its own input max|diff| / max|plain| {max(rels):.3e} "
+              "<= 1e-5")
+
+    ref = qt.createDensityQureg(n, env)
+    init(ref)
+    t0 = time.perf_counter()
+    for fn, args in calls:
+        fn(ref, *args)
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t0
+    err, rel = rel_err(q.state, ref.state)
+    del ref
+    torch.cuda.empty_cache()
+    check(rel <= 1e-4, f"{label}: compiled vs imperative density API "
+          f"max|diff| / max|amp| {rel:.3e} <= 1e-4")
+    trace, purity = qt.calcTotalProb(q), qt.calcPurity(q)
+    check(abs(trace - 1.0) <= 1e-4 and 0.0 < purity <= 1.0,
+          f"{label}: trace {trace!r}, purity {purity!r}")
+
+    run_s = timed_runs(torch, lambda: cc.run(q), reps=2)
+    ops = len(circuit.ops)
+    print(f"  {label} on {card}: compiled run {run_s * 1e3:.1f} ms, "
+          f"{ops / run_s:.1f} ops/s ({ops} ops as bench.py:3514 counts "
+          f"them); the imperative API {api_s * 1e3:.1f} ms, "
+          f"{ops / api_s:.1f} ops/s")
+    kernel_ms, plain_ms, bound_ms, bound_by, lib_ms = [], [], [], [], []
+    for i, layer in enumerate(layer_ops):
+        # the library yardstick of a diagonal layer: one complex64
+        # broadcast multiply of the register by the layer's merged factor,
+        # first held against the plain version on the same input
+        lib = diagonal_layer_factor(torch, lk, layer, 2 * n, q.state.dtype)
+        if lib is not None:
+            z = torch.complex(q.state[0], q.state[1])
+            zv, fv = diagonal_views(z, lib[1], lib[0], lk.LANES)
+            want = q.state.clone()
+            lk.apply_layer_plain(want, 2 * n, layer)
+            got = torch.view_as_real(zv * fv).view(-1, 2)
+            err = max(float((got[:, k] - want[k]).abs().max())
+                      for k in (0, 1))
+            rel = err / float(want.abs().max())
+            del got, want
+            check(rel <= 1e-5, f"{label}: layer {i} as one broadcast "
+                  f"multiply vs its plain version max|diff| / max|plain| "
+                  f"{rel:.3e} <= 1e-5")
+            lib_ms.append(cuda_ms(torch, lambda: zv.mul_(fv), reps=3))
+            del z, zv
+            torch.cuda.empty_cache()
+        kernel_ms.append(cuda_ms(torch, lambda: lk.apply_layer(
+            q.state, 2 * n, layer), reps=3))
+        plain_ms.append(cuda_ms(torch, lambda: lk.apply_layer_plain(
+            q.state, 2 * n, layer), reps=1))
+        ms, by, hbm_ms, op_ms = layer_bound_ms(lk, layer, 2 * n,
+                                               q.state.dtype)
+        bound_ms.append(ms)
+        bound_by.append(by)
+        print(f"  layer {i} {[st[0] for st in layer.stages]}: kernel "
+              f"{kernel_ms[-1]:.3f} ms, bound {ms:.3f} ms ({by}; HBM "
+              f"{hbm_ms:.3f}, CUDA-core flops {op_ms:.3f}), plain "
+              f"{plain_ms[-1]:.3f} ms, complex64 broadcast mul "
+              + (f"{lib_ms[-1]:.3f} ms" if lib is not None else "none")
+              + f", max|kernel-plain| {errs[i]:.3e} on {card}")
+    torch.cuda.empty_cache()
+    profile_device(torch, lambda: cc.run(q), f"one {label} run on {card}")
+    del q, cc
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ops_per_s": ops / run_s,
+            "max_abs_err": max(errs or [0.0]), "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms if len(lib_ms) == len(layer_ops) else None}
+
+
+def kraus_set(rng, k: int, count: int):
+    """A random CPTP set of ``count`` operators on k qubits."""
+    d = 1 << k
+    v = random_unitary(rng, d * count)[:, :d]
+    return [v[i * d:(i + 1) * d] for i in range(count)]
+
+
+def density_flow(qt, env, outcome=None):
+    """Every density function of the API on 8 qubits: initialisers, gates,
+    every channel, every calc, the density amplitudes, and a measurement
+    (``measureWithStats`` when ``outcome`` is None, else
+    ``collapseToOutcome`` to it). Returns (values, flat state, outcome)."""
+    n = DENSITY_CHECK_QUBITS
+    rng = np.random.default_rng(88)
+    vals = []
+    pure = qt.createQureg(n, env)
+    for q in range(n):
+        qt.rotateY(pure, q, 0.3 * q + 0.1)
+        qt.rotateX(pure, q, 0.17 * q + 0.05)  # complex amplitudes
+    qt.controlledNot(pure, 0, 1)
+    rho = qt.createDensityQureg(n, env)
+    qt.initPureState(rho, pure)
+    qt.hadamard(rho, 0)
+    qt.controlledNot(rho, 0, 7)
+    qt.controlledPhaseShift(rho, 1, 6, 0.4)
+    qt.swapGate(rho, 2, 5)
+    qt.rotateX(rho, 3, 0.7)
+    qt.multiRotatePauli(rho, (0, 3, 7), (1, 2, 3), 0.37)
+    qt.multiRotateZ(rho, (1, 4), 0.8)
+    qt.multiQubitUnitary(rho, (6, 2), random_unitary(rng, 4))
+    qt.mixDephasing(rho, 0, 0.1)
+    qt.mixTwoQubitDephasing(rho, 1, 2, 0.2)
+    qt.mixDepolarising(rho, 3, 0.15)
+    qt.mixDamping(rho, 4, 0.3)
+    qt.mixTwoQubitDepolarising(rho, 5, 6, 0.25)
+    qt.mixPauli(rho, 7, 0.05, 0.1, 0.02)
+    qt.mixKrausMap(rho, 1, kraus_set(rng, 1, 3))
+    qt.mixTwoQubitKrausMap(rho, 0, 7, kraus_set(rng, 2, 4))
+    qt.mixMultiQubitKrausMap(rho, (2, 4, 6), kraus_set(rng, 3, 2))
+    other = qt.createDensityQureg(n, env)
+    qt.initClassicalState(other, 37)
+    qt.hadamard(other, 2)
+    qt.mixDensityMatrix(rho, 0.25, other)
+    codes = rng.integers(0, 4, size=3 * n)
+    vals += [qt.calcTotalProb(rho), qt.calcPurity(rho),
+             qt.calcFidelity(rho, pure),
+             qt.calcHilbertSchmidtDistance(rho, other),
+             qt.calcDensityInnerProduct(rho, other),
+             qt.calcExpecPauliProd(rho, (0, 3, 7), (1, 2, 3)),
+             qt.calcExpecPauliSum(rho, codes, (0.5, -0.3, 0.8)),
+             qt.calcExpecPauliProd(pure, (1, 2), (2, 3))]
+    vals += [qt.calcProbOfOutcome(rho, q, 0) for q in range(n)]
+    for r, c in ((0, 0), (3, 5), (200, 17), (255, 255)):
+        z = qt.getDensityAmp(rho, r, c)
+        vals += [z.real, z.imag]
+    third = qt.createDensityQureg(n, env)
+    host = rng.normal(size=(2, 1 << (2 * n))) / (1 << n)
+    qt.setDensityAmps(third, host[0], host[1])
+    vals += [qt.calcPurity(third), qt.getDensityAmp(third, 3, 5).imag]
+    if outcome is None:
+        outcome, prob = qt.measureWithStats(rho, 2)
+    else:
+        prob = qt.collapseToOutcome(rho, 2, outcome)
+    vals += [prob, qt.calcTotalProb(rho)]
+    return np.array(vals), rho.to_numpy(), outcome
+
+
+def phase_density(torch, qt, lk, kk, card):
+    n = DENSITY_QUBITS
+    print(f"phase 12: density registers, {n} qubits (2^{2 * n} flat "
+          f"amplitudes, complex64), on {card}")
+    # the QFT of a basis state: every qubit ends in a superposition the
+    # noise then degrades (from |+><+| it would end in |0><0|, which the
+    # channels leave alone)
+    qft, qft_calls = noisy_qft(qt, n)
+    basis = 0b101100111000101 & ((1 << n) - 1)
+    cell = density_cell(torch, qt, lk, kk, card, "12a noisy QFT", qft,
+                        qft_calls, lambda q: qt.initClassicalState(q, basis),
+                        expect_layers=True)
+    config4, config4_calls = density_noise(qt, n)
+    cell_b = density_cell(torch, qt, lk, kk, card,
+                          "12b BASELINE.json config 4", config4,
+                          config4_calls, qt.initPlusState,
+                          expect_layers=False)
+    print(f"  12c: every density function, {DENSITY_CHECK_QUBITS} qubits, "
+          "the card (complex64) against the CPU (complex128)")
+    got, got_state, outcome = density_flow(qt, qt.createQuESTEnv(seed=[5]))
+    want, want_state, _ = density_flow(
+        qt, qt.createQuESTEnv(device="cpu", precision=qt.DOUBLE), outcome)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    state_err = float(np.abs(got_state - want_state).max()
+                      / np.abs(want_state).max())
+    check(err <= 1e-5 and state_err <= 1e-5,
+          f"12c: {len(got)} values max|card - CPU| / max|CPU| {err:.3e}, "
+          f"final state {state_err:.3e} <= 1e-5 (measured q2 -> {outcome})")
+    return {"qft": cell, "config4": cell_b}
+
+
+def density_keys(density):
+    """The density QFT's layer-kernel numbers, as keys of the
+    ``layer_kernel`` row."""
+    cell = density["qft"]
+    by = cell["bound_by"]
+    return {
+        "launches_density": cell["launches"],
+        "density_max_abs_err": cell["max_abs_err"],
+        "density_ms": float(np.mean(cell["kernel_ms"])),
+        "density_plain_ms": float(np.mean(cell["plain_ms"])),
+        "density_bound_ms": float(np.mean(cell["bound_ms"])),
+        "density_bound_by": max(set(by), key=by.count),
+        # one complex64 broadcast multiply by each layer's merged diagonal
+        "density_library_ms": float(np.mean(cell["library_ms"]))
+        if cell["library_ms"] else None,
+        "density_layer_ms": cell["kernel_ms"],
+        "density_layer_library_ms": cell["library_ms"],
+        "density_qft_ops_per_s": cell["ops_per_s"],
+        "density_config4_ops_per_s": density["config4"]["ops_per_s"],
+    }
+
+
 def kernel_rows(layer_row, sweep, traj):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"]
@@ -1447,7 +1811,7 @@ def profile_device(torch, fn, what: str, top: int = 8):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "10",
-          "11")
+          "11", "12")
 
 
 def parse_only(argv):
@@ -1514,9 +1878,21 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         fast_batched_row = phase_fast_sweep(torch, qt, lk, kk, card) \
             if runs("11") else None
+        torch.cuda.empty_cache()
+        density = phase_density(torch, qt, lk, kk, card) \
+            if runs("12") else None
+        if row is not None and density is not None:
+            # ``launches`` stays the main path's count; the density QFT's
+            # own run is ``launches_density``
+            row = dict(row, **density_keys(density))
         tail = [fast_row, fast_batched_row, mxu_row]
-        rows = kernel_rows(row, sweep, traj) + tail if only is None \
-            else [r for r in [row] + tail if r is not None]
+        if only is None:
+            rows = kernel_rows(row, sweep, traj) + tail
+        else:
+            rows = [r for r in [row] + tail if r is not None]
+            if row is None and density is not None:
+                rows.append(dict(name="layer_kernel", path="density",
+                                 **density_keys(density)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,10 @@
 """quest_tpu_torch — the PyTorch / NVIDIA H100 port of quest_tpu.
 
-The QuEST-named state-vector API and compiled circuits on one CUDA device,
-with the fused gate-layer kernel written by hand in CUDA C++ for Hopper
+The QuEST-named API for state vectors and density matrices (``createQureg``,
+``createDensityQureg``, the ``mix*`` channels, the ``calc*`` functions) and
+compiled circuits (``Circuit.compile``, with ``density=True`` for noisy
+programs on a density register) on one CUDA device, with the fused
+gate-layer kernel written by hand in CUDA C++ for Hopper
 (``csrc/layer_kernel.cu``), and the precision-tier ladder (FAST, SINGLE,
 DOUBLE; ``Circuit.compile(tier=/error_budget=)``, ``sweep(tier=)``). The
 JAX package ``quest_tpu`` is the reference this port is tested against;

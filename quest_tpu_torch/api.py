@@ -1,7 +1,7 @@
-"""The public QuEST-compatible API surface, state-vector half.
+"""The public QuEST-compatible API surface.
 
-Counterpart of the JAX package's ``api.py`` for state vectors on one
-device: the same names, argument orders, validation (the same
+Counterpart of the JAX package's ``api.py`` for state vectors and density
+matrices on one device: the same names, argument orders, validation (the same
 :class:`~quest_tpu_torch.validation.ErrorCode` on the same bad input) and
 numerical conventions. Each function follows the reference's 3-step shape
 (``QuEST.c``): validate -> apply -> record QASM. Gates update the
@@ -11,10 +11,18 @@ Python floats/complex (a device sync).
 Measurement draws come from the env's :class:`torch.Generator`; they are
 not the JAX package's threefry bits, so outcome parity between the two
 packages is held through :func:`collapseToOutcome`.
+
+A density register of n qubits holds the flat 2n-qubit vector
+``flat[r + c*2^n] = rho[r, c]`` (``ops/densmatr.py``). As in the JAX
+package, an uncontrolled gate acts on it as the single combined operator
+``conj(U) (x) U`` on ``(targets, targets+n)`` — one pass over the 4^n
+amplitudes where the reference makes two (``QuEST.c:175-658``) — and a
+controlled gate as the reference's two passes.
 """
 
 from __future__ import annotations
 
+import math
 import numbers
 from typing import Optional, Sequence
 
@@ -24,24 +32,27 @@ import torch
 from . import validation as val
 from .config import Precision
 from .core import matrices as mats
-from .core.apply import apply_diagonal, apply_unitary, bitmask
+from .core.apply import apply_diagonal, apply_unitary, bitmask, split_shape
 from .env import QuESTEnv, create_quest_env, destroy_quest_env
+from .ops import channels as chan
+from .ops import densmatr as dm
 from .ops import initstates as ist
 from .ops import reductions as red
 from .ops import statevec as sv
 from .qureg import Qureg
+from .types import PauliOpType
 
 __all__ = [
     # env
     "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "reportQuESTEnv",
     "seedQuEST", "seedQuESTDefault",
     # registers
-    "createQureg", "createCloneQureg", "destroyQureg",
+    "createQureg", "createDensityQureg", "createCloneQureg", "destroyQureg",
     "createComplexMatrixN", "destroyComplexMatrixN", "initComplexMatrixN",
     # init
     "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
     "initPureState", "initDebugState", "initStateFromAmps", "setAmps",
-    "cloneQureg", "initStateOfSingleQubit",
+    "setDensityAmps", "cloneQureg", "initStateOfSingleQubit",
     # 1q gates
     "phaseShift", "sGate", "tGate", "pauliX", "pauliY", "pauliZ", "hadamard",
     "compactUnitary", "unitary", "rotateX", "rotateY", "rotateZ",
@@ -52,7 +63,7 @@ __all__ = [
     "controlledRotateX", "controlledRotateY", "controlledRotateZ",
     "controlledRotateAroundAxis", "controlledCompactUnitary",
     "controlledUnitary", "multiControlledUnitary", "multiStateControlledUnitary",
-    "swapGate", "sqrtSwapGate", "multiRotateZ",
+    "swapGate", "sqrtSwapGate", "multiRotateZ", "multiRotatePauli",
     "twoQubitUnitary", "controlledTwoQubitUnitary",
     "multiControlledTwoQubitUnitary", "multiQubitUnitary",
     "controlledMultiQubitUnitary", "multiControlledMultiQubitUnitary",
@@ -60,7 +71,13 @@ __all__ = [
     "calcProbOfOutcome", "collapseToOutcome", "measure", "measureWithStats",
     # calculations
     "getNumQubits", "getNumAmps", "getAmp", "getRealAmp", "getImagAmp",
-    "getProbAmp", "calcTotalProb", "calcInnerProduct", "calcExpecPauliSum",
+    "getProbAmp", "getDensityAmp", "calcTotalProb", "calcInnerProduct",
+    "calcDensityInnerProduct", "calcPurity", "calcFidelity",
+    "calcExpecPauliProd", "calcExpecPauliSum", "calcHilbertSchmidtDistance",
+    # decoherence
+    "mixDephasing", "mixTwoQubitDephasing", "mixDepolarising", "mixDamping",
+    "mixTwoQubitDepolarising", "mixPauli", "mixDensityMatrix", "mixKrausMap",
+    "mixTwoQubitKrausMap", "mixMultiQubitKrausMap",
     # QASM
     "startRecordingQASM", "stopRecordingQASM", "clearRecordedQASM",
     "printRecordedQASM", "writeRecordedQASMToFile",
@@ -75,18 +92,31 @@ def _pair(pair) -> float:
 def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
                 controls: Sequence[int] = (),
                 flips: Sequence[int] = ()) -> None:
-    apply_unitary(qureg.state, qureg.num_qubits_in_state_vec, u,
-                  tuple(int(t) for t in targets), bitmask(controls),
-                  bitmask(flips))
+    """Apply u (with controls) to a register, in place; a density register
+    takes the passes of :func:`densmatr.gate_passes` (one fused pass when
+    uncontrolled, two when controlled)."""
+    targets = tuple(int(t) for t in targets)
+    ctrl_mask, flip_mask = bitmask(controls), bitmask(flips)
+    nv = qureg.num_qubits_in_state_vec
+    if not qureg.is_density_matrix:
+        apply_unitary(qureg.state, nv, u, targets, ctrl_mask, flip_mask)
+        return
+    for lift, ts, cm, fm in dm.gate_passes(targets, ctrl_mask, flip_mask,
+                                           qureg.num_qubits_represented):
+        apply_unitary(qureg.state, nv, lift(u), ts, cm, fm)
 
 
 def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
                      qubits: Sequence[int]) -> None:
     """Apply a diagonal factor tensor (axis i = i-th qubit of ``qubits``
-    sorted descending)."""
+    sorted descending); a density register takes the outer product of
+    :func:`densmatr.diagonal_lift`."""
     qs = tuple(sorted((int(q) for q in qubits), reverse=True))
-    apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs,
-                   np.asarray(tensor, dtype=np.complex128))
+    tensor = np.asarray(tensor, dtype=np.complex128)
+    if qureg.is_density_matrix:
+        lift, qs = dm.diagonal_lift(qs, qureg.num_qubits_represented)
+        tensor = lift(tensor)
+    apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs, tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +163,16 @@ def createQureg(num_qubits: int, env: QuESTEnv) -> Qureg:
     return q
 
 
+def createDensityQureg(num_qubits: int, env: QuESTEnv) -> Qureg:
+    val.validate_num_qubits(num_qubits, "createDensityQureg")
+    q = Qureg(num_qubits, env, is_density=True)
+    initZeroState(q)
+    return q
+
+
 def createCloneQureg(qureg: Qureg, env: QuESTEnv) -> Qureg:
-    new = Qureg(qureg.num_qubits_represented, env)
+    new = Qureg(qureg.num_qubits_represented, env,
+                is_density=qureg.is_density_matrix)
     new.state = qureg.state.clone()
     return new
 
@@ -179,14 +217,19 @@ def initZeroState(qureg: Qureg) -> None:
 
 
 def initPlusState(qureg: Qureg) -> None:
-    _init(qureg, ist.plus, 1.0 / np.sqrt(1 << qureg.num_qubits_represented))
+    n = qureg.num_qubits_represented
+    amp = (1.0 / (1 << n)) if qureg.is_density_matrix \
+        else (1.0 / np.sqrt(1 << n))
+    _init(qureg, ist.plus, amp)
     qureg.qasm_log.record_init_plus()
 
 
 def initClassicalState(qureg: Qureg, state_ind: int) -> None:
     val.validate_state_index(qureg.num_qubits_represented, state_ind,
                              "initClassicalState")
-    _init(qureg, ist.classical, int(state_ind))
+    idx = int(state_ind) * ((1 << qureg.num_qubits_represented) + 1) \
+        if qureg.is_density_matrix else int(state_ind)
+    _init(qureg, ist.classical, idx)
     qureg.qasm_log.record_init_classical(state_ind)
 
 
@@ -198,7 +241,10 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
                                     "initPureState")
     val.validate_matching_dims(qureg.num_qubits_represented,
                                pure.num_qubits_represented, "initPureState")
-    qureg.state = pure.state.to(qureg.device, copy=True)
+    if qureg.is_density_matrix:
+        qureg.state = dm.init_pure_state(pure.state.to(qureg.device))
+    else:
+        qureg.state = pure.state.to(qureg.device, copy=True)
     qureg.qasm_log.record_comment(
         "the register was initialised to an undisclosed pure state")
 
@@ -231,6 +277,20 @@ def setAmps(qureg: Qureg, start_ind: int, reals, imags,
     qureg.state[:, start_ind:start_ind + num_amps] = torch.as_tensor(
         vals, dtype=qureg.real_dtype, device=qureg.device)
     qureg.qasm_log.record_comment("amplitudes were manually edited")
+
+
+def setDensityAmps(qureg: Qureg, reals, imags) -> None:
+    """Overwrite every element of a density register from the flat
+    ``flat[r + c*2^n]`` arrays (the JAX package's form, one call for the
+    whole matrix)."""
+    arr = np.asarray(reals, np.float64).reshape(-1) \
+        + 1j * np.asarray(imags, np.float64).reshape(-1)
+    if arr.size != qureg.num_amps_total:
+        val._fail("the amplitude arrays must cover the full density matrix",
+                  "setDensityAmps", val.ErrorCode.E_INVALID_NUM_AMPS)
+    qureg.device_put(arr)
+    qureg.qasm_log.record_comment(
+        "density-matrix amplitudes were manually edited")
 
 
 def cloneQureg(target: Qureg, copy: Qureg) -> None:
@@ -492,6 +552,9 @@ def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
     val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
                                 "swapGate")
     sv.swap_amps(qureg.state, qureg.num_qubits_in_state_vec, q1, q2)
+    if qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        sv.swap_amps(qureg.state, 2 * n, q1 + n, q2 + n)
     qureg.qasm_log.record_gate("swap", q2, (q1,))
 
 
@@ -509,6 +572,37 @@ def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
     _apply_diag_gate(qureg, sv.multi_rotate_z_diag(k, angle), qubits)
     qureg.qasm_log.record_comment(
         f"a {k}-qubit multiRotateZ of angle {angle:g} was applied")
+
+
+def multiRotatePauli(qureg: Qureg, targets: Sequence[int],
+                     paulis: Sequence[int], angle: float) -> None:
+    """exp(-i angle/2 P1 (x) P2 ...) by a basis rotation to Z, then
+    multiRotateZ, then the rotation back (``statevec_multiRotatePauli``
+    ``QuEST_common.c:410-447``). Built from density-aware primitives, so
+    a density register's column side is handled gate by gate."""
+    val.validate_multi_targets(qureg.num_qubits_represented, targets,
+                               "multiRotatePauli")
+    val.validate_pauli_codes(paulis, "multiRotatePauli")
+    fac = 1.0 / np.sqrt(2.0)
+    u_rx = mats.compact_unitary(fac, -1j * fac)    # rotates Z -> Y
+    u_ry = mats.compact_unitary(fac, -fac)         # rotates Z -> X
+    basis = {PauliOpType.PAULI_X: u_ry, PauliOpType.PAULI_Y: u_rx}
+    z_targets = []
+    for t, p in zip(targets, paulis):
+        p = int(p)
+        if p in basis:
+            _apply_gate(qureg, basis[p], (t,))
+        if p != PauliOpType.PAULI_I:
+            z_targets.append(t)
+    if z_targets:
+        _apply_diag_gate(qureg, sv.multi_rotate_z_diag(len(z_targets), angle),
+                         z_targets)
+    for t, p in zip(targets, paulis):
+        if int(p) in basis:
+            _apply_gate(qureg, basis[int(p)].conj().T, (t,))
+    qureg.qasm_log.record_comment(
+        f"a {len(targets)}-qubit multiRotatePauli of angle {angle:g} was "
+        "applied")
 
 
 def twoQubitUnitary(qureg: Qureg, t1: int, t2: int, u) -> None:
@@ -587,6 +681,15 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
                         "calcProbOfOutcome")
     val.validate_outcome(outcome, "calcProbOfOutcome")
     n = qureg.num_qubits_in_state_vec
+    if qureg.is_density_matrix:
+        nr = qureg.num_qubits_represented
+        if qureg.env.compensated:
+            pre, _, post = split_shape(nr, (qubit,))
+            diag = dm.diagonal(qureg.state, nr).reshape(pre, 2, post)
+            p0 = _pair(red.sum_pair(diag[:, 0, :]))
+            return p0 if outcome == 0 else 1.0 - p0
+        return float(dm.calc_prob_of_outcome(qureg.state, nr, qubit,
+                                             outcome))
     if qureg.env.compensated:
         # outcome-1 probability is 1 - P0, as the reference derives it
         # (``statevec_calcProbOfOutcome`` QuEST_cpu_local.c:279-285)
@@ -597,6 +700,11 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
 
 
 def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
+    if qureg.is_density_matrix:
+        dm.collapse_to_known_prob_outcome(qureg.state,
+                                          qureg.num_qubits_represented,
+                                          qubit, outcome, prob)
+        return
     sv.collapse_to_known_prob_outcome(qureg.state,
                                       qureg.num_qubits_in_state_vec,
                                       qubit, outcome, prob)
@@ -655,6 +763,10 @@ def getNumAmps(qureg: Qureg) -> int:
 def getAmp(qureg: Qureg, index: int) -> complex:
     val.validate_state_vec(qureg.is_density_matrix, "getAmp")
     val.validate_amp_index(qureg.num_amps_total, index, "getAmp")
+    return _amp_pair(qureg, index)
+
+
+def _amp_pair(qureg: Qureg, index: int) -> complex:
     pair = qureg.state[:, int(index)].double().cpu()
     return complex(float(pair[0]), float(pair[1]))
 
@@ -672,7 +784,20 @@ def getProbAmp(qureg: Qureg, index: int) -> float:
     return a.real * a.real + a.imag * a.imag
 
 
+def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
+    val.validate_density_matr(qureg.is_density_matrix, "getDensityAmp")
+    dim = 1 << qureg.num_qubits_represented
+    val.validate_amp_index(dim, row, "getDensityAmp")
+    val.validate_amp_index(dim, col, "getDensityAmp")
+    return _amp_pair(qureg, int(row) + int(col) * dim)
+
+
 def calcTotalProb(qureg: Qureg) -> float:
+    if qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        if qureg.env.compensated:
+            return _pair(red.sum_pair(dm.diagonal(qureg.state, n)))
+        return float(dm.calc_total_prob(qureg.state, n))
     if qureg.env.compensated:
         return _pair(red.dot_pair(qureg.state, qureg.state))
     return float(sv.calc_total_prob(qureg.state))
@@ -692,6 +817,103 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     return complex(float(re), float(im))
 
 
+def _validate_density_pair(a: Qureg, b: Qureg, func: str) -> None:
+    val.validate_density_matr(a.is_density_matrix, func)
+    val.validate_density_matr(b.is_density_matrix, func)
+    val.validate_matching_dims(a.num_qubits_represented,
+                               b.num_qubits_represented, func)
+    val.validate_matching_precision(a.env.precision.quest_prec,
+                                    b.env.precision.quest_prec, func)
+
+
+def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
+    """real(Tr(rho1^dag rho2))."""
+    _validate_density_pair(rho1, rho2, "calcDensityInnerProduct")
+    if rho1.env.compensated:
+        return _pair(red.dot_pair(rho1.state, rho2.state))
+    return float(dm.calc_inner_product(rho1.state, rho2.state))
+
+
+def calcPurity(qureg: Qureg) -> float:
+    val.validate_density_matr(qureg.is_density_matrix, "calcPurity")
+    if qureg.env.compensated:
+        return _pair(red.dot_pair(qureg.state, qureg.state))
+    return float(dm.calc_purity(qureg.state))
+
+
+def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
+    """|<qureg|pure>|^2 for a state vector, <pure|rho|pure> for a density
+    register."""
+    val.validate_second_qureg_state_vec(pure_state.is_density_matrix,
+                                        "calcFidelity")
+    val.validate_matching_dims(qureg.num_qubits_represented,
+                               pure_state.num_qubits_represented,
+                               "calcFidelity")
+    val.validate_matching_precision(qureg.env.precision.quest_prec,
+                                    pure_state.env.precision.quest_prec,
+                                    "calcFidelity")
+    psi = pure_state.state.to(qureg.device)
+    if qureg.is_density_matrix:
+        n = qureg.num_qubits_represented
+        if qureg.env.compensated:
+            # rho psi as matrix-vector products (their rounding stays),
+            # then an error-free final dot: Re <psi|rho psi>. The planes
+            # view as mat[c, r] = rho[r, c], so rho is the transpose
+            # (the JAX package's compensated form multiplies by mat itself
+            # and so computes <psi|rho^T|psi>, ROADMAP)
+            dim = 1 << n
+            a = qureg.state[0].view(dim, dim).t()
+            b = qureg.state[1].view(dim, dim).t()
+            w = torch.stack([torch.mv(a, psi[0]) - torch.mv(b, psi[1]),
+                             torch.mv(a, psi[1]) + torch.mv(b, psi[0])])
+            (re, re_e), _ = red.vdot_pair(psi, w)
+            return float(re) + float(re_e)
+        return float(dm.calc_fidelity(qureg.state, n, psi))
+    if qureg.env.compensated:
+        (re, re_e), (im, im_e) = red.vdot_pair(qureg.state, psi)
+        return (float(re) + float(re_e)) ** 2 \
+            + (float(im) + float(im_e)) ** 2
+    re, im = sv.calc_inner_product(qureg.state, psi)
+    return float(re) ** 2 + float(im) ** 2
+
+
+def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
+    _validate_density_pair(a, b, "calcHilbertSchmidtDistance")
+    if a.env.compensated:
+        d = a.state - b.state
+        return math.sqrt(max(0.0, _pair(red.dot_pair(d, d))))
+    return float(dm.calc_hilbert_schmidt_distance(a.state, b.state))
+
+
+def calcExpecPauliProd(qureg: Qureg, targets: Sequence[int],
+                       codes: Sequence[int], num_targets: int = None,
+                       workspace: Qureg = None) -> float:
+    """``<psi|P|psi>`` or ``Tr(P rho)`` of one Pauli product
+    (``QuEST.h:2454``; the 4th positional argument is numTargets and may be
+    omitted). The product becomes one term of bit masks
+    (``ops/reductions.py``), read in one gather pass; ``workspace`` is
+    accepted for signature parity and unused."""
+    if num_targets is not None and not isinstance(num_targets,
+                                                  numbers.Integral):
+        workspace, num_targets = num_targets, None
+    if num_targets is not None:
+        targets = tuple(targets)[:int(num_targets)]
+        codes = tuple(codes)[:int(num_targets)]
+    val.validate_multi_targets(qureg.num_qubits_represented, targets,
+                               "calcExpecPauliProd")
+    val.validate_pauli_codes(codes, "calcExpecPauliProd")
+    n = qureg.num_qubits_represented
+    codes_flat = [0] * n
+    for t, c in zip(targets, codes):
+        codes_flat[int(t)] = int(c)
+    xm, ym, zm = red.pauli_masks(codes_flat, n)
+    if qureg.is_density_matrix:
+        return float(red.pauli_sum_expvals_dm(qureg.state, n, xm, ym,
+                                              zm)[0])
+    return float(red.pauli_sum_expvals_sv(qureg.state.unsqueeze(0), xm, ym,
+                                          zm)[0, 0])
+
+
 def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
                       coeffs: Sequence[float], num_sum_terms: int = None,
                       workspace: Qureg = None) -> float:
@@ -700,12 +922,12 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
     become bit masks (``ops/reductions.py``) and the sum is reduced on the
     device with one scalar transfer, where the reference pays one workspace
     pass and one sync per term (``QuEST_common.c:464-491``); ``workspace``
-    is accepted for signature parity and unused. State vectors only: the
-    density registers belong to a later slice."""
+    is accepted for signature parity and unused. On a density register
+    each term reads only the 2^n paired-diagonal entries
+    (``pauli_sum_total_dm``)."""
     if num_sum_terms is not None and not isinstance(num_sum_terms,
                                                     numbers.Integral):
         workspace, num_sum_terms = num_sum_terms, None
-    val.validate_state_vec(qureg.is_density_matrix, "calcExpecPauliSum")
     n = qureg.num_qubits_represented
     num_terms = int(num_sum_terms) if num_sum_terms is not None \
         else len(coeffs)
@@ -714,8 +936,156 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
     codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
     xm, ym, zm, coeffs_np = red.pauli_sum_operands(
         codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
+    if qureg.is_density_matrix:
+        return float(red.pauli_sum_total_dm(qureg.state, n, xm, ym, zm,
+                                            coeffs_np))
     return float(red.pauli_sum_total_sv(qureg.state.unsqueeze(0), xm, ym,
                                         zm, coeffs_np)[0])
+
+
+# ---------------------------------------------------------------------------
+# decoherence (QuEST.h:1929-3043)
+# ---------------------------------------------------------------------------
+
+def _apply_kraus(qureg: Qureg, targets: Sequence[int], ops) -> None:
+    """The channel's superoperator on (targets, targets+n) of the flat
+    density vector (``densmatr_applyMultiQubitKrausSuperoperator``
+    ``QuEST_common.c:598-604``)."""
+    dm.apply_kraus_superoperator(qureg.state, qureg.num_qubits_represented,
+                                 targets, dm.kraus_superoperator(ops))
+
+
+def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixDephasing")
+    val.validate_target(qureg.num_qubits_represented, target, "mixDephasing")
+    val.validate_prob(prob, "mixDephasing", 0.5, "dephasing probability",
+                      code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPHASE_PROB)
+    dm.mix_dephasing(qureg.state, qureg.num_qubits_represented, int(target),
+                     float(prob))
+    qureg.qasm_log.record_comment(
+        f"a phase (Z) error occurred on qubit {target} with probability "
+        f"{prob:g}")
+
+
+def mixTwoQubitDephasing(qureg: Qureg, q1: int, q2: int,
+                         prob: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix,
+                              "mixTwoQubitDephasing")
+    val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
+                                "mixTwoQubitDephasing")
+    val.validate_prob(prob, "mixTwoQubitDephasing", 0.75,
+                      "two-qubit dephasing probability",
+                      code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPHASE_PROB)
+    dm.mix_two_qubit_dephasing(qureg.state, qureg.num_qubits_represented,
+                               int(q1), int(q2), float(prob))
+    qureg.qasm_log.record_comment(
+        f"a phase (Z) error occurred on qubits {q1} and/or {q2} "
+        f"with total probability {prob:g}")
+
+
+def mixDepolarising(qureg: Qureg, target: int, prob: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixDepolarising")
+    val.validate_target(qureg.num_qubits_represented, target,
+                        "mixDepolarising")
+    val.validate_prob(prob, "mixDepolarising", 0.75,
+                      "depolarising probability",
+                      code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPOL_PROB)
+    _apply_kraus(qureg, (target,), chan.depolarising_kraus(prob))
+    qureg.qasm_log.record_comment(
+        f"a depolarising error occurred on qubit {target} "
+        f"with total probability {prob:g}")
+
+
+def mixDamping(qureg: Qureg, target: int, prob: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixDamping")
+    val.validate_target(qureg.num_qubits_represented, target, "mixDamping")
+    val.validate_prob(prob, "mixDamping", 1.0, "damping probability")
+    _apply_kraus(qureg, (target,), chan.damping_kraus(prob))
+
+
+def mixTwoQubitDepolarising(qureg: Qureg, q1: int, q2: int,
+                            prob: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix,
+                              "mixTwoQubitDepolarising")
+    val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
+                                "mixTwoQubitDepolarising")
+    val.validate_prob(prob, "mixTwoQubitDepolarising", 15.0 / 16.0,
+                      "two-qubit depolarising probability",
+                      code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPOL_PROB)
+    _apply_kraus(qureg, (q1, q2), chan.two_qubit_depolarising_kraus(prob))
+    qureg.qasm_log.record_comment(
+        f"a depolarising error occurred on qubits {q1} and {q2} "
+        f"with total probability {prob:g}")
+
+
+def mixPauli(qureg: Qureg, qubit: int, prob_x: float, prob_y: float,
+             prob_z: float) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixPauli")
+    val.validate_target(qureg.num_qubits_represented, qubit, "mixPauli")
+    val.validate_one_qubit_pauli_probs(prob_x, prob_y, prob_z, "mixPauli")
+    _apply_kraus(qureg, (qubit,), chan.pauli_kraus(prob_x, prob_y, prob_z))
+    qureg.qasm_log.record_comment(
+        f"X, Y and Z errors occurred on qubit {qubit} with probabilities "
+        f"{prob_x:g}, {prob_y:g} and {prob_z:g} respectively")
+
+
+def mixDensityMatrix(qureg: Qureg, other_prob: float, other: Qureg) -> None:
+    """qureg = (1-p) qureg + p other, in place."""
+    val.validate_density_matr(qureg.is_density_matrix, "mixDensityMatrix")
+    val.validate_density_matr(other.is_density_matrix, "mixDensityMatrix")
+    val.validate_matching_dims(qureg.num_qubits_represented,
+                               other.num_qubits_represented,
+                               "mixDensityMatrix")
+    val.validate_prob(other_prob, "mixDensityMatrix")
+    val.validate_matching_precision(qureg.env.precision.quest_prec,
+                                    other.env.precision.quest_prec,
+                                    "mixDensityMatrix")
+    src = other.state.to(qureg.device)
+    if src.data_ptr() == qureg.state.data_ptr():
+        src = src.clone()      # the in-place update would read itself
+    dm.mix_density_matrix(qureg.state, float(other_prob), src)
+
+
+def _kraus_list(ops, num_ops) -> list:
+    return list(ops)[:num_ops] if num_ops is not None else list(ops)
+
+
+def mixKrausMap(qureg: Qureg, target: int, ops, num_ops: int = None) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixKrausMap")
+    val.validate_target(qureg.num_qubits_represented, target, "mixKrausMap")
+    ops = _kraus_list(ops, num_ops)
+    val.validate_kraus_ops(ops, 1, "mixKrausMap", qureg.env.precision.eps)
+    _apply_kraus(qureg, (target,), ops)
+    qureg.qasm_log.record_comment(
+        f"an undisclosed Kraus map was applied to qubit {target}")
+
+
+def mixTwoQubitKrausMap(qureg: Qureg, t1: int, t2: int, ops,
+                        num_ops: int = None) -> None:
+    val.validate_density_matr(qureg.is_density_matrix, "mixTwoQubitKrausMap")
+    val.validate_multi_targets(qureg.num_qubits_represented, (t1, t2),
+                               "mixTwoQubitKrausMap")
+    ops = _kraus_list(ops, num_ops)
+    val.validate_kraus_ops(ops, 2, "mixTwoQubitKrausMap",
+                           qureg.env.precision.eps)
+    _apply_kraus(qureg, (t1, t2), ops)
+    qureg.qasm_log.record_comment(
+        f"an undisclosed two-qubit Kraus map was applied to qubits {t1}, "
+        f"{t2}")
+
+
+def mixMultiQubitKrausMap(qureg: Qureg, targets: Sequence[int], ops,
+                          num_ops: int = None) -> None:
+    val.validate_density_matr(qureg.is_density_matrix,
+                              "mixMultiQubitKrausMap")
+    val.validate_multi_targets(qureg.num_qubits_represented, targets,
+                               "mixMultiQubitKrausMap")
+    ops = _kraus_list(ops, num_ops)
+    val.validate_kraus_ops(ops, len(targets), "mixMultiQubitKrausMap",
+                           qureg.env.precision.eps)
+    _apply_kraus(qureg, tuple(targets), ops)
+    qureg.qasm_log.record_comment(
+        f"an undisclosed {len(targets)}-qubit Kraus map was applied")
 
 
 # ---------------------------------------------------------------------------

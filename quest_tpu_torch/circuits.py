@@ -28,8 +28,10 @@ The batched ensemble engine (:meth:`CompiledCircuit.sweep`,
 ``apply_layer_batched`` (one launch for the batch), other ops through the
 gate engine's batched form. Channels (:meth:`Circuit.kraus` and the named
 channels) are recorded as ``"kraus"`` ops; a state-vector compile rejects
-them, and :meth:`Circuit.compile_trajectories` runs them as trajectory
-ensembles (``ops/trajectories.py``).
+them, ``compile(density=True)`` runs them exactly on a density register
+(the program lifted to the flat 2n-qubit vector, ``_lifted_density``, and
+planned like any other), and :meth:`Circuit.compile_trajectories` runs
+them as trajectory ensembles (``ops/trajectories.py``).
 
 Precision tiers (``config.TIER_LADDER``): ``Circuit.compile(tier=...)`` or
 ``error_budget=...`` pins the tier ``run``/``apply`` execute at, and the
@@ -60,6 +62,7 @@ from .core import matrices as mats
 from .core.apply import apply_diagonal, apply_unitary, bitmask
 from .env import QuESTEnv
 from .ops import channels as chan
+from .ops import densmatr as dm
 from .ops import layer_kernel as lk
 from .ops import reductions as red
 from .parallel.layout import LayoutPlan, plan_layout
@@ -459,13 +462,55 @@ class Circuit:
                     out.damp(q, damping)
         return out
 
+    def _lifted_density(self) -> "Circuit":
+        """Rewrite this n-qubit program as a 2n-qubit program on the
+        flattened density vector, by the lift the API applies
+        (:func:`densmatr.gate_passes`, :func:`densmatr.diagonal_lift`):
+        an uncontrolled static gate U becomes conj(U) (x) U on (targets,
+        targets+n) in ONE pass, controlled and parametrised gates take two
+        passes, diagonals become conj(D) (x) D on (targets+n, targets);
+        channels become superoperators."""
+        n = self.num_qubits
+        out = Circuit(2 * n)
+        out._params = list(self._params)
+        for op in self.ops:
+            if op.kind == "kraus":
+                t2 = op.targets + tuple(t + n for t in op.targets)
+                if callable(op.kraus):
+                    out.ops.append(_Op(
+                        "u", t2, mat_fn=lambda p, f=op.kraus:
+                        dm.kraus_superoperator_traceable(f(p))))
+                else:
+                    out.ops.append(_Op("u", t2,
+                                       mat=dm.kraus_superoperator(op.kraus)))
+            elif op.kind == "u":
+                for lift, ts, cm, fm in dm.gate_passes(
+                        op.targets, op.ctrl_mask, op.flip_mask, n,
+                        fused=op.mat_fn is None):
+                    if op.mat_fn is None:
+                        out.ops.append(_Op("u", ts, cm, fm,
+                                           mat=lift(op.mat)))
+                    else:
+                        out.ops.append(_Op(
+                            "u", ts, cm, fm, mat_fn=lambda p, f=op.mat_fn,
+                            g=lift: g(f(p))))
+            else:
+                lift, t2 = dm.diagonal_lift(op.targets, n)
+                if op.diag_fn is None:
+                    out.ops.append(_Op("diag", t2, diag=lift(op.diag)))
+                else:
+                    out.ops.append(_Op(
+                        "diag", t2, diag_fn=lambda p, f=op.diag_fn, g=lift:
+                        g(f(p))))
+        return out
+
     # -- compilation -------------------------------------------------------
 
     def compile(self, env: QuESTEnv, fuse: bool = True, layers: bool = True,
                 supergate_k: int = 4, fusion: Optional[object] = None,
                 mxu: Optional[bool] = None,
                 error_budget: Optional[float] = None,
-                tier=None) -> "CompiledCircuit":
+                tier=None, density: bool = False) -> "CompiledCircuit":
         """Plan the circuit for ``env``'s device and precision.
 
         ``layers`` turns the fused-layer pass on (the default; the layer
@@ -481,14 +526,36 @@ class Circuit:
         :func:`quest_tpu_torch.profiling.modeled_tier_error`) fits is
         chosen; an unmeetable budget raises ``ValueError`` here. ``tier``
         pins a rung explicitly (a ``PrecisionTier`` or its name). Both
-        default to the environment's precision."""
+        default to the environment's precision.
+
+        ``density=True`` compiles the program for a DENSITY register of
+        ``num_qubits`` qubits: the 2n-qubit lifted program
+        (:meth:`_lifted_density`, channels as superoperators), planned and
+        run like any other, so its uncontrolled gates on qubits whose lifted
+        pair fits the kernel's tile go through the layer kernel. Static
+        channels are validated as CPTP at the env's precision here. Without
+        it, a circuit with channels is rejected."""
+        if density:
+            for op in self.ops:
+                if op.kind == "kraus" and not callable(op.kraus):
+                    val.validate_kraus_ops(op.kraus, len(op.targets),
+                                           "Circuit.kraus",
+                                           env.precision.eps)
+            circ = self._lifted_density()
+        else:
+            if any(op.kind == "kraus" for op in self.ops):
+                raise ValueError(
+                    "circuit contains Kraus channels; compile with "
+                    "density=True and run on a density register")
+            circ = self
         if tier is None and error_budget is not None:
             from .profiling import choose_tier
-            tier = choose_tier(float(error_budget), max(len(self.ops), 1),
+            tier = choose_tier(float(error_budget), max(len(circ.ops), 1),
                                env)
-        cc = CompiledCircuit(self, env, fuse=fuse, layers=layers,
+        cc = CompiledCircuit(circ, env, fuse=fuse, layers=layers,
                              supergate_k=supergate_k, fusion=fusion,
                              mxu=mxu, tier=tier)
+        cc.is_density = density
         cc.error_budget = error_budget
         return cc
 
@@ -881,16 +948,12 @@ class CompiledCircuit:
     precision)."""
 
     error_budget = None  # set by Circuit.compile(error_budget=...)
+    is_density = False   # set by Circuit.compile(density=...)
 
     def __init__(self, circuit: Circuit, env: QuESTEnv, fuse: bool = True,
                  layers: bool = True, supergate_k: int = 4,
                  fusion: Optional[object] = None,
                  mxu: Optional[bool] = None, tier=None):
-        if any(op.kind == "kraus" for op in circuit.ops):
-            raise ValueError(
-                "circuit contains Kraus channels; a state-vector compile "
-                "cannot run them — use Circuit.compile_trajectories (the "
-                "density compile is not ported yet)")
         self.circuit = circuit
         self.env = env
         self.num_qubits = circuit.num_qubits
@@ -1056,6 +1119,13 @@ class CompiledCircuit:
 
     def run(self, qureg: Qureg, params: Optional[dict] = None) -> None:
         """Apply to a register, in place."""
+        if qureg.is_density_matrix != self.is_density:
+            if self.is_density:
+                raise ValueError("this circuit was compiled with "
+                                 "density=True; run it on a density register")
+            raise ValueError(
+                "running a statevector-compiled circuit on a density "
+                "register; compile with density=True")
         if qureg.num_qubits_in_state_vec != self.num_qubits:
             raise ValueError(
                 f"circuit has {self.num_qubits} qubits; register state "
@@ -1123,6 +1193,13 @@ class CompiledCircuit:
                 apply_diagonal(states, n, phys_targets, d)
         return states
 
+    def _check_not_density(self, what: str) -> None:
+        if self.is_density:
+            raise NotImplementedError(
+                f"CompiledCircuit.{what} on a density-compiled program is not "
+                "ported yet: run each binding on a density register with "
+                "run(), or sweep the state-vector compile")
+
     def _validated_param_matrix(self, param_matrix) -> np.ndarray:
         """The ``(B, P)`` parameter matrix as host float64, validated."""
         pm = np.asarray(param_matrix, dtype=np.float64)
@@ -1178,6 +1255,7 @@ class CompiledCircuit:
         ``PrecisionTier`` or name; default the compile-time tier, else the
         env precision). Returns the ``(B, 2, 2^n)`` planes in the env's
         dtype."""
+        self._check_not_density("sweep")
         tier = self._effective_tier(tier)
         pm = self._validated_param_matrix(param_matrix)
         env_dt = self.env.precision.real_dtype
@@ -1198,6 +1276,7 @@ class CompiledCircuit:
         ``tier`` as in :meth:`sweep`; a compensated tier (SINGLE) reduces
         each term through the compensated pair path, FAST and DOUBLE
         through the naive reduce their budgets cover."""
+        self._check_not_density("expectation_sweep")
         tier = self._effective_tier(tier)
         xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
         pm = self._validated_param_matrix(param_matrix)

@@ -2,9 +2,10 @@
 
 A simulator's "weights" are its register and its circuit. These helpers
 take the JAX package's host-side forms — the ``(2, 2^N)`` numpy planes of a
-register (``np.asarray(jax_qureg.state)``) and plain records of a circuit's
-ops — so one state or one random circuit runs through both packages with
-exactly the same numbers. Nothing here imports the JAX package.
+register (``np.asarray(jax_qureg.state)``; a density register's are the
+flat ``(2, 4^n)`` vector, ``flat[r + c*2^n] = rho[r, c]``, in both
+packages) and plain records of a circuit's ops — so one state or one
+random circuit runs through both packages with exactly the same numbers. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ from .qureg import Qureg
 __all__ = ["qureg_from_planes", "planes_of", "circuit_from_records"]
 
 
-def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv) -> Qureg:
+def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv,
+                      is_density: bool = False) -> Qureg:
     """A register holding the given ``(2, 2^N)`` planes, cast to the env's
-    precision and placed on its device."""
+    precision and placed on its device: a state vector of N qubits, or
+    with ``is_density`` a density register of N/2 qubits whose planes are
+    the flat vector."""
     planes = np.asarray(np_planes)
     if planes.ndim != 2 or planes.shape[0] != 2:
         raise ValueError(f"expected (2, 2^N) planes, got {planes.shape}")
@@ -31,7 +35,10 @@ def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv) -> Qureg:
     n = num_amps.bit_length() - 1
     if num_amps != 1 << n:
         raise ValueError(f"{num_amps} amplitudes is not a power of two")
-    q = Qureg(n, env)
+    if is_density and n % 2:
+        raise ValueError(f"{num_amps} amplitudes is not a square density "
+                         "matrix (2^(2n) flat entries)")
+    q = Qureg(n // 2 if is_density else n, env, is_density=is_density)
     # np.array copies: the register never aliases the caller's array
     q.state = torch.as_tensor(np.array(planes), dtype=env.precision.real_dtype,
                               device=env.device)
@@ -39,7 +46,8 @@ def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv) -> Qureg:
 
 
 def planes_of(qureg: Qureg) -> np.ndarray:
-    """The register's ``(2, 2^N)`` planes as a host numpy array."""
+    """The register's ``(2, 2^N)`` planes as a host numpy array (a density
+    register's flat vector)."""
     return qureg.state.detach().cpu().numpy()
 
 

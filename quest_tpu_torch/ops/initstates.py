@@ -4,7 +4,11 @@ Counterpart of the JAX package's ``ops/initstates.py``: every canned state
 is built directly on the register's device, so no O(2^n) host array exists
 at any point (the reference fills each chunk in place,
 ``QuEST_cpu.c:1372-1597``). Each function returns a fresh ``(2, 2^n)``
-plane tensor.
+plane tensor. A density register takes the same functions over its flat
+2n-qubit vector: zero and debug as they are, plus with amplitude
+``1/2^n`` and classical at flat index ``s * (2^n + 1)`` (the API layer
+passes both); a pure state's ``|psi><psi|`` is
+``ops/densmatr.py`` ``init_pure_state``.
 """
 
 from __future__ import annotations

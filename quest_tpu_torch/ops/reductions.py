@@ -22,8 +22,9 @@ TwoSum cascade. The pairing tree differs from the JAX package's; both are
 error-free transformations, so the totals agree to the compensated
 accuracy, not bit for bit.
 
-The Pauli-sum reductions (``calcExpecPauliSum``, the batched engine's
-``expectation_sweep``, the trajectory waves) and the running (count, mean,
+The Pauli-sum reductions (``calcExpecPauliSum`` on state vectors and
+density registers, the batched engine's ``expectation_sweep``, the
+trajectory waves) and the running (count, mean,
 M2) statistics of the trajectory convergence loop follow the JAX package's
 ``ops/reductions.py`` below.
 """
@@ -38,7 +39,8 @@ __all__ = ["sum_compensated", "sum_pair", "dot_pair", "dot_pair_rows",
            "vdot_compensated", "pauli_masks", "pauli_term_bucket",
            "pauli_sum_operands", "validated_pauli_terms",
            "pauli_terms_operands", "pauli_sum_expvals_sv",
-           "pauli_sum_total_sv", "welford_wave", "welford_merge",
+           "pauli_sum_total_sv", "pauli_sum_expvals_dm",
+           "pauli_sum_total_dm", "welford_wave", "welford_merge",
            "welford_stderr"]
 
 # elements of each dot_pair input processed per step: the four product
@@ -305,6 +307,47 @@ def pauli_sum_total_sv(states: torch.Tensor, xmask, ymask, zmask,
     cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
                          dtype=vals.dtype, device=vals.device)
     return (vals * cf).sum(-1)
+
+
+def pauli_sum_expvals_dm(planes: torch.Tensor, num_qubits: int, xmask,
+                         ymask, zmask,
+                         compensated: bool = False) -> torch.Tensor:
+    """Per-term ``Tr(P_t rho)`` for a density register's flat ``(2,
+    4^n)`` planes (``flat[r + c*2^n]``, columns on the high bits) and host
+    mask arrays of shape ``(T,)``: a real ``(T,)`` tensor on the planes'
+    device. Each term reads only the ``2^n`` entries ``rho[r^m, r]`` (a
+    diagonal-sized gather, not a pass over the flat vector).
+    ``compensated=True`` sums them through the TwoSum cascade
+    (:func:`sum_pair`; the entries are used unmultiplied, so no split
+    products are needed)."""
+    dim = 1 << num_qubits
+    rows = torch.arange(dim, device=planes.device)
+    out = []
+    for xm, ym, zm in zip(xmask, ymask, zmask):
+        xy, yz = int(xm) | int(ym), int(ym) | int(zm)
+        j = rows ^ xy                  # r ^ m: the paired row index
+        sign = (1 - 2 * _parity(j & yz)).to(planes.dtype)
+        # flat index of mat[c = r, r' = r ^ m] = rho[r ^ m, r]
+        picked = planes.index_select(-1, rows * dim + j) * sign
+        if compensated:
+            acc_re, acc_im = (sum_compensated(p) for p in picked)
+        else:
+            acc_re, acc_im = picked.sum(-1)
+        ph = bin(int(ym)).count("1") % 4
+        # i^|y| times the trace: its real part
+        out.append((acc_re, -acc_im, -acc_re, acc_im)[ph])
+    return torch.stack(out)
+
+
+def pauli_sum_total_dm(planes: torch.Tensor, num_qubits: int, xmask, ymask,
+                       zmask, coeffs,
+                       compensated: bool = False) -> torch.Tensor:
+    """``sum_t coeffs[t] * Tr(P_t rho)``: a 0-dim tensor, on the device."""
+    vals = pauli_sum_expvals_dm(planes, num_qubits, xmask, ymask, zmask,
+                                compensated)
+    cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
+                         dtype=vals.dtype, device=vals.device)
+    return (vals * cf).sum()
 
 
 # ---------------------------------------------------------------------------

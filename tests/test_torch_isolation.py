@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 asks for a CUDA card unless told to use the CPU, and never runs a kernel's
 plain version (the layer kernel's at either precision, the batched layer
-kernel's, the MXU-tile kernel's, the fused Kraus kernel's) on a CUDA tensor.
+kernel's, the MXU-tile kernel's, the fused Kraus kernel's) on a CUDA tensor,
+a density register's included.
 """
 
 import os
@@ -24,6 +25,7 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.ops.trajectories, quest_tpu_torch.ops.channels, "
             "quest_tpu_torch.ops.kraus_kernel, quest_tpu_torch.ops.cuda_build, "
             "quest_tpu_torch.parallel.sampling, quest_tpu_torch.profiling, "
+            "quest_tpu_torch.ops.densmatr, quest_tpu_torch.testing.golden, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
@@ -82,6 +84,32 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
 
 def _no_toolkit():
     raise RuntimeError("nvcc not found")
+
+
+def test_cuda_density_register_never_reaches_the_plain_version(monkeypatch):
+    """A density-compiled program's layer (here two rowdiag stages from
+    the lifted controlled phases) on a CUDA register launches the kernel
+    or raises."""
+    env = tq.createQuESTEnv(device="cpu")
+    c = tq.Circuit(7)
+    c.cphase(0, 1, 0.3).cphase(2, 3, 0.5)
+    compiled = c.compile(env, density=True)
+    assert [compiled._ops[it[1]].kind for it in compiled.plan.items] == \
+        ["layer"]
+    q = tq.createDensityQureg(7, env)
+    q.state = q.state.as_subclass(_FakeCudaPlanes)
+    assert q.state.device.type == "cuda"
+    monkeypatch.setattr(lk, "apply_layer_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_batched_plain", _forbidden)
+    monkeypatch.setattr(lk, "_device_operands",
+                        lambda *a: (torch.zeros(1, lk.DESC_WIDTH,
+                                                dtype=torch.int64),
+                                    torch.zeros(1), 2, 2))
+    monkeypatch.setattr(lk, "build_library", _no_toolkit)
+    before = lk.apply_layer.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        compiled.run(q)
+    assert lk.apply_layer.launches == before
 
 
 def _forbidden(*args, **kwargs):
