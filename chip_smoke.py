@@ -17,22 +17,34 @@ Phases (any unmet check exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: one ``nvcc`` per ``quest_tpu_torch/csrc/*.cu``, all started
-   together, with each kernel's registers and spills (the FAST instance
-   and the four full-precision instances, layer and Kraus kernel at
-   float32 and float64, must spill nothing), and the lane stage's ring
-   bytes from both libraries' C entry points against the Python sizing;
+   together, with each kernel's registers and spills (the FAST instance,
+   the four full-precision instances, layer and Kraus kernel at float32
+   and float64, and the four instances of the layer kernel's streaming
+   entry for ``rowdiag``-only layers must spill nothing), the lane
+   stage's ring bytes from both libraries' C entry points against the
+   Python sizing, and the streaming entry's shared-memory table cap
+   against its Python mirror;
 3. the layer kernel against its plain PyTorch version, per stage kind, at
-   20 qubits in float32 and float64; 3b. the batched layer kernel the same
+   20 qubits in float32 and float64, then ``rowdiag``-only layers (the
+   streaming entry: k = 1-3, bits inside and above the tile, 1-7, 15 and
+   40 stages, each also run through the tile kernel's one-pass ``rowdiag``
+   run and held equal bit for bit) and a mixed layer of ``rowdiag`` runs,
+   with ``diag_launches`` counted; 3b. the batched layer kernel the same
    way on B = 4 distinct states; 3c. the fused Kraus kernel at 20 qubits,
    T = 8, K = 2, 4, 16, 64, with edge uniforms and zero-probability
    branches: the operator each trajectory's output came from equals the
    plain version's draw; 3d. the FAST layer kernel (bf16 tensor cores in
    the dense stages) against its plain version, single and B = 4, on lane,
    clane and rowmxu stages alone and mixed with row and rowdiag stages,
-   with FAST against full precision inside the tier's per-gate drift,
-   and the kernel's FAST ring size against its Python mirror;
+   with FAST against full precision inside the tier's per-gate drift (and
+   equal for ``rowdiag``-only layers, float32 at both tiers), and the
+   kernel's FAST ring size against its Python mirror;
    3e. the MXU-tile kernel (``apply_mxu_tile``) against its plain version
-   on five target sets at float32, float64 and FAST, and its times;
+   on five target sets at float32, float64 and FAST and a 4-qubit gate at
+   float32, the operator pool each call gathered on the card against the
+   per-layer pack bit for bit, and its times: the
+   call, and device-only (the card held busy while the host enqueues) the
+   launch alone and the whole call;
 4. the single-state path at 30 qubits, complex64: the random-rotation +
    CNOT brickwork compiled and run through the layer kernel, against the
    same gates through the imperative per-gate API;
@@ -42,7 +54,9 @@ Phases (any unmet check exits non-zero and prints no result line):
    its bound, its plain version, a lane-only layer beside one
    ``torch.matmul`` of the same product (at float32 on the 30-qubit state,
    and at float64 on 29 qubits, its first 2^24 amplitudes held against
-   the plain version), and the compiled path's gates/s;
+   the plain version), a lane stage with 7 ``rowdiag`` stages beside the
+   lane-only layer (the run's cost inside the tile), and the compiled
+   path's gates/s;
 7. a ``torch.profiler`` breakdown of one compiled run: device time per
    kernel and the device-busy share;
 8. the batched ensemble engine: a 24-qubit, 2-layer hardware-efficient
@@ -81,7 +95,8 @@ Phases (any unmet check exits non-zero and prints no result line):
     12a. the noisy QFT (the QFT ladder of ``algorithms._append_qft``, then
     dephasing 0.01 and damping 0.005 on every qubit) from a basis state:
     the layer kernel
-    launches once per layer of the lifted plan (> 0), each layer's kernel
+    launches once per layer of the lifted plan (> 0), through the
+    streaming entry for each ``rowdiag``-only layer, each layer's kernel
     output on its own input within 1e-5 of max|plain| of its plain
     version, the result within 1e-4 of max|amp| of the same program
     through the imperative density API, trace within 1e-4 of 1, purity in
@@ -212,6 +227,40 @@ def stage_cases(rng, n: int, hi: int):
     return cases
 
 
+def diag_cases(rng, n: int, hi: int):
+    """Layers for the rowdiag paths: rowdiag stages only (the streaming
+    entry) on k = 1-3 row bits inside and above the tile, 1-7 stages as
+    the density QFT has them, 15 (float32 tables past the shared-memory
+    cap) and 40 (more than one warp of stages); then rowdiag runs inside
+    mixed layers (the tile kernel's one pass per run)."""
+    top, far = hi - 7, n - 8            # highest tile row bit; one above
+    phase = lambda k: np.exp(1j * rng.uniform(0, 2 * np.pi, (1 << k, 128)))
+    pick = lambda k: tuple(sorted(rng.choice(n - 7, size=k, replace=False)
+                                  .tolist()))
+    diag = lambda k, bits: ("rowdiag", phase(k), bits)
+    cases = {
+        "diag1_in": [diag(1, (top,))],
+        "diag1_far": [diag(1, (far,))],
+        "diag3": [diag(1, (0,)), diag(2, (2, far)), diag(3, (1, top, far))],
+        "diag7": [diag(3, (0, top, far))] + [diag(k, pick(k)) for k in
+                                             (1, 2, 3, 2, 3, 3)],
+        "diag15": [diag(3, pick(3)) for _ in range(15)],
+        "diag40": [diag(1 + i % 3, pick(1 + i % 3)) for i in range(40)],
+    }
+    cases["runs"] = [("lane", random_unitary(rng, 128))] \
+        + cases["diag3"] + [("row", 8, random_unitary(rng, 2), 0b10, 0b10,
+                             0, 0)] \
+        + [diag(2, (1, far))] + [("rowk", (0, top), random_unitary(rng, 4),
+                                  0, 0, 0, 0)] + cases["diag7"]
+    return cases
+
+
+def identity_row(hi: int):
+    """A row stage that changes no bit (identity 2x2): a diagonal layer
+    with it appended runs through the tile kernel's rowdiag runs."""
+    return ("row", hi, np.eye(2), 0, 0, 0, 0)
+
+
 def stage_flops(stage, n: int) -> float:
     """Real flops one kernel stage does on 2^n amplitudes, counting only
     the amplitudes its control masks select."""
@@ -260,10 +309,34 @@ def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1,
         bytes_ms, flops_ms
 
 
+def raw_bits(torch, t):
+    """A tensor's raw bits, so -0.0 and 0.0 differ."""
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
 def rel_err(got, want):
     """(max |got - want|, that over max |want|)."""
     err = float((got - want).abs().max())
     return err, err / float(want.abs().max())
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls, by CUDA events,
+    with the card held busy (``torch.cuda._sleep``) while the host enqueues
+    them, so the events time the launches back to back and none of the
+    host's work between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)     # ~25 ms of spin at ~2 GHz
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -303,6 +376,10 @@ NO_SPILL_INSTANCES = {
     "layer_kernelIfLb1E": "layer_kernel<float, FAST>",
     "layer_kernelIfLb0E": "layer_kernel<float>",
     "layer_kernelIdLb0E": "layer_kernel<double>",
+    "layer_diag_kernelIfLb1E": "layer_diag_kernel<float, smem tables>",
+    "layer_diag_kernelIfLb0E": "layer_diag_kernel<float, __ldg tables>",
+    "layer_diag_kernelIdLb1E": "layer_diag_kernel<double, smem tables>",
+    "layer_diag_kernelIdLb0E": "layer_diag_kernel<double, __ldg tables>",
     "kraus_kernelIfE": "kraus_kernel<float>",
     "kraus_kernelIdE": "kraus_kernel<double>",
 }
@@ -358,6 +435,9 @@ def phase_build(torch):
         check(got == want and want[0] == lk.lane_scratch_bytes(itemsize),
               f"lane ring bytes at {dtype}, layer and Kraus kernels "
               f"{got} vs Python {want}")
+    cap = layer_lib.quest_layer_diag_table_cap()
+    check(cap == lk.DIAG_TABLE_CAP, f"streaming entry's shared-memory table "
+          f"cap {cap} B vs Python {lk.DIAG_TABLE_CAP} B")
 
 
 def phase_stages(torch, lk, rng):
@@ -366,18 +446,33 @@ def phase_stages(torch, lk, rng):
     n = CHECK_QUBITS
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         hi = lk.max_mid_qubit(lk.tile_rows_for(dtype))
-        for name, stages in stage_cases(rng, n, hi).items():
+        cases = dict(stage_cases(rng, n, hi), **diag_cases(rng, n, hi))
+        for name, stages in cases.items():
             layer = lk.LayerOp(n, len(stages), stages)
             base = random_planes(torch, rng, n, dtype, "cuda")
             want = lk.apply_layer_plain(base.clone(), n, layer)
-            before = lk.apply_layer.launches
+            before = (lk.apply_layer.launches, lk.apply_layer.diag_launches)
             got = lk.apply_layer(base.clone(), n, layer)
             torch.cuda.synchronize()
             err, rel = rel_err(got, want)
-            check(lk.apply_layer.launches == before + 1 and rel <= tol
-                  and bool(torch.isfinite(got).all()),
-                  f"{name:14s} {str(dtype):14s} max|diff| {err:.3e}, "
-                  f"/ max|plain| {rel:.3e} <= {tol:g}")
+            diag = int(lk.is_diagonal_layer(layer))
+            check(lk.apply_layer.launches == before[0] + 1
+                  and lk.apply_layer.diag_launches == before[1] + diag
+                  and rel <= tol and bool(torch.isfinite(got).all()),
+                  f"{name:14s} {str(dtype):14s} "
+                  f"{'diag entry' if diag else 'tile      '} max|diff| "
+                  f"{err:.3e}, / max|plain| {rel:.3e} <= {tol:g}")
+            if diag:
+                # the same stages as one run of the tile kernel (an
+                # identity row stage keeps the layer off the streaming
+                # entry): the same products in the same order, same bits
+                tiled = lk.LayerOp(n, len(stages) + 1,
+                                   stages + [identity_row(hi)])
+                again = lk.apply_layer(base.clone(), n, tiled)
+                torch.cuda.synchronize()
+                check(torch.equal(again, got),
+                      f"{name:14s} {str(dtype):14s} tile-kernel run equals "
+                      f"the streaming entry bit for bit")
 
 
 def random_batch(torch, rng, batch: int, n: int, dtype, device):
@@ -393,22 +488,27 @@ def phase_batched_stages(torch, lk, rng):
           f"kind, {n} qubits, B = {batch}")
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         hi = lk.max_mid_qubit(lk.tile_rows_for(dtype))
-        for name, stages in stage_cases(rng, n, hi).items():
+        cases = dict(stage_cases(rng, n, hi), **diag_cases(rng, n, hi))
+        for name, stages in cases.items():
             layer = lk.LayerOp(n, len(stages), stages)
             base = random_batch(torch, rng, batch, n, dtype, "cuda")
             want = lk.apply_layer_batched_plain(base.clone(), n, layer)
-            before = lk.apply_layer_batched.launches
-            got = lk.apply_layer_batched(base.clone(), n, layer)
+            fn = lk.apply_layer_batched
+            before = (fn.launches, fn.diag_launches)
+            got = fn(base.clone(), n, layer)
             torch.cuda.synchronize()
             err, rel = rel_err(got, want)
+            diag = int(lk.is_diagonal_layer(layer))
             # every state moved: a batch stride or per-state row base gone
             # wrong leaves some states as they were or mixes them
             moved = float((got - base).abs().amax(dim=(1, 2)).min())
-            check(lk.apply_layer_batched.launches == before + 1
+            check(fn.launches == before[0] + 1
+                  and fn.diag_launches == before[1] + diag
                   and rel <= tol and moved > 1e-3
                   and bool(torch.isfinite(got).all()),
-                  f"{name:14s} {str(dtype):14s} max|diff| {err:.3e}, "
-                  f"/ max|plain| {rel:.3e} <= {tol:g}")
+                  f"{name:14s} {str(dtype):14s} "
+                  f"{'diag entry' if diag else 'tile      '} max|diff| "
+                  f"{err:.3e}, / max|plain| {rel:.3e} <= {tol:g}")
 
 
 def fast_cases(rng, n: int, hi: int):
@@ -422,6 +522,13 @@ def fast_cases(rng, n: int, hi: int):
                                     "rowdiag2", "rowmxu2", "clane",
                                     "row_row_ctrl", "rowdiag1")
                     for st in cases[name]]
+    # FAST's rowdiag stages are float32: the streaming entry, and runs
+    # between FAST dense stages
+    diag = diag_cases(rng, n, hi)
+    out["diag3"], out["diag7"] = diag["diag3"], diag["diag7"]
+    out["mixed_runs"] = [st for name in ("rowmxu1", "rowdiag1", "rowdiag2",
+                                         "lane", "rowdiag3")
+                         for st in cases[name]] + diag["diag7"]
     return out
 
 
@@ -448,7 +555,7 @@ def phase_fast_stages(torch, qt, lk, rng):
                 base = base[0]
                 fn, plain = lk.apply_layer, lk.apply_layer_plain
             want = plain(base.clone(), n, layer, fast=True)
-            before = fn.fast_launches
+            before = (fn.fast_launches, fn.diag_launches)
             got = fn(base.clone(), n, layer, fast=True)
             highest = fn(base.clone(), n, layer)
             torch.cuda.synchronize()
@@ -456,25 +563,35 @@ def phase_fast_stages(torch, qt, lk, rng):
             # FAST against full precision: the bf16 rounding of the operator
             # alone moves each amplitude by ~2e-3 of its size, so it is held
             # in the tier model's own unit (max amplitude error of a
-            # normalised state per gate pass) and printed relative too
+            # normalised state per gate pass) and printed relative too. A
+            # layer of rowdiag stages only is float32 at both tiers: equal
             dev, dev_rel = rel_err(got, highest)
+            diag = int(lk.is_diagonal_layer(layer))
+            drift_ok = dev == 0.0 if diag \
+                else 0.0 < dev <= drift * len(stages)
             # every state of the batch moved (a stride gone wrong would
             # leave some as they were)
             moved = float((got - base).abs().reshape(
                 batch, -1).amax(dim=1).min()) if batched else 1.0
-            check(fn.fast_launches == before + 1 and rel <= 1e-5
-                  and 0.0 < dev <= drift * len(stages) and moved > 1e-3
+            check(fn.fast_launches == before[0] + 1
+                  and fn.diag_launches == before[1] + 2 * diag
+                  and rel <= 1e-5 and drift_ok and moved > 1e-3
                   and bool(torch.isfinite(got).all()),
-                  f"{name:8s} {'B=4' if batched else 'B=1'} max|diff| / "
+                  f"{name:10s} {'B=4' if batched else 'B=1'} "
+                  f"{'diag entry' if diag else 'tile      '} max|diff| / "
                   f"max|plain| {rel:.3e} <= 1e-5; FAST vs HIGHEST "
-                  f"max|diff| {dev:.3e} (0 < it <= {drift:g} x "
-                  f"{len(stages)} stages), / max|amp| {dev_rel:.3e}")
+                  f"max|diff| {dev:.3e} ("
+                  + ("= 0: float32 at both tiers" if diag else
+                     f"0 < it <= {drift:g} x {len(stages)} stages")
+                  + f"), / max|amp| {dev_rel:.3e}")
 
 
 def phase_mxu_tile(torch, qt, lk, kk, rng, card):
     """The standalone MXU-tile kernel: its path is the five target sets at
-    HIGHEST float32 and float64 and at FAST, counted from 0; then each
-    output is held against the plain version, and one target set timed."""
+    HIGHEST float32 and float64 and at FAST, and a gate on 4 qubits at
+    float32, counted from 0; then each gathered pool is held against the
+    per-layer pack, each output against the plain version, and one target
+    set timed."""
     n = CHECK_QUBITS
     print(f"phase 3e: apply_mxu_tile vs its plain version, {n} qubits, "
           f"targets {list(MXU_TILE_TARGETS)}")
@@ -488,10 +605,28 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
             base = random_planes(torch, rng, n, dtype, "cuda")
             got = lk.apply_mxu_tile(base.clone(), n, u, targets, fast=fast)
             runs.append((dtype, fast, tol, targets, u, base, got))
+    wide = (0, 2, 5, 8)          # 513 gate values
+    u = random_unitary(rng, 1 << len(wide))
+    base = random_planes(torch, rng, n, torch.float32, "cuda")
+    runs.append((torch.float32, False, 1e-5, wide, u, base,
+                 lk.apply_mxu_tile(base.clone(), n, u, wide)))
     torch.cuda.synchronize()
     launches = lk.apply_mxu_tile.launches
     check(launches == len(runs) and counts(lk, kk) == (0, 0, 0),
           f"MXU-tile kernel launched {launches} times for {len(runs)} calls")
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, fast, _, targets, u, base, _ in runs:
+        # the pool each call gathered on the card, against the per-layer
+        # pack of the same gate (every geometry here is its own cache entry)
+        tile = lk._mxu_tile(n, targets, dtype, fast, base.device, stream)
+        want = lk._operands(lk._mxu_tile_layer(n, u, targets, dtype), n,
+                            dtype, base.device, fast)
+        got = tile.operands[2 if fast else 1]
+        check(torch.equal(raw_bits(torch, got),
+                          raw_bits(torch, want[2 if fast else 1])),
+              f"{str(targets):10s} {str(dtype):14s} "
+              f"{'FAST   ' if fast else 'HIGHEST'} the pool gathered on the "
+              "card equals the per-layer pack bit for bit")
     errs = []
     for dtype, fast, tol, targets, u, base, got in runs:
         want = lk.apply_mxu_tile_plain(base.clone(), n, u, targets, fast)
@@ -519,17 +654,33 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
                  reps=20)
     fast_ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(
         planes, n, u, targets, fast=True), reps=20)
+    # the launch alone (the same one-stage layer, its operator packed once
+    # on the layer), the card held busy while the host enqueues: the
+    # kernel's own time
+    layer = lk._mxu_tile_layer(n, u, targets, torch.float32)
+    kernel_ms, fast_kernel_ms = (device_ms(torch, lambda: lk.apply_layer(
+        planes, n, layer, fast=fast), reps=20) for fast in (False, True))
+    call_ms, fast_call_ms = (device_ms(torch, lambda: lk.apply_mxu_tile(
+        planes, n, u, targets, fast=fast), reps=20) for fast in (False,
+                                                                 True))
     plain = cuda_ms(torch, lambda: lk.apply_mxu_tile_plain(
         planes, n, u, targets), reps=5)
-    layer = lk._mxu_tile_layer(n, u, targets, torch.float32)
     bound, by, hbm, ops = layer_bound_ms(lk, layer, n, torch.float32)
     m = layer.stages[0][2]
     z = torch.complex(planes[0], planes[1]).view(-1, 128)
     mt = torch.as_tensor(np.ascontiguousarray(m.T), dtype=torch.complex64,
                          device="cuda")
     lib = cuda_ms(torch, lambda: torch.matmul(z, mt), reps=20)
-    print(f"  targets {targets} on {card}: kernel {ms:.4f} ms (FAST "
-          f"{fast_ms:.4f} ms), bound {bound:.4f} ms ({by}; HBM {hbm:.4f} "
+    print(f"  targets {targets} on {card}: call {ms:.4f} ms (FAST "
+          f"{fast_ms:.4f} ms), device-only: the launch alone "
+          f"{kernel_ms:.4f} ms (FAST {fast_kernel_ms:.4f} ms), the call "
+          f"(upload, gather, launch) {call_ms:.4f} ms (FAST "
+          f"{fast_call_ms:.4f} ms); the call is set by "
+          + ("the host" if ms > 1.5 * call_ms else "the device")
+          + " (FAST: "
+          + ("the host" if fast_ms > 1.5 * fast_call_ms else "the device")
+          + ")"
+          + f"; bound {bound:.4f} ms ({by}; HBM {hbm:.4f} "
           f"ms, CUDA-core flops {ops:.4f} ms), plain {plain:.4f} ms, "
           f"torch.matmul complex64 {lib:.4f} ms")
     return {
@@ -545,6 +696,10 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
         "bound_by": by,
         "library_ms": lib,
         "fast_ms": fast_ms,
+        "device_ms": kernel_ms,
+        "fast_device_ms": fast_kernel_ms,
+        "call_device_ms": call_ms,
+        "fast_call_device_ms": fast_call_ms,
         "qubits": n,
     }
 
@@ -769,6 +924,38 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
           f"{lane_bound:.3f} ms ({lane_by}), torch.matmul complex64 "
           f"{lib_ms:.3f} ms")
 
+    # the same lane stage and a run of 7 rowdiag stages (k = 3, bits inside
+    # and above the tile) in one layer: the run's cost inside the tile
+    hi = lk.max_mid_qubit(lk.tile_rows_for(planes.dtype))
+    run = diag_cases(rng, n, hi)["diag7"]
+    lane_diag = lk.LayerOp(n, 8, [("lane", m)] + run)
+    a = lk.apply_layer(planes.clone(), n, lane_diag)
+    b = lk.apply_layer_plain(planes.clone(), n, lane_diag)
+    torch.cuda.synchronize()
+    ld_err, ld_rel = rel_err(a, b)
+    del a, b
+    torch.cuda.empty_cache()
+    check(ld_rel <= 1e-5, f"lane + 7 rowdiag layer at {n} qubits: kernel "
+          f"vs plain max|diff| {ld_err:.3e}, / max|plain| {ld_rel:.3e} "
+          "<= 1e-5")
+    ld_ms = cuda_ms(torch, lambda: lk.apply_layer(planes, n, lane_diag),
+                    reps=3)
+    ld_bound, ld_by, _, _ = layer_bound_ms(lk, lane_diag, n, planes.dtype)
+    print(f"  lane + 7 rowdiag layer: kernel {ld_ms:.3f} ms, bound "
+          f"{ld_bound:.3f} ms ({ld_by}); the lane-only layer {lane_ms:.3f} "
+          f"ms, so {(ld_ms - lane_ms) / len(run):.3f} ms per rowdiag stage "
+          f"inside the tile on {card}")
+    # the run's fixed cost (one stage) and its table bytes (7 stages of
+    # k = 1: a quarter of the tables above)
+    for label, stages in (("1 rowdiag stage (k = 3)", run[:1]),
+                          ("7 rowdiag stages of k = 1",
+                           [("rowdiag", st[1][:2], st[2][-1:])
+                            for st in run])):
+        layer = lk.LayerOp(n, 1 + len(stages), [("lane", m)] + stages)
+        t = cuda_ms(torch, lambda: lk.apply_layer(planes, n, layer), reps=3)
+        print(f"  lane + {label}: kernel {t:.3f} ms, "
+              f"{t - lane_ms:.3f} ms above the lane-only layer")
+
     # the same at float64 on 29 qubits: its planes and a complex128
     # torch.matmul fit beside the live float32 state. The stage is
     # row-local, so its first 2^24 amplitudes are a 24-qubit state that
@@ -829,6 +1016,8 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
         "library_ms": lib_ms,
         "lane_only_ms": lane_ms,
         "lane_only_bound_ms": lane_bound,
+        "lane_rowdiag7_ms": ld_ms,
+        "lane_rowdiag7_bound_ms": ld_bound,
         "lane_only_f64_ms": lane64_ms,
         "lane_only_f64_bound_ms": lane64_bound,
         "lane_only_f64_library_ms": lib64_ms,
@@ -868,7 +1057,7 @@ def trajectory_circuit(qt, num_qubits: int, rng):
 
 def reset_counts(lk, kk):
     for fn in (lk.apply_layer, lk.apply_layer_batched):
-        fn.launches = fn.fast_launches = 0
+        fn.launches = fn.fast_launches = fn.diag_launches = 0
     lk.apply_mxu_tile.launches = 0
     kk.fused_kraus_apply_batched.launches = 0
 
@@ -1510,11 +1699,14 @@ def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
     cc.run(q)
     torch.cuda.synchronize()
     launches, batched, kraus = counts(lk, kk)
+    diag_launches = lk.apply_layer.diag_launches
+    diagonal = sum(lk.is_diagonal_layer(op) for op in layer_ops)
     if expect_layers:
         check(len(layer_ops) > 0 and launches == len(layer_ops)
-              and batched == kraus == 0,
+              and diag_launches == diagonal and batched == kraus == 0,
               f"{label}: layer kernel launched {launches} times for "
-              f"{len(layer_ops)} layer ops")
+              f"{len(layer_ops)} layer ops, {diag_launches} of them through "
+              f"the streaming entry for {diagonal} rowdiag-only layers")
     else:
         print(f"  {label}: layer kernel launched {launches} times for "
               f"{len(layer_ops)} layer ops (no count asserted)")
@@ -1537,7 +1729,7 @@ def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
         init(walked)
         # the wrapper counts through its module-level name, so while the
         # hook stands in, the hook holds these launches' counts
-        held.launches = held.fast_launches = 0
+        held.launches = held.fast_launches = held.diag_launches = 0
         lk.apply_layer = held
         try:
             cc.run(walked)
@@ -1606,13 +1798,16 @@ def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
               f"{kernel_ms[-1]:.3f} ms, bound {ms:.3f} ms ({by}; HBM "
               f"{hbm_ms:.3f}, CUDA-core flops {op_ms:.3f}), plain "
               f"{plain_ms[-1]:.3f} ms, complex64 broadcast mul "
-              + (f"{lib_ms[-1]:.3f} ms" if lib is not None else "none")
+              + (f"{lib_ms[-1]:.3f} ms (kernel / mul "
+                 f"{kernel_ms[-1] / lib_ms[-1]:.2f}x)" if lib is not None
+                 else "none")
               + f", max|kernel-plain| {errs[i]:.3e} on {card}")
     torch.cuda.empty_cache()
     profile_device(torch, lambda: cc.run(q), f"one {label} run on {card}")
     del q, cc
     torch.cuda.empty_cache()
-    return {"launches": launches, "ops_per_s": ops / run_s,
+    return {"launches": launches, "diag_launches": diag_launches,
+            "ops_per_s": ops / run_s,
             "max_abs_err": max(errs or [0.0]), "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms if len(lib_ms) == len(layer_ops) else None}
@@ -1735,6 +1930,31 @@ def density_keys(density):
         "density_layer_library_ms": cell["library_ms"],
         "density_qft_ops_per_s": cell["ops_per_s"],
         "density_config4_ops_per_s": density["config4"]["ops_per_s"],
+    }
+
+
+def diag_row(density):
+    """The JSON row of the layer kernel's streaming entry for rowdiag-only
+    layers, on its path: the density QFT's layers (phase 12a)."""
+    cell = density["qft"]
+    by = cell["bound_by"]
+    return {
+        "name": "layer_kernel_diag",
+        "route": "cuda",
+        "source": "quest_tpu_torch/csrc/layer_kernel.cu",
+        # _layer_kernel, its rowdiag branch at :517-531
+        "replaces": "quest_tpu/ops/pallas_kernels.py:297",
+        "launches": cell["diag_launches"],
+        "max_abs_err": cell["max_abs_err"],
+        "ms": float(np.mean(cell["kernel_ms"])),
+        "plain_ms": float(np.mean(cell["plain_ms"])),
+        "bound_ms": float(np.mean(cell["bound_ms"])),
+        "bound_by": max(set(by), key=by.count),
+        # one complex64 broadcast multiply by each layer's merged diagonal
+        "library_ms": float(np.mean(cell["library_ms"]))
+        if cell["library_ms"] else None,
+        "layer_ms": cell["kernel_ms"],
+        "layer_library_ms": cell["library_ms"],
     }
 
 
@@ -1886,6 +2106,8 @@ def main(argv) -> int:
             # own run is ``launches_density``
             row = dict(row, **density_keys(density))
         tail = [fast_row, fast_batched_row, mxu_row]
+        if density is not None:
+            tail.append(diag_row(density))
         if only is None:
             rows = kernel_rows(row, sweep, traj) + tail
         else:

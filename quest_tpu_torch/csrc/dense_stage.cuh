@@ -60,11 +60,45 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace quest {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// The dynamic shared memory one kernel instance has set on each device so
+// far: the attribute is a ceiling, so the largest size serves every smaller
+// launch, and a launch calls cudaFuncSetAttribute only to raise it.
+// ctypes releases the GIL around a launch, so two host threads may launch
+// at once: the mutex keeps a set from racing another thread's launch.
+struct LaunchAttrs {
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu;
+  size_t smem_set[kMaxDevices] = {};
+};
+
+// Sets cudaFuncAttributeMaxDynamicSharedMemorySize of `kernel` to at least
+// `bytes` on the current device, once per (instance, device, larger size).
+template <typename Kernel>
+cudaError_t ensure_dynamic_smem(Kernel* kernel, LaunchAttrs& attrs,
+                                size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(attrs.mu);
+  if (dev < LaunchAttrs::kMaxDevices && attrs.smem_set[dev] >= bytes) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < LaunchAttrs::kMaxDevices) {
+    attrs.smem_set[dev] = bytes;
+  }
+  return err;
+}
 
 __device__ __forceinline__ int bit_at(long long packed, int i) {
   return static_cast<int>((packed >> (8 * i)) & 0xff);

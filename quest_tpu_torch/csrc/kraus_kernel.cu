@@ -138,9 +138,8 @@ int launch(void* re, void* im, const void* kstack, const void* probs,
   const size_t smem = 2 * static_cast<size_t>(tile_rows) * kLanes * sizeof(T)
                       + quest::lane_scratch_bytes(sizeof(T));
   cudaGetLastError();  // an error left by earlier work is not this launch's
-  cudaError_t err = cudaFuncSetAttribute(
-      kraus_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static quest::LaunchAttrs attrs;
+  cudaError_t err = quest::ensure_dynamic_smem(kraus_kernel<T>, attrs, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = total_rows / tile_rows;
   if (num_traj < 1 || num_traj * tiles > 0x7fffffffLL) {

@@ -62,7 +62,14 @@
 //   ROWK    (row, rowk): dense 2^k x 2^k gate on k <= 3 row bits inside
 //           the tile, under lane and row controls; pool holds U.
 //   ROWDIAG (rowdiag): factor table (2^k, 128) picked by k <= 3 bits of
-//           the row index within the state.
+//           the row index within the state; lane_mask (d[4]) holds the
+//           stages left in its run of consecutive rowdiag stages, itself
+//           included, and the kernel applies the whole run in one pass
+//           over the tile (stage_rowdiag_run).
+//
+// A layer of rowdiag stages only takes the streaming entry instead
+// (quest_layer_diag_f32/_f64, layer_diag_kernel below): no tile, one read
+// and one write of each amplitude straight from HBM.
 //
 // Batch: block x = b * tiles_per_state + tile, so the grid never meets the
 // 65535 cap of gridDim.y. Row coordinates stay per state: base_row is the
@@ -82,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dense_stage.cuh"
 
 namespace {
@@ -91,6 +100,7 @@ using quest::combo_offset;
 using quest::insert_zeros;
 using quest::kLanes;
 using quest::kThreads;
+using quest::kWarps;
 
 constexpr int kDescWidth = 8;
 
@@ -139,27 +149,150 @@ __device__ void stage_rowk(T* sre, T* sim, int tile_rows, long long base_row,
   }
 }
 
-// Per-amplitude factor from a (2^k, 128) table row picked by k bits of the
-// state's row index (any row bit, inside the tile or not).
+// ---- diagonal (rowdiag) stages --------------------------------------------
+//
+// A rowdiag stage multiplies each amplitude by a factor that depends only on
+// its lane and on k <= 3 bits of its row index, so a run of them needs no
+// other amplitude: one warp owns whole 128-lane rows, each lane 4 of a row's
+// amplitudes in registers (float32: columns 4l..4l+3, one 16-byte vector per
+// plane; float64: columns 2l, 2l+1 and 64+2l, 64+2l+1, two 16-byte vectors
+// whose warp-wide reads are each 512 contiguous bytes). The row's config for
+// each stage is warp-uniform, so lane j computes stage j's table row once per
+// row (k shifts of the 64-bit row index) and every lane reads it by shuffle
+// (diag_row).
+// The stages multiply in stage order, each with the same complex product
+// (cmul), in the tile kernel's runs and in the streaming entry alike, so the
+// two give the same bits.
+
+constexpr int kVecBytes = 16;
+
 template <typename T>
-__device__ void stage_rowdiag(T* sre, T* sim, int tile_rows, long long base_row,
-                              int k, long long packed,
-                              const T* __restrict__ t_re,
-                              const T* __restrict__ t_im) {
-  const int n = tile_rows * kLanes;
-  for (int it = threadIdx.x; it < n; it += kThreads) {
-    const long long g = base_row + (it >> 7);
-    int cfg = 0;
-    for (int j = 0; j < k; ++j) {
-      cfg |= static_cast<int>((g >> bit_at(packed, j)) & 1) << j;
+struct Row4 {  // one lane's 4 amplitudes of a row, or 4 factors
+  static constexpr int kVec = kVecBytes / static_cast<int>(sizeof(T));
+  static constexpr int kVecs = 4 / kVec;
+};
+
+template <typename T>
+__device__ __forceinline__ int row4_col(int q, int lane) {
+  return (q * 32 + lane) * Row4<T>::kVec;
+}
+
+// v[0..3] = the lane's 4 values of the 128-wide row at p; Ldg reads through
+// the read-only cache (tables in global memory).
+template <typename T, bool Ldg>
+__device__ __forceinline__ void load_row4(const T* p, int lane, T* v) {
+#pragma unroll
+  for (int q = 0; q < Row4<T>::kVecs; ++q) {
+    const T* a = p + row4_col<T>(q, lane);
+    if constexpr (sizeof(T) == 4) {
+      const float4 x = Ldg ? __ldg(reinterpret_cast<const float4*>(a))
+                           : *reinterpret_cast<const float4*>(a);
+      v[0] = x.x;
+      v[1] = x.y;
+      v[2] = x.z;
+      v[3] = x.w;
+    } else {
+      const double2 x = Ldg ? __ldg(reinterpret_cast<const double2*>(a))
+                            : *reinterpret_cast<const double2*>(a);
+      v[2 * q] = x.x;
+      v[2 * q + 1] = x.y;
     }
-    const int t = cfg * kLanes + (it & (kLanes - 1));
-    const T fr = __ldg(t_re + t);
-    const T fi = __ldg(t_im + t);
-    const T a = sre[it];
-    const T b = sim[it];
-    sre[it] = fma(a, fr, -b * fi);
-    sim[it] = fma(a, fi, b * fr);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row4(T* p, int lane, const T* v) {
+#pragma unroll
+  for (int q = 0; q < Row4<T>::kVecs; ++q) {
+    T* a = p + row4_col<T>(q, lane);
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      *reinterpret_cast<double2*>(a) = make_double2(v[2 * q], v[2 * q + 1]);
+    }
+  }
+}
+
+// (a + ib) *= (fr + i fi), the one rounding order of every rowdiag product
+template <typename T>
+__device__ __forceinline__ void cmul(T& a, T& b, T fr, T fi) {
+  const T re = fma(a, fr, -b * fi);
+  b = fma(a, fi, b * fr);
+  a = re;
+}
+
+// One rowdiag stage as a lane of the warp holds it: its row bits, the pool
+// offset of its (2^k, 128) table's real part, and that table's size (the
+// imaginary part follows).
+struct DiagStage {
+  int k;
+  long long packed;
+  long long table;
+};
+
+__device__ __forceinline__ DiagStage diag_stage(
+    const long long* __restrict__ desc, int s, int n_stages) {
+  DiagStage st{0, 0, 0};
+  if (s < n_stages) {
+    const long long* d = desc + s * kDescWidth;
+    st.k = static_cast<int>(__ldg(d + 1));
+    st.packed = __ldg(d + 2);
+    st.table = __ldg(d + 3);
+  }
+  return st;
+}
+
+// Applies stages 0..n_stages-1 of `desc` (all rowdiag) to one lane's 4
+// amplitudes of the row whose index within its state is g. A stage's table
+// sits at tables + its pool offset. `first` is the lane's stage of
+// the first chunk of 32 (stage `lane`), loaded once by the caller; later
+// chunks, if any, load theirs per row.
+template <typename T, bool Ldg>
+__device__ __forceinline__ void diag_row(T* vr, T* vi, long long g,
+                                         const long long* __restrict__ desc,
+                                         int n_stages, const T* tables,
+                                         int lane, const DiagStage& first) {
+  for (int c0 = 0; c0 < n_stages; c0 += 32) {
+    const DiagStage st = c0 == 0 ? first
+                                 : diag_stage(desc, c0 + lane, n_stages);
+    int cfg = 0;
+    for (int j = 0; j < st.k; ++j) {
+      cfg |= static_cast<int>((g >> bit_at(st.packed, j)) & 1) << j;
+    }
+    const long long row = st.table + static_cast<long long>(cfg) * kLanes;
+    const int half = kLanes << st.k;
+    const int count = min(32, n_stages - c0);
+    for (int j = 0; j < count; ++j) {
+      const T* f = tables + __shfl_sync(0xffffffffu, row, j);
+      const int h = __shfl_sync(0xffffffffu, half, j);
+      T fr[4], fi[4];
+      load_row4<T, Ldg>(f, lane, fr);
+      load_row4<T, Ldg>(f + h, lane, fi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cmul(vr[i], vi[i], fr[i], fi[i]);
+    }
+  }
+}
+
+// A run of `run` consecutive rowdiag stages (descriptors from `desc`) as
+// one pass over the tile in shared memory: each warp takes whole rows, one
+// read and one write per amplitude, the run's tables read through __ldg.
+// Not inlined: its values would otherwise be hoisted out of the kernel's
+// stage loop and held across the lane stage, which has no register to spare.
+template <typename T>
+__device__ __noinline__ void stage_rowdiag_run(T* sre, T* sim, int tile_rows,
+                                  long long base_row,
+                                  const long long* __restrict__ desc, int run,
+                                  const T* __restrict__ pool) {
+  const int lane = threadIdx.x & 31;
+  const DiagStage first = diag_stage(desc, lane, run);
+  for (int r = threadIdx.x >> 5; r < tile_rows; r += kWarps) {
+    T vr[4], vi[4];
+    load_row4<T, false>(sre + r * kLanes, lane, vr);
+    load_row4<T, false>(sim + r * kLanes, lane, vi);
+    diag_row<T, true>(vr, vi, base_row + r, desc, run, pool, lane, first);
+    store_row4<T>(sre + r * kLanes, lane, vr);
+    store_row4<T>(sim + r * kLanes, lane, vi);
   }
 }
 
@@ -236,8 +369,11 @@ __global__ void __launch_bounds__(kThreads)
                          lane_mask, lane_want, row_mask, row_want);
       }
     } else {
-      stage_rowdiag<T>(sre, sim, tile_rows, base_row, kj, packed, op,
-                       op + (kLanes << kj));
+      // d[4] of a rowdiag stage: the stages left in its run of consecutive
+      // rowdiag stages, itself included; the run is one pass
+      const int run = lane_mask > 1 ? lane_mask : 1;
+      stage_rowdiag_run<T>(sre, sim, tile_rows, base_row, d, run, pool);
+      s += run - 1;
     }
     __syncthreads();
   }
@@ -261,9 +397,9 @@ int launch(void* re, void* im, const void* desc, int n_stages,
     smem += quest::lane_scratch_bytes(sizeof(T));
   }
   cudaGetLastError();  // an error left by earlier work is not this launch's
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_kernel<T, Fast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static quest::LaunchAttrs attrs;
+  cudaError_t err = quest::ensure_dynamic_smem(layer_kernel<T, Fast>, attrs,
+                                               smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = total_rows / tile_rows;
   if (batch < 1 || batch * tiles > 0x7fffffffLL) {
@@ -278,6 +414,177 @@ int launch(void* re, void* im, const void* desc, int n_stages,
       static_cast<const __nv_bfloat16*>(fast_pool), tile_rows, tiles,
       state_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the streaming entry for layers of rowdiag stages only ---------------
+//
+// Such a layer needs no tile: every amplitude's factors depend on its own
+// row and lane. So it is one streaming pass over the planes, 16 B per
+// amplitude at float32 (5.1 ms for 2^30 amplitudes at 3.35 TB/s), with no
+// shared-memory tile and no lane ring, which would hold the SM to one
+// block. Blocks of kThreads, as many as fit on each SM, walk the (state,
+// row) pairs grid-stride, each warp kDiagRows rows at a time (both rows'
+// loads in flight before either's products). The layer's tables (the whole
+// pool of such a layer) are copied into shared memory once per block when
+// they fit kDiagTableCap, else read through __ldg.
+
+constexpr int kDiagRows = 2;
+// 7 stages x 8 x 128 complex float64: the widest density-QFT layer
+constexpr size_t kDiagTableCap = 112 * 1024;
+
+// at most 64 registers a thread at float32 (4 blocks of 8 warps per SM),
+// 128 at float64, whose tables take up to half the SM's shared memory.
+// Four rows a warp at a time spill at float32 under 64 and 85 registers
+template <typename T, bool SmemTables>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
+    layer_diag_kernel(T* re, T* im, const long long* __restrict__ desc,
+                      int n_stages, const T* __restrict__ pool,
+                      long long table_values, int rows_log2, long long rows,
+                      long long state_stride) {
+  // one declaration of the dynamic shared memory per translation unit
+  extern __shared__ __align__(128) unsigned char smem[];
+  const T* tables = pool;
+  if constexpr (SmemTables) {
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    const uint4* src = reinterpret_cast<const uint4*>(pool);
+    const int nvec = static_cast<int>(table_values * sizeof(T) / kVecBytes);
+    for (int i = threadIdx.x; i < nvec; i += kThreads) dst[i] = __ldg(src + i);
+    __syncthreads();
+    tables = reinterpret_cast<const T*>(smem);
+  }
+  const int lane = threadIdx.x & 31;
+  const DiagStage first = diag_stage(desc, lane, n_stages);
+  const long long row_mask = (1LL << rows_log2) - 1;
+  const long long step = static_cast<long long>(gridDim.x) * kWarps
+                         * kDiagRows;
+  for (long long r0 = (static_cast<long long>(blockIdx.x) * kWarps
+                       + (threadIdx.x >> 5)) * kDiagRows;
+       r0 < rows; r0 += step) {
+    T vr[kDiagRows][4], vi[kDiagRows][4];
+    size_t at[kDiagRows];
+#pragma unroll
+    for (int u = 0; u < kDiagRows; ++u) {
+      const long long r = r0 + u;
+      at[u] = static_cast<size_t>((r >> rows_log2) * state_stride
+                                  + (r & row_mask) * kLanes);
+      if (r < rows) {
+        load_row4<T, false>(re + at[u], lane, vr[u]);
+        load_row4<T, false>(im + at[u], lane, vi[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDiagRows; ++u) {
+      const long long r = r0 + u;
+      if (r < rows) {
+        diag_row<T, !SmemTables>(vr[u], vi[u], r & row_mask, desc, n_stages,
+                                 tables, lane, first);
+        store_row4<T>(re + at[u], lane, vr[u]);
+        store_row4<T>(im + at[u], lane, vi[u]);
+      }
+    }
+  }
+}
+
+template <typename T, bool SmemTables>
+int launch_diag_instance(T* re, T* im, const long long* desc, int n_stages,
+                         const T* pool, long long table_values, int rows_log2,
+                         long long rows, long long state_stride,
+                         cudaStream_t stream) {
+  static quest::LaunchAttrs attrs;
+  const size_t smem = SmemTables ? table_values * sizeof(T) : 0;
+  auto* kernel = layer_diag_kernel<T, SmemTables>;
+  cudaError_t err = quest::ensure_dynamic_smem(kernel, attrs, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long rows_per_block = static_cast<long long>(kWarps) * kDiagRows;
+  const long long need = (rows + rows_per_block - 1) / rows_per_block;
+  const long long full = static_cast<long long>(sms) * per_sm;
+  const unsigned blocks = static_cast<unsigned>(need < full ? need : full);
+  kernel<<<blocks, kThreads, smem, stream>>>(re, im, desc, n_stages, pool,
+                                             table_values, rows_log2, rows,
+                                             state_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_diag(void* re, void* im, const void* desc, int n_stages,
+                const void* pool, long long pool_values, long long total_rows,
+                long long batch, long long state_stride, void* stream) {
+  cudaGetLastError();  // an error left by earlier work is not this launch's
+  if (n_stages < 1 || batch < 1 || total_rows < 1
+      || (total_rows & (total_rows - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int rows_log2 = 0;
+  while ((1LL << rows_log2) < total_rows) ++rows_log2;
+  auto* r = static_cast<T*>(re);
+  auto* i = static_cast<T*>(im);
+  auto* d = static_cast<const long long*>(desc);
+  auto* p = static_cast<const T*>(pool);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (static_cast<size_t>(pool_values) * sizeof(T) <= kDiagTableCap) {
+    return launch_diag_instance<T, true>(r, i, d, n_stages, p, pool_values,
+                                         rows_log2, batch * total_rows,
+                                         state_stride, s);
+  }
+  return launch_diag_instance<T, false>(r, i, d, n_stages, p, pool_values,
+                                        rows_log2, batch * total_rows,
+                                        state_stride, s);
+}
+
+// ---- the MXU tile: one call packs the gate and launches ------------------
+//
+// apply_mxu_tile (pallas_kernels.py:813) is one rowmxu stage of a single
+// dense gate. The host packs its geometry once (descriptor, and the map
+// `index` from each operator-pool value to its source in [0, Re u, Im u]);
+// a call uploads the gate's values to `source` on the device, then this one
+// C call gathers them into the pool and launches the layer kernel, both on
+// the caller's stream.
+
+// pool[i] = source[index[i]] (rounded to bf16 for FAST: the values come as
+// float32, so bf16 rounds through float32)
+template <typename S, typename D>
+__global__ void mxu_pool_gather(D* __restrict__ pool,
+                                const int* __restrict__ index, long long n,
+                                const S* __restrict__ source) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x; i < n; i += step) {
+    const S x = __ldg(source + __ldg(index + i));
+    if constexpr (std::is_same<D, __nv_bfloat16>::value) {
+      pool[i] = __float2bfloat16_rn(x);
+    } else {
+      pool[i] = x;
+    }
+  }
+}
+
+template <typename T, bool Fast>
+int launch_mxu_tile(void* re, void* im, const void* desc, void* pool,
+                    void* fast_pool, int max_j, const void* index,
+                    long long n_index, const void* source,
+                    long long total_rows, int tile_rows,
+                    long long state_stride, void* stream) {
+  using D = typename std::conditional<Fast, __nv_bfloat16, T>::type;
+  cudaGetLastError();  // an error left by earlier work is not this launch's
+  const long long need = (n_index + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(need < 1024 ? need : 1024);
+  mxu_pool_gather<T, D><<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<D*>(Fast ? fast_pool : pool),
+      static_cast<const int*>(index), n_index, static_cast<const T*>(source));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<T, Fast>(re, im, desc, 1, pool, fast_pool, max_j, total_rows,
+                         tile_rows, 1, state_stride, stream);
 }
 
 }  // namespace
@@ -313,6 +620,64 @@ int quest_layer_apply_fast_f32(void* re, void* im, const void* desc,
   return launch<float, true>(re, im, desc, n_stages, pool, fast_pool, max_j,
                              total_rows, tile_rows, batch, state_stride,
                              stream);
+}
+
+// A layer of rowdiag stages only, streamed (no tile): the same descriptors
+// and pool as the tile entries (pool_values values, its tables), and the
+// same state_stride for a batch. A FAST layer of rowdiag stages takes the
+// float32 entry: FAST's rowdiag stages are float32.
+int quest_layer_diag_f32(void* re, void* im, const void* desc, int n_stages,
+                         const void* pool, long long pool_values,
+                         long long total_rows, long long batch,
+                         long long state_stride, void* stream) {
+  return launch_diag<float>(re, im, desc, n_stages, pool, pool_values,
+                            total_rows, batch, state_stride, stream);
+}
+
+int quest_layer_diag_f64(void* re, void* im, const void* desc, int n_stages,
+                         const void* pool, long long pool_values,
+                         long long total_rows, long long batch,
+                         long long state_stride, void* stream) {
+  return launch_diag<double>(re, im, desc, n_stages, pool, pool_values,
+                             total_rows, batch, state_stride, stream);
+}
+
+// The MXU tile (apply_mxu_tile): gather the gate's values `source` (on the
+// device) into the operator pool (fast_pool, in bf16, for FAST) through the
+// packed index map, then launch the one-stage layer kernel on the single
+// state.
+int quest_mxu_tile_f32(void* re, void* im, const void* desc, void* pool,
+                       const void* index, long long n_index,
+                       const void* source, long long total_rows,
+                       int tile_rows, long long state_stride, void* stream) {
+  return launch_mxu_tile<float, false>(re, im, desc, pool, nullptr, 0, index,
+                                       n_index, source, total_rows, tile_rows,
+                                       state_stride, stream);
+}
+
+int quest_mxu_tile_f64(void* re, void* im, const void* desc, void* pool,
+                       const void* index, long long n_index,
+                       const void* source, long long total_rows,
+                       int tile_rows, long long state_stride, void* stream) {
+  return launch_mxu_tile<double, false>(re, im, desc, pool, nullptr, 0,
+                                        index, n_index, source, total_rows,
+                                        tile_rows, state_stride, stream);
+}
+
+int quest_mxu_tile_fast_f32(void* re, void* im, const void* desc, void* pool,
+                            void* fast_pool, int max_j, const void* index,
+                            long long n_index, const void* source,
+                            long long total_rows, int tile_rows,
+                            long long state_stride, void* stream) {
+  return launch_mxu_tile<float, true>(re, im, desc, pool, fast_pool, max_j,
+                                      index, n_index, source, total_rows,
+                                      tile_rows, state_stride, stream);
+}
+
+// Bytes of tables above which the streaming entry reads them through __ldg
+// instead of shared memory (the Python side mirrors it).
+long long quest_layer_diag_table_cap() {
+  return static_cast<long long>(kDiagTableCap);
 }
 
 // Shared memory of the FAST ring beside the tile for a layer whose widest

@@ -29,7 +29,10 @@ call raises. :func:`apply_layer_batched` applies one layer to every state
 of a ``(B, 2, 2^n)`` batch in one launch of the same kernel (the TPU
 kernel's batch grid, ``pallas_kernels.apply_layer_batched``); row
 coordinates stay per state, and :func:`apply_layer_batched_plain` is its
-plain version.
+plain version. A layer of ``rowdiag`` stages only needs no tile (each
+amplitude's factors depend on its own row and lane): it takes the kernel's
+streaming entry, one pass over the planes straight from HBM, counted in
+``diag_launches`` too (:func:`launch_entry`).
 
 The tile height comes from Hopper's shared memory, not from TPU VMEM: one
 block holds a ``tile_rows x 128`` tile of both planes (128 KiB at either
@@ -59,6 +62,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
@@ -91,13 +96,17 @@ FAST_K = 16
 # the full-precision lane stage (csrc/dense_stage.cuh stage_dense_lane):
 # inputs per K slab by plane itemsize, 16 KiB of each operator plane
 LANE_K = {4: 32, 8: 16}
+# the streaming entry for rowdiag-only layers (csrc/layer_kernel.cu
+# kDiagTableCap): tables up to this many bytes sit in shared memory, 7
+# stages x 8 x 128 complex float64
+DIAG_TABLE_CAP = 112 * 1024
 
 __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
            "lane_diag_matrix", "lane_diag_vector", "max_mid_qubit",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
            "layer_kernel_plan", "shared_memory_bytes", "fast_scratch_bytes",
-           "lane_scratch_bytes",
-           "fast_operator_slabs", "apply_layer",
+           "lane_scratch_bytes", "is_diagonal_layer", "launch_entry",
+           "mark_rowdiag_runs", "fast_operator_slabs", "apply_layer",
            "apply_layer_plain", "apply_layer_batched",
            "apply_layer_batched_plain", "apply_mxu_tile",
            "apply_mxu_tile_plain", "build_library"]
@@ -637,6 +646,28 @@ def build_library() -> tuple:
     lib.quest_layer_apply_fast_f32.argtypes = (
         argtypes[:5] + [ctypes.c_void_p, ctypes.c_int] + argtypes[5:])
     lib.quest_layer_apply_fast_f32.restype = ctypes.c_int
+    # the streaming entry for rowdiag-only layers: no tile height, and the
+    # pool's value count after the pool
+    for name in ("quest_layer_diag_f32", "quest_layer_diag_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes[:5] + [ctypes.c_longlong, ctypes.c_longlong,
+                                      ctypes.c_longlong, ctypes.c_longlong,
+                                      ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    # the MXU tile: pool (and for FAST the bf16 pool and max_j), the index
+    # map and its length, the gate's values on the device, then the launch
+    # geometry
+    mxu = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_longlong, ctypes.c_void_p])
+    for name in ("quest_mxu_tile_f32", "quest_mxu_tile_f64"):
+        getattr(lib, name).argtypes = mxu[:4] + mxu[5:]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.quest_mxu_tile_fast_f32.argtypes = mxu[:5] + [ctypes.c_int] \
+        + mxu[5:]
+    lib.quest_mxu_tile_fast_f32.restype = ctypes.c_int
+    lib.quest_layer_diag_table_cap.argtypes = []
+    lib.quest_layer_diag_table_cap.restype = ctypes.c_longlong
     for name in ("quest_layer_fast_scratch_bytes",
                  "quest_layer_lane_scratch_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
@@ -665,6 +696,38 @@ def fast_operator_slabs(m: np.ndarray) -> np.ndarray:
     # -> (k, t, gid, q, part, h, p): lane = 4 gid + q, word = 2 part + h
     return np.ascontiguousarray(
         parts.transpose(3, 1, 2, 5, 0, 4, 6)).reshape(-1)
+
+
+def mark_rowdiag_runs(desc: np.ndarray) -> np.ndarray:
+    """Write into each ``rowdiag`` descriptor's free slot (column 4, the
+    lane mask the stage does not have) the stages left in its run of
+    consecutive ``rowdiag`` stages, itself included: the tile kernel
+    applies the whole run in one pass over the tile and skips the stages
+    it consumed. In place; returns ``desc``."""
+    run = 0
+    for row in desc[::-1]:
+        run = run + 1 if row[0] == TAG_ROWDIAG else 0
+        if run:
+            row[4] = run
+    return desc
+
+
+def is_diagonal_layer(layer: LayerOp) -> bool:
+    """Whether every stage of the layer is ``rowdiag``: such a layer takes
+    the kernel's streaming entry (no tile)."""
+    return bool(layer.stages) and all(st[0] == "rowdiag"
+                                      for st in layer.stages)
+
+
+def launch_entry(layer: LayerOp, dtype: torch.dtype, fast: bool) -> str:
+    """The C entry point of ``csrc/layer_kernel.cu`` a launch of ``layer``
+    on planes of ``dtype`` takes: the streaming entry for a layer of
+    ``rowdiag`` stages only (float32 at FAST, whose ``rowdiag`` stages are
+    float32), else the tile kernel at its precision."""
+    suffix = "f64" if dtype == torch.float64 and not fast else "f32"
+    if is_diagonal_layer(layer):
+        return f"quest_layer_diag_{suffix}"
+    return f"quest_layer_apply_{'fast_' if fast else ''}{suffix}"
 
 
 def _pack_bits(bits) -> int:
@@ -766,10 +829,16 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
         else:
             _, toff, bits = st
             table = np.stack(tables[toff:toff + (1 << len(bits))])
-            desc.append([TAG_ROWDIAG, len(bits), _pack_bits(bits),
-                         put(table), 0, 0, 0, 0])
-    desc_t = torch.as_tensor(np.asarray(desc, dtype=np.int64).reshape(
-        -1, DESC_WIDTH), device=device)
+            off = put(table)
+            # the kernels read each table row as 16-byte vectors
+            if off * itemsize % 16:
+                raise ValueError(f"rowdiag table at pool offset {off} is "
+                                 "not 16-byte aligned")
+            desc.append([TAG_ROWDIAG, len(bits), _pack_bits(bits), off,
+                         0, 0, 0, 0])
+    desc = np.asarray(desc, dtype=np.int64).reshape(-1, DESC_WIDTH)
+    mark_rowdiag_runs(desc)
+    desc_t = torch.as_tensor(desc, device=device)
 
     def as_pool(parts, pool_dtype):
         return torch.as_tensor(np.concatenate(parts) if parts
@@ -811,43 +880,48 @@ def _check_states(states: torch.Tensor, num_qubits: int, batched: bool,
 
 
 def _launch(states: torch.Tensor, num_qubits: int, layer: LayerOp,
-            where: str, fast: bool = False) -> None:
+            where: str, fast: bool = False) -> bool:
     """One launch of the layer kernel over the ``(B, 2, 2^n)`` batch: the
     full-precision kernel, or with ``fast`` the FAST one (bf16 tensor
-    cores in the dense stages)."""
+    cores in the dense stages). A layer of ``rowdiag`` stages only takes
+    the streaming entry instead (at float32 for FAST: its ``rowdiag``
+    stages are float32); returns whether it did."""
     if states.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {states.device}")
     if fast:
         _check_fast_dtype(states.dtype, where)
         desc, pool, fast_pool, max_j, tile_rows, total_rows = \
             _fast_operands(layer, num_qubits, states.device)
-        shared_memory_bytes(tile_rows, 4, max_j)
     else:
         desc, pool, tile_rows, total_rows = _device_operands(
             layer, num_qubits, states.dtype, states.device)
-        shared_memory_bytes(tile_rows, states.element_size())
+        fast_pool, max_j = None, None
+    entry = launch_entry(layer, states.dtype, fast)
+    diagonal = entry.startswith("quest_layer_diag")
+    if not diagonal:
+        shared_memory_bytes(tile_rows, states.element_size(), max_j)
     if states.data_ptr() % 16:
         raise ValueError(f"{where}: planes must be 16-byte aligned")
     lib = build_library()[0]
+    fn = getattr(lib, entry)
     num_amps = 1 << num_qubits
     re_ptr = states.data_ptr()
     im_ptr = re_ptr + num_amps * states.element_size()
-    tail = (total_rows, tile_rows, states.shape[0], 2 * num_amps)
+    head = (re_ptr, im_ptr, desc.data_ptr(), desc.shape[0], pool.data_ptr())
+    tail = (states.shape[0], 2 * num_amps)
     with torch.cuda.device(states.device):
         stream = torch.cuda.current_stream(states.device).cuda_stream
-        if fast:
-            err = lib.quest_layer_apply_fast_f32(
-                re_ptr, im_ptr, desc.data_ptr(), desc.shape[0],
-                pool.data_ptr(), fast_pool.data_ptr(), max_j, *tail, stream)
+        if diagonal:
+            err = fn(*head, pool.numel(), total_rows, *tail, stream)
+        elif fast:
+            err = fn(*head, fast_pool.data_ptr(), max_j, total_rows,
+                     tile_rows, *tail, stream)
         else:
-            fn = lib.quest_layer_apply_f32 \
-                if states.dtype == torch.float32 \
-                else lib.quest_layer_apply_f64
-            err = fn(re_ptr, im_ptr, desc.data_ptr(), desc.shape[0],
-                     pool.data_ptr(), *tail, stream)
+            err = fn(*head, total_rows, tile_rows, *tail, stream)
     if err != 0:
         raise RuntimeError("layer kernel launch failed: "
                            + lib.quest_layer_error_string(err).decode())
+    return diagonal
 
 
 def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
@@ -857,7 +931,9 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
     A CUDA tensor launches the hand-written kernel and counts the launch
     in ``apply_layer.launches`` (``apply_layer.fast_launches`` for the
     FAST kernel, ``fast=True``: float32 planes, bf16 tensor cores in the
-    dense stages); a CPU tensor runs :func:`apply_layer_plain`."""
+    dense stages), and a layer of ``rowdiag`` stages only, which takes the
+    kernel's streaming entry, in ``apply_layer.diag_launches`` too; a CPU
+    tensor runs :func:`apply_layer_plain`."""
     _check_states(planes, num_qubits, False, "apply_layer")
     if fast:
         _check_fast_dtype(planes.dtype, "apply_layer")
@@ -866,7 +942,8 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
                          f"qubits, planes hold {num_qubits}")
     if planes.device.type == "cpu":
         return apply_layer_plain(planes, num_qubits, layer, fast)
-    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_layer", fast)
+    if _launch(planes.unsqueeze(0), num_qubits, layer, "apply_layer", fast):
+        apply_layer.diag_launches += 1
     if fast:
         apply_layer.fast_launches += 1
     else:
@@ -876,6 +953,7 @@ def apply_layer(planes: torch.Tensor, num_qubits: int, layer: LayerOp,
 
 apply_layer.launches = 0
 apply_layer.fast_launches = 0
+apply_layer.diag_launches = 0
 
 
 def apply_layer_batched(states: torch.Tensor, num_qubits: int,
@@ -888,7 +966,8 @@ def apply_layer_batched(states: torch.Tensor, num_qubits: int,
 
     A CUDA tensor launches the kernel and counts the launch in
     ``apply_layer_batched.launches`` (``.fast_launches`` with ``fast``,
-    as in :func:`apply_layer`); a CPU tensor runs
+    ``.diag_launches`` too for the streaming entry, as in
+    :func:`apply_layer`); a CPU tensor runs
     :func:`apply_layer_batched_plain`."""
     _check_states(states, num_qubits, True, "apply_layer_batched")
     if fast:
@@ -898,7 +977,8 @@ def apply_layer_batched(states: torch.Tensor, num_qubits: int,
                          f"qubits, planes hold {num_qubits}")
     if states.device.type == "cpu":
         return apply_layer_batched_plain(states, num_qubits, layer, fast)
-    _launch(states, num_qubits, layer, "apply_layer_batched", fast)
+    if _launch(states, num_qubits, layer, "apply_layer_batched", fast):
+        apply_layer_batched.diag_launches += 1
     if fast:
         apply_layer_batched.fast_launches += 1
     else:
@@ -908,6 +988,106 @@ def apply_layer_batched(states: torch.Tensor, num_qubits: int,
 
 apply_layer_batched.launches = 0
 apply_layer_batched.fast_launches = 0
+apply_layer_batched.diag_launches = 0
+
+
+# geometries of apply_mxu_tile kept packed on their device (the JAX
+# package's _MXU_EXEC bound)
+MXU_TILE_CACHE_SIZE = 16
+_MXU_TILES: "OrderedDict[tuple, _MxuTile]" = OrderedDict()
+_MXU_TILES_LOCK = threading.Lock()
+
+
+class _MxuTile:
+    """One geometry of :func:`apply_mxu_tile` (qubits, targets, plane dtype,
+    FAST, device, stream), packed once. ``index`` (int32, on the device)
+    maps each value of the operator pool's layout (``M^T``'s real then
+    imaginary part, or for FAST the :func:`fast_operator_slabs` order) to
+    its source in the gate's :meth:`values` ``[0, Re u, Im u]``; 0 is the
+    embedding's structural zero. A call on the card uploads the values to
+    ``source`` and gathers them into the operator pool (``pool``, or
+    ``fast_pool`` in bf16 for FAST) inside its one C call
+    (``quest_mxu_tile_*``); :meth:`fill` is that gather's plain version. Calls on one stream reuse the buffers in stream order; the
+    stream is part of the key, so no two streams share them."""
+
+    __slots__ = ("dim", "operands", "index", "source", "target",
+                 "value_dtype")
+
+    def __init__(self, num_qubits: int, targets: tuple, dtype: torch.dtype,
+                 fast: bool, device: torch.device):
+        d = 1 << len(targets)
+        # a probe gate whose entry (i, j) is 1 + (i d + j) embeds into the
+        # index map (and is validated against the tile on the way)
+        probe = _mxu_tile_layer(num_qubits,
+                                np.arange(1, d * d + 1).reshape(d, d),
+                                targets, dtype)
+        embed = probe.stages[0][2].real.astype(np.int64)
+        both = embed + 1j * np.where(embed > 0, embed + d * d, 0)
+        if fast:
+            index = fast_operator_slabs(both)
+        else:
+            index = np.concatenate([both.T.real.reshape(-1),
+                                    both.T.imag.reshape(-1)])
+        desc, pool, fast_pool, max_j, tile_rows, total_rows = _operands(
+            probe, num_qubits, dtype, torch.device("cpu"), fast)
+        self.dim = d
+        self.index = torch.as_tensor(index.astype(np.int32), device=device)
+        # the gate's values as the per-layer pack rounds them: float64, or
+        # float32 (FAST: bf16 through float32, in the gather)
+        wide = dtype == torch.float64 and not fast
+        self.value_dtype = np.float64 if wide else np.float32
+        self.source = torch.empty(1 + 2 * d * d, device=device,
+                                  dtype=torch.float64 if wide
+                                  else torch.float32)
+        pool, fast_pool = (torch.zeros_like(t, device=device)
+                           if t is not None else None
+                           for t in (pool, fast_pool))
+        self.target = fast_pool if fast else pool
+        self.operands = (desc.to(device), pool, fast_pool, max_j, tile_rows,
+                         total_rows)
+
+    def _gate(self, u) -> np.ndarray:
+        u = np.asarray(u, dtype=np.complex128)
+        if u.shape != (self.dim, self.dim):
+            raise ValueError(f"apply_mxu_tile: gate has shape {u.shape}, "
+                             f"expected {(self.dim, self.dim)} for its "
+                             "targets")
+        # + 0.0 as the embedding adds each value to a zero (so a -0.0
+        # becomes 0.0 there too)
+        return (u + 0.0).reshape(-1)
+
+    def values(self, u) -> np.ndarray:
+        """The gather's source ``[0, Re u, Im u]`` (row-major), rounded to
+        the pool's value dtype as the per-layer pack rounds it."""
+        g = self._gate(u)
+        return np.concatenate([np.zeros(1), g.real, g.imag]).astype(
+            self.value_dtype)
+
+    def fill(self, u) -> None:
+        """The plain version of the card's gather: the pool (bf16 for
+        FAST, rounded from the float32 values) from gate ``u``."""
+        src = torch.from_numpy(self.values(u)).to(self.source.device)
+        self.target.copy_(src[self.index.long()])
+
+
+def _mxu_tile(num_qubits: int, targets: Sequence[int], dtype: torch.dtype,
+              fast: bool, device: torch.device,
+              stream: Optional[int] = None) -> _MxuTile:
+    """The packed geometry of :func:`apply_mxu_tile`, made at its first use
+    and kept in a bounded LRU (:data:`MXU_TILE_CACHE_SIZE` entries)."""
+    targets = tuple(int(t) for t in targets)
+    key = (num_qubits, targets, dtype, fast, device, stream)
+    with _MXU_TILES_LOCK:
+        tile = _MXU_TILES.get(key)
+        if tile is not None:
+            _MXU_TILES.move_to_end(key)
+            return tile
+    tile = _MxuTile(num_qubits, targets, dtype, fast, device)
+    with _MXU_TILES_LOCK:
+        _MXU_TILES[key] = tile
+        while len(_MXU_TILES) > MXU_TILE_CACHE_SIZE:
+            _MXU_TILES.popitem(last=False)
+    return tile
 
 
 def apply_mxu_tile(planes: torch.Tensor, num_qubits: int, u,
@@ -924,14 +1104,42 @@ def apply_mxu_tile(planes: torch.Tensor, num_qubits: int, u,
     A CUDA tensor launches the layer kernel and counts the launch in
     ``apply_mxu_tile.launches``; a CPU tensor runs
     :func:`apply_mxu_tile_plain`. A row target outside the tile raises
-    ``ValueError``."""
+    ``ValueError``. The embedding and packing are done once per geometry
+    (:func:`_mxu_tile`), so a call costs the gate's upload, one
+    gather and the launch."""
     _check_states(planes, num_qubits, False, "apply_mxu_tile")
     if fast:
         _check_fast_dtype(planes.dtype, "apply_mxu_tile")
     if planes.device.type == "cpu":
         return apply_mxu_tile_plain(planes, num_qubits, u, targets, fast)
-    layer = _mxu_tile_layer(num_qubits, u, targets, planes.dtype)
-    _launch(planes.unsqueeze(0), num_qubits, layer, "apply_mxu_tile", fast)
+    lib = build_library()[0]     # a missing toolkit raises before packing
+    if planes.data_ptr() % 16:
+        raise ValueError("apply_mxu_tile: planes must be 16-byte aligned")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        tile = _mxu_tile(num_qubits, targets, planes.dtype, fast,
+                         planes.device, stream)
+        # staged in pinned memory: the caching host allocator keeps the
+        # block from reuse until its copy has run
+        staged = torch.from_numpy(tile.values(u)).pin_memory()
+        tile.source.copy_(staged, non_blocking=True)
+        desc, pool, fast_pool, max_j, tile_rows, total_rows = tile.operands
+        head = (planes.data_ptr(),
+                planes.data_ptr() + planes.shape[1] * planes.element_size(),
+                desc.data_ptr(), pool.data_ptr())
+        tail = (tile.index.data_ptr(), tile.index.numel(),
+                tile.source.data_ptr(), total_rows, tile_rows,
+                2 * planes.shape[1], stream)
+        if fast:
+            err = lib.quest_mxu_tile_fast_f32(*head, fast_pool.data_ptr(),
+                                              max_j, *tail)
+        elif planes.dtype == torch.float32:
+            err = lib.quest_mxu_tile_f32(*head, *tail)
+        else:
+            err = lib.quest_mxu_tile_f64(*head, *tail)
+    if err != 0:
+        raise RuntimeError("MXU-tile launch failed: "
+                           + lib.quest_layer_error_string(err).decode())
     apply_mxu_tile.launches += 1
     return planes
 

@@ -100,6 +100,81 @@ def test_row_target_outside_the_tile_raises():
                           (3, 3))
 
 
+MODES = [(torch.float32, False), (torch.float64, False),
+         (torch.float32, True)]
+# the target sets above, and a gate on 4 qubits (513 gate values)
+POOL_TARGETS = TARGETS + [(0, 2, 5, 8)]
+
+
+def _bits(t):
+    """A tensor's raw bits, so -0.0 and 0.0 differ."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype,fast", MODES,
+                         ids=["f32", "f64", "fast"])
+@pytest.mark.parametrize("targets", POOL_TARGETS, ids=str)
+def test_cached_pool_equals_the_per_layer_pack(targets, dtype, fast):
+    """The geometry's index map gathers, bit for bit, the pool that
+    ``_operands`` packs for the gate's own one-stage layer (the path every
+    call took before): M^T, or for FAST the bf16 slab order rounded
+    through float32; the descriptor and launch geometry too."""
+    n = 10
+    rng = np.random.default_rng(sum(targets) + 7)
+    u = _unitary(rng, len(targets))
+    u[0, 0] = complex(-0.0, u[0, 0].imag)    # the embedding adds 0.0
+    tile = lk._mxu_tile(n, targets, dtype, fast, torch.device("cpu"))
+    tile.fill(u)
+    want = lk._operands(lk._mxu_tile_layer(n, u, targets, dtype), n, dtype,
+                        torch.device("cpu"), fast)
+    got = tile.operands
+    for a, b in zip(got, want):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+        else:
+            assert a == b
+
+
+def test_tile_cache_stays_bounded():
+    lk._MXU_TILES.clear()
+    keys = [(n, t) for n in (9, 10, 11, 12) for t in TARGETS]
+    tiles = [lk._mxu_tile(n, t, torch.float64, False, torch.device("cpu"))
+             for n, t in keys]
+    assert len(lk._MXU_TILES) == lk.MXU_TILE_CACHE_SIZE < len(keys)
+    # the newest geometry is kept and served again; the oldest went
+    n, t = keys[-1]
+    assert lk._mxu_tile(n, t, torch.float64, False,
+                        torch.device("cpu")) is tiles[-1]
+    n, t = keys[0]
+    assert lk._mxu_tile(n, t, torch.float64, False,
+                        torch.device("cpu")) is not tiles[0]
+    assert len(lk._MXU_TILES) == lk.MXU_TILE_CACHE_SIZE
+    with pytest.raises(ValueError, match="shape"):
+        tiles[-1].fill(np.eye(4))
+
+
+@pytest.mark.parametrize("targets", [(3,), (3, 8), (2, 5, 7)], ids=str)
+def test_repeated_calls_on_one_geometry_match_jax(targets):
+    """One cached geometry, a new gate each call: each result matches the
+    JAX kernel on the same gate, and each refill of the geometry's pool
+    (the buffers the card's calls reuse) is that gate's per-layer pack."""
+    rng = np.random.default_rng(len(targets) + 40)
+    tile = lk._mxu_tile(N, targets, torch.float64, False, torch.device("cpu"))
+    for call in range(3):
+        z, u = _state(rng), _unitary(rng, len(targets))
+        want = np.asarray(pk.apply_mxu_tile(jnp.asarray(z), N, u, targets,
+                                            interpret=True))
+        got = lk.apply_mxu_tile(_planes(z), N, u, targets)
+        assert np.abs(_amps(got) - want).max() <= 1e-12
+        tile.fill(u)
+        pool = lk._operands(lk._mxu_tile_layer(N, u, targets, torch.float64),
+                            N, torch.float64, torch.device("cpu"), False)[1]
+        assert torch.equal(_bits(tile.operands[1]), _bits(pool))
+    assert lk._mxu_tile(N, targets, torch.float64, False,
+                        torch.device("cpu")) is tile
+
+
 def test_fast_crossover_prices_the_tensor_cores():
     """At the bf16 tensor-core rate the packed contraction is never slower
     than the row path (both sit at the HBM floor), so FAST takes rowmxu
