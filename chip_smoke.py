@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py                 # every phase: the whole check
     python3 chip_smoke.py --only 3d,3e,10 # the build, then just these
     python3 chip_smoke.py --only 12       # the density phase
+    python3 chip_smoke.py --only 13,12d   # gradients, density sweeps
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -44,7 +45,9 @@ Phases (any unmet check exits non-zero and prints no result line):
    float32, the operator pool each call gathered on the card against the
    per-layer pack bit for bit, and its times: the
    call, and device-only (the card held busy while the host enqueues) the
-   launch alone and the whole call;
+   launch alone and the whole call; then each target set with a row bit
+   (``stage_dense<T,1>``/``<T,2>``) at float32 and float64: ms per call
+   beside its bound and the port's ``apply_unitary`` on the same gate;
 4. the single-state path at 30 qubits, complex64: the random-rotation +
    CNOT brickwork compiled and run through the layer kernel, against the
    same gates through the imperative per-gate API;
@@ -109,7 +112,26 @@ Phases (any unmet check exits non-zero and prints no result line):
     count asserted
     (its plan has no layer); 12c. every density function of the API on 8
     qubits (a complex pure state) on the card against the CPU in float64
-    (within 1e-5 of the largest value, and of the largest amplitude).
+    (within 1e-5 of the largest value, and of the largest amplitude);
+    12d. density sweeps and gradients: config 4's circuit with its
+    rotations as Params through ``expectation_sweep`` at 15 qubits, batch
+    2, against a per-point ``run`` + ``calcExpecPauliSum`` (<= 1e-4 of
+    max|E|); ``value_and_grad_sweep`` at 14 qubits (2^28 flat amplitudes),
+    batch 2, on an ry/rz column, a CNOT ring and a Param dephasing rate:
+    values against ``expectation_sweep`` (<= 1e-6), rotation columns
+    against parameter shift and the rate column against a central
+    difference (<= 1e-3 of max|g|), peak memory, points/s;
+13. gradients: phase 8's HEA through ``value_and_grad_sweep`` at batch
+    16 (the cell's 64, cut for time): the batched layer kernel launches
+    once per forward layer and once per adjoint layer, values against
+    ``expectation_sweep`` (<= 1e-6 of max|E|), 2 rows x 6 parameters
+    (lane qubits, tile rows, above the tile) against parameter shift (<=
+    1e-3 of max|g|), every forward and adjoint layer's kernel output on
+    its own input against its plain version (<= 1e-5), points/s beside
+    ``expectation_sweep``'s, peak memory, ``tier="fast"`` gradients
+    within 4 e sum|c_t| of SINGLE's (e the tier model's error), and the
+    adjoint layers' ms over the 2B stack beside bound, plain version and
+    one ``torch.matmul``.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -142,6 +164,13 @@ CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
 BF16_TENSOR_FLOPS = 989.0e12           # dense bf16 tensor cores
 MXU_TILE_TARGETS = ((3,), (8,), (3, 8), (7, 8), (2, 5, 7))
 FAST_BUDGET = 0.1                      # an error budget only FAST needs
+GRAD_BATCH = 16                        # phase 13: the HEA cell's 64, cut
+# phase 13's parameter-shift columns: two parameters each on lane qubits,
+# on tile rows (qubits 7-13) and above the tile (qubits >= 14)
+GRAD_COLUMNS = ("y0_1", "z1_5", "y0_9", "z1_12", "y0_17", "z1_22")
+DENSITY_GRAD_QUBITS, DENSITY_GRAD_BATCH = 14, 2   # phase 12d's gradients
+# phase 12d's shift columns: lane qubits, tile rows, and the top qubit
+DENSITY_GRAD_COLUMNS = ("y0_0", "z0_5", "y0_10", "z0_13")
 
 
 class SmokeFailure(Exception):
@@ -683,6 +712,7 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
           + f"; bound {bound:.4f} ms ({by}; HBM {hbm:.4f} "
           f"ms, CUDA-core flops {ops:.4f} ms), plain {plain:.4f} ms, "
           f"torch.matmul complex64 {lib:.4f} ms")
+    row_targets = mxu_row_target_times(torch, lk, rng, card)
     return {
         "name": "mxu_tile",
         "route": "cuda",
@@ -701,7 +731,48 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
         "call_device_ms": call_ms,
         "fast_call_device_ms": fast_call_ms,
         "qubits": n,
+        "row_targets": row_targets,
     }
+
+
+def mxu_row_target_times(torch, lk, rng, card):
+    """The MXU tile on the target sets with a row bit (the only launches
+    of ``stage_dense<T,1>``/``<T,2>``) at float32 and float64: ms per call
+    beside the one-stage layer's bound and one library call for the same
+    gate, the port's ``apply_unitary`` (a strided view of the planes and
+    one ``torch.matmul``), each output held against the other first."""
+    from quest_tpu_torch.core.apply import apply_unitary
+    n = CHECK_QUBITS
+    rows = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for targets in MXU_TILE_TARGETS:
+            if all(t < lk.LANE_QUBITS for t in targets):
+                continue
+            u = random_unitary(rng, 1 << len(targets))
+            planes = random_planes(torch, rng, n, dtype, "cuda")
+            got = lk.apply_mxu_tile(planes.clone(), n, u, targets)
+            want = apply_unitary(planes.clone(), n, u, targets)
+            err, rel = rel_err(got, want)
+            del got, want
+            check(rel <= tol, f"MXU tile {targets} {dtype} vs apply_unitary "
+                  f"max|diff| / max|amp| {rel:.3e} <= {tol:g}")
+            ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(planes, n, u,
+                                                          targets), reps=20)
+            lib = cuda_ms(torch, lambda: apply_unitary(planes, n, u, targets),
+                          reps=20)
+            layer = lk._mxu_tile_layer(n, u, targets, dtype)
+            bound, by, _, _ = layer_bound_ms(lk, layer, n, dtype)
+            j = sum(t >= lk.LANE_QUBITS for t in targets)
+            print(f"  row targets {str(targets):10s} {str(dtype):14s} "
+                  f"(stage_dense<T,{j}>): {ms:.4f} ms per call, bound "
+                  f"{bound:.4f} ms ({by}), apply_unitary {lib:.4f} ms "
+                  f"(call / library {ms / lib:.2f}x) on {card}")
+            rows.append({"targets": list(targets), "dtype": str(dtype),
+                         "row_bits": j, "ms": ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib,
+                         "max_abs_err": err})
+            del planes
+    return rows
 
 
 def kraus_case(rng, num_traj: int, num_ops: int):
@@ -1167,13 +1238,13 @@ def batched_layer_times(torch, lk, states, n, layer_ops, label,
 
 def host_binding_ms(compiled, pm) -> float:
     """Host milliseconds one sweep spends binding parameter gates: every
-    mat_fn/diag_fn evaluated once per row and stacked."""
-    from quest_tpu_torch.circuits import _bind_rows
+    mat_fn/diag_fn bound for every row at once."""
+    from quest_tpu_torch.ops.adjoint import bind_rows
     t0 = time.perf_counter()
     for op in compiled._ops:
         fn = getattr(op, "mat_fn", None) or getattr(op, "diag_fn", None)
         if fn is not None:
-            _bind_rows(fn, compiled.param_names, pm)
+            bind_rows(fn, compiled.param_names, pm)
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -1622,25 +1693,27 @@ def noisy_qft(qt, n: int):
     return c, calls
 
 
-def density_noise(qt, n: int):
+def density_noise(qt, n: int, params: bool = False):
     """bench.py:3514 ``bench_density_noise`` (BASELINE.json config 4): a
     random rotation on every qubit (rng 2026), CNOTs on (0,1), (2,3), ...,
     then dephasing (0.05) and damping (0.02) on every qubit. Returns the
-    circuit and the imperative calls."""
+    circuit, the imperative calls and the angles; with ``params`` each
+    rotation's angle is a Param ``r<q>`` (the angles its binding)."""
     rng = np.random.default_rng(2026)
     c = qt.Circuit(n)
-    calls = []
+    calls, angles = [], []
     for q in range(n):
         angle, axis = float(rng.uniform(0, 2 * np.pi)), rng.normal(size=3)
-        c.rotate(q, angle, axis)
+        c.rotate(q, c.parameter(f"r{q}") if params else angle, axis)
         calls.append((qt.rotateAroundAxis, (q, angle, tuple(axis))))
+        angles.append(angle)
     for q in range(0, n - 1, 2):
         c.cnot(q, q + 1)
         calls.append((qt.controlledNot, (q, q + 1)))
     for q in range(n):
         c.dephase(q, 0.05).damp(q, 0.02)
         calls += [(qt.mixDephasing, (q, 0.05)), (qt.mixDamping, (q, 0.02))]
-    return c, calls
+    return c, calls, np.asarray(angles)
 
 
 def diagonal_layer_factor(torch, lk, layer, n: int, dtype):
@@ -1892,7 +1965,7 @@ def phase_density(torch, qt, lk, kk, card):
     cell = density_cell(torch, qt, lk, kk, card, "12a noisy QFT", qft,
                         qft_calls, lambda q: qt.initClassicalState(q, basis),
                         expect_layers=True)
-    config4, config4_calls = density_noise(qt, n)
+    config4, config4_calls, _ = density_noise(qt, n)
     cell_b = density_cell(torch, qt, lk, kk, card,
                           "12b BASELINE.json config 4", config4,
                           config4_calls, qt.initPlusState,
@@ -1909,6 +1982,286 @@ def phase_density(torch, qt, lk, kk, card):
           f"12c: {len(got)} values max|card - CPU| / max|CPU| {err:.3e}, "
           f"final state {state_err:.3e} <= 1e-5 (measured q2 -> {outcome})")
     return {"qft": cell, "config4": cell_b}
+
+
+def held_batched(torch, lk, errs):
+    """A stand-in for ``lk.apply_layer_batched`` that launches the kernel
+    and holds its output against the plain version on the same input,
+    appending ``(id(layer), max|diff|, max|diff| / max|plain|)`` to
+    ``errs``. Returns ``(the wrapper, the stand-in)``; the wrapper counts
+    through its module-level name, so while the stand-in stands in, it
+    holds these launches' counts."""
+    launch = lk.apply_layer_batched
+
+    def held(states, num_qubits, layer, fast=False):
+        plain = lk.apply_layer_batched_plain(states.clone(), num_qubits,
+                                             layer, fast)
+        launch(states, num_qubits, layer, fast=fast)
+        torch.cuda.synchronize()
+        errs.append((id(layer),) + rel_err(states, plain))
+        del plain
+        return states
+
+    held.launches = held.fast_launches = held.diag_launches = 0
+    return launch, held
+
+
+def walk_held(torch, lk, cc, run):
+    """Run ``run()`` (a gradient sweep of ``cc``) with every batched
+    layer launch held against its plain version on its own input.
+    Returns the (max|diff|, relative) pairs of the forward layers and of
+    the adjoint layers of the walk."""
+    adjoint_ids = {id(a) for a in cc._adjoint_walk(None).adjoints.values()}
+    errs = []
+    launch, held = held_batched(torch, lk, errs)
+    lk.apply_layer_batched = held
+    try:
+        run()
+    finally:
+        lk.apply_layer_batched = launch
+    torch.cuda.empty_cache()
+    return ([e[1:] for e in errs if e[0] not in adjoint_ids],
+            [e[1:] for e in errs if e[0] in adjoint_ids])
+
+
+def shift_oracle(cc, pm, ham, rows, cols, chunk):
+    """Parameter-shift gradients of ``cc``'s rows ``rows`` in columns
+    ``cols`` (exact for rotation parameters), from shifted
+    ``expectation_sweep`` batches of at most ``chunk`` rows."""
+    shifted = []
+    for r in rows:
+        for c in cols:
+            for s in (np.pi / 2, -np.pi / 2):
+                row = pm[r].copy()
+                row[c] += s
+                shifted.append(row)
+    shifted = np.stack(shifted)
+    e = np.concatenate([cc.expectation_sweep(shifted[i:i + chunk], ham)
+                        for i in range(0, len(shifted), chunk)])
+    return 0.5 * (e[0::2] - e[1::2]).reshape(len(rows), len(cols))
+
+
+def phase_grad(torch, qt, lk, kk, card):
+    """Phase 13: value_and_grad_sweep on the HEA cell's circuit."""
+    n, batch = SWEEP_QUBITS, GRAD_BATCH
+    print(f"phase 13: gradient sweep (adjoint walk), {n}-qubit "
+          f"{SWEEP_LAYERS}-layer HEA, complex64, batch {batch}, "
+          f"{SWEEP_TERMS}-term Pauli sum, on {card}")
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    pm = pm[:batch]
+    ham = (terms, coeffs)
+    names = circ.param_names
+    env = qt.createQuESTEnv(seed=[2026])
+    cc = circ.compile(env)
+    layers = cc.num_layers
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    vals, grads = cc.value_and_grad_sweep(pm, ham)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    single, batched, kraus = counts(lk, kk)
+    check(layers > 0 and batched == 2 * layers and single == 0
+          and kraus == 0 and fast_counts(lk) == (0, 0, 0),
+          f"batched layer kernel launched {batched} times for {layers} "
+          f"forward and {layers} adjoint layers (single-state {single}, "
+          f"Kraus {kraus}); first call {first_s * 1e3:.1f} ms")
+    check(vals.shape == (batch,) and grads.shape == (batch, len(names))
+          and bool(np.isfinite(grads).all()),
+          f"{batch} values and {batch} x {len(names)} finite gradients")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) at batch {batch}")
+
+    energies = cc.expectation_sweep(pm, ham)
+    e_rel = float(np.abs(vals - energies).max() / np.abs(energies).max())
+    check(e_rel <= 1e-6, f"values vs expectation_sweep on the same rows: "
+          f"max|diff| / max|E| {e_rel:.3e} <= 1e-6")
+    rows, cols = (0, 1), [names.index(c) for c in GRAD_COLUMNS]
+    oracle = shift_oracle(cc, pm, ham, rows, cols, chunk=24)
+    gmax = float(np.abs(grads[list(rows)]).max())
+    g_err = float(np.abs(grads[list(rows)][:, cols] - oracle).max())
+    check(g_err <= 1e-3 * gmax, f"gradients vs parameter shift, rows "
+          f"{rows} x columns {GRAD_COLUMNS}: max|diff| {g_err:.3e} <= 1e-3 "
+          f"of max|g| {gmax:.3e} ({g_err / gmax:.3e})")
+
+    fwd, back = walk_held(torch, lk, cc,
+                          lambda: cc.value_and_grad_sweep(pm, ham))
+    check(len(fwd) == len(back) == layers
+          and max(r for _, r in fwd + back) <= 1e-5,
+          f"each of {len(fwd)} forward and {len(back)} adjoint layers' "
+          f"kernel output on its own input vs its plain version: max|diff| "
+          f"/ max|plain| {max(r for _, r in fwd + back):.3e} <= 1e-5")
+
+    grad_s = timed_runs(torch, lambda: cc.value_and_grad_sweep(pm, ham),
+                        reps=1)
+    energy_s = timed_runs(torch, lambda: cc.expectation_sweep(pm, ham),
+                          reps=1)
+    shift_cost = 2 * len(names) + 1
+    print(f"  value_and_grad_sweep {grad_s * 1e3:.1f} ms, "
+          f"{batch / grad_s:.2f} points/s; expectation_sweep "
+          f"{energy_s * 1e3:.1f} ms, {batch / energy_s:.2f} points/s; a "
+          f"gradient costs {grad_s / energy_s:.2f} energy sweeps (parameter "
+          f"shift: 2P + 1 = {shift_cost}) on {card}")
+
+    # FAST against SINGLE (the env's precision): the walk's gradients are
+    # 2 Re <lam, mu> with |lam| <= sum|c_t| and |mu| <= 1/2; the tier model
+    # bounds each state's error by e, and the forward and reverse passes
+    # each add e to psi and lam, so |g_FAST - g_SINGLE| <= 4 e sum|c_t|
+    e_fast = qt.modeled_tier_error(qt.FAST_TIER, len(circ.ops))
+    bound = 4.0 * e_fast * float(np.abs(coeffs).sum())
+    n_fast = sum(op.kind == "layer" for op in cc._plan_for(qt.FAST_TIER)[1])
+    reset_counts(lk, kk)
+    _, g_fast = cc.value_and_grad_sweep(pm, ham, tier="fast")
+    torch.cuda.synchronize()
+    fast_launches = fast_counts(lk)[1]
+    diff = float(np.abs(g_fast - grads).max())
+    check(fast_launches == 2 * n_fast and diff <= bound,
+          f"tier fast: {fast_launches} FAST launches for {n_fast} forward "
+          f"and {n_fast} adjoint layers; gradients vs SINGLE max|diff| "
+          f"{diff:.3e} <= 4 e sum|c| = {bound:.3e} (e = modeled "
+          f"{e_fast:.3e}; max|g| {float(np.abs(grads).max()):.3e})")
+
+    # the adjoint layers' times over the stacked 2B states
+    states = cc.sweep(pm)
+    stacked = torch.cat([states, states])
+    del states
+    adjoints = list(cc._adjoint_walk(None).adjoints.values())
+    rows_t = batched_layer_times(torch, lk, stacked, n, adjoints,
+                                 f"adjoint (2B = {2 * batch})")
+    del stacked
+    torch.cuda.empty_cache()
+    return {"launches": batched, "rows": rows_t,
+            "max_abs_err": max(e for e, _ in fwd + back),
+            "points_per_s": batch / grad_s,
+            "energy_points_per_s": batch / energy_s,
+            "grad_per_energy": grad_s / energy_s,
+            "peak_bytes": peak, "fast_launches": fast_launches,
+            "fast_max_diff": diff, "fast_bound": bound}
+
+
+def random_hamiltonian(n: int, num_terms: int, seed: int):
+    """``num_terms`` random Pauli strings on ``n`` qubits with normal
+    coefficients: (terms, coeffs, flat codes)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(num_terms, n))
+    coeffs = rng.normal(size=num_terms)
+    terms = [[(q, int(codes[t, q])) for q in range(n)]
+             for t in range(num_terms)]
+    return terms, coeffs, [int(c) for c in codes.reshape(-1)]
+
+
+def rate_circuit(qt, n: int):
+    """tests/test_gradients.py's density program: an ry/rz column of
+    Params, a CNOT ring, then dephasing at a Param rate on qubit 0."""
+    c = hea_circuit(qt, n, 1)
+    c.dephase(0, c.parameter("rate"))
+    return c
+
+
+def phase_density_grad(torch, qt, lk, kk, card):
+    """Phase 12d: density sweeps and density gradients."""
+    n = DENSITY_QUBITS
+    print(f"phase 12d: density sweeps and gradients, on {card}")
+    env = qt.createQuESTEnv()
+    circ, _, angles = density_noise(qt, n, params=True)
+    terms, coeffs, codes = random_hamiltonian(n, SWEEP_TERMS, 2027)
+    ham = (terms, coeffs)
+    pm = np.stack([angles, np.random.default_rng(2028).uniform(
+        0, 2 * np.pi, n)])
+    cc = circ.compile(env, density=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    energies = cc.expectation_sweep(pm, ham)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    q = qt.createDensityQureg(n, env)
+    want = []
+    for row in pm:
+        qt.initZeroState(q)
+        cc.run(q, dict(zip(circ.param_names, row)))
+        want.append(qt.calcExpecPauliSum(q, codes, coeffs))
+    del q
+    torch.cuda.empty_cache()
+    want = np.asarray(want)
+    rel = float(np.abs(energies - want).max() / np.abs(want).max())
+    check(rel <= 1e-4 and bool(np.isfinite(energies).all()),
+          f"12d config 4 with Param rotations, {n} qubits, batch "
+          f"{len(pm)}: expectation_sweep vs per-point run + "
+          f"calcExpecPauliSum max|diff| / max|E| {rel:.3e} <= 1e-4 "
+          f"(sweep {sweep_s * 1e3:.1f} ms, first call)")
+
+    ng, batch = DENSITY_GRAD_QUBITS, DENSITY_GRAD_BATCH
+    circ = rate_circuit(qt, ng)
+    names = circ.param_names
+    terms, coeffs, _ = random_hamiltonian(ng, 8, 2029)
+    ham = (terms, coeffs)
+    rng = np.random.default_rng(2030)
+    pm = np.concatenate([rng.uniform(0, 2 * np.pi, (batch, len(names) - 1)),
+                         rng.uniform(0.05, 0.3, (batch, 1))], axis=1)
+    cc = circ.compile(env, density=True)
+    walk = cc._adjoint_walk(None)
+    stored = sum(not u for u in walk.unitary)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    vals, grads = cc.value_and_grad_sweep(pm, ham)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    batched = counts(lk, kk)[1]
+    check(batched == 2 * cc.num_layers and bool(np.isfinite(grads).all()),
+          f"12d gradients at {ng} qubits (2^{2 * ng} flat amplitudes), "
+          f"batch {batch}: {batched} batched layer launches for "
+          f"{cc.num_layers} layers and their adjoints, {stored} "
+          f"non-unitary items; peak {peak / 2**30:.2f} GiB")
+    energies = cc.expectation_sweep(pm, ham)
+    e_rel = float(np.abs(vals - energies).max() / np.abs(energies).max())
+    cols = [names.index(c) for c in DENSITY_GRAD_COLUMNS]
+    rows = tuple(range(batch))
+    oracle = shift_oracle(cc, pm, ham, rows, cols, chunk=4)
+    eps = 1e-2
+    up, dn = pm.copy(), pm.copy()
+    up[:, -1] += eps
+    dn[:, -1] -= eps
+    fd = (cc.expectation_sweep(np.concatenate([up, dn]), ham)
+          .reshape(2, batch))
+    fd = (fd[0] - fd[1]) / (2 * eps)
+    gmax = float(np.abs(grads).max())
+    g_err = float(np.abs(grads[:, cols] - oracle).max())
+    r_err = float(np.abs(grads[:, -1] - fd).max())
+    check(e_rel <= 1e-6 and g_err <= 1e-3 * gmax and r_err <= 1e-3 * gmax,
+          f"12d values vs expectation_sweep {e_rel:.3e} <= 1e-6 of max|E|; "
+          f"rotation columns {DENSITY_GRAD_COLUMNS} vs parameter shift "
+          f"{g_err:.3e}, the rate column vs a central difference (eps "
+          f"{eps}) {r_err:.3e}, both <= 1e-3 of max|g| {gmax:.3e}")
+    if cc.num_layers:
+        fwd, back = walk_held(torch, lk, cc,
+                              lambda: cc.value_and_grad_sweep(pm, ham))
+        worst = max(r for _, r in fwd + back)
+        check(len(back) == cc.num_layers and worst <= 1e-5,
+              f"12d: {len(fwd)} forward and {len(back)} adjoint layers vs "
+              f"their plain versions {worst:.3e} <= 1e-5")
+    else:
+        print(f"  12d: the lifted plan has no layer (gates pair qubit t "
+              f"with t + {ng}, above the tile); no adjoint layer to hold")
+    # the gradient's time is its first call's (the script's time limit);
+    # the engine's host binding is warm by then in a whole run
+    energy_s = timed_runs(torch, lambda: cc.expectation_sweep(pm, ham),
+                          reps=1)
+    print(f"  12d on {card}: value_and_grad_sweep {grad_s * 1e3:.1f} ms "
+          f"(first call, {batch / grad_s:.3f} points/s), expectation_sweep "
+          f"{energy_s * 1e3:.1f} ms ({grad_s / energy_s:.2f} energy sweeps); "
+          f"{len(names)} parameters")
+    del cc
+    torch.cuda.empty_cache()
+    return {"config4_rel": rel, "grad_points_per_s": batch / grad_s,
+            "energy_points_per_s": batch / energy_s, "peak_bytes": peak}
 
 
 def density_keys(density):
@@ -1958,7 +2311,41 @@ def diag_row(density):
     }
 
 
-def kernel_rows(layer_row, sweep, traj):
+def gradient_keys(grad, density_grad):
+    """Phase 13's and 12d's numbers, as keys of the batched layer kernel's
+    row: the gradient sweep's launches (forward and adjoint layers), its
+    layers against their plain versions, points/s beside the energy
+    sweep's, peak memory, and the adjoint layers' times over 2B states."""
+    keys = {}
+    if grad is not None:
+        rows = grad["rows"]
+        keys.update({
+            "launches_gradient": grad["launches"],
+            "gradient_max_abs_err": grad["max_abs_err"],
+            "gradient_points_per_s": grad["points_per_s"],
+            "gradient_energy_points_per_s": grad["energy_points_per_s"],
+            "gradient_cost_in_energy_sweeps": grad["grad_per_energy"],
+            "gradient_peak_bytes": grad["peak_bytes"],
+            "gradient_fast_launches": grad["fast_launches"],
+            "gradient_fast_max_diff": grad["fast_max_diff"],
+            "gradient_fast_bound": grad["fast_bound"],
+            "adjoint_layer_ms": [r[0] for r in rows],
+            "adjoint_layer_bound_ms": [r[1] for r in rows],
+            "adjoint_layer_plain_ms": [r[3] for r in rows],
+            "adjoint_layer_library_ms": [r[4] for r in rows],
+        })
+    if density_grad is not None:
+        keys.update({
+            "density_gradient_points_per_s":
+                density_grad["grad_points_per_s"],
+            "density_energy_points_per_s":
+                density_grad["energy_points_per_s"],
+            "density_gradient_peak_bytes": density_grad["peak_bytes"],
+        })
+    return keys
+
+
+def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"]
     libs = [r[4] for r in sweep["rows"] if r[4] is not None]
@@ -1969,7 +2356,8 @@ def kernel_rows(layer_row, sweep, traj):
         "route": "cuda",
         "source": "quest_tpu_torch/csrc/layer_kernel.cu",
         "replaces": "quest_tpu/ops/pallas_kernels.py:736",
-        "launches": sweep["launches"] + traj["launches_layer"],
+        "launches": sweep["launches"] + traj["launches_layer"]
+        + (grad["launches"] if grad is not None else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
         "max_abs_err": max(r[5] for r in rows),
@@ -1981,6 +2369,7 @@ def kernel_rows(layer_row, sweep, traj):
         "trajectory_layer_ms": [r[0] for r in traj["rows"]],
         "trajectory_layer_bound_ms": [r[1] for r in traj["rows"]],
         "points_per_s": sweep["points_per_s"],
+        **gradient_keys(grad, density_grad),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
@@ -2031,7 +2420,7 @@ def profile_device(torch, fn, what: str, top: int = 8):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12")
+          "11", "12", "12d", "13")
 
 
 def parse_only(argv):
@@ -2058,6 +2447,7 @@ def main(argv) -> int:
     except ImportError:
         print("FAIL: torch is not importable", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     try:
         only = parse_only(argv)
         runs = lambda phase: only is None or phase in only
@@ -2101,6 +2491,13 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         density = phase_density(torch, qt, lk, kk, card) \
             if runs("12") else None
+        torch.cuda.empty_cache()
+        # 13 before 12d: 12d times its gradient's first call, which then
+        # finds the parameter binding's torch.func transforms warm
+        grad = phase_grad(torch, qt, lk, kk, card) if runs("13") else None
+        torch.cuda.empty_cache()
+        density_grad = phase_density_grad(torch, qt, lk, kk, card) \
+            if runs("12d") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -2109,12 +2506,16 @@ def main(argv) -> int:
         if density is not None:
             tail.append(diag_row(density))
         if only is None:
-            rows = kernel_rows(row, sweep, traj) + tail
+            rows = kernel_rows(row, sweep, traj, grad, density_grad) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
                 rows.append(dict(name="layer_kernel", path="density",
                                  **density_keys(density)))
+            if grad is not None or density_grad is not None:
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="gradient",
+                                 **gradient_keys(grad, density_grad)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2122,6 +2523,7 @@ def main(argv) -> int:
         print(f"FAIL: {e} (run from the root of a checkout)",
               file=sys.stderr)
         return 2
+    print(f"script wall time {time.perf_counter() - started:.1f} s")
     if only is not None:
         # a partial run: its rows, and never the result line
         print(json.dumps({"only": sorted(only, key=PHASES.index),

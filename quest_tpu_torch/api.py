@@ -74,6 +74,7 @@ __all__ = [
     "getProbAmp", "getDensityAmp", "calcTotalProb", "calcInnerProduct",
     "calcDensityInnerProduct", "calcPurity", "calcFidelity",
     "calcExpecPauliProd", "calcExpecPauliSum", "calcHilbertSchmidtDistance",
+    "applyPauliSum",
     # decoherence
     "mixDephasing", "mixTwoQubitDephasing", "mixDepolarising", "mixDamping",
     "mixTwoQubitDepolarising", "mixPauli", "mixDensityMatrix", "mixKrausMap",
@@ -941,6 +942,34 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
                                             coeffs_np))
     return float(red.pauli_sum_total_sv(qureg.state.unsqueeze(0), xm, ym,
                                         zm, coeffs_np)[0])
+
+
+def applyPauliSum(in_qureg: Qureg, all_codes: Sequence[int],
+                  coeffs: Sequence[float], num_terms: int,
+                  out_qureg: Qureg) -> None:
+    """out = sum_t c_t P_t |in> (``statevec_applyPauliSum``
+    ``QuEST_common.c:494-514``); on density registers the Paulis act on
+    the ket half, so out = H rho. One xor-gather per term over the planes
+    (``reductions.pauli_sum_apply``, the gradient walk's ``H psi``)."""
+    val.validate_matching_types(in_qureg.is_density_matrix,
+                                out_qureg.is_density_matrix, "applyPauliSum")
+    val.validate_matching_precision(in_qureg.env.precision.quest_prec,
+                                    out_qureg.env.precision.quest_prec,
+                                    "applyPauliSum")
+    val.validate_matching_dims(in_qureg.num_qubits_represented,
+                               out_qureg.num_qubits_represented,
+                               "applyPauliSum")
+    val.validate_num_pauli_sum_terms(num_terms, "applyPauliSum")
+    val.validate_pauli_codes(all_codes, "applyPauliSum")
+    n = in_qureg.num_qubits_represented
+    codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    xm, ym, zm, coeffs_np = red.pauli_sum_operands(
+        codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
+    out = red.pauli_sum_apply(in_qureg.state.unsqueeze(0), xm, ym, zm,
+                              coeffs_np)
+    out_qureg.state = out[0].to(out_qureg.device)
+    out_qureg.qasm_log.record_comment(
+        "the register was set to a Pauli-sum image (possibly unphysical)")
 
 
 # ---------------------------------------------------------------------------

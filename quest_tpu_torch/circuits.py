@@ -26,12 +26,18 @@ The batched ensemble engine (:meth:`CompiledCircuit.sweep`,
 :meth:`~CompiledCircuit.sample_sweep`) walks the same plan over a ``(B, 2,
 2^n)`` batch, one parameter binding per row: layers through
 ``apply_layer_batched`` (one launch for the batch), other ops through the
-gate engine's batched form. Channels (:meth:`Circuit.kraus` and the named
+gate engine's batched form (``ops/adjoint.py``), on state-vector and
+density programs. :meth:`CompiledCircuit.value_and_grad_sweep` (and
+``grad_sweep``, ``expectation_fn``) differentiates ``<H>`` by an adjoint
+walk back over the same plan, each layer's adjoint one launch of the same
+kernel. Channels (:meth:`Circuit.kraus` and the named
 channels) are recorded as ``"kraus"`` ops; a state-vector compile rejects
 them, ``compile(density=True)`` runs them exactly on a density register
 (the program lifted to the flat 2n-qubit vector, ``_lifted_density``, and
 planned like any other), and :meth:`Circuit.compile_trajectories` runs
-them as trajectory ensembles (``ops/trajectories.py``).
+them as trajectory ensembles (``ops/trajectories.py``). A parametrised
+gate has one torch definition, bound per row and differentiated with
+``torch.func``.
 
 Precision tiers (``config.TIER_LADDER``): ``Circuit.compile(tier=...)`` or
 ``error_budget=...`` pins the tier ``run``/``apply`` execute at, and the
@@ -61,6 +67,7 @@ from .config import QUAD_NOT_PORTED, tier_by_name
 from .core import matrices as mats
 from .core.apply import apply_diagonal, apply_unitary, bitmask
 from .env import QuESTEnv
+from .ops import adjoint as adj
 from .ops import channels as chan
 from .ops import densmatr as dm
 from .ops import layer_kernel as lk
@@ -97,6 +104,8 @@ class _Op:
     diag_fn: Optional[Callable] = None
     kraus: Optional[object] = None  # kind "kraus": operator list, or a
     #                                 params -> operators callable
+    channel: bool = False           # a channel's superoperator (density
+    #                                 lift): not unitary
 
     @property
     def is_static(self) -> bool:
@@ -104,8 +113,15 @@ class _Op:
                 and not callable(self.kraus))
 
 
-def _angle(params: dict, a: Angle) -> float:
-    return float(params[a.name]) if isinstance(a, Param) else float(a)
+def _param(params: dict, a: Param) -> torch.Tensor:
+    """The value ``params`` binds to ``a``, as a float64 tensor (a float,
+    or a row's 0-dim slice when ``torch.func`` binds a batch of rows)."""
+    return torch.as_tensor(params[a.name], dtype=torch.float64)
+
+
+def _permute(t, axes):
+    return t.permute(axes) if isinstance(t, torch.Tensor) \
+        else np.transpose(t, axes)
 
 
 class Circuit:
@@ -155,7 +171,9 @@ class Circuit:
         """Record an arbitrary k-qubit (controlled) unitary: ``u`` is a
         ``(2^k, 2^k)`` matrix or a callable ``params -> matrix``;
         ``control_states`` (default all-1) gives each control's
-        conditioning bit."""
+        conditioning bit. A callable that the batched engine binds per row,
+        or that a gradient sweep differentiates, must build its matrix with
+        torch ops (as the JAX package's must with jnp)."""
         targets = tuple(int(t) for t in targets)
         controls = tuple(int(c) for c in controls)
         self._check(targets + controls)
@@ -190,7 +208,7 @@ class Circuit:
         axes = tuple(qubits.index(q) for q in desc)
         if callable(factors):
             fn = factors if axes == tuple(range(len(qubits))) else \
-                (lambda p, f=factors, a=axes: np.transpose(f(p), a))
+                (lambda p, f=factors, a=axes: _permute(f(p), a))
             self.ops.append(_Op("diag", desc, diag_fn=fn))
             return self
         t = np.asarray(factors, dtype=np.complex128)
@@ -220,19 +238,31 @@ class Circuit:
     def t(self, q: int) -> "Circuit":
         return self.diagonal(np.array([1.0, np.exp(1j * np.pi / 4)]), (q,))
 
-    def phase(self, q: int, angle: Angle) -> "Circuit":
+    def _phase_gate(self, qubits: Sequence[int], angle: Angle,
+                    exponents) -> "Circuit":
+        """Record the diagonal ``exp(i angle exponents)`` on ``qubits``
+        (axis ``i`` of the real ``exponents`` table indexed by the bit of
+        ``qubits[i]``): the one definition of the phase-family gates, bound
+        at record time for a float angle and at run time for a Param."""
         angle = self._register_angle(angle)
+        table = torch.as_tensor(np.asarray(exponents, dtype=np.float64))
         if isinstance(angle, Param):
             return self.diagonal(
-                lambda p, a=angle: np.array([1.0, np.exp(1j * _angle(p, a))]),
-                (q,))
-        return self.diagonal(np.array([1.0, np.exp(1j * angle)]), (q,))
+                lambda p, a=angle, t=table: mats.phase_factors_traceable(
+                    _param(p, a) * t), qubits)
+        return self.diagonal(
+            mats.phase_factors_traceable(float(angle) * table).numpy(),
+            qubits)
+
+    def phase(self, q: int, angle: Angle) -> "Circuit":
+        return self._phase_gate((q,), angle, [0.0, 1.0])
 
     def _rot(self, q: int, angle: Angle, axis) -> "Circuit":
         angle = self._register_angle(angle)
         if isinstance(angle, Param):
             return self.gate(
-                lambda p, a=angle: mats.rotation(_angle(p, a), axis), (q,))
+                lambda p, a=angle: mats.rotation_traceable(_param(p, a),
+                                                           axis), (q,))
         return self.gate(mats.rotation(float(angle), axis), (q,))
 
     def rx(self, q: int, angle: Angle) -> "Circuit":
@@ -242,15 +272,8 @@ class Circuit:
         return self._rot(q, angle, (0, 1, 0))
 
     def rz(self, q: int, angle: Angle) -> "Circuit":
-        angle = self._register_angle(angle)
         # diagonal fast path: exp(∓i angle/2)
-
-        def factors(half):
-            return np.array([np.exp(-1j * half), np.exp(1j * half)])
-        if isinstance(angle, Param):
-            return self.diagonal(
-                lambda p, a=angle: factors(_angle(p, a) / 2.0), (q,))
-        return self.diagonal(factors(float(angle) / 2.0), (q,))
+        return self._phase_gate((q,), angle, [-0.5, 0.5])
 
     def rotate(self, q: int, angle: Angle, axis) -> "Circuit":
         return self._rot(q, angle, axis)
@@ -266,29 +289,12 @@ class Circuit:
 
     def cphase(self, control: int, target: int, angle: Angle) -> "Circuit":
         """Controlled phase shift (diag(1,1,1,e^{i angle}))."""
-        angle = self._register_angle(angle)
-
-        def factors(a):
-            d = np.ones((2, 2), dtype=np.complex128)
-            d[1, 1] = np.exp(1j * a)
-            return d
-        if isinstance(angle, Param):
-            return self.diagonal(lambda p, a=angle: factors(_angle(p, a)),
-                                 (control, target))
-        return self.diagonal(factors(angle), (control, target))
+        return self._phase_gate((control, target), angle,
+                                [[0.0, 0.0], [0.0, 1.0]])
 
     def crz(self, control: int, target: int, angle: Angle) -> "Circuit":
-        angle = self._register_angle(angle)
-
-        def factors(half):
-            d = np.ones((2, 2), dtype=np.complex128)
-            d[1, 0], d[1, 1] = np.exp(-1j * half), np.exp(1j * half)
-            return d
-        if isinstance(angle, Param):
-            return self.diagonal(
-                lambda p, a=angle: factors(_angle(p, a) / 2.0),
-                (control, target))
-        return self.diagonal(factors(float(angle) / 2.0), (control, target))
+        return self._phase_gate((control, target), angle,
+                                [[0.0, 0.0], [-0.5, 0.5]])
 
     def swap(self, q1: int, q2: int) -> "Circuit":
         return self.gate(mats.swap(), (q1, q2))
@@ -300,16 +306,9 @@ class Circuit:
                        angle: Angle) -> "Circuit":
         """exp(-i angle/2 Z⊗…⊗Z): phase by mask parity
         (``QuEST_cpu.c:3075-3114``)."""
-        angle = self._register_angle(angle)
         qubits = tuple(qubits)
         parity = np.indices((2,) * len(qubits)).sum(axis=0) % 2
-        if isinstance(angle, Param):
-            return self.diagonal(
-                lambda p, a=angle: np.exp(
-                    -1j * _angle(p, a) / 2.0 * (1.0 - 2.0 * parity)), qubits)
-        half = float(angle) / 2.0
-        return self.diagonal(np.exp(-1j * half * (1.0 - 2.0 * parity)),
-                             qubits)
+        return self._phase_gate(qubits, angle, -0.5 * (1.0 - 2.0 * parity))
 
     # -- channels (trajectory programs) ------------------------------------
 
@@ -479,10 +478,12 @@ class Circuit:
                 if callable(op.kraus):
                     out.ops.append(_Op(
                         "u", t2, mat_fn=lambda p, f=op.kraus:
-                        dm.kraus_superoperator_traceable(f(p))))
+                        dm.kraus_superoperator_traceable(f(p)),
+                        channel=True))
                 else:
                     out.ops.append(_Op("u", t2,
-                                       mat=dm.kraus_superoperator(op.kraus)))
+                                       mat=dm.kraus_superoperator(op.kraus),
+                                       channel=True))
             elif op.kind == "u":
                 for lift, ts, cm, fm in dm.gate_passes(
                         op.targets, op.ctrl_mask, op.flip_mask, n,
@@ -568,20 +569,6 @@ class Circuit:
         kernel on the card; on the CPU their plain versions run."""
         from .ops.trajectories import TrajectoryProgram
         return TrajectoryProgram(self, env)
-
-
-def _bind_rows(fn: Callable, names: Sequence[str], pm: np.ndarray):
-    """Evaluate a ``params -> operator`` function for the rows of a ``(B,
-    P)`` host parameter matrix: one evaluation, shared by the batch, when
-    every row binds the same values, else one per row stacked into ``(B,
-    ...)`` (moved to the device once by the gate engine)."""
-    def bind(row):
-        return np.asarray(fn({nm: float(row[i])
-                              for i, nm in enumerate(names)}),
-                          dtype=np.complex128)
-    if pm.shape[0] == 1 or not (pm != pm[0]).any():
-        return bind(pm[0])
-    return np.stack([bind(row) for row in pm])
 
 
 def _peephole_fused(ops: Sequence[_Op], diag_row_cap: int = -1) -> list:
@@ -941,6 +928,12 @@ def _schedule(recorded: Sequence[_Op], num_qubits: int, fuse_flag: bool,
     return ops_table, plan_layout(ops_table, num_qubits)
 
 
+def _param_row(theta: torch.Tensor) -> np.ndarray:
+    """A ``(P,)`` parameter tensor as the ``(1, P)`` host float64 row of
+    the batched engine."""
+    return theta.detach().cpu().numpy().astype(np.float64).reshape(1, -1)
+
+
 class CompiledCircuit:
     """A planned :class:`Circuit`: layers and gates in program order,
     applied in place to ``(2, 2^N)`` planes on the env's device, at the
@@ -963,8 +956,10 @@ class CompiledCircuit:
                               "supergate_k": supergate_k, "fusion": fusion,
                               "mxu": mxu}
         # collected plans per (plane dtype, FAST flag): the compile-time
-        # tier's now, a per-dispatch tier's at its first dispatch
+        # tier's now, a per-dispatch tier's at its first dispatch; and the
+        # adjoint walks over them, at a tier's first gradient sweep
         self._plans: dict = {}
+        self._walks: dict = {}
         self.plan, self._ops, self.fusion_stats = self._plan_for(self.tier)
         self.tile_rows = lk.tile_rows_for(
             self._tier_dtypes(self.tier, env)[0])
@@ -973,11 +968,14 @@ class CompiledCircuit:
         """``(plan, ops, fusion_stats)`` of the layer plan a tier executes:
         built once per (plane dtype, FAST flag) — the tile height follows
         the plane dtype and the crossover the FAST flag — and kept."""
-        key = (self._tier_dtypes(tier, self.env)[0],
-               self._tier_exec_mode(tier)[1])
+        key = self._plan_key(tier)
         if key not in self._plans:
             self._plans[key] = self._build_plan(*key)
         return self._plans[key]
+
+    def _plan_key(self, tier) -> tuple:
+        return (self._tier_dtypes(tier, self.env)[0],
+                self._tier_exec_mode(tier)[1])
 
     def _build_plan(self, dtype: torch.dtype, fast: bool):
         """record -> FUSE -> schedule -> supergate -> collect layers, for
@@ -1105,12 +1103,12 @@ class CompiledCircuit:
             if op.kind == "layer":
                 lk.apply_layer(work, n, op, fast=fast)
             elif op.kind == "u":
-                u = op.mat_fn(params) if op.mat_fn is not None else op.mat
+                u = op.mat if op.mat_fn is None else np.asarray(
+                    op.mat_fn(params), dtype=np.complex128)
                 apply_unitary(work, n, u, phys_targets, cmask, fmask,
                               precision=prec)
             else:
-                d = op.diag_fn(params) if op.diag_fn is not None \
-                    else op.diag
+                d = op.diag if op.diag_fn is None else op.diag_fn(params)
                 apply_diagonal(work, n, phys_targets,
                                np.transpose(np.asarray(d), axis_order))
         if work is not planes:
@@ -1142,63 +1140,23 @@ class CompiledCircuit:
     # shot batches) run as a (B, 2, 2^n) batch through the same plan: a
     # layer is one launch of the batched layer kernel for all B states,
     # every other op one batched call of the gate engine, with a parameter
-    # gate's matrix bound on the host once per row and moved to the device
-    # once per op per call.
-
-    @staticmethod
-    def _batched_segments(plan, ops):
-        """The plan's items split into sequential segments and batched
-        layer steps: a list of ``("seq", items)`` / ``("layer",
-        op_index)`` entries."""
-        segs: list = []
-        cur: list = []
-        for item in plan.items:
-            if ops[item[1]].kind == "layer":
-                if cur:
-                    segs.append(("seq", tuple(cur)))
-                    cur = []
-                segs.append(("layer", item[1]))
-            else:
-                cur.append(item)
-        if cur:
-            segs.append(("seq", tuple(cur)))
-        return segs
+    # gate's matrix bound on the host for every row at once and moved to
+    # the device once per op per call (``ops/adjoint.py``). Gradient sweeps
+    # walk the same plan backwards (``ops/adjoint.AdjointWalk``).
 
     def _run_plan_batched(self, states: torch.Tensor, pm: np.ndarray,
                           tier=None) -> torch.Tensor:
         """Walk ``tier``'s plan over ``(B, 2, 2^n)`` states (already in the
         tier's plane dtype), IN PLACE, row ``b`` binding parameter row
         ``pm[b]``."""
-        n = self.num_qubits
-        names = self.param_names
         plan, ops, _ = self._plan_for(tier)
         prec, fast = self._tier_exec_mode(tier)
-        for kind, payload in self._batched_segments(plan, ops):
-            if kind == "layer":
-                lk.apply_layer_batched(states, n, ops[payload], fast=fast)
-                continue
-            for _, i, phys_targets, cmask, fmask, axis_order in payload:
-                op = ops[i]
-                if op.kind == "u":
-                    u = op.mat if op.mat_fn is None \
-                        else _bind_rows(op.mat_fn, names, pm)
-                    apply_unitary(states, n, u, phys_targets, cmask, fmask,
-                                  precision=prec)
-                    continue
-                d = np.asarray(op.diag) if op.diag_fn is None \
-                    else _bind_rows(op.diag_fn, names, pm)
-                lead = d.ndim - len(phys_targets)
-                d = np.transpose(d, tuple(range(lead)) + tuple(
-                    lead + a for a in axis_order))
-                apply_diagonal(states, n, phys_targets, d)
+        for item in plan.items:
+            op = ops[item[1]]
+            adj.apply_item(states, self.num_qubits, op, item,
+                           adj.item_operator(op, self.param_names, pm),
+                           prec, fast)
         return states
-
-    def _check_not_density(self, what: str) -> None:
-        if self.is_density:
-            raise NotImplementedError(
-                f"CompiledCircuit.{what} on a density-compiled program is not "
-                "ported yet: run each binding on a density register with "
-                "run(), or sweep the state-vector compile")
 
     def _validated_param_matrix(self, param_matrix) -> np.ndarray:
         """The ``(B, P)`` parameter matrix as host float64, validated."""
@@ -1210,13 +1168,32 @@ class CompiledCircuit:
                 f"got {pm.shape}")
         return pm
 
+    @property
+    def _register_qubits(self) -> int:
+        """Qubits of the register the program runs on: a density program's
+        n, not the 2n of its lifted vector."""
+        return self.num_qubits // 2 if self.is_density else self.num_qubits
+
     def _pauli_operands(self, hamiltonian):
-        """Validate ``(pauli_terms, coeffs)`` and encode it as the mask
-        operands of :func:`quest_tpu_torch.ops.reductions.
-        pauli_sum_operands`: ``(xm, ym, zm, coeffs)``."""
-        terms, coeffs = red.validated_pauli_terms(*hamiltonian,
-                                                  self.num_qubits)
-        return red.pauli_terms_operands(terms, coeffs, self.num_qubits)
+        """Validate ``(pauli_terms, coeffs)`` (qubits of the register) and
+        encode it as the mask operands of :func:`quest_tpu_torch.ops.
+        reductions.pauli_sum_operands`: ``(xm, ym, zm, coeffs)``."""
+        nq = self._register_qubits
+        terms, coeffs = red.validated_pauli_terms(*hamiltonian, nq)
+        return red.pauli_terms_operands(terms, coeffs, nq)
+
+    def _energies(self, states: torch.Tensor, operands,
+                  tier) -> torch.Tensor:
+        """The ``(B,)`` energies of a final batch, on the device:
+        ``<z|H|z>`` per state, ``Tr(H rho)`` per density register; through
+        the compensated reduction at a compensated tier (SINGLE)."""
+        xm, ym, zm, coeffs = operands
+        comp = tier is not None and tier.compensated
+        if self.is_density:
+            return red.pauli_sum_total_dm(states, self._register_qubits, xm,
+                                          ym, zm, coeffs, compensated=comp)
+        return red.pauli_sum_total_sv(states, xm, ym, zm, coeffs,
+                                      compensated=comp)
 
     def _start_states(self, batch: int, state_f,
                       dtype: torch.dtype) -> torch.Tensor:
@@ -1248,14 +1225,13 @@ class CompiledCircuit:
         """Run a whole batch of parameter vectors through the plan.
 
         ``param_matrix``: ``(B, len(param_names))``. ``state_f``: shared
-        ``(2, 2^n)`` planes every run starts from (default |0..0>), or an
-        OWNED ``(B, 2, 2^n)`` batch, which is updated IN PLACE (the port's
-        answer to donation) when it lies on the env's device in its dtype.
-        ``tier`` runs this dispatch at one precision-tier rung (a
-        ``PrecisionTier`` or name; default the compile-time tier, else the
-        env precision). Returns the ``(B, 2, 2^n)`` planes in the env's
-        dtype."""
-        self._check_not_density("sweep")
+        ``(2, 2^n)`` planes every run starts from (default |0..0>, for a
+        density program |0..0><0..0| as its flat vector), or an OWNED ``(B,
+        2, 2^n)`` batch, which is updated IN PLACE (the port's answer to
+        donation) when it lies on the env's device in its dtype. ``tier``
+        runs this dispatch at one precision-tier rung (a ``PrecisionTier``
+        or name; default the compile-time tier, else the env precision).
+        Returns the ``(B, 2, 2^n)`` planes in the env's dtype."""
         tier = self._effective_tier(tier)
         pm = self._validated_param_matrix(param_matrix)
         env_dt = self.env.precision.real_dtype
@@ -1272,13 +1248,13 @@ class CompiledCircuit:
         transfer. ``hamiltonian``: ``(pauli_terms, coeffs)``, terms as
         ``(qubit, code)`` pairs (codes 1=X 2=Y 3=Z). Each point runs the
         plan from |0..0> (or the shared ``state_f``) and the Pauli sum is
-        reduced on the device, term after term (``ops/reductions.py``).
-        ``tier`` as in :meth:`sweep`; a compensated tier (SINGLE) reduces
-        each term through the compensated pair path, FAST and DOUBLE
-        through the naive reduce their budgets cover."""
-        self._check_not_density("expectation_sweep")
+        reduced on the device, term after term (``ops/reductions.py``); on
+        a density program each value is ``Tr(H rho)``. ``tier`` as in
+        :meth:`sweep`; a compensated tier (SINGLE) reduces each term through
+        the compensated pair path, FAST and DOUBLE through the naive reduce
+        their budgets cover."""
         tier = self._effective_tier(tier)
-        xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
+        operands = self._pauli_operands(hamiltonian)
         pm = self._validated_param_matrix(param_matrix)
         if state_f is not None and tuple(torch.as_tensor(
                 state_f).shape) != (2, 1 << self.num_qubits):
@@ -1289,10 +1265,157 @@ class CompiledCircuit:
         rdt = self._tier_dtypes(tier, self.env)[0]
         states = self._run_plan_batched(
             self._start_states(pm.shape[0], state_f, rdt), pm, tier)
-        vals = red.pauli_sum_total_sv(
-            states, xm, ym, zm, coeffs,
-            compensated=tier is not None and tier.compensated)
+        vals = self._energies(states, operands, tier)
         return vals.cpu().numpy().astype(np.float64)
+
+    # -- gradient sweeps ------------------------------------------------------
+
+    # the bytes of states a gradient sweep may keep at the inputs of its
+    # non-unitary items (channels); None sizes it from the device's free
+    # memory (:meth:`_store_bytes`)
+    _adjoint_store_bytes: Optional[int] = None
+    # the host's share when the walk runs on the CPU
+    _CPU_STORE_BYTES = 4 << 30
+
+    def _grad_tier(self, tier):
+        """Tier resolution for gradient dispatches: the ladder applies
+        (FAST/SINGLE/DOUBLE change only the plane dtype and the layers'
+        dense products), but QUAD is rejected with the JAX package's error
+        before the port's own "not ported" one: its double-double walk is
+        not a differentiable path in either package."""
+        if tier is not None and tier_by_name(tier).name == "quad":
+            raise ValueError(
+                "gradient sweeps cannot run at the QUAD tier: the "
+                "double-double engine walk is not differentiable "
+                "(no transpose rules for the dd split/barrier steps); "
+                "use tier='double' for the highest differentiable "
+                "rung, or estimate quad gradients by parameter shift "
+                "over expectation_sweep(tier='quad')")
+        return self._effective_tier(tier)
+
+    def _adjoint_walk(self, tier) -> adj.AdjointWalk:
+        """The adjoint walk over ``tier``'s plan, built once per plan and
+        kept: its items classified and its layers' adjoints made once (and
+        packed at their first launch)."""
+        key = self._plan_key(tier)
+        if key not in self._walks:
+            plan, ops, _ = self._plan_for(tier)
+            prec, fast = self._tier_exec_mode(tier)
+            self._walks[key] = adj.AdjointWalk(
+                self.num_qubits, [(ops[it[1]], it) for it in plan.items],
+                self.param_names, prec, fast, self.is_density)
+        return self._walks[key]
+
+    def _store_bytes(self, batch: int, dtype: torch.dtype) -> int:
+        """What a gradient sweep of ``batch`` rows may keep of the states
+        entering its channels: on the card, its free memory less eight
+        batches (the walk's stacked pair and derivative batch, and the
+        gate engine's temporaries on the pair); on the CPU a fixed
+        share."""
+        if self._adjoint_store_bytes is not None:
+            return int(self._adjoint_store_bytes)
+        device = self.env.device
+        if device.type != "cuda":
+            return self._CPU_STORE_BYTES
+        free = torch.cuda.mem_get_info(device)[0] \
+            + torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
+        state = batch * 2 * (1 << self.num_qubits) * dtype.itemsize
+        return max(0, free - 8 * state)
+
+    def value_and_grad_sweep(self, param_matrix, hamiltonian, state_f=None,
+                             tier=None):
+        """``(B,)`` energies AND their ``(B, P)`` parameter gradients
+        from one forward and one reverse pass over the plan
+        (:class:`~quest_tpu_torch.ops.adjoint.AdjointWalk`), where a
+        parameter-shift client pays ``2P + 1`` energy sweeps.
+        ``hamiltonian``/``state_f`` as in :meth:`expectation_sweep` (a
+        shared ``state_f`` only); the values are its energies, from the same
+        reduction. On a density program the gradients are those of ``Tr(H
+        rho)`` THROUGH the channels, Param-bound rates included. ``tier`` as
+        in :meth:`sweep`, except QUAD (rejected, :meth:`_grad_tier`). Every
+        layer and its adjoint run through the batched layer kernel on the
+        card.
+
+        Returns ``(values, grads)``: float64 ``(B,)`` and ``(B, P)``
+        arrays."""
+        tier = self._grad_tier(tier)
+        if not self.param_names:
+            raise ValueError(
+                "this circuit declares no parameters; there is nothing "
+                "to differentiate (record angles via "
+                "Circuit.parameter / Param placeholders)")
+        operands = self._pauli_operands(hamiltonian)
+        pm = self._validated_param_matrix(param_matrix)
+        n = self.num_qubits
+        if state_f is None:
+            start = torch.zeros((2, 1 << n), dtype=torch.float64)
+            start[0, 0] = 1.0
+        else:
+            start = torch.as_tensor(state_f)
+            if tuple(start.shape) != (2, 1 << n):
+                raise ValueError(
+                    f"value_and_grad_sweep state_f must be shared "
+                    f"(2, {1 << n}) planes; got {tuple(start.shape)}")
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        start = start.to(device=self.env.device, dtype=rdt)
+        xm, ym, zm, coeffs = operands
+        if self.is_density:
+            # Tr(H rho) = Re <H_flat, rho_flat>: the cotangent is H itself,
+            # flattened as rho is (H applied to the identity's flat vector)
+            dim = 1 << self._register_qubits
+            eye = torch.zeros((1, 2, 1 << n), dtype=rdt,
+                              device=self.env.device)
+            eye[0, 0, ::dim + 1] = 1.0
+            h_flat = red.pauli_sum_apply(eye, xm, ym, zm, coeffs)
+            del eye
+
+            def cotangent(psi, lam):
+                lam.copy_(h_flat.expand_as(lam))
+        else:
+            def cotangent(psi, lam):
+                red.pauli_sum_apply(psi, xm, ym, zm, coeffs, out=lam)
+        values, grads = self._adjoint_walk(tier).run(
+            pm, start, lambda psi: self._energies(psi, operands, tier),
+            cotangent, self._store_bytes(pm.shape[0], rdt))
+        return (values.cpu().numpy().astype(np.float64),
+                grads.cpu().numpy())
+
+    def grad_sweep(self, param_matrix, hamiltonian, state_f=None,
+                   tier=None) -> np.ndarray:
+        """The ``(B, P)`` gradient block alone: :meth:`value_and_grad_sweep`
+        with the energies dropped (the walk computes them either way)."""
+        return self.value_and_grad_sweep(param_matrix, hamiltonian,
+                                         state_f=state_f, tier=tier)[1]
+
+    def expectation_fn(self, pauli_terms, coeffs) -> Callable:
+        """``theta -> <H>`` for ``H = sum_j coeffs[j] * prod Pauli``,
+        starting from |0..0> (on a density program ``Tr(H rho(theta))``,
+        noise channels included), at the compile-time tier: a function of a
+        float64 ``(P,)`` tensor returning a 0-dim one. It is a
+        ``torch.autograd.Function`` whose backward is the adjoint walk, so
+        ``.backward()`` gives the :meth:`value_and_grad_sweep` row."""
+        hamiltonian = (pauli_terms, coeffs)
+        self._pauli_operands(hamiltonian)
+        compiled = self
+
+        class _Energy(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, theta):
+                ctx.save_for_backward(theta)
+                value = compiled.expectation_sweep(
+                    _param_row(theta), hamiltonian)[0]
+                return torch.as_tensor(value, dtype=theta.dtype,
+                                       device=theta.device)
+
+            @staticmethod
+            def backward(ctx, grad_out):
+                theta, = ctx.saved_tensors
+                grad = compiled.grad_sweep(_param_row(theta), hamiltonian)
+                return grad_out * torch.as_tensor(
+                    grad[0], dtype=theta.dtype, device=theta.device)
+
+        return _Energy.apply
 
     def sample_sweep(self, param_matrix, num_shots: int,
                      generator: Optional[torch.Generator] = None,
@@ -1302,7 +1425,12 @@ class CompiledCircuit:
         point from ``|amp|^2``
         (:func:`quest_tpu_torch.parallel.sampling.sample_batched`, uniforms
         from ``generator``, default the env's). Returns ``(indices,
-        totals)``: int64 ``(B, num_shots)`` and the ``(B,)`` norms."""
+        totals)``: int64 ``(B, num_shots)`` and the ``(B,)`` norms.
+        Statevector-compiled circuits only."""
+        if self.is_density:
+            raise ValueError(
+                "sample_sweep draws from |amp|^2 of statevector "
+                "programs; sample density registers via sampleOutcomes")
         from .parallel.sampling import sample_batched
         planes = self.sweep(param_matrix, tier=tier)
         return sample_batched(planes, generator or self.env.generator,

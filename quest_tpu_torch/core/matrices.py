@@ -13,12 +13,16 @@ Conventions match the reference exactly:
   (ComplexMatrixN convention, gather order of ``QuEST_cpu.c:1820-1901``).
 
 Everything here is tiny and host-side; matrices are built in float64/complex128
-numpy and cast to the register dtype at application time.
+numpy and cast to the register dtype at application time. The ``*_traceable``
+builders are the parametrised gates' one definition: torch float64 in,
+complex128 torch out, so ``torch.func`` binds them over a batch of parameter
+rows and differentiates them (``ops/adjoint.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "PAULI_MATS",
@@ -31,6 +35,8 @@ __all__ = [
     "compact_unitary",
     "rotation_pair",
     "rotation",
+    "rotation_traceable",
+    "phase_factors_traceable",
     "swap",
     "sqrt_swap",
     "matrix2",
@@ -100,6 +106,23 @@ def rotation(angle: float, axis, conj: bool = False) -> np.ndarray:
     if conj:
         alpha, beta = np.conj(alpha), np.conj(beta)
     return compact_unitary(alpha, beta)
+
+
+def rotation_traceable(angle, axis) -> torch.Tensor:
+    """:func:`rotation` of an angle given as a float or a (batched) 0-dim
+    float64 tensor: the same (alpha, beta) map, as a complex128 tensor."""
+    n = unit_vector(axis)
+    half = torch.as_tensor(angle, dtype=torch.float64) / 2.0
+    c, s = torch.cos(half), torch.sin(half)
+    alpha = torch.complex(c, -s * n[2])
+    beta = torch.complex(s * n[1], -s * n[0])
+    return torch.stack([torch.stack([alpha, -beta.conj()]),
+                        torch.stack([beta, alpha.conj()])])
+
+
+def phase_factors_traceable(angles) -> torch.Tensor:
+    """``exp(i angles)`` of a float64 tensor (or a float), complex128."""
+    return torch.exp(1j * torch.as_tensor(angles, dtype=torch.float64))
 
 
 def swap() -> np.ndarray:

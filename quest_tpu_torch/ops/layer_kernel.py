@@ -101,7 +101,8 @@ LANE_K = {4: 32, 8: 16}
 # stages x 8 x 128 complex float64
 DIAG_TABLE_CAP = 112 * 1024
 
-__all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "embed_lane_matrix",
+__all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "adjoint_layer",
+           "embed_lane_matrix",
            "lane_diag_matrix", "lane_diag_vector", "max_mid_qubit",
            "tile_rows_for", "mxu_group_matrix", "mxu_expand",
            "layer_kernel_plan", "shared_memory_bytes", "fast_scratch_bytes",
@@ -268,6 +269,29 @@ class LayerOp:
                 else:
                     support |= {b + LANE_QUBITS for b in st[2]}
         self.targets = tuple(sorted(support))
+
+
+def adjoint_layer(layer: LayerOp) -> LayerOp:
+    """The layer's adjoint: its stages in reverse order, each stage's
+    operator conjugate-transposed (a ``rowdiag`` table conjugated), every
+    mask and row bit as it was. A unitary layer's adjoint undoes it. It is
+    a layer like any other: packed once for its device (FAST slabs too)
+    and launched by :func:`apply_layer` / :func:`apply_layer_batched`,
+    whose plain versions take it on the CPU."""
+    def dagger(m):
+        return np.ascontiguousarray(np.conj(np.asarray(m)).T)
+
+    stages = []
+    for st in reversed(layer.stages):
+        tag = st[0]
+        if tag in ("lane", "clane"):
+            stages.append((tag, dagger(st[1])) + tuple(st[2:]))
+        elif tag in ("row", "rowk", "rowmxu"):
+            stages.append((tag, st[1], dagger(st[2])) + tuple(st[3:]))
+        else:
+            stages.append(("rowdiag", np.conj(np.asarray(st[1])), st[2]))
+    return LayerOp(layer.num_qubits, layer.members, stages,
+                   support=set(layer.targets))
 
 
 def layer_kernel_plan(layer: LayerOp, num_qubits: int, tile_rows: int):

@@ -24,7 +24,8 @@ accuracy, not bit for bit.
 
 The Pauli-sum reductions (``calcExpecPauliSum`` on state vectors and
 density registers, the batched engine's ``expectation_sweep``, the
-trajectory waves) and the running (count, mean,
+trajectory waves), the Pauli-sum application (``applyPauliSum``, the
+adjoint walk's cotangent ``H psi``) and the running (count, mean,
 M2) statistics of the trajectory convergence loop follow the JAX package's
 ``ops/reductions.py`` below.
 """
@@ -39,7 +40,7 @@ __all__ = ["sum_compensated", "sum_pair", "dot_pair", "dot_pair_rows",
            "vdot_compensated", "pauli_masks", "pauli_term_bucket",
            "pauli_sum_operands", "validated_pauli_terms",
            "pauli_terms_operands", "pauli_sum_expvals_sv",
-           "pauli_sum_total_sv", "pauli_sum_expvals_dm",
+           "pauli_sum_total_sv", "pauli_sum_apply", "pauli_sum_expvals_dm",
            "pauli_sum_total_dm", "welford_wave", "welford_merge",
            "welford_stderr"]
 
@@ -309,17 +310,47 @@ def pauli_sum_total_sv(states: torch.Tensor, xmask, ymask, zmask,
     return (vals * cf).sum(-1)
 
 
+def pauli_sum_apply(states: torch.Tensor, xmask, ymask, zmask, coeffs,
+                    out: torch.Tensor = None) -> torch.Tensor:
+    """``sum_t coeffs[t] P_t |z_b>`` for each state of a ``(B, 2, N)``
+    batch, with the masks of :func:`pauli_sum_operands` (``P_t`` acts on
+    the bits its masks name: on a density register's flat vector, the
+    ket half, so this is ``H rho``). The same xor-gather, sign and
+    ``i^|y|`` as :func:`pauli_sum_expvals_sv`, one gather per term;
+    zero-coefficient terms (the bucket's padding) are skipped. Written into
+    ``out`` (a fresh batch by default), which is returned."""
+    num_amps = states.shape[-1]
+    idx = torch.arange(num_amps, device=states.device)
+    out = torch.zeros_like(states) if out is None else out.zero_()
+    for xm, ym, zm, c in zip(xmask, ymask, zmask, coeffs):
+        if float(c) == 0.0:
+            continue
+        xy, yz = int(xm) | int(ym), int(ym) | int(zm)
+        j = idx ^ xy
+        sign = (1 - 2 * _parity(j & yz)).to(states.dtype) * float(c)
+        zj = states.index_select(-1, j) if xy else states
+        # i^|y| (re + i im): the plane each output plane takes, and its sign
+        (src_re, s_re), (src_im, s_im) = (
+            ((0, 1.0), (1, 1.0)), ((1, -1.0), (0, 1.0)),
+            ((0, -1.0), (1, -1.0)), ((1, 1.0), (0, -1.0)),
+        )[bin(int(ym)).count("1") % 4]
+        out[:, 0].addcmul_(zj[:, src_re], sign, value=s_re)
+        out[:, 1].addcmul_(zj[:, src_im], sign, value=s_im)
+    return out
+
+
 def pauli_sum_expvals_dm(planes: torch.Tensor, num_qubits: int, xmask,
                          ymask, zmask,
                          compensated: bool = False) -> torch.Tensor:
     """Per-term ``Tr(P_t rho)`` for a density register's flat ``(2,
-    4^n)`` planes (``flat[r + c*2^n]``, columns on the high bits) and host
-    mask arrays of shape ``(T,)``: a real ``(T,)`` tensor on the planes'
-    device. Each term reads only the ``2^n`` entries ``rho[r^m, r]`` (a
+    4^n)`` planes (``flat[r + c*2^n]``, columns on the high bits), or for a
+    ``(B, 2, 4^n)`` batch of them, and host mask arrays of shape ``(T,)``:
+    a real ``(T,)`` (or ``(B, T)``) tensor on the planes' device. Each term
+    reads only the ``2^n`` entries ``rho[r^m, r]`` of each register (a
     diagonal-sized gather, not a pass over the flat vector).
-    ``compensated=True`` sums them through the TwoSum cascade
-    (:func:`sum_pair`; the entries are used unmultiplied, so no split
-    products are needed)."""
+    ``compensated=True`` sums them through the TwoSum cascade (the entries
+    are used unmultiplied, so no split products are needed)."""
+    batch = planes.unsqueeze(0) if planes.dim() == 2 else planes
     dim = 1 << num_qubits
     rows = torch.arange(dim, device=planes.device)
     out = []
@@ -328,26 +359,29 @@ def pauli_sum_expvals_dm(planes: torch.Tensor, num_qubits: int, xmask,
         j = rows ^ xy                  # r ^ m: the paired row index
         sign = (1 - 2 * _parity(j & yz)).to(planes.dtype)
         # flat index of mat[c = r, r' = r ^ m] = rho[r ^ m, r]
-        picked = planes.index_select(-1, rows * dim + j) * sign
+        picked = batch.index_select(-1, rows * dim + j) * sign
         if compensated:
-            acc_re, acc_im = (sum_compensated(p) for p in picked)
+            acc_re, acc_im = (s + e for s, e in (
+                _sum_pair_rows(picked[:, p]) for p in (0, 1)))
         else:
-            acc_re, acc_im = picked.sum(-1)
+            acc_re, acc_im = picked.sum(-1).unbind(-1)
         ph = bin(int(ym)).count("1") % 4
         # i^|y| times the trace: its real part
         out.append((acc_re, -acc_im, -acc_re, acc_im)[ph])
-    return torch.stack(out)
+    vals = torch.stack(out, dim=-1)
+    return vals[0] if planes.dim() == 2 else vals
 
 
 def pauli_sum_total_dm(planes: torch.Tensor, num_qubits: int, xmask, ymask,
                        zmask, coeffs,
                        compensated: bool = False) -> torch.Tensor:
-    """``sum_t coeffs[t] * Tr(P_t rho)``: a 0-dim tensor, on the device."""
+    """``sum_t coeffs[t] * Tr(P_t rho)``: a 0-dim tensor for one register's
+    ``(2, 4^n)`` planes, a ``(B,)`` one for a batch, on the device."""
     vals = pauli_sum_expvals_dm(planes, num_qubits, xmask, ymask, zmask,
                                 compensated)
     cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
                          dtype=vals.dtype, device=vals.device)
-    return (vals * cf).sum()
+    return (vals * cf).sum(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from ..core.apply import apply_diagonal, apply_unitary
 from . import kraus_kernel as kk
 from . import layer_kernel as lk
 from . import reductions as red
+from .adjoint import bind_rows
 
 __all__ = ["TrajectoryProgram", "DensityMaterialisationError",
            "plan_waves", "DENSITY_DEBUG_QUBITS_ENV"]
@@ -216,12 +217,12 @@ class TrajectoryProgram:
         """The channel's Kraus stack and effect stack as complex device
         tensors: ``(K, d, d)``, or ``(T, K, d, d)`` when a parameterized
         channel binds differently per row."""
-        from ..circuits import _bind_rows
         if kind == "kraus":
             stack, estack = data[0], data[1]
         else:
-            stack = _bind_rows(lambda p: _kraus_stack(data(p)),
-                               self.param_names, pm)
+            stack = bind_rows(lambda p: torch.stack(
+                [torch.as_tensor(m, dtype=torch.complex128)
+                 for m in data(p)]), self.param_names, pm)
             estack = _effect_stack(stack)
         cdtype = self.env.precision.complex_dtype
         return (torch.as_tensor(stack, dtype=cdtype, device=self.env.device),
@@ -233,7 +234,6 @@ class TrajectoryProgram:
         """Advance the ``(T, 2, 2^n)`` batch through the program IN PLACE.
         ``uniforms``: ``(T, num_channels)`` in the plane dtype on the
         device; ``pm``: the ``(T, P)`` host parameter rows."""
-        from ..circuits import _bind_rows
         n = self.num_qubits
         names = self.param_names
         for item in self._items:
@@ -259,11 +259,11 @@ class TrajectoryProgram:
                     sel.dtype), targets)
             elif kind in ("u", "u_fn"):
                 _, targets, data, (cmask, fmask) = item
-                u = data if kind == "u" else _bind_rows(data, names, pm)
+                u = data if kind == "u" else bind_rows(data, names, pm)
                 apply_unitary(states, n, u, targets, cmask, fmask)
             else:
                 _, targets, data, _ = item
-                d = data if kind == "diag" else _bind_rows(data, names, pm)
+                d = data if kind == "diag" else bind_rows(data, names, pm)
                 apply_diagonal(states, n, targets, d)
         return states
 

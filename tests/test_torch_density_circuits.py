@@ -193,15 +193,20 @@ def test_register_type_mismatch_rejected(env):
 
 
 def test_density_sweeps_wait_for_a_later_slice(env):
+    """Density sweeps came in a later slice: sweep and expectation_sweep
+    run on the flat density vector (tests/test_torch_density_sweeps.py
+    holds them against the JAX engine); sample_sweep stays for state
+    vectors, as in the JAX package."""
     c = Circuit(2)
     th = c.parameter("th")
     c.ry(0, th).dephase(1, 0.1)
     dc = c.compile(env, density=True)
-    for call in (lambda: dc.sweep([[0.1]]),
-                 lambda: dc.expectation_sweep([[0.1]], ([[(0, 3)]], [1.0])),
-                 lambda: dc.sample_sweep([[0.1]], 4)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    rho = dc.sweep([[0.1], [0.7]])
+    assert tuple(rho.shape) == (2, 2, 16)
+    e = dc.expectation_sweep([[0.1], [0.7]], ([[(0, 3)]], [1.0]))
+    assert np.abs(e - np.cos([0.1, 0.7])).max() <= TOL
+    with pytest.raises(ValueError, match="statevector"):
+        dc.sample_sweep([[0.1]], 4)
 
 
 def test_prob_caps_match_api():

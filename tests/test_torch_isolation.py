@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 asks for a CUDA card unless told to use the CPU, and never runs a kernel's
 plain version (the layer kernel's at either precision, the batched layer
-kernel's, the MXU-tile kernel's, the fused Kraus kernel's) on a CUDA tensor,
-a density register's included.
+kernel's, the adjoint layers of a gradient sweep, the MXU-tile kernel's, the
+fused Kraus kernel's) on a CUDA tensor, a density register's included.
 """
 
 import os
@@ -26,6 +26,7 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.ops.kraus_kernel, quest_tpu_torch.ops.cuda_build, "
             "quest_tpu_torch.parallel.sampling, quest_tpu_torch.profiling, "
             "quest_tpu_torch.ops.densmatr, quest_tpu_torch.testing.golden, "
+            "quest_tpu_torch.ops.adjoint, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
@@ -223,3 +224,32 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_cuda_adjoint_layers_never_reach_the_plain_version(monkeypatch):
+    """A gradient sweep on a CUDA batch launches every layer and its
+    adjoint through the kernel or raises: here the walk's first layer
+    launch, and an adjoint layer's, raise for want of a toolkit, and no
+    plain version runs."""
+    from quest_tpu_torch.ops import adjoint as adj
+    n = 8
+    layer = lk.LayerOp(n, 1, [("lane", np.eye(128))])
+    walk = adj.AdjointWalk(n, [(layer, ("op", 0, (), 0, 0, None))], ("a",),
+                           None, False, False)
+    assert id(layer) in walk.adjoints
+    monkeypatch.setattr(lk, "apply_layer_batched_plain", _forbidden)
+    monkeypatch.setattr(lk, "apply_layer_plain", _forbidden)
+    monkeypatch.setattr(lk, "_device_operands",
+                        lambda *args: (torch.zeros(1, lk.DESC_WIDTH,
+                                                   dtype=torch.int64),
+                                       torch.zeros(1), 2, 2))
+    monkeypatch.setattr(lk, "build_library", _no_toolkit)
+    start = torch.zeros(2, 1 << n).as_subclass(_FakeCudaPlanes)
+    before = lk.apply_layer_batched.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        walk.run(np.zeros((2, 1)), start, lambda psi: None,
+                 lambda psi, lam: None, 0)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lk.apply_layer_batched(torch.zeros(4, 2, 1 << n).as_subclass(
+            _FakeCudaPlanes), n, walk.adjoints[id(layer)])
+    assert lk.apply_layer_batched.launches == before
