@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 3d,3e,10 # the build, then just these
     python3 chip_smoke.py --only 12       # the density phase
     python3 chip_smoke.py --only 13,12d   # gradients, density sweeps
+    python3 chip_smoke.py --only 14       # the main-path remainder
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -131,7 +132,23 @@ Phases (any unmet check exits non-zero and prints no result line):
     ``expectation_sweep``'s, peak memory, ``tier="fast"`` gradients
     within 4 e sum|c_t| of SINGLE's (e the tier model's error), and the
     adjoint layers' ms over the 2B stack beside bound, plain version and
-    one ``torch.matmul``.
+    one ``torch.matmul``;
+14. the main-path remainder at 30 qubits, complex64, through the public
+    surface with ``createQuESTEnv(num_devices=1)``: the brickwork compiled
+    and ``precompile()``-d (every layer packed before any run; the first
+    run launches the layer kernel 4 times and builds and packs nothing;
+    first and second run timed); ``sampleOutcomes`` of 10^6 shots on
+    qubits 0-3 (every bin within 5 stderr of the planes' float64
+    marginals, the planes bit-equal after, and the mass a float32 running
+    sum would misplace); the brickwork's gates inside ``fusedGates(q, 3)``
+    against the compiled state (||dpsi||_2 <= 1e-4), its gates in and
+    kernels out, beside the same gates eagerly; ``setWeightedQureg`` into
+    a third register against torch ops (<= 1e-6 of max|amp|);
+    ``circ.inverse()`` back to |0..0> (<= 1e-4), each of its layers
+    against its plain version on its own input (<= 1e-5); the brickwork
+    extended by its inverse as one program (178 gates in, its
+    ``dispatch_stats``, a ``program_digest`` stable across compiles) back
+    to |0..0>. At most three 8 GiB registers at once.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -2264,6 +2281,262 @@ def phase_density_grad(torch, qt, lk, kk, card):
             "energy_points_per_s": batch / energy_s, "peak_bytes": peak}
 
 
+REMAINDER_SHOTS = 1_000_000
+REMAINDER_QUBITS = (0, 1, 2, 3)
+
+
+def distance_to_zero_state(torch, planes) -> float:
+    """||psi - |0..0>||_2, reduced in float64 on the card."""
+    sq = float(torch.linalg.vector_norm(planes, dtype=torch.float64)) ** 2
+    return max(0.0, sq - 2.0 * float(planes[0, 0]) + 1.0) ** 0.5
+
+
+def low_qubit_marginals(torch, planes, k: int):
+    """P(low k qubits = b) from the planes, reduced in float64 on the card
+    in chunks."""
+    acc = torch.zeros(1 << k, dtype=torch.float64, device=planes.device)
+    chunk = 1 << 26
+    for lo in range(0, planes.shape[1], chunk):
+        re = planes[0, lo:lo + chunk].double()
+        im = planes[1, lo:lo + chunk].double()
+        acc += (re * re + im * im).view(-1, 1 << k).sum(0)
+    return acc.cpu().numpy()
+
+
+def float32_cdf_drift(torch, planes) -> float:
+    """The largest gap between a float32 and a float64 running sum of the
+    state's probabilities, over the total: the mass a float32 sampler's
+    CDF would misplace (the port's sampler sums in float64)."""
+    probs = planes[0] * planes[0] + planes[1] * planes[1]
+    c32 = torch.cumsum(probs, 0)
+    c64 = torch.cumsum(probs, 0, dtype=torch.float64)
+    del probs
+    gap = 0.0
+    chunk = 1 << 26
+    for lo in range(0, c32.shape[0], chunk):
+        gap = max(gap, float((c32[lo:lo + chunk].double()
+                              - c64[lo:lo + chunk]).abs().max()))
+    total = float(c64[-1])
+    del c32, c64
+    torch.cuda.empty_cache()
+    return gap / total
+
+
+def phase_remainder(torch, qt, lk, kk, card):
+    """Phase 14: the main-path remainder at 30 qubits, complex64, through
+    the public surface: precompile, sampleOutcomes, imperative gate
+    fusion, setWeightedQureg, inverse, extend, dispatch_stats,
+    program_digest. At most three 8 GiB registers at once."""
+    from quest_tpu_torch.ops import cuda_build
+    n = MAIN_QUBITS
+    print(f"phase 14: the main-path remainder, {n} qubits, complex64, on "
+          f"{card}")
+    env = qt.createQuESTEnv(num_devices=1)
+    check(env.device.type == "cuda" and env.num_devices == 1,
+          f"createQuESTEnv(num_devices=1) on {env.device}")
+    print(f"  {qt.getEnvironmentString(env)}")
+    gates = brickwork(n, MAIN_LAYERS)
+    circ = as_circuit(qt, n, gates)
+    out = {}
+
+    # 14a: build and setup ahead of the run, then the first two runs
+    t0 = time.perf_counter()
+    cc = circ.compile(env)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cc.precompile()
+    torch.cuda.synchronize()
+    precompile_s = time.perf_counter() - t0
+    layer_ops = [op for op in cc._ops if op.kind == "layer"]
+    check(len(layer_ops) == 4 and all(
+        lk.is_packed(op, n, torch.float32, env.device) for op in layer_ops),
+          f"precompile ({precompile_s:.2f} s after a {compile_s:.2f} s "
+          f"compile) packed all {len(layer_ops)} layers before any run")
+    q1 = qt.createQureg(n, env)
+    builds = cuda_build.build_all.cache_info().misses
+    packs = lk._operands.packs
+    reset_counts(lk, kk)
+    run_s = []
+    for _ in range(2):
+        qt.initZeroState(q1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc.run(q1)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        if len(run_s) == 1:
+            launches, batched, kraus = counts(lk, kk)
+            built = cuda_build.build_all.cache_info().misses - builds
+            packed = lk._operands.packs - packs
+    check(launches == 4 and batched == kraus == 0 and built == packed == 0,
+          f"first run: layer kernel launched {launches} times, built "
+          f"{built} libraries, packed {packed} layers")
+    # the first run of a second program, precompiled and not, in the now
+    # warm process: what is left of a first run after precompile() is
+    # the process's own first-use cost (module loading, cuBLAS, the
+    # caching allocator's first blocks), not the program's setup
+    for label, program in (("precompiled", circ.compile(env).precompile()),
+                           ("not precompiled", circ.compile(env))):
+        qt.initZeroState(q1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.run(q1)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        del program
+    print(f"  first run {run_s[0] * 1e3:.1f} ms, second run "
+          f"{run_s[1] * 1e3:.1f} ms ({len(gates)} gates); a second "
+          f"program's first run {run_s[2] * 1e3:.1f} ms precompiled, "
+          f"{run_s[3] * 1e3:.1f} ms not")
+    out.update(launches_remainder_first_run=launches,
+               first_run_ms=run_s[0] * 1e3, second_run_ms=run_s[1] * 1e3,
+               warm_first_run_ms=run_s[2] * 1e3,
+               warm_first_run_unprecompiled_ms=run_s[3] * 1e3,
+               precompile_s=precompile_s)
+
+    # 14b: sampleOutcomes on the brickwork state
+    drift = float32_cdf_drift(torch, q1.state)
+    marg = low_qubit_marginals(torch, q1.state, len(REMAINDER_QUBITS))
+    probs = marg / marg.sum()
+    before = q1.state.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shots = qt.sampleOutcomes(q1, REMAINDER_SHOTS,
+                              qubits=list(REMAINDER_QUBITS))
+    sample_s = time.perf_counter() - t0
+    same = bool(torch.equal(before.view(torch.int32),
+                            q1.state.view(torch.int32)))
+    del before
+    torch.cuda.empty_cache()
+    freq = np.bincount(shots, minlength=probs.size) / REMAINDER_SHOTS
+    stderr = np.sqrt(probs * (1.0 - probs) / REMAINDER_SHOTS)
+    z = np.abs(freq - probs) / stderr
+    check(same and z.max() <= 5.0,
+          f"sampleOutcomes: {REMAINDER_SHOTS} shots of qubits "
+          f"{list(REMAINDER_QUBITS)} in {sample_s * 1e3:.1f} ms, every "
+          f"bin within {z.max():.2f} <= 5 stderr, planes bit-equal after")
+    print(f"  a float32 running sum of the 2^{n} probabilities would "
+          f"misplace up to {drift:.3e} of the mass (a bin's 5-stderr bar: "
+          f"{5 * stderr.min():.3e}); the sampler sums in float64")
+    out.update(sample_ms=sample_s * 1e3, sample_max_stderrs=float(z.max()),
+               float32_cdf_drift=drift)
+
+    # 14c: the brickwork's gates through imperative gate fusion
+    q2 = qt.createQureg(n, env)
+    reset_counts(lk, kk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with qt.fusedGates(q2, 3):
+        buf = q2._fusion_buffer
+        run_per_gate(qt, q2, gates)
+        q2.flush_gates()
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    dist = float(torch.linalg.vector_norm(q1.state - q2.state))
+    check(dist <= 1e-4 and sum(counts(lk, kk)) == 0,
+          f"fusedGates(q, 3) vs the compiled run: ||dpsi||_2 = {dist:.3e}")
+    q2e = qt.createQureg(n, env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_per_gate(qt, q2e, gates)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    qt.destroyQureg(q2e, env)
+    del q2e
+    torch.cuda.empty_cache()
+    print(f"  fused: {buf.gates_in} gates in, {buf.kernels_out} kernels "
+          f"out, {fused_s * 1e3:.1f} ms; the same gates eagerly "
+          f"{eager_s * 1e3:.1f} ms")
+    out.update(fused_gates_in=buf.gates_in,
+               fused_kernels_out=buf.kernels_out, fused_ms=fused_s * 1e3,
+               eager_ms=eager_s * 1e3)
+
+    # 14d: setWeightedQureg into a third register (|+..+>, known exactly)
+    q3 = qt.createQureg(n, env)
+    qt.initPlusState(q3)
+    f1, f2, fo = 0.6 - 0.2j, -0.3j, 0.25 + 0.5j
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qt.setWeightedQureg(f1, q1, f2, q2, fo, q3)
+    torch.cuda.synchronize()
+    weighted_s = time.perf_counter() - t0
+    plus = 2.0 ** (-n / 2)
+    err, top = 0.0, 0.0
+    chunk = 1 << 26
+    for lo in range(0, 1 << n, chunk):
+        sl = slice(lo, lo + chunk)
+        z1 = torch.complex(q1.state[0, sl], q1.state[1, sl])
+        z2 = torch.complex(q2.state[0, sl], q2.state[1, sl])
+        want = f1 * z1 + f2 * z2 + fo * plus
+        got = torch.complex(q3.state[0, sl], q3.state[1, sl])
+        err = max(err, float((got - want).abs().max()))
+        top = max(top, float(want.abs().max()))
+    check(err <= 1e-6 * top,
+          f"setWeightedQureg at {n} qubits in {weighted_s * 1e3:.1f} ms vs "
+          f"torch ops: max|diff| {err:.3e} <= 1e-6 of max|amp| {top:.3e}")
+    out.update(set_weighted_ms=weighted_s * 1e3)
+    for q in (q2, q3):
+        qt.destroyQureg(q, env)
+    del q2, q3, buf
+    torch.cuda.empty_cache()
+
+    # 14e: the inverse, each layer held against its plain version on its
+    # own input (the hook stands in for the wrapper and holds its counts)
+    inv = circ.inverse().compile(env)
+    rels = []
+    launch = lk.apply_layer
+
+    def held(planes, num_qubits, layer, fast=False):
+        plain = lk.apply_layer_plain(planes.clone(), num_qubits, layer,
+                                     fast)
+        launch(planes, num_qubits, layer, fast=fast)
+        torch.cuda.synchronize()
+        rels.append(rel_err(planes, plain)[1])
+        del plain
+
+    held.launches = held.fast_launches = held.diag_launches = 0
+    lk.apply_layer = held
+    try:
+        inv.run(q1)
+    finally:
+        lk.apply_layer = launch
+    torch.cuda.empty_cache()
+    dist = distance_to_zero_state(torch, q1.state)
+    check(held.launches == inv.num_layers == len(rels) > 0
+          and max(rels) <= 1e-5 and dist <= 1e-4,
+          f"circ.inverse() after the brickwork: ||psi - |0..0>||_2 = "
+          f"{dist:.3e}; its {len(rels)} layers vs plain on their own "
+          f"input max|diff| / max|plain| {max(rels):.3e} <= 1e-5")
+    out.update(launches_remainder_inverse=held.launches)
+
+    # 14f: extend: the brickwork and its inverse as one program
+    both = qt.Circuit(n).extend(circ).extend(circ.inverse())
+    ext = both.compile(env)
+    stats = ext.dispatch_stats().as_dict()
+    print(f"  extended program dispatch_stats: {json.dumps(stats)}")
+    digest = ext.program_digest
+    again = qt.Circuit(n).extend(circ).extend(circ.inverse()).compile(env)
+    check(stats["gates_in"] == 2 * len(gates) == 178
+          and again.program_digest == digest,
+          f"extend: gates_in {stats['gates_in']}, program_digest "
+          f"{digest} stable across two compiles")
+    qt.initZeroState(q1)
+    reset_counts(lk, kk)
+    ext.run(q1)
+    torch.cuda.synchronize()
+    ext_launches = counts(lk, kk)[0]
+    dist = distance_to_zero_state(torch, q1.state)
+    check(ext_launches == ext.num_layers and dist <= 1e-4,
+          f"the extended program ({ext_launches} layer launches) returns "
+          f"|0..0>: ||dpsi||_2 = {dist:.3e}")
+    out.update(launches_remainder_extend=ext_launches,
+               extend_kernels_out=stats["kernels_out"])
+    qt.destroyQureg(q1, env)
+    del q1
+    torch.cuda.empty_cache()
+    return out
+
+
 def density_keys(density):
     """The density QFT's layer-kernel numbers, as keys of the
     ``layer_kernel`` row."""
@@ -2420,7 +2693,7 @@ def profile_device(torch, fn, what: str, top: int = 8):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "12d", "13")
+          "11", "12", "12d", "13", "14")
 
 
 def parse_only(argv):
@@ -2498,10 +2771,15 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         density_grad = phase_density_grad(torch, qt, lk, kk, card) \
             if runs("12d") else None
+        torch.cuda.empty_cache()
+        remainder = phase_remainder(torch, qt, lk, kk, card) \
+            if runs("14") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
             row = dict(row, **density_keys(density))
+        if row is not None and remainder is not None:
+            row = dict(row, remainder=remainder)
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
@@ -2512,6 +2790,9 @@ def main(argv) -> int:
             if row is None and density is not None:
                 rows.append(dict(name="layer_kernel", path="density",
                                  **density_keys(density)))
+            if row is None and remainder is not None:
+                rows.append(dict(name="layer_kernel", path="remainder",
+                                 remainder=remainder))
             if grad is not None or density_grad is not None:
                 rows.append(dict(name="layer_kernel_batched",
                                  path="gradient",

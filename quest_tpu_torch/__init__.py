@@ -13,7 +13,7 @@ nothing here imports it or JAX.
 ```python
 import quest_tpu_torch as qt
 
-env = qt.createQuESTEnv()            # cuda:0, SINGLE; raises without CUDA
+env = qt.createQuESTEnv(num_devices=1)  # cuda:0, SINGLE; no CUDA raises
 q = qt.createQureg(30, env)
 qt.hadamard(q, 0)
 qt.controlledNot(q, 0, 1)

@@ -39,20 +39,26 @@ from .ops import densmatr as dm
 from .ops import initstates as ist
 from .ops import reductions as red
 from .ops import statevec as sv
+from .parallel.pergate import GateFusionBuffer
+from .parallel.sampling import sample_outcomes
 from .qureg import Qureg
 from .types import PauliOpType
 
 __all__ = [
     # env
-    "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "reportQuESTEnv",
-    "seedQuEST", "seedQuESTDefault",
+    "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "syncQuESTSuccess",
+    "reportQuESTEnv", "getEnvironmentString", "seedQuEST", "seedQuESTDefault",
+    # imperative gate fusion
+    "startGateFusion", "stopGateFusion", "fusedGates",
     # registers
     "createQureg", "createDensityQureg", "createCloneQureg", "destroyQureg",
     "createComplexMatrixN", "destroyComplexMatrixN", "initComplexMatrixN",
+    "copyStateToGPU", "copyStateFromGPU",
     # init
     "initBlankState", "initZeroState", "initPlusState", "initClassicalState",
     "initPureState", "initDebugState", "initStateFromAmps", "setAmps",
-    "setDensityAmps", "cloneQureg", "initStateOfSingleQubit",
+    "setDensityAmps", "cloneQureg", "setWeightedQureg",
+    "initStateOfSingleQubit",
     # 1q gates
     "phaseShift", "sGate", "tGate", "pauliX", "pauliY", "pauliZ", "hadamard",
     "compactUnitary", "unitary", "rotateX", "rotateY", "rotateZ",
@@ -69,6 +75,7 @@ __all__ = [
     "controlledMultiQubitUnitary", "multiControlledMultiQubitUnitary",
     # measurement
     "calcProbOfOutcome", "collapseToOutcome", "measure", "measureWithStats",
+    "sampleOutcomes",
     # calculations
     "getNumQubits", "getNumAmps", "getAmp", "getRealAmp", "getImagAmp",
     "getProbAmp", "getDensityAmp", "calcTotalProb", "calcInnerProduct",
@@ -82,6 +89,9 @@ __all__ = [
     # QASM
     "startRecordingQASM", "stopRecordingQASM", "clearRecordedQASM",
     "printRecordedQASM", "writeRecordedQASMToFile",
+    # debug / reporting
+    "reportState", "reportStateToScreen", "reportQuregParams",
+    "compareStates", "initStateFromSingleFile", "getQuEST_PREC",
 ]
 
 
@@ -98,6 +108,12 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
     uncontrolled, two when controlled)."""
     targets = tuple(int(t) for t in targets)
     ctrl_mask, flip_mask = bitmask(controls), bitmask(flips)
+    buf = qureg._fusion_buffer
+    if buf is not None and not buf.flushing:
+        # opt-in imperative fusion (startGateFusion): record the LOGICAL
+        # gate; the buffer contracts and dispatches at the next state read
+        buf.add_gate(u, targets, ctrl_mask, flip_mask)
+        return
     nv = qureg.num_qubits_in_state_vec
     if not qureg.is_density_matrix:
         apply_unitary(qureg.state, nv, u, targets, ctrl_mask, flip_mask)
@@ -114,23 +130,97 @@ def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
     :func:`densmatr.diagonal_lift`."""
     qs = tuple(sorted((int(q) for q in qubits), reverse=True))
     tensor = np.asarray(tensor, dtype=np.complex128)
+    buf = qureg._fusion_buffer
+    if buf is not None and not buf.flushing:
+        buf.add_diag(tensor, qs)
+        return
     if qureg.is_density_matrix:
         lift, qs = dm.diagonal_lift(qs, qureg.num_qubits_represented)
         tensor = lift(tensor)
     apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs, tensor)
 
 
+def _dispatch_fused_op(qureg: Qureg, op) -> None:
+    """Apply one fused-group record from the imperative fusion buffer
+    through the regular per-gate dispatch (called with the buffer's
+    ``flushing`` flag set, so the recursion bottoms out)."""
+    if op.kind == "u":
+        controls = tuple(q for q in range(qureg.num_qubits_represented)
+                         if (op.ctrl_mask >> q) & 1)
+        flips = tuple(c for c in controls if (op.flip_mask >> c) & 1)
+        _apply_gate(qureg, op.mat, op.targets, controls, flips)
+    else:
+        _apply_diag_gate(qureg, op.diag, op.targets)
+
+
+def startGateFusion(qureg: Qureg, max_qubits: int = 3) -> None:
+    """Buffer subsequent imperative gate calls and dispatch them as fused
+    groups of combined support <= ``max_qubits`` (the compiled pipeline's
+    gate-fusion engine, :mod:`quest_tpu_torch.core.fusion`, applied to the
+    per-gate path). Flushing is automatic at any state read (measure,
+    calc*, get*, compiled run, host copy) and at :func:`stopGateFusion`.
+    No reference counterpart."""
+    new = GateFusionBuffer(qureg, max_qubits)
+    buf = qureg._fusion_buffer
+    if buf is not None:
+        if buf.max_k == new.max_k:
+            return                      # already active at this budget
+        buf.flush()                     # re-arm at the new support cap
+    qureg._fusion_buffer = new
+
+
+def stopGateFusion(qureg: Qureg) -> None:
+    """Flush any buffered gates and return to eager per-gate dispatch."""
+    buf = qureg._fusion_buffer
+    if buf is not None:
+        buf.flush()
+        qureg._fusion_buffer = None
+
+
+class fusedGates:
+    """Context manager form of :func:`startGateFusion` ::
+
+        with qt.fusedGates(qureg, max_qubits=3):
+            for q in range(n):
+                qt.hadamard(qureg, q)      # buffered, dispatched fused
+
+    Contexts nest: the inner block flushes on exit and the outer buffer
+    resumes (where a bare ``stopGateFusion`` turns fusion off entirely).
+    """
+
+    def __init__(self, qureg: Qureg, max_qubits: int = 3):
+        self.qureg = qureg
+        self.max_qubits = max_qubits
+
+    def __enter__(self):
+        self._prev = self.qureg._fusion_buffer
+        startGateFusion(self.qureg, self.max_qubits)
+        return self.qureg
+
+    def __exit__(self, *exc):
+        buf = self.qureg._fusion_buffer
+        if buf is not None:
+            buf.flush()
+        self.qureg._fusion_buffer = self._prev
+        return False
+
+
 # ---------------------------------------------------------------------------
 # environment (QuEST.h:785-832)
 # ---------------------------------------------------------------------------
 
-def createQuESTEnv(device=None, precision: Optional[Precision] = None,
+def createQuESTEnv(num_devices: Optional[int] = None,
+                   precision: Optional[Precision] = None,
                    seed: Optional[Sequence[int]] = None,
-                   compensated: Optional[bool] = None) -> QuESTEnv:
-    """``device=None`` selects ``cuda:0`` and raises where CUDA is
-    absent; pass ``device="cpu"`` to run on the host."""
-    return create_quest_env(device=device, precision=precision, seed=seed,
-                            compensated=compensated)
+                   compensated: Optional[bool] = None,
+                   device=None) -> QuESTEnv:
+    """``num_devices`` of None or 1 (more raise ``NotImplementedError``
+    until ROADMAP Queue 1 item 8). ``device=None`` selects ``cuda:0`` and
+    raises where CUDA is absent; ``device="cpu"`` runs on the host (the
+    CPU tests)."""
+    return create_quest_env(num_devices=num_devices, precision=precision,
+                            seed=seed, compensated=compensated,
+                            device=device)
 
 
 def destroyQuESTEnv(env: QuESTEnv) -> None:
@@ -141,8 +231,28 @@ def syncQuESTEnv(env: QuESTEnv) -> None:
     env.sync()
 
 
+def syncQuESTSuccess(success_code: int) -> int:
+    """Logical-AND agreement across ranks (``QuEST_cpu_distributed.c:163``);
+    one process agrees with itself."""
+    return int(bool(success_code))
+
+
 def reportQuESTEnv(env: QuESTEnv) -> None:
     print(env.report())
+
+
+def getEnvironmentString(env: QuESTEnv) -> str:
+    """Backend capability summary (``getEnvironmentString`` ``QuEST.h:832``)
+    in the reference's field order, reporting what carries the
+    computation: ``CUDA=1`` and the card's name for an env on the card,
+    ``CUDA=0`` on the CPU."""
+    if env.device.type == "cuda":
+        backend = f"cuda ({torch.cuda.get_device_name(env.device)})"
+    else:
+        backend = env.device.type
+    return (f"CUDA={int(env.device.type == 'cuda')} OpenMP=0 MPI=0 TPU=0 "
+            f"backend={backend} mode=local threads=1 "
+            f"ranks={env.num_ranks}")
 
 
 def seedQuEST(env: QuESTEnv, seeds: Sequence[int]) -> None:
@@ -195,6 +305,19 @@ def destroyComplexMatrixN(m: np.ndarray) -> None:
 def initComplexMatrixN(m: np.ndarray, re, im) -> None:
     m[...] = np.asarray(re, dtype=np.float64) \
         + 1j * np.asarray(im, dtype=np.float64)
+
+
+def copyStateToGPU(qureg: Qureg) -> None:
+    """The amplitudes already live on the env's device (``copyStateToGPU``
+    ``QuEST.h:855`` exists because the reference mirrors host and device
+    copies): apply any buffered gates and wait for the device."""
+    state = qureg.state
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+
+
+def copyStateFromGPU(qureg: Qureg) -> None:
+    copyStateToGPU(qureg)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +426,34 @@ def cloneQureg(target: Qureg, copy: Qureg) -> None:
     val.validate_matching_dims(target.num_qubits_represented,
                                copy.num_qubits_represented, "cloneQureg")
     target.state = copy.state.to(target.device, copy=True)
+
+
+def setWeightedQureg(fac1, qureg1: Qureg, fac2, qureg2: Qureg,
+                     fac_out, out: Qureg) -> None:
+    """out = fac1 qureg1 + fac2 qureg2 + fac_out out, written into
+    ``out``'s planes (which may be ``qureg1``'s or ``qureg2``'s)
+    (``setWeightedQureg`` ``QuEST.h:3047``)."""
+    val.validate_matching_types(qureg1.is_density_matrix,
+                                qureg2.is_density_matrix, "setWeightedQureg")
+    val.validate_matching_precision(qureg1.env.precision.quest_prec,
+                                    qureg2.env.precision.quest_prec,
+                                    "setWeightedQureg")
+    val.validate_matching_precision(qureg1.env.precision.quest_prec,
+                                    out.env.precision.quest_prec,
+                                    "setWeightedQureg")
+    val.validate_matching_types(qureg1.is_density_matrix,
+                                out.is_density_matrix, "setWeightedQureg")
+    val.validate_matching_dims(qureg1.num_qubits_represented,
+                               qureg2.num_qubits_represented,
+                               "setWeightedQureg")
+    val.validate_matching_dims(qureg1.num_qubits_represented,
+                               out.num_qubits_represented, "setWeightedQureg")
+    target = out.state
+    sv.set_weighted(fac1, qureg1.state.to(target.device), fac2,
+                    qureg2.state.to(target.device), fac_out, target)
+    out.qasm_log.record_comment(
+        "the register was set to a weighted combination (possibly "
+        "unphysical)")
 
 
 def initStateOfSingleQubit(qureg: Qureg, qubit: int, outcome: int) -> None:
@@ -552,6 +703,13 @@ def multiStateControlledUnitary(qureg: Qureg, controls: Sequence[int],
 def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
     val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
                                 "swapGate")
+    buf = qureg._fusion_buffer
+    if buf is not None and not buf.flushing:
+        # fusion active: the swap keeps program order with the buffered
+        # gates by riding the buffer as a dense 2-qubit member
+        _apply_gate(qureg, mats.swap(), (int(q1), int(q2)))
+        qureg.qasm_log.record_gate("swap", q2, (q1,))
+        return
     sv.swap_amps(qureg.state, qureg.num_qubits_in_state_vec, q1, q2)
     if qureg.is_density_matrix:
         n = qureg.num_qubits_represented
@@ -746,6 +904,51 @@ def measureWithStats(qureg: Qureg, qubit: int):
 def measure(qureg: Qureg, qubit: int) -> int:
     outcome, _ = measureWithStats(qureg, qubit)
     return outcome
+
+
+def sampleOutcomes(qureg: Qureg, num_samples: int,
+                   qubits=None) -> np.ndarray:
+    """Draw ``num_samples`` computational-basis outcomes from the state's
+    probability distribution WITHOUT collapsing it: M measurement shots in
+    one pass (one cumulative sum, one search for every draw,
+    :func:`quest_tpu_torch.parallel.sampling.sample_outcomes`). No
+    reference counterpart: the reference can only measure and collapse.
+
+    State vectors sample ``|amp|^2``; density registers their clipped real
+    diagonal (the outcome distribution of a full measurement), read
+    through a strided view of the flat vector. Returns an int64 array of
+    basis indices, or, when ``qubits`` is given, the outcomes of those
+    qubits packed little-endian (bit ``j`` = ``qubits[j]``). The register
+    is untouched; the uniforms come from the env's generator."""
+    if int(num_samples) < 1:
+        val._fail("num_samples must be >= 1", "sampleOutcomes",
+                  val.ErrorCode.E_INVALID_NUM_AMPS)
+    n = qureg.num_qubits_represented
+    if qubits is not None:
+        qubits = [int(q) for q in qubits]
+        val.validate_multi_targets(n, qubits, "sampleOutcomes")
+    planes = qureg.state
+    if qureg.is_density_matrix:
+        dim = 1 << n
+        probs = planes[0].view(dim, dim).diagonal().clamp(min=0.0)
+    else:
+        probs = planes[0] * planes[0] + planes[1] * planes[1]
+    uniforms = torch.rand(int(num_samples), generator=qureg.env.generator,
+                          dtype=torch.float64)
+    idx_dev, total = sample_outcomes(probs, uniforms)
+    del probs
+    if float(total) < qureg.env.precision.eps:
+        # a zero-norm register has no distribution to sample; the clamp
+        # would otherwise return the last basis index for every shot
+        val._fail("cannot sample a zero-probability register",
+                  "sampleOutcomes", val.ErrorCode.E_COLLAPSE_STATE_ZERO_PROB)
+    idx = idx_dev.cpu().numpy().astype(np.int64)
+    if qubits is None:
+        return idx
+    out = np.zeros_like(idx)
+    for j, q in enumerate(qubits):
+        out |= ((idx >> q) & 1) << j
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1143,3 +1346,70 @@ def writeRecordedQASMToFile(qureg: Qureg, filename: str) -> None:
     except OSError:
         val.validate_file_opened(False, "writeRecordedQASMToFile")
 
+
+# ---------------------------------------------------------------------------
+# debug / reporting (QuEST.h:319-359, QuEST_debug.h)
+# ---------------------------------------------------------------------------
+
+def reportState(qureg: Qureg, filename: str = "state_rank_0.csv") -> None:
+    """Dump amplitudes as 'real, imag' CSV (``reportState``
+    ``QuEST_common.c:215-231``), the JAX package's form."""
+    amps = qureg.to_numpy()
+    with open(filename, "w") as f:
+        f.write("real, imag\n")
+        for a in amps:
+            f.write(f"{a.real:.12e}, {a.imag:.12e}\n")
+
+
+def reportStateToScreen(qureg: Qureg, env: QuESTEnv = None,
+                        report_rank: int = 0) -> None:
+    # the reference silently skips large registers rather than erroring
+    # (guard on the STATE-VECTOR qubit count, QuEST_cpu.c:1343)
+    if qureg.num_qubits_in_state_vec > 5:
+        return
+    amps = qureg.to_numpy()
+    print("Reporting state from rank 0 of 1")
+    for a in amps:
+        print(f"{a.real:.12f}, {a.imag:.12f}")
+
+
+def reportQuregParams(qureg: Qureg) -> None:
+    print(f"QUBITS: {qureg.num_qubits_represented}")
+    print(f"TOTAL AMPS: {qureg.num_amps_total}")
+    print(f"AMPS PER DEVICE: {qureg.num_amps_per_chunk}")
+    mem = qureg.num_amps_total * qureg.dtype.itemsize
+    print(f"DEVICE MEMORY: {mem / 2**20:.1f} MiB")
+
+
+def compareStates(q1: Qureg, q2: Qureg, precision: float) -> bool:
+    val.validate_matching_dims(q1.num_qubits_represented,
+                               q2.num_qubits_represented, "compareStates")
+    a, b = q1.to_numpy(), q2.to_numpy()
+    return bool(np.all(np.abs(a.real - b.real) < precision)
+                and np.all(np.abs(a.imag - b.imag) < precision))
+
+
+def initStateFromSingleFile(qureg: Qureg, filename: str,
+                            env: QuESTEnv = None) -> None:
+    """Load a state written by :func:`reportState` (of either package)."""
+    rows = []
+    try:
+        with open(filename) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("real"):
+                    continue
+                re_s, im_s = line.split(",")
+                rows.append(complex(float(re_s), float(im_s)))
+    except OSError:
+        val.validate_file_opened(False, "initStateFromSingleFile")
+    if len(rows) != qureg.num_amps_total:
+        val._fail("the state file does not match the register dimension",
+                  "initStateFromSingleFile",
+                  val.ErrorCode.E_INVALID_NUM_AMPS)
+    qureg.device_put(np.asarray(rows, dtype=np.complex128))
+
+
+def getQuEST_PREC() -> int:
+    from .config import default_precision
+    return default_precision().quest_prec

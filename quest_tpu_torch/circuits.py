@@ -74,6 +74,7 @@ from .ops import layer_kernel as lk
 from .ops import reductions as red
 from .parallel.layout import LayoutPlan, plan_layout
 from .qureg import Qureg
+from .types import PauliOpType
 
 __all__ = ["Circuit", "CompiledCircuit", "Param"]
 
@@ -507,35 +508,54 @@ class Circuit:
 
     # -- compilation -------------------------------------------------------
 
-    def compile(self, env: QuESTEnv, fuse: bool = True, layers: bool = True,
+    def compile(self, env: QuESTEnv, donate: bool = True, fuse: bool = True,
+                lookahead: int = 32, pallas: Optional[object] = None,
                 supergate_k: int = 4, fusion: Optional[object] = None,
-                mxu: Optional[bool] = None,
-                error_budget: Optional[float] = None,
-                tier=None, density: bool = False) -> "CompiledCircuit":
+                density: bool = False, comm_planner: Optional[bool] = None,
+                overlap: bool = False, reorder: Optional[bool] = None,
+                error_budget: Optional[float] = None, tier=None,
+                layers: bool = True,
+                mxu: Optional[bool] = None) -> "CompiledCircuit":
         """Plan the circuit for ``env``'s device and precision.
 
-        ``layers`` turns the fused-layer pass on (the default; the layer
-        kernel on the card, its plain version on the CPU) or off;
-        ``fusion`` is the gate-fusion support cap k (None = default 3,
-        0/False = off); ``mxu`` forces the packed ``rowmxu`` contraction on
-        (True) or off (False) — None lets the H100 rate model decide
-        (:func:`quest_tpu_torch.parallel.layout.choose_mxu_contraction`).
+        The JAX package's parameters, in its order:
 
-        ``error_budget`` is the precision-tier dial: state the max
-        amplitude error the results may carry and the CHEAPEST tier whose
-        modeled error (drift per gate x recorded gates,
-        :func:`quest_tpu_torch.profiling.modeled_tier_error`) fits is
-        chosen; an unmeetable budget raises ``ValueError`` here. ``tier``
-        pins a rung explicitly (a ``PrecisionTier`` or its name). Both
-        default to the environment's precision.
+        - ``donate``: True (the default) runs :meth:`CompiledCircuit.apply`
+          IN PLACE on the caller's planes, the port's form of a donated
+          buffer; False works on a copy and leaves the caller's tensor as
+          it was. ``run(qureg)`` updates the register either way.
+        - ``pallas`` is the fused-layer pass: None or True (the default)
+          on, with the layer kernel on the card and its plain version on
+          the CPU; False (or ``"0"``/``"off"``) off, as ``layers=False``;
+          ``"interpret"`` the plain version on a CPU env, and on a CUDA
+          env it raises ``ValueError`` (no path on the card takes a plain
+          version).
+        - ``lookahead``, ``comm_planner``, ``overlap`` and ``reorder`` steer
+          the JAX package's multi-device layout planner; on one device
+          there is nothing to plan, so they have no effect until the port
+          shards (ROADMAP Queue 1 item 8).
+        - ``fusion`` is the gate-fusion support cap k (None = default 3,
+          0/False = off).
+        - ``density=True`` compiles the program for a DENSITY register of
+          ``num_qubits`` qubits: the 2n-qubit lifted program
+          (:meth:`_lifted_density`, channels as superoperators), planned and
+          run like any other, so its uncontrolled gates on qubits whose
+          lifted pair fits the kernel's tile go through the layer kernel.
+          Static channels are validated as CPTP at the env's precision
+          here. Without it, a circuit with channels is rejected.
+        - ``error_budget`` is the precision-tier dial: state the max
+          amplitude error the results may carry and the CHEAPEST tier whose
+          modeled error (drift per gate x recorded gates,
+          :func:`quest_tpu_torch.profiling.modeled_tier_error`) fits is
+          chosen; an unmeetable budget raises ``ValueError`` here. ``tier``
+          pins a rung explicitly (a ``PrecisionTier`` or its name). Both
+          default to the environment's precision.
 
-        ``density=True`` compiles the program for a DENSITY register of
-        ``num_qubits`` qubits: the 2n-qubit lifted program
-        (:meth:`_lifted_density`, channels as superoperators), planned and
-        run like any other, so its uncontrolled gates on qubits whose lifted
-        pair fits the kernel's tile go through the layer kernel. Static
-        channels are validated as CPTP at the env's precision here. Without
-        it, a circuit with channels is rejected."""
+        The port's own, after them: ``layers`` turns the fused-layer pass
+        on (the default) or off; ``mxu`` forces the packed ``rowmxu``
+        contraction on (True) or off (False); None lets the H100 rate model
+        decide (:func:`quest_tpu_torch.parallel.layout.
+        choose_mxu_contraction`)."""
         if density:
             for op in self.ops:
                 if op.kind == "kraus" and not callable(op.kraus):
@@ -553,22 +573,196 @@ class Circuit:
             from .profiling import choose_tier
             tier = choose_tier(float(error_budget), max(len(circ.ops), 1),
                                env)
-        cc = CompiledCircuit(circ, env, fuse=fuse, layers=layers,
+        cc = CompiledCircuit(circ, env, donate=donate, fuse=fuse,
+                             lookahead=lookahead, pallas=pallas,
                              supergate_k=supergate_k, fusion=fusion,
-                             mxu=mxu, tier=tier)
+                             comm_planner=comm_planner, overlap=overlap,
+                             reorder=reorder, tier=tier, layers=layers,
+                             mxu=mxu)
         cc.is_density = density
         cc.error_budget = error_budget
         return cc
 
-    def compile_trajectories(self, env: QuESTEnv) -> "TrajectoryProgram":
+    def compile_trajectories(self, env: QuESTEnv,
+                             pallas=None) -> "TrajectoryProgram":
         """Lower to a quantum-trajectory program: channels applied
         stochastically to STATE VECTORS (Monte-Carlo wavefunction), so a
         noisy n-qubit circuit costs 2^n amplitudes per trajectory
         (``ops/trajectories.py``). Static gate runs go through the batched
         layer kernel and channels on lane qubits through the fused Kraus
-        kernel on the card; on the CPU their plain versions run."""
+        kernel on the card; on the CPU their plain versions run.
+        ``pallas`` as in :meth:`compile`: False runs the program with no
+        layer and no Kraus kernel, ``"interpret"`` their plain versions
+        on a CPU env (it raises on the card)."""
         from .ops.trajectories import TrajectoryProgram
-        return TrajectoryProgram(self, env)
+        return TrajectoryProgram(self, env, pallas=pallas)
+
+    # -- composition -------------------------------------------------------
+
+    def pauli_string(self, paulis: Sequence[tuple[int, int]]) -> "Circuit":
+        """Apply a product of Pauli operators [(qubit, code)] (code: 1=X,
+        2=Y, 3=Z)."""
+        for q, code in paulis:
+            code = int(code)
+            if code == int(PauliOpType.PAULI_X):
+                self.x(q)
+            elif code == int(PauliOpType.PAULI_Y):
+                self.y(q)
+            elif code == int(PauliOpType.PAULI_Z):
+                self.z(q)
+        return self
+
+    def to_qasm(self, params: Optional[dict] = None) -> str:
+        """Serialise the recorded program as OpenQASM 2.0 text, through the
+        same logger (and so the same dialect) as the imperative API's
+        recorder. Parametrised gates are bound with ``params`` first. Ops
+        with no QASM form (k >= 2 dense unitaries, general diagonals,
+        channels) are logged as comments, as the reference's logger
+        handles its own non-expressible ops (``QuEST.c:634-637``)."""
+        from .qasm import QASMLogger, _pair_and_phase_from_unitary
+        log = QASMLogger(self.num_qubits)
+        log.is_logging = True
+        params = params or {}
+        missing = [p for p in self.param_names if p not in params]
+        if missing:
+            raise ValueError(f"missing circuit parameters: {missing}")
+        named_u = (("sigma_x", mats.pauli_x()),
+                   ("sigma_y", mats.pauli_y()),
+                   ("sigma_z", mats.pauli_z()),
+                   ("hadamard", mats.hadamard()),
+                   ("s", mats.s_gate()),
+                   ("t", mats.t_gate()))
+        for op in self.ops:
+            if op.kind == "kraus":
+                log.record_comment(
+                    f"Kraus channel on qubits {list(op.targets)} "
+                    "(no QASM form)")
+                continue
+            if op.kind == "diag":
+                d = np.asarray(op.diag_fn(params)) \
+                    if op.diag_fn is not None else op.diag
+                if self._emit_diag_qasm(log, op.targets, d):
+                    continue
+                log.record_comment(
+                    f"{len(op.targets)}-qubit general diagonal on qubits "
+                    f"{list(op.targets)} (no QASM form)")
+                continue
+            controls = tuple(q for q in range(self.num_qubits)
+                             if (op.ctrl_mask >> q) & 1)
+            if len(op.targets) != 1:
+                log.record_comment(
+                    f"{len(op.targets)}-qubit unitary on qubits "
+                    f"{list(op.targets)}"
+                    + (f" controls {list(controls)}" if controls else "")
+                    + " (no single-qubit QASM form)")
+                continue
+            mat = np.asarray(op.mat_fn(params)) \
+                if op.mat_fn is not None else op.mat
+            named = next((label for label, ref in named_u
+                          if np.allclose(mat, ref, atol=1e-12)), None)
+            flips = tuple(c for c in controls if (op.flip_mask >> c) & 1)
+            for c in flips:              # controlled-on-0: NOT sandwich
+                log.record_gate("sigma_x", c)
+            if named is not None:
+                # exact label (cx/ccz/...), never the lossy ZYZ split
+                log.record_gate(named, op.targets[0], controls)
+            else:
+                alpha, beta, g = _pair_and_phase_from_unitary(mat)
+                log.record_compact_unitary(alpha, beta, op.targets[0],
+                                           controls)
+                if controls and abs(g) > 1e-12:
+                    # the dropped phase is physical under controls:
+                    # c^{n-1}u1(g) on the controls restores it exactly
+                    log.record_u1(g, controls[0], controls[1:])
+            for c in flips:
+                log.record_gate("sigma_x", c)
+        return log.text()
+
+    @staticmethod
+    def _emit_diag_qasm(log, targets, d) -> bool:
+        """Emit a recorded diagonal exactly when the dialect can express
+        it: multi-controlled Z / phase (all-ones except the last entry),
+        1q relative phases (u1), the 2q multiRotateZ parity form (rzz), and
+        any unit-modulus diagonal on up to 4 qubits as one phase term per
+        qubit subset. Returns False otherwise."""
+        flat = np.asarray(d).reshape(-1)
+        if not np.allclose(np.abs(flat), 1.0, atol=1e-12):
+            return False
+        lo = min(targets)
+        rest = tuple(q for q in targets if q != lo)
+        if np.allclose(flat[:-1], 1.0, atol=1e-12):
+            # targets are sorted descending, so flat[-1] is the all-ones
+            # bit pattern: a (multi-controlled) phase on the joint 1-state
+            if abs(flat[-1] + 1.0) < 1e-12:
+                log.record_gate("sigma_z", lo, rest)
+            else:
+                log.record_u1(float(np.angle(flat[-1])), lo, rest)
+            return True
+        if len(targets) == 1:
+            # diag(a, b) = a * diag(1, b/a): the relative phase is exact,
+            # the global factor a is dropped (as every ZYZ record does)
+            log.record_u1(float(np.angle(flat[1] / flat[0])), targets[0])
+            return True
+        if len(targets) == 2 and abs(flat[0] - flat[3]) < 1e-12 \
+                and abs(flat[1] - flat[2]) < 1e-12 \
+                and abs(flat[1] - np.conj(flat[0])) < 1e-12:
+            log.record_rzz(float(-2.0 * np.angle(flat[0])),
+                           targets[1], targets[0])
+            return True
+        if len(targets) <= 4:
+            # a unit-modulus diagonal factors exactly (up to the dropped
+            # global flat[0]) into one phase term per nonempty qubit
+            # subset S: theta_S is the angle of the Mobius-alternating
+            # product of entries over sub-patterns of S, each term a
+            # c^{|S|-1}u1. Bit j of the flat index is qubit asc[j]
+            k = len(targets)
+            asc = sorted(targets)
+            for s in range(1, 1 << k):
+                prod = 1.0 + 0.0j
+                for m in range(1 << k):
+                    if m & ~s:
+                        continue
+                    term = complex(flat[m])
+                    if (bin(s ^ m).count("1")) % 2:
+                        prod /= term
+                    else:
+                        prod *= term
+                theta = float(np.angle(prod))
+                if abs(theta) > 1e-12:
+                    qs = [asc[j] for j in range(k) if (s >> j) & 1]
+                    log.record_u1(theta, qs[0], tuple(qs[1:]))
+            return True
+        return False
+
+    def extend(self, other: "Circuit") -> "Circuit":
+        """Append ``other``'s ops (and declare its parameters), in place."""
+        if other.num_qubits != self.num_qubits:
+            raise ValueError("qubit count mismatch")
+        self.ops.extend(other.ops)
+        for n in other._params:
+            if n not in self._params:
+                self._params.append(n)
+        return self
+
+    def inverse(self) -> "Circuit":
+        """Dagger of a *static* circuit (parametrised ops unsupported)."""
+        inv = Circuit(self.num_qubits)
+        for op in reversed(self.ops):
+            if not op.is_static:
+                raise ValueError("cannot invert a parameterized circuit")
+            if op.kind == "kraus":
+                raise ValueError(
+                    "cannot invert a circuit containing channels "
+                    "(CPTP maps are not generally invertible)")
+            if op.kind == "u":
+                inv.ops.append(dataclasses.replace(op, mat=op.mat.conj().T))
+            else:
+                inv.ops.append(dataclasses.replace(op, diag=op.diag.conj()))
+        return inv
+
+    @property
+    def depth(self) -> int:
+        return len(self.ops)
 
 
 def _peephole_fused(ops: Sequence[_Op], diag_row_cap: int = -1) -> list:
@@ -928,6 +1122,21 @@ def _schedule(recorded: Sequence[_Op], num_qubits: int, fuse_flag: bool,
     return ops_table, plan_layout(ops_table, num_qubits)
 
 
+def _layers_on(pallas, env: QuESTEnv) -> bool:
+    """The JAX package's ``pallas=`` switch on the fused-layer pass: None
+    or True on; False, ``"0"`` or ``"off"`` off; ``"interpret"`` on with
+    the plain layer version, which only a CPU env runs (no path on the
+    card takes a plain version)."""
+    if pallas in (False, "0", "off"):
+        return False
+    if pallas == "interpret" and env.device.type != "cpu":
+        raise ValueError(
+            "pallas='interpret' runs the layer kernel's plain version, "
+            "which the port runs only on the CPU; on the card the kernel "
+            "runs (pallas=None) or the layer pass is off (pallas=False)")
+    return True
+
+
 def _param_row(theta: torch.Tensor) -> np.ndarray:
     """A ``(P,)`` parameter tensor as the ``(1, P)`` host float64 row of
     the batched engine."""
@@ -943,18 +1152,29 @@ class CompiledCircuit:
     error_budget = None  # set by Circuit.compile(error_budget=...)
     is_density = False   # set by Circuit.compile(density=...)
 
-    def __init__(self, circuit: Circuit, env: QuESTEnv, fuse: bool = True,
-                 layers: bool = True, supergate_k: int = 4,
+    def __init__(self, circuit: Circuit, env: QuESTEnv, donate: bool = True,
+                 fuse: bool = True, lookahead: int = 32,
+                 pallas: Optional[object] = None, supergate_k: int = 4,
                  fusion: Optional[object] = None,
-                 mxu: Optional[bool] = None, tier=None):
+                 comm_planner: Optional[bool] = None, overlap: bool = False,
+                 reorder: Optional[bool] = None, tier=None,
+                 layers: bool = True, mxu: Optional[bool] = None):
         self.circuit = circuit
         self.env = env
         self.num_qubits = circuit.num_qubits
         self.param_names = circuit.param_names
         self.tier = self._resolve_tier(tier)
-        self._compile_opts = {"fuse": fuse, "layers": layers,
+        self.donate = bool(donate)
+        # lookahead, comm_planner, overlap and reorder steer the JAX
+        # package's multi-device planner: accepted, without effect on one
+        # device (ROADMAP Queue 1 item 8)
+        self._compile_opts = {"fuse": fuse,
+                              "layers": layers and _layers_on(pallas, env),
                               "supergate_k": supergate_k, "fusion": fusion,
                               "mxu": mxu}
+        # plain ops' operators already on the device, per (plan key, op
+        # index): filled by precompile(), else at an op's first run
+        self._dev_operators: dict = {}
         # collected plans per (plane dtype, FAST flag): the compile-time
         # tier's now, a per-dispatch tier's at its first dispatch; and the
         # adjoint walks over them, at a tier's first gradient sweep
@@ -1086,15 +1306,34 @@ class CompiledCircuit:
             raise ValueError(f"missing circuit parameters {missing}")
         return params
 
-    def apply(self, planes, params: Optional[dict] = None):
-        """Run the plan on ``(2, 2^N)`` planes, IN PLACE (returned), at the
-        compile-time tier: planes of another dtype than the tier's are
-        cast in and the result copied back."""
+    def _static_operator(self, i: int, op, axis_order, dtype, device):
+        """A static plain op's operator on the device, in the complex dtype
+        of ``dtype`` planes: its matrix, or its diagonal factor in the
+        plan's axis order; made once and kept."""
+        key = (dtype, device, i)
+        t = self._dev_operators.get(key)
+        if t is None:
+            cdt = torch.complex64 if dtype == torch.float32 \
+                else torch.complex128
+            host = op.mat if op.kind == "u" else np.transpose(
+                np.asarray(op.diag), axis_order)
+            t = torch.as_tensor(np.ascontiguousarray(host), dtype=cdt,
+                                device=device)
+            self._dev_operators[key] = t
+        return t
+
+    def apply(self, state_f, params: Optional[dict] = None):
+        """Run the plan on ``(2, 2^N)`` planes at the compile-time tier and
+        return the result: IN PLACE on ``state_f`` when the program was
+        compiled with ``donate=True`` (the default), else on a copy, which
+        leaves the caller's tensor as it was. Planes of another dtype than
+        the tier's are cast in and the result copied back."""
         n = self.num_qubits
-        if tuple(planes.shape) != (2, 1 << n):
-            raise ValueError(f"planes have shape {tuple(planes.shape)}; "
+        if tuple(state_f.shape) != (2, 1 << n):
+            raise ValueError(f"planes have shape {tuple(state_f.shape)}; "
                              f"this circuit needs (2, {1 << n})")
         params = self._params(params)
+        planes = state_f if self.donate else state_f.clone()
         prec, fast = self._tier_exec_mode(self.tier)
         rdt = self._tier_dtypes(self.tier, self.env)[0]
         work = planes if planes.dtype == rdt else planes.to(rdt)
@@ -1103,17 +1342,81 @@ class CompiledCircuit:
             if op.kind == "layer":
                 lk.apply_layer(work, n, op, fast=fast)
             elif op.kind == "u":
-                u = op.mat if op.mat_fn is None else np.asarray(
-                    op.mat_fn(params), dtype=np.complex128)
+                u = self._static_operator(i, op, axis_order, rdt,
+                                          work.device) \
+                    if op.mat_fn is None else np.asarray(
+                        op.mat_fn(params), dtype=np.complex128)
                 apply_unitary(work, n, u, phys_targets, cmask, fmask,
                               precision=prec)
             else:
-                d = op.diag if op.diag_fn is None else op.diag_fn(params)
-                apply_diagonal(work, n, phys_targets,
-                               np.transpose(np.asarray(d), axis_order))
+                d = self._static_operator(i, op, axis_order, rdt,
+                                          work.device) \
+                    if op.diag_fn is None else np.transpose(
+                        np.asarray(op.diag_fn(params)), axis_order)
+                apply_diagonal(work, n, phys_targets, d)
         if work is not planes:
             planes.copy_(work)
         return planes
+
+    def precompile(self) -> "CompiledCircuit":
+        """Do the first run's setup ahead of it, with no state: on the card,
+        build the kernels' libraries (``layer_kernel.build_library``) and
+        pack every layer's operands for the compile-time tier (cached on
+        the layer); on any device, put the plain ops' static operators on
+        the device. On the CPU nothing is packed for the kernel. Returns
+        ``self``: ``cc = circ.compile(env).precompile()``."""
+        rdt = self._tier_dtypes(self.tier, self.env)[0]
+        _, fast = self._tier_exec_mode(self.tier)
+        device = self.env.device
+        on_card = device.type == "cuda"
+        if on_card:
+            lk.build_library()
+        for _, i, _, _, _, axis_order in self.plan.items:
+            op = self._ops[i]
+            if op.kind == "layer":
+                if on_card:
+                    lk.pack_layer(op, self.num_qubits, rdt, device, fast)
+            elif op.is_static:
+                self._static_operator(i, op, axis_order, rdt, device)
+        return self
+
+    def dispatch_stats(self):
+        """Compile-time dispatch accounting
+        (:class:`quest_tpu_torch.profiling.DispatchStats`): recorded gates
+        in, kernels out (the plan's layers and plain ops), and the
+        gate-fusion pass's counters. On one device there are no relayouts
+        or collectives, so the mesh, multi-host and cache fields keep
+        their defaults."""
+        from .profiling import DispatchStats
+        fs = self.fusion_stats
+        return DispatchStats(
+            gates_in=self.circuit.depth,
+            kernels_out=len(self.plan.items),
+            relayouts=0,
+            fused_groups=fs.fused_groups if fs else 0,
+            diag_folds=fs.diag_folds if fs else 0,
+            commuted_diagonals=fs.commuted_diagonals if fs else 0,
+            max_group_gates=fs.max_group_gates if fs else 0,
+            batch_size=self._last_batch,
+            precision_tier=self.tier.name if self.tier is not None
+            else "env",
+            modeled_tier_error=self._modeled_tier_error())
+
+    _digest_cached = None   # lazy program_digest (content-addressed)
+    _last_batch = 0         # rows of the last batched dispatch
+
+    @property
+    def program_digest(self) -> str:
+        """Stable content digest of the recorded program
+        (:func:`quest_tpu_torch.serve.warmcache.circuit_digest`); for a
+        static circuit it equals the JAX package's for the same recording.
+        Falls back to a process-local id token when an op resists content
+        addressing."""
+        if self._digest_cached is None:
+            from .serve.warmcache import circuit_digest
+            d = circuit_digest(self.circuit, self.is_density)
+            self._digest_cached = d or f"id-{id(self):x}"
+        return self._digest_cached
 
     def run(self, qureg: Qureg, params: Optional[dict] = None) -> None:
         """Apply to a register, in place."""
@@ -1128,10 +1431,13 @@ class CompiledCircuit:
             raise ValueError(
                 f"circuit has {self.num_qubits} qubits; register state "
                 f"vector has {qureg.num_qubits_in_state_vec}")
-        if qureg.state.dtype != self.env.precision.real_dtype:
+        state = qureg.state       # drains a pending fusion buffer
+        if state.dtype != self.env.precision.real_dtype:
             raise ValueError("register precision differs from the "
                              "circuit's compile-time environment")
-        self.apply(qureg.state, params)
+        out = self.apply(state, params)
+        if out is not state:
+            qureg.state = out
 
 
     # -- batched ensemble engine --------------------------------------------
@@ -1151,6 +1457,7 @@ class CompiledCircuit:
         ``pm[b]``."""
         plan, ops, _ = self._plan_for(tier)
         prec, fast = self._tier_exec_mode(tier)
+        self._last_batch = int(states.shape[0])
         for item in plan.items:
             op = ops[item[1]]
             adj.apply_item(states, self.num_qubits, op, item,

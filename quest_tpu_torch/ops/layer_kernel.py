@@ -110,7 +110,8 @@ __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "adjoint_layer",
            "mark_rowdiag_runs", "fast_operator_slabs", "apply_layer",
            "apply_layer_plain", "apply_layer_batched",
            "apply_layer_batched_plain", "apply_mxu_tile",
-           "apply_mxu_tile_plain", "build_library"]
+           "apply_mxu_tile_plain", "build_library", "pack_layer",
+           "is_packed"]
 
 
 def embed_lane_matrix(u: np.ndarray, targets: Sequence[int],
@@ -785,11 +786,32 @@ def _fast_operands(layer: LayerOp, num_qubits: int, device: torch.device):
     return _operands(layer, num_qubits, torch.float32, device, fast=True)
 
 
+def pack_layer(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
+               device, fast: bool = False) -> None:
+    """Pack the layer's descriptors and operand pools for a launch on
+    planes of ``dtype`` on ``device`` (with ``fast``, the FAST kernel's,
+    whose planes are float32) ahead of its first launch
+    (``CompiledCircuit.precompile``); cached on the layer, where the
+    launch finds them."""
+    _operands(layer, num_qubits, torch.float32 if fast else dtype,
+              torch.device(device), fast)
+
+
+def is_packed(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
+              device, fast: bool = False) -> bool:
+    """Whether :func:`pack_layer` (or a launch) packed the layer for these
+    planes."""
+    return (num_qubits, torch.float32 if fast else dtype,
+            torch.device(device), fast) in layer._packed
+
+
 def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
               device: torch.device, fast: bool):
+    # the key is_packed reads
     key = (num_qubits, dtype, device, fast)
     if key in layer._packed:
         return layer._packed[key]
+    _operands.packs += 1
     kstages, lane_mats, tables, xmats, tile_rows, total_rows = \
         layer_kernel_plan(layer, num_qubits, tile_rows_for(dtype))
     itemsize = dtype.itemsize
@@ -875,6 +897,9 @@ def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
               if fast else None, max_j, tile_rows, total_rows)
     layer._packed[key] = packed
     return packed
+
+
+_operands.packs = 0     # layers packed: a precompiled run adds none
 
 
 def _check_fast_dtype(dtype: torch.dtype, where: str) -> None:

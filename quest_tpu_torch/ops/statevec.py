@@ -23,7 +23,13 @@ __all__ = [
     "calc_inner_product",
     "calc_prob_of_outcome",
     "collapse_to_known_prob_outcome",
+    "set_weighted",
 ]
+
+# amplitudes per chunk of set_weighted: each chunk's inputs are read before
+# its output is written, so out may alias an input, and the chunk's
+# temporaries (a few 16 MiB float32 planes) stay small beside the state
+WEIGHTED_CHUNK = 1 << 22
 
 
 def multi_rotate_z_diag(k: int, angle: float) -> np.ndarray:
@@ -95,3 +101,27 @@ def collapse_to_known_prob_outcome(planes: torch.Tensor, num_qubits: int,
     x[:, :, 1 - outcome, :].zero_()
     x[:, :, outcome, :].mul_(1.0 / math.sqrt(prob))
     return planes
+
+
+def set_weighted(fac1, state1: torch.Tensor, fac2, state2: torch.Tensor,
+                 fac_out, out: torch.Tensor) -> torch.Tensor:
+    """out = fac1*state1 + fac2*state2 + fac_out*out on ``(2, N)`` planes,
+    IN PLACE in ``out`` (returned), which may be ``state1`` or ``state2``
+    (``QuEST_cpu.c:3585``). The complex factors split into real
+    coefficients of the six input planes; each chunk of columns is read
+    whole before its result is written back, so the state is read once and
+    written once."""
+    coefs = [complex(f) for f in (fac1, fac2, fac_out)]
+    srcs = (state1, state2, out)
+    num_amps = out.shape[1]
+    for lo in range(0, num_amps, WEIGHTED_CHUNK):
+        hi = min(lo + WEIGHTED_CHUNK, num_amps)
+        new_re = torch.zeros_like(out[0, lo:hi])
+        new_im = torch.zeros_like(new_re)
+        for f, s in zip(coefs, srcs):
+            re, im = s[0, lo:hi], s[1, lo:hi]
+            new_re.add_(re, alpha=f.real).add_(im, alpha=-f.imag)
+            new_im.add_(im, alpha=f.real).add_(re, alpha=f.imag)
+        out[0, lo:hi] = new_re
+        out[1, lo:hi] = new_im
+    return out

@@ -122,8 +122,13 @@ class TrajectoryProgram:
     observables with :meth:`expectation` (waves, early stopping).
     """
 
-    def __init__(self, circuit, env):
-        from ..circuits import _peephole_fused
+    def __init__(self, circuit, env, pallas=None):
+        """``pallas`` as in ``Circuit.compile``: None or True runs static
+        gate runs through the batched layer kernel and lane channels
+        through the fused Kraus kernel; False runs every item through the
+        plain walker; ``"interpret"`` the kernels' plain versions on a CPU
+        env (it raises on the card)."""
+        from ..circuits import _layers_on, _peephole_fused
 
         self.env = env
         self.circuit = circuit
@@ -152,7 +157,8 @@ class TrajectoryProgram:
         self._ops = ops
         self.num_channels = n_channels
         self._items = self._build_kernel_items(fused) \
-            if self.num_qubits >= lk.LANE_QUBITS else list(ops)
+            if self.num_qubits >= lk.LANE_QUBITS and _layers_on(pallas, env) \
+            else list(ops)
         self._last_traj_stats: dict = {}
 
     def _build_kernel_items(self, fused_ops):

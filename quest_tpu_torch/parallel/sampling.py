@@ -1,7 +1,8 @@
-"""Inverse-CDF shot sampling over batches of states.
+"""Inverse-CDF shot sampling, of one register and over batches of states.
 
-Counterpart of the batch samplers of the JAX package's
-``parallel/sampling.py`` (``sample_batched``, ``sample_mixture``,
+Counterpart of the single-register sampler of the JAX package's
+``sampleOutcomes`` (``api.py`` ``_jit_sample``) and of the batch samplers of
+its ``parallel/sampling.py`` (``sample_batched``, ``sample_mixture``,
 ``shot_bucket``). Uniforms come from a :class:`torch.Generator` on the CPU
 (the env's, unless the caller passes another), are drawn in float64, and
 move to the states' device in the plane dtype; a CUDA batch and a CPU batch
@@ -15,7 +16,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["shot_bucket", "sample_batched", "sample_mixture"]
+__all__ = ["shot_bucket", "sample_outcomes", "sample_batched",
+           "sample_mixture"]
+
+
+def sample_outcomes(probs: torch.Tensor, uniforms: torch.Tensor):
+    """Inverse-CDF draws from one unnormalised distribution: ``probs`` is
+    ``(N,)`` (any float dtype, on any device), ``uniforms`` the draws in
+    [0, 1) (float64, on the host or the device). Returns ``(indices,
+    total)`` on ``probs``' device: int64 indices, and the float64 sum of
+    ``probs``.
+
+    One cumulative sum in float64 and one search per draw against ``u *
+    total`` (so norm drift cannot bias the tail bin), clamped so a draw
+    that rounds up to the total cannot index past the register. The sum
+    accumulates in float64 whatever the planes' dtype: over 2^30 float32
+    probabilities a float32 running sum carries its rounding into the
+    tail bins."""
+    cum = torch.cumsum(probs, 0, dtype=torch.float64)
+    total = cum[-1]
+    draws = uniforms.to(device=cum.device, dtype=torch.float64) * total
+    idx = torch.searchsorted(cum, draws, right=True)
+    return idx.clamp_(max=probs.shape[0] - 1), total
 
 
 def shot_bucket(num_samples: int) -> int:

@@ -1,6 +1,7 @@
-"""The precision-tier error model: the budget API's objective function.
+"""The precision-tier error model, and compile-time dispatch accounting.
 
-Counterpart of the tier half of the JAX package's ``profiling.py``. The
+Counterpart of the tier half of the JAX package's ``profiling.py`` and of
+its :class:`DispatchStats`. The
 modeled max amplitude error of one program execution at a tier is
 ``drift_per_gate[tier] * num_gates`` (floored), seeded from the ladder's
 constants (:data:`quest_tpu_torch.config.TIER_LADDER`) and refined per
@@ -30,7 +31,7 @@ from .config import (DOUBLE_TIER, FAST_TIER, SINGLE_TIER, TIER_LADDER,
 
 __all__ = ["TierErrorModel", "DEFAULT_TIER_MODEL", "tier_error_model",
            "measure_tier_model", "modeled_tier_error", "engine_tiers",
-           "choose_tier", "tier_runtime_tol"]
+           "choose_tier", "tier_runtime_tol", "DispatchStats"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,3 +257,77 @@ def tier_runtime_tol(tier, num_gates: int,
     percent is a numerical fault at any tier)."""
     err = modeled_tier_error(tier, num_gates, model)
     return float(min(max(headroom * err, 1e-6), 2e-2))
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Compile-time dispatch accounting for one compiled program: how many
+    recorded gates went in, how many kernels (fused groups, folded
+    diagonals, layers) the final plan dispatches. Produced by
+    :meth:`CompiledCircuit.dispatch_stats`. The fields are the JAX
+    package's; on one device the mesh, multi-host, dynamics and cache
+    fields keep their defaults."""
+
+    gates_in: int            # ops recorded on the circuit
+    kernels_out: int         # op items in the final plan
+    relayouts: int           # planned all-to-all relayouts
+    fused_groups: int = 0    # dense fusion groups of >= 2 gates
+    diag_folds: int = 0      # diagonal gates folded into shared factors
+    commuted_diagonals: int = 0  # diagonals deferred past a dense run
+    max_group_gates: int = 0     # largest gates-per-group count
+    cross_shard_exchanges: int = 0  # 1q pair-exchange items in the plan
+    swaps_absorbed: int = 0      # SWAP gates composed into the layout perm
+    collectives_fused: int = 0   # relayout pairs merged into one exchange
+    comm_bytes_planned: float = 0.0  # mesh-total collective bytes per run
+    comm_bytes_saved: float = 0.0    # vs the count-based planner's plan
+    num_hosts: int = 1               # controller processes the mesh spans
+    inter_host_collectives: int = 0  # planned collectives crossing hosts
+    comm_bytes_inter_planned: float = 0.0  # mesh-total DCN bytes per run
+    comm_bytes_inter_saved: float = 0.0    # vs the reordering-off plan
+    batch_size: int = 0              # points in the last batched run
+    host_syncs_avoided: int = 0      # device->host transfers vs per-point
+    batch_sharding_mode: str = "none"  # "none" | "batch" | "amp"
+    evolve_steps_fused: int = 0      # dynamics steps in one dispatch
+    batched_cache_size: int = 0        # live entries in a bounded cache
+    batched_cache_evictions: int = 0   # entries dropped by the bound
+    precision_tier: str = "env"        # compile-time tier of this program
+    modeled_tier_error: float = 0.0    # the budget model's per-run bound
+
+    @property
+    def dispatches(self) -> int:
+        """Kernels the device runs per program execution (op passes plus
+        relayout and pair exchanges)."""
+        return self.kernels_out + self.relayouts + self.cross_shard_exchanges
+
+    @property
+    def collective_launches(self) -> int:
+        """Collectives issued per program execution."""
+        return self.relayouts + self.cross_shard_exchanges
+
+    def as_dict(self) -> dict:
+        return {"gates_in": self.gates_in,
+                "kernels_out": self.kernels_out,
+                "relayouts": self.relayouts,
+                "dispatches": self.dispatches,
+                "fused_groups": self.fused_groups,
+                "diag_folds": self.diag_folds,
+                "commuted_diagonals": self.commuted_diagonals,
+                "max_group_gates": self.max_group_gates,
+                "cross_shard_exchanges": self.cross_shard_exchanges,
+                "swaps_absorbed": self.swaps_absorbed,
+                "collectives_fused": self.collectives_fused,
+                "collective_launches": self.collective_launches,
+                "comm_bytes_planned": self.comm_bytes_planned,
+                "comm_bytes_saved": self.comm_bytes_saved,
+                "num_hosts": self.num_hosts,
+                "inter_host_collectives": self.inter_host_collectives,
+                "comm_bytes_inter_planned": self.comm_bytes_inter_planned,
+                "comm_bytes_inter_saved": self.comm_bytes_inter_saved,
+                "batch_size": self.batch_size,
+                "host_syncs_avoided": self.host_syncs_avoided,
+                "batch_sharding_mode": self.batch_sharding_mode,
+                "evolve_steps_fused": self.evolve_steps_fused,
+                "batched_cache_size": self.batched_cache_size,
+                "batched_cache_evictions": self.batched_cache_evictions,
+                "precision_tier": self.precision_tier,
+                "modeled_tier_error": self.modeled_tier_error}

@@ -8,6 +8,12 @@ register, whose arrays are immutable and swapped on every update, the
 planes here are updated IN PLACE by the gate engine and the layer kernel
 wherever that saves a register-sized buffer (``core/apply.py``,
 ``ops/statevec.py``, ``ops/layer_kernel.py`` say where).
+
+Every reader and writer goes through the :attr:`Qureg.state` property, so
+the opt-in imperative gate fusion (``api.startGateFusion``) keeps program
+order: a read applies the buffered gates first, a full overwrite drops
+them, and the in-place writers (``swap_amps``, collapse, channels) read
+before they write.
 """
 
 from __future__ import annotations
@@ -35,7 +41,11 @@ class Qureg:
             else num_qubits
         self.num_amps_total = 1 << self.num_qubits_in_state_vec
         self.qasm_log = QASMLogger(num_qubits)
-        self.state: torch.Tensor = None  # type: ignore[assignment]
+        self._state: torch.Tensor = None  # type: ignore[assignment]
+        # opt-in imperative gate fusion (api.startGateFusion): while
+        # active, gate calls buffer here and flush, contracted through
+        # core/fusion.py, at the first state read
+        self._fusion_buffer = None
 
     # -- reference struct-field aliases (QuEST.h:161-192 spellings) -------
 
@@ -56,6 +66,49 @@ class Qureg:
         return self.num_amps_total
 
     # -- state plumbing ----------------------------------------------------
+
+    @property
+    def state(self) -> torch.Tensor:
+        buf = self._fusion_buffer
+        if buf is not None and buf.pending and not buf.flushing:
+            buf.flush()     # every reader sees buffered gates applied
+        return self._state
+
+    @state.setter
+    def state(self, new_state: torch.Tensor) -> None:
+        buf = self._fusion_buffer
+        if buf is not None and buf.pending and not buf.flushing:
+            # a full overwrite supersedes pending gates (read-modify-write
+            # callers flushed at the read; the flush's own writes are
+            # fenced by buf.flushing)
+            buf.discard()
+        self._state = new_state
+
+    def flush_gates(self) -> None:
+        """Apply any gates buffered by the opt-in imperative fusion path
+        (``api.startGateFusion``). No-op otherwise."""
+        buf = self._fusion_buffer
+        if buf is not None:
+            buf.flush()
+
+    def ensure_canonical(self) -> None:
+        """Drain the imperative fusion buffer. One device keeps no lazy
+        qubit layout, so there is nothing else to restore."""
+        self.flush_gates()
+
+    @property
+    def is_quad(self) -> bool:
+        """QUAD (double-double) registers are not ported (ROADMAP Queue 1
+        item 5): always False."""
+        return False
+
+    @property
+    def num_amps_per_chunk(self) -> int:
+        return self.num_amps_total // self.env.num_devices
+
+    @property
+    def num_chunks(self) -> int:
+        return self.env.num_devices
 
     @property
     def device(self) -> torch.device:
@@ -81,7 +134,7 @@ class Qureg:
                 f"holds {self.num_amps_total} amplitudes")
         np_dtype = np.float32 if self.real_dtype == torch.float32 \
             else np.float64
-        self.state = torch.from_numpy(
+        self.state = torch.from_numpy(  # discards pending gates
             pack_host(host_array, np_dtype)).to(self.device)
 
     def to_numpy(self) -> np.ndarray:
@@ -89,6 +142,12 @@ class Qureg:
         and debug seam: O(2^n) host memory. Use ``getAmp`` or the
         ``calc*`` reductions in real programs."""
         return unpack_host(self.state.cpu().numpy())
+
+    def density_matrix_numpy(self) -> np.ndarray:
+        """``rho[r, c]`` of a density register (host-side): the transpose
+        of the flat vector viewed as a square."""
+        dim = 1 << self.num_qubits_represented
+        return self.to_numpy().reshape(dim, dim).T
 
     def __repr__(self) -> str:
         kind = "density-matrix" if self.is_density_matrix \

@@ -17,6 +17,7 @@ import quest_tpu as jq
 from quest_tpu.validation import ErrorCode as JErrorCode
 import quest_tpu_torch as tq
 from quest_tpu_torch import interop
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 5
 TOL = 1e-12

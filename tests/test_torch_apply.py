@@ -13,6 +13,7 @@ import torch
 
 from quest_tpu.core import apply as japply
 from quest_tpu_torch.core import apply as tapply
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 8
 TOL = 1e-12

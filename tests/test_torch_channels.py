@@ -25,6 +25,7 @@ import quest_tpu_torch as tq
 from quest_tpu_torch.circuits import Param as TParam
 from quest_tpu_torch.core import fusion as tfusion
 from quest_tpu_torch.ops import channels as tchan
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-15
 

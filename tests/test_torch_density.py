@@ -26,6 +26,7 @@ from quest_tpu_torch import interop
 from quest_tpu_torch.core.packing import pack
 from quest_tpu_torch.ops import densmatr as tdm
 from quest_tpu_torch.ops import reductions as tred
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 4
 TOL = 1e-12

@@ -19,6 +19,7 @@ from quest_tpu.algorithms import _append_qft
 from quest_tpu.circuits import Circuit as JCircuit
 import quest_tpu_torch as tq
 from quest_tpu_torch.circuits import Circuit
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 

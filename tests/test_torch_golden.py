@@ -18,6 +18,7 @@ import pytest
 
 import quest_tpu_torch as tq
 from quest_tpu_torch.testing import GATE_SPECS, run_file
+from torch_threads import one_blas_thread  # noqa: F401
 
 HERE = os.path.dirname(__file__)
 FILES = sorted(glob.glob(os.path.join(HERE, "golden", "*.test"))

@@ -24,6 +24,7 @@ import quest_tpu as jq
 from quest_tpu.circuits import Circuit as JCircuit
 import quest_tpu_torch as tq
 from quest_tpu_torch.ops import layer_kernel as lk
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 GRAD_TOL = 1e-9          # tests/test_gradients.py's bar

@@ -16,6 +16,7 @@ import torch
 import quest_tpu_torch as tq
 from quest_tpu_torch.ops import kraus_kernel as kk
 from quest_tpu_torch.ops import layer_kernel as lk
+from torch_threads import one_blas_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,7 +27,8 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.ops.kraus_kernel, quest_tpu_torch.ops.cuda_build, "
             "quest_tpu_torch.parallel.sampling, quest_tpu_torch.profiling, "
             "quest_tpu_torch.ops.densmatr, quest_tpu_torch.testing.golden, "
-            "quest_tpu_torch.ops.adjoint, "
+            "quest_tpu_torch.ops.adjoint, quest_tpu_torch.parallel.pergate, "
+            "quest_tpu_torch.serve, quest_tpu_torch.serve.warmcache, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
@@ -253,3 +255,15 @@ def test_cuda_adjoint_layers_never_reach_the_plain_version(monkeypatch):
         lk.apply_layer_batched(torch.zeros(4, 2, 1 << n).as_subclass(
             _FakeCudaPlanes), n, walk.adjoints[id(layer)])
     assert lk.apply_layer_batched.launches == before
+
+
+def test_interpret_on_a_cuda_env_raises():
+    """``pallas="interpret"`` asks for the layer kernel's plain version,
+    which no path on the card takes: compiling for a CUDA env raises
+    before anything is planned or launched."""
+    env = tq.QuESTEnv(precision=tq.SINGLE, device=torch.device("cuda", 0))
+    c = tq.Circuit(8).h(0).cnot(0, 1)
+    with pytest.raises(ValueError, match="plain version"):
+        c.compile(env, pallas="interpret")
+    with pytest.raises(ValueError, match="plain version"):
+        c.compile_trajectories(env, pallas="interpret")

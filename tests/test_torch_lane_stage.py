@@ -25,6 +25,7 @@ import torch
 from quest_tpu.ops import pallas_kernels as pk
 from quest_tpu_torch.ops import kraus_kernel as kk
 from quest_tpu_torch.ops import layer_kernel as lk
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 KIB = 1024

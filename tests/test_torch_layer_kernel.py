@@ -18,6 +18,7 @@ import torch
 
 from quest_tpu.ops import pallas_kernels as pk
 from quest_tpu_torch.ops import layer_kernel as lk
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 14
 TOL = 1e-12

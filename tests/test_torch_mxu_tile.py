@@ -29,6 +29,7 @@ from quest_tpu_torch import interop
 from quest_tpu_torch.core.apply import apply_unitary
 from quest_tpu_torch.ops import layer_kernel as lk
 from quest_tpu_torch.parallel.layout import choose_mxu_contraction
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 9
 TARGETS = [(3,), (8,), (3, 8), (7, 8), (2, 5, 7)]

@@ -24,6 +24,7 @@ import torch
 
 from quest_tpu.ops import pallas_kernels as pk
 from quest_tpu_torch.ops import layer_kernel as lk
+from torch_threads import one_blas_thread  # noqa: F401
 
 N = 15                                 # row bits 0..7
 TOL = 1e-12

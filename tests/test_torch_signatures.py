@@ -1,0 +1,161 @@
+"""The port's public signatures against the JAX package's.
+
+For every public name both packages define (the functions of ``api.py`` and
+the methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
+``Qureg`` and ``QuESTEnv``), the port's parameters begin with the
+reference's, by name and in order, so a program written for the JAX
+package calls the port the same way, positionally or by keyword. The port
+may add parameters after them.
+
+``ALLOWED`` is the whole list of exceptions, each with its reason: a
+reference parameter the port leaves out, and the port's parameters that
+stand in its place (which the comparison then skips on the port's side).
+"""
+
+import inspect
+
+import pytest
+
+import quest_tpu as jq
+from quest_tpu import api as japi
+from quest_tpu.ops.trajectories import TrajectoryProgram as JTrajectories
+import quest_tpu_torch as tq
+from quest_tpu_torch import api as tapi
+from quest_tpu_torch.ops.trajectories import TrajectoryProgram as TTrajectories
+from torch_threads import one_blas_thread  # noqa: F401
+
+RNG = ("the RNG decision (ROADMAP): the port draws from a "
+       "torch.Generator or caller-given uniforms, never jax.random keys")
+SHARDING = "waits for the multi-device slice (ROADMAP Queue 1 item 8)"
+SERVING = "waits for the serving slice (ROADMAP Queue 1 item 10)"
+
+# (qualified name, reference parameter) -> (port parameters in its place,
+# reason)
+ALLOWED = {
+    ("CompiledCircuit.sample_sweep", "key"): (("generator",), RNG),
+    ("TrajectoryProgram.run", "key"): (("uniforms",), RNG),
+    ("TrajectoryProgram.run_batch", "key"): (("uniforms",), RNG),
+    ("TrajectoryProgram.run_batch", "shard_trajectories"): ((), SHARDING),
+    ("TrajectoryProgram.trajectory_sweep", "key"): (("uniforms",), RNG),
+    ("TrajectoryProgram.trajectory_sweep", "shard_trajectories"):
+        ((), SHARDING),
+    ("TrajectoryProgram.expectation", "key"): (("seed", "uniforms"), RNG),
+    ("TrajectoryProgram.expectation", "shard_trajectories"): ((), SHARDING),
+    ("TrajectoryProgram.expectation_batch", "key"): (("seed",), RNG),
+    ("TrajectoryProgram.expectation_batch", "progress"): ((), SERVING),
+    ("TrajectoryProgram.sample", "key"): (("seed", "uniforms"), RNG),
+    ("TrajectoryProgram.average_density", "key"): (("uniforms",), RNG),
+    ("QuESTEnv.__init__", "mesh"): (("device",), SHARDING),
+    ("QuESTEnv.__init__", "key"): (("generator",), RNG),
+}
+
+CLASSES = (("Circuit", jq.Circuit, tq.Circuit),
+           ("CompiledCircuit", jq.CompiledCircuit, tq.CompiledCircuit),
+           ("TrajectoryProgram", JTrajectories, TTrajectories),
+           ("Qureg", jq.Qureg, tq.Qureg),
+           ("QuESTEnv", jq.QuESTEnv, tq.QuESTEnv))
+
+
+def _function(obj):
+    if isinstance(obj, (staticmethod, classmethod)):
+        return obj.__func__
+    return obj if inspect.isfunction(obj) else None
+
+
+def _shared_callables():
+    """``[(qualified name, reference function, port function)]`` for every
+    public function and method both packages define."""
+    out = []
+    for name in japi.__all__:
+        jf, tf = getattr(japi, name), getattr(tapi, name, None)
+        if inspect.isfunction(jf) and inspect.isfunction(tf):
+            out.append((name, jf, tf))
+    for cls_name, jcls, tcls in CLASSES:
+        for name in sorted(set(vars(jcls)) & set(vars(tcls))):
+            if name.startswith("_") and name != "__init__":
+                continue
+            jf = _function(inspect.getattr_static(jcls, name))
+            tf = _function(inspect.getattr_static(tcls, name))
+            if jf is not None and tf is not None:
+                out.append((f"{cls_name}.{name}", jf, tf))
+    return out
+
+
+SHARED = _shared_callables()
+
+
+def _names(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def test_the_comparison_covers_the_surface():
+    names = {q for q, _, _ in SHARED}
+    assert len(names) == len(SHARED)
+    for must in ("createQuESTEnv", "sampleOutcomes", "setWeightedQureg",
+                 "startGateFusion", "Circuit.compile",
+                 "Circuit.compile_trajectories", "Circuit.to_qasm",
+                 "CompiledCircuit.__init__", "CompiledCircuit.apply",
+                 "CompiledCircuit.precompile",
+                 "CompiledCircuit.dispatch_stats",
+                 "TrajectoryProgram.__init__", "Qureg.device_put",
+                 "Qureg.flush_gates", "QuESTEnv.__init__"):
+        assert must in names, must
+
+
+@pytest.mark.parametrize("qualname,jfn,tfn", SHARED,
+                         ids=[q for q, _, _ in SHARED])
+def test_port_parameters_begin_with_the_reference(qualname, jfn, tfn):
+    ref = _names(jfn)
+    port = _names(tfn)
+    for (q, ref_param), (stand_ins, reason) in ALLOWED.items():
+        if q != qualname:
+            continue
+        assert reason
+        ref.remove(ref_param)
+        port = [p for p in port if p not in stand_ins]
+    assert port[:len(ref)] == ref, (qualname, ref, port)
+
+
+def test_every_allowance_names_a_reference_parameter():
+    by_name = {q: jf for q, jf, _ in SHARED}
+    for (qualname, ref_param), (stand_ins, reason) in ALLOWED.items():
+        assert qualname in by_name, qualname
+        assert ref_param in _names(by_name[qualname]), (qualname, ref_param)
+        assert reason
+
+
+MISSING_BEFORE = (
+    "startGateFusion", "stopGateFusion", "fusedGates", "syncQuESTSuccess",
+    "getEnvironmentString", "copyStateToGPU", "copyStateFromGPU",
+    "setWeightedQureg", "sampleOutcomes", "reportState",
+    "reportStateToScreen", "reportQuregParams", "compareStates",
+    "initStateFromSingleFile", "getQuEST_PREC")
+
+
+@pytest.mark.parametrize("name", MISSING_BEFORE)
+def test_the_main_path_names_exist(name):
+    assert name in tq.__all__ and callable(getattr(tq, name))
+
+
+def test_the_class_members_exist():
+    for name in ("pauli_string", "to_qasm", "extend", "inverse", "depth"):
+        assert hasattr(tq.Circuit, name), name
+    for name in ("program_digest", "precompile", "dispatch_stats"):
+        assert hasattr(tq.CompiledCircuit, name), name
+    for name in ("state", "flush_gates", "is_quad", "num_amps_per_chunk",
+                 "num_chunks", "ensure_canonical", "density_matrix_numpy"):
+        assert hasattr(tq.Qureg, name), name
+    env = tq.createQuESTEnv(num_devices=1, device="cpu")
+    assert (env.num_devices, env.rank, env.num_ranks,
+            env.is_multihost) == (1, 0, 1, False)
+    q = tq.createQureg(3, env)
+    assert (q.is_quad, q.num_amps_per_chunk, q.num_chunks) == (False, 8, 1)
+
+
+def test_num_devices_one_device_only():
+    for n in (None, 1):
+        env = tq.createQuESTEnv(n, tq.DOUBLE, [3], device="cpu")
+        assert env.precision is tq.DOUBLE and env.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tq.createQuESTEnv(num_devices=2, device="cpu")

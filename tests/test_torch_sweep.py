@@ -31,6 +31,7 @@ import quest_tpu_torch as tq
 from quest_tpu_torch.core import apply as tapply
 from quest_tpu_torch.ops import layer_kernel as lk
 from quest_tpu_torch.ops import reductions as tred
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 N = 14

@@ -42,6 +42,7 @@ from quest_tpu_torch import interop
 from quest_tpu_torch import profiling as tprof
 from quest_tpu_torch.ops import layer_kernel as lk
 from quest_tpu_torch.ops import reductions as tred
+from torch_threads import one_blas_thread  # noqa: F401
 
 GATE_COUNTS = (1, 7, 89, 144, 1000, 100000)
 

@@ -32,6 +32,7 @@ from quest_tpu_torch.ops import kraus_kernel as kk
 from quest_tpu_torch.ops import layer_kernel as lk
 from quest_tpu_torch.ops import reductions as tred
 from quest_tpu_torch.ops import trajectories as ttraj
+from torch_threads import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 
