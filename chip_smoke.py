@@ -21,7 +21,8 @@ Phases (any unmet check exits non-zero and prints no result line):
 2. build: one ``nvcc`` per ``quest_tpu_torch/csrc/*.cu``, all started
    together, with each kernel's registers and spills (the FAST instance,
    the four full-precision instances, layer and Kraus kernel at float32
-   and float64, and the four instances of the layer kernel's streaming
+   and float64, the four row stages ``stage_dense_row<T, J>`` the layer
+   kernel calls, and the four instances of the layer kernel's streaming
    entry for ``rowdiag``-only layers must spill nothing), the lane
    stage's ring bytes from both libraries' C entry points against the
    Python sizing, and the streaming entry's shared-memory table cap
@@ -47,8 +48,15 @@ Phases (any unmet check exits non-zero and prints no result line):
    per-layer pack bit for bit, and its times: the
    call, and device-only (the card held busy while the host enqueues) the
    launch alone and the whole call; then each target set with a row bit
-   (``stage_dense<T,1>``/``<T,2>``) at float32 and float64: ms per call
-   beside its bound and the port's ``apply_unitary`` on the same gate;
+   (the row stages ``stage_dense_row<T,1>``/``<T,2>``) at float32 and
+   float64, at 20 and 26 qubits, against the port's ``apply_unitary``:
+   ms per call, the launch alone device-only, its bound, ``apply_unitary``
+   and, for (2, 5, 7) and (7, 8), one complex ``torch.matmul`` of the
+   packed operator (held against the kernel); then a 26-qubit circuit with
+   dense 8- and 9-qubit gates on qubits 0-7 and 0-8 compiled with the
+   crossover model deciding, at float32 and float64: its one layer holds
+   ``rowmxu`` stages at J = 1 and 2, one launch per run, the state against
+   ``layers=False`` (||dpsi||_2 <= 1e-4 / 1e-10), both runs timed;
 4. the single-state path at 30 qubits, complex64: the random-rotation +
    CNOT brickwork compiled and run through the layer kernel, against the
    same gates through the imperative per-gate API;
@@ -155,6 +163,12 @@ plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
 the largest amplitude, so the bar shrinks with the state's amplitudes and a
 wrong stage, row, state or draw moves the error to order 1.
 
+A bound is the larger of a call's bytes over 3.35 TB/s and its operations
+over the card's peak for their type (PEAK_FLOPS): float32 on the CUDA
+cores, float64 on the FP64 tensor cores, both 67 TFLOP/s, bf16 on its
+tensor cores. The exact float64 stages run on the CUDA cores, at 34
+TFLOP/s; the float64 rows print that figure beside the bound.
+
 Every kernel count is set to 0 just before a path runs and read just after
 it. The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing here imports JAX or
@@ -174,9 +188,14 @@ MAIN_QUBITS = 30
 MAIN_LAYERS = 2
 CHECK_QUBITS = 20
 PLAIN_QUBITS = 26
+ROW_STAGE_QUBITS = 26                  # phase 3e: the row stages past L2
 SWEEP_QUBITS, SWEEP_LAYERS, SWEEP_BATCH, SWEEP_TERMS = 24, 2, 64, 24
 TRAJ_QUBITS, TRAJ_WAVE, TRAJ_MAX = 22, 128, 1024
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
+# the card's peak rate for each plane dtype (by itemsize), which a bound
+# takes: float32 on the CUDA cores, float64 on the FP64 tensor cores; the
+# exact stages run float64 on the CUDA cores, at half that rate
+PEAK_FLOPS = {4: 67.0e12, 8: 67.0e12}
 CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
 BF16_TENSOR_FLOPS = 989.0e12           # dense bf16 tensor cores
 MXU_TILE_TARGETS = ((3,), (8,), (3, 8), (7, 8), (2, 5, 7))
@@ -328,9 +347,10 @@ def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1,
     """Least time for one layer on the card over ``batch`` states: the
     larger of its HBM bytes (both planes of every state read and written
     once, plus its operands once) over 3.35 TB/s and its flops over the
-    CUDA-core rate. With ``fast`` (the FAST tier) the dense stages do the
-    bf16-split form's twice the products at the bf16 tensor-core rate and
-    their operators are bf16. Returns (ms, bound_by, bytes_ms, flops_ms)."""
+    card's peak for the dtype (PEAK_FLOPS). With ``fast`` (the FAST tier)
+    the dense stages do the bf16-split form's twice the products at the
+    bf16 tensor-core rate and their operators are bf16. Returns (ms,
+    bound_by, bytes_ms, flops_ms)."""
     itemsize = dtype.itemsize
     kstages, mats, tables, xmats, _, _ = lk.layer_kernel_plan(
         layer, n, lk.tile_rows_for(dtype))
@@ -346,9 +366,9 @@ def layer_bound_ms(lk, layer, n: int, dtype, batch: int = 1,
                 if st[0] not in ("lane", "rowmxu"))
     if fast:
         flops_s = 2.0 * dense / BF16_TENSOR_FLOPS \
-            + other / CUDA_CORE_FLOPS[itemsize]
+            + other / PEAK_FLOPS[itemsize]
     else:
-        flops_s = (dense + other) / CUDA_CORE_FLOPS[itemsize]
+        flops_s = (dense + other) / PEAK_FLOPS[itemsize]
     flops_ms = 1e3 * batch * flops_s
     return max(bytes_ms, flops_ms), \
         ("bytes" if bytes_ms >= flops_ms else "operations"), \
@@ -428,7 +448,18 @@ NO_SPILL_INSTANCES = {
     "layer_diag_kernelIdLb0E": "layer_diag_kernel<double, __ldg tables>",
     "kraus_kernelIfE": "kraus_kernel<float>",
     "kraus_kernelIdE": "kraus_kernel<double>",
+    # the row stages, functions of their own that the single and batched
+    # launches of layer_kernel<T> call (their registers are the kernel's)
+    "stage_dense_rowIfLi1E": "stage_dense_row<float, 1>",
+    "stage_dense_rowIfLi2E": "stage_dense_row<float, 2>",
+    "stage_dense_rowIdLi1E": "stage_dense_row<double, 1>",
+    "stage_dense_rowIdLi2E": "stage_dense_row<double, 2>",
 }
+# the kernel whose registers a device function's line reports
+HOST_KERNEL = {"stage_dense_row<float, 1>": "layer_kernel<float>",
+               "stage_dense_row<float, 2>": "layer_kernel<float>",
+               "stage_dense_row<double, 1>": "layer_kernel<double>",
+               "stage_dense_row<double, 2>": "layer_kernel<double>"}
 
 
 def instance_of(mangled: str):
@@ -463,10 +494,12 @@ def phase_build(torch):
                     line.split("Used", 1)[1].split()[0])
     if all(log for _, _, log in libs.values()):
         for name, found in spills.items():
-            check(len(found) == 1 and "0 bytes spill stores, 0 bytes "
-                  "spill loads" in found[0],
-                  f"{name} spills nothing ({registers.get(name)} "
-                  f"registers): {found}")
+            host = HOST_KERNEL.get(name, name)
+            check(found and all("0 bytes spill stores, 0 bytes spill "
+                                "loads" in line for line in found),
+                  f"{name} spills nothing ({registers.get(host)} "
+                  f"registers" + (f", {host}'s" if host != name else "")
+                  + f"): {found}")
     else:
         print("  spills not read: the libraries were already built")
     # the lane stage's ring: the kernels' sizing against the Python mirror
@@ -727,9 +760,17 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
           + ("the host" if fast_ms > 1.5 * fast_call_ms else "the device")
           + ")"
           + f"; bound {bound:.4f} ms ({by}; HBM {hbm:.4f} "
-          f"ms, CUDA-core flops {ops:.4f} ms), plain {plain:.4f} ms, "
+          f"ms, flops at peak {ops:.4f} ms), plain {plain:.4f} ms, "
           f"torch.matmul complex64 {lib:.4f} ms")
+    # the row stages' part of the phase, with its wall time: the phase's
+    # share of the script's time limit
+    t0 = time.perf_counter()
     row_targets = mxu_row_target_times(torch, lk, rng, card)
+    t1 = time.perf_counter()
+    wide = compiled_wide_gates(torch, qt, lk, kk, rng, card)
+    t2 = time.perf_counter()
+    print(f"  phase 3e wall time: row-target times {t1 - t0:.1f} s, "
+          f"wide-gate path {t2 - t1:.1f} s")
     return {
         "name": "mxu_tile",
         "route": "cuda",
@@ -749,47 +790,164 @@ def phase_mxu_tile(torch, qt, lk, kk, rng, card):
         "fast_call_device_ms": fast_call_ms,
         "qubits": n,
         "row_targets": row_targets,
+        "compiled_wide_gates": wide,
     }
 
 
+def device_planes(torch, n: int, dtype, seed: int):
+    """A normalised random state of n qubits made on the card from a
+    seeded generator (a 26-qubit state from numpy takes seconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    planes = torch.randn(2, 1 << n, generator=gen, dtype=dtype,
+                         device="cuda")
+    return planes.div_(torch.linalg.vector_norm(planes))
+
+
 def mxu_row_target_times(torch, lk, rng, card):
-    """The MXU tile on the target sets with a row bit (the only launches
-    of ``stage_dense<T,1>``/``<T,2>``) at float32 and float64: ms per call
-    beside the one-stage layer's bound and one library call for the same
-    gate, the port's ``apply_unitary`` (a strided view of the planes and
-    one ``torch.matmul``), each output held against the other first."""
+    """The MXU tile on the target sets with a row bit (the row stages
+    ``stage_dense_row<T,1>``/``<T,2>``) at float32 and float64, at 20
+    qubits and at 26 (4096 / 8192 tiles, the state far past L2): each
+    output held against the port's ``apply_unitary`` (a strided view of the
+    planes and one ``torch.matmul``) first, then ms per call, the launch
+    alone device-only (the prebuilt one-stage layer through
+    ``apply_layer``, the card held busy while the host enqueues), the
+    one-stage layer's bound, ``apply_unitary``'s ms, and for the target
+    sets whose groups are contiguous runs of dim amplitudes ((2, 5, 7):
+    256, (7, 8): 512) one complex ``torch.matmul`` of the packed operator
+    on the planes viewed as (2^n / dim, dim), which computes exactly the
+    stage's function (held against the kernel's output too)."""
     from quest_tpu_torch.core.apply import apply_unitary
-    n = CHECK_QUBITS
     rows = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        for targets in MXU_TILE_TARGETS:
-            if all(t < lk.LANE_QUBITS for t in targets):
-                continue
-            u = random_unitary(rng, 1 << len(targets))
-            planes = random_planes(torch, rng, n, dtype, "cuda")
-            got = lk.apply_mxu_tile(planes.clone(), n, u, targets)
-            want = apply_unitary(planes.clone(), n, u, targets)
-            err, rel = rel_err(got, want)
-            del got, want
-            check(rel <= tol, f"MXU tile {targets} {dtype} vs apply_unitary "
-                  f"max|diff| / max|amp| {rel:.3e} <= {tol:g}")
-            ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(planes, n, u,
-                                                          targets), reps=20)
-            lib = cuda_ms(torch, lambda: apply_unitary(planes, n, u, targets),
-                          reps=20)
-            layer = lk._mxu_tile_layer(n, u, targets, dtype)
-            bound, by, _, _ = layer_bound_ms(lk, layer, n, dtype)
-            j = sum(t >= lk.LANE_QUBITS for t in targets)
-            print(f"  row targets {str(targets):10s} {str(dtype):14s} "
-                  f"(stage_dense<T,{j}>): {ms:.4f} ms per call, bound "
-                  f"{bound:.4f} ms ({by}), apply_unitary {lib:.4f} ms "
-                  f"(call / library {ms / lib:.2f}x) on {card}")
-            rows.append({"targets": list(targets), "dtype": str(dtype),
-                         "row_bits": j, "ms": ms, "bound_ms": bound,
-                         "bound_by": by, "library_ms": lib,
-                         "max_abs_err": err})
+    for n, reps in ((CHECK_QUBITS, 20), (ROW_STAGE_QUBITS, 5)):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            cdtype = torch.complex64 if dtype == torch.float32 \
+                else torch.complex128
+            planes = device_planes(torch, n, dtype, seed=n)
+            for targets in MXU_TILE_TARGETS:
+                if all(t < lk.LANE_QUBITS for t in targets):
+                    continue
+                u = random_unitary(rng, 1 << len(targets))
+                got = lk.apply_mxu_tile(planes.clone(), n, u, targets)
+                want = apply_unitary(planes.clone(), n, u, targets)
+                err, rel = rel_err(got, want)
+                del want
+                check(rel <= tol, f"{n} q MXU tile {targets} {dtype} vs "
+                      f"apply_unitary max|diff| / max|amp| {rel:.3e} <= "
+                      f"{tol:g}")
+                layer = lk._mxu_tile_layer(n, u, targets, dtype)
+                m = layer.stages[0][2]
+                dim = m.shape[0]
+                matmul = None
+                if targets in ((2, 5, 7), (7, 8)):
+                    z = torch.complex(planes[0], planes[1]).view(-1, dim)
+                    mt = torch.as_tensor(np.ascontiguousarray(m.T),
+                                         dtype=cdtype, device="cuda")
+                    prod = torch.matmul(z, mt).view(-1)
+                    _, mrel = rel_err(torch.stack([prod.real, prod.imag]),
+                                      got)
+                    del prod
+                    check(mrel <= tol, f"{n} q one torch.matmul of the "
+                          f"packed operator {targets} {dtype} vs the kernel "
+                          f"{mrel:.3e} <= {tol:g}")
+                    matmul = cuda_ms(torch, lambda: torch.matmul(z, mt),
+                                     reps=reps)
+                    del z
+                del got
+                ms = cuda_ms(torch, lambda: lk.apply_mxu_tile(
+                    planes, n, u, targets), reps=reps)
+                dev = device_ms(torch, lambda: lk.apply_layer(
+                    planes, n, layer), reps=reps)
+                lib = cuda_ms(torch, lambda: apply_unitary(
+                    planes, n, u, targets), reps=reps)
+                bound, by, _, ops = layer_bound_ms(lk, layer, n, dtype)
+                core = ops * PEAK_FLOPS[dtype.itemsize] \
+                    / CUDA_CORE_FLOPS[dtype.itemsize]
+                j = sum(t >= lk.LANE_QUBITS for t in targets)
+                print(f"  {n} q row targets {str(targets):10s} "
+                      f"{str(dtype):14s} (stage_dense_row<T,{j}>): call "
+                      f"{ms:.4f} ms, the launch alone device-only "
+                      f"{dev:.4f} ms, bound {bound:.4f} ms ({by}; the "
+                      f"launch at {bound / dev:.1%} of it"
+                      + ("" if core == ops else
+                         f"; at the CUDA-core rate {core:.4f} ms, "
+                         f"{core / dev:.1%}") + "), apply_unitary "
+                      f"{lib:.4f} ms (call / it {ms / lib:.2f}x)"
+                      + ("" if matmul is None else
+                         f", one torch.matmul {matmul:.4f} ms (launch / "
+                         f"it {dev / matmul:.2f}x)") + f" on {card}")
+                rows.append({"qubits": n, "targets": list(targets),
+                             "dtype": str(dtype), "row_bits": j, "ms": ms,
+                             "device_ms": dev, "bound_ms": bound,
+                             "bound_by": by, "cuda_core_ms": core,
+                             "library_ms": lib, "matmul_ms": matmul,
+                             "max_abs_err": err})
             del planes
+            torch.cuda.empty_cache()
     return rows
+
+
+def wide_gate_circuit(qt, n: int, rng):
+    """Lane and row gates around a dense 8-qubit gate on qubits 0-7 and a
+    dense 9-qubit gate on qubits 0-8: the gates the crossover model puts
+    into rowmxu stages at J = 1 and J = 2."""
+    c = qt.Circuit(n)
+    c.h(0)
+    c.gate(random_unitary(rng, 1 << 8), range(8))
+    c.ry(9, 0.3)
+    c.rx(2, 0.4)
+    c.gate(random_unitary(rng, 1 << 9), range(9))
+    c.rz(10, 0.2)
+    c.h(3)
+    return c
+
+
+def compiled_wide_gates(torch, qt, lk, kk, rng, card):
+    """The row stages on a compiled path: wide_gate_circuit at 26 qubits
+    compiled with mxu=None (the model decides) at float32 and float64,
+    its plan holding rowmxu stages at J = 1 and 2, the layer kernel
+    counted from 0 over one run, the state against the same circuit
+    compiled with layers=False, and both runs timed."""
+    n = ROW_STAGE_QUBITS
+    out = []
+    for prec, tol in ((qt.SINGLE, 1e-4), (qt.DOUBLE, 1e-10)):
+        env = qt.createQuESTEnv(precision=prec)
+        circ = wide_gate_circuit(qt, n, rng)
+        cc = circ.compile(env)
+        plain = circ.compile(env, layers=False)
+        row_js = sorted(len(st[1]) for op in cc._ops
+                        if isinstance(op, lk.LayerOp)
+                        for st in op.stages if st[0] == "rowmxu")
+        check(row_js == [1, 2] and cc.num_layers == 1
+              and plain.num_layers == 0,
+              f"{n} q wide gates {prec.real_dtype}: the model put them in "
+              f"rowmxu stages J = {row_js} of {cc.num_layers} layer(s)")
+        qa, qb = qt.createQureg(n, env), qt.createQureg(n, env)
+        base = device_planes(torch, n, prec.real_dtype, seed=7)
+        qa.state, qb.state = base.clone(), base
+        reset_counts(lk, kk)
+        cc.run(qa)
+        torch.cuda.synchronize()
+        launches = counts(lk, kk)
+        plain.run(qb)
+        torch.cuda.synchronize()
+        dist = float(torch.linalg.vector_norm(qa.state - qb.state))
+        check(launches == (1, 0, 0) and dist <= tol,
+              f"{n} q wide gates {prec.real_dtype}: {launches[0]} layer "
+              f"launch(es); ||psi_layers - psi_plain||_2 {dist:.3e} <= "
+              f"{tol:g}")
+        run_s = timed_runs(torch, lambda: cc.run(qa), reps=3)
+        plain_s = timed_runs(torch, lambda: plain.run(qb), reps=3)
+        print(f"  {n} q wide gates {prec.real_dtype}: compiled run "
+              f"{1e3 * run_s:.2f} ms (1 layer), layers=False "
+              f"{1e3 * plain_s:.2f} ms ({plain_s / run_s:.2f}x) on {card}")
+        out.append({"dtype": str(prec.real_dtype), "launches": launches[0],
+                    "run_ms": 1e3 * run_s, "layers_off_ms": 1e3 * plain_s,
+                    "dist": dist})
+        qt.destroyQureg(qa, env)
+        qt.destroyQureg(qb, env)
+        del base
+        torch.cuda.empty_cache()
+    return out
 
 
 def kraus_case(rng, num_traj: int, num_ops: int):
@@ -975,7 +1133,7 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
         bound_by.append(by)
         print(f"  layer {i}: {[st[0] for st in layer.stages]}")
         print(f"    kernel {kernel_ms[-1]:.3f} ms, bound {ms:.3f} ms ({by}; "
-              f"HBM {hbm_ms:.3f} ms, CUDA-core flops {op_ms:.3f} ms), "
+              f"HBM {hbm_ms:.3f} ms, flops at peak {op_ms:.3f} ms), "
               f"plain {plain_ms[-1]:.3f} ms, max|kernel-plain| "
               f"{errs[-1]:.3e}, / max|plain| {rels[-1]:.3e}")
     check(max(rels) <= 1e-5, f"main-path layers: kernel vs plain max|diff| "
@@ -1065,8 +1223,9 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
           f"/ max|plain| {rel64:.3e} <= 1e-12")
     lane64_ms = cuda_ms(torch, lambda: lk.apply_layer(p64, n64, lane64),
                         reps=3)
-    lane64_bound, lane64_by, _, _ = layer_bound_ms(lk, lane64, n64,
-                                                   torch.float64)
+    lane64_bound, lane64_by, _, lane64_ops = layer_bound_ms(
+        lk, lane64, n64, torch.float64)
+    lane64_core = lane64_ops * PEAK_FLOPS[8] / CUDA_CORE_FLOPS[8]
     z = torch.complex(p64[0], p64[1]).view(-1, 128)
     del p64
     mt = torch.as_tensor(m.T, dtype=torch.complex128, device=planes.device)
@@ -1074,8 +1233,9 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
     del z
     torch.cuda.empty_cache()
     print(f"  float64 lane-only layer, {n64} qubits: kernel "
-          f"{lane64_ms:.3f} ms, bound {lane64_bound:.3f} ms ({lane64_by}), "
-          f"torch.matmul complex128 {lib64_ms:.3f} ms")
+          f"{lane64_ms:.3f} ms, bound {lane64_bound:.3f} ms ({lane64_by}; "
+          f"at the CUDA-core rate {lane64_core:.3f} ms), torch.matmul "
+          f"complex128 {lib64_ms:.3f} ms")
 
     # the compiled path end to end, host clock around synchronised runs
     torch.cuda.synchronize()
@@ -1108,6 +1268,7 @@ def phase_times(torch, qt, lk, env, compiled, q1, gates, launches, card):
         "lane_rowdiag7_bound_ms": ld_bound,
         "lane_only_f64_ms": lane64_ms,
         "lane_only_f64_bound_ms": lane64_bound,
+        "lane_only_f64_cuda_core_ms": lane64_core,
         "lane_only_f64_library_ms": lib64_ms,
         "lane_only_f64_max_abs_err": err64,
         "qubits": n,
@@ -1245,7 +1406,7 @@ def batched_layer_times(torch, lk, states, n, layer_ops, label,
         print(f"  {label} layer {i}: {[st[0] for st in layer.stages]}")
         print(f"    kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}; HBM "
               f"{hbm:.3f} ms, {'bf16 tensor-core + ' if fast else ''}"
-              f"CUDA-core flops {ops:.3f} ms), plain {plain:.3f} ms, "
+              f"flops at peak {ops:.3f} ms), plain {plain:.3f} ms, "
               f"torch.matmul {lib_name} lane product "
               f"{'not measured' if lib is None else f'{lib:.3f} ms'}, "
               f"max|kernel-plain| {err:.3e}")
@@ -1361,7 +1522,7 @@ def kraus_bound_ms(n: int, num_traj: int, num_ops: int, itemsize: int):
     nbytes = 4.0 * itemsize * amps + itemsize * (
         num_ops * 2 * 128 * 128 + num_traj * (num_ops + 1))
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    flops_ms = 1e3 * 8.0 * 128 * amps / CUDA_CORE_FLOPS[itemsize]
+    flops_ms = 1e3 * 8.0 * 128 * amps / PEAK_FLOPS[itemsize]
     return max(bytes_ms, flops_ms), \
         ("bytes" if bytes_ms >= flops_ms else "operations"), \
         bytes_ms, flops_ms
@@ -1452,7 +1613,7 @@ def phase_trajectories(torch, qt, lk, kk, card):
     k_lib = lane_matmul_ms(torch, states, kemb[j.cpu().numpy()])
     print(f"  Kraus kernel ({len(kemb)} operators, {TRAJ_WAVE} "
           f"trajectories): {k_ms:.3f} ms, bound {k_bound:.3f} ms ({k_by}; "
-          f"HBM {k_hbm:.3f} ms, CUDA-core flops {k_ops:.3f} ms), plain "
+          f"HBM {k_hbm:.3f} ms, flops at peak {k_ops:.3f} ms), plain "
           f"{k_plain:.3f} ms, torch.matmul complex64 {k_lib:.3f} ms, "
           f"max|kernel-plain| {kerr:.3e}")
     check(krel <= 1e-5, f"main-path channel: Kraus kernel vs plain over "
@@ -1562,7 +1723,7 @@ def phase_fast_main(torch, qt, lk, kk, card):
         wide, scaled = stage_lib[dim]
         print(f"  FAST layer {i}: {[st[0] for st in layer.stages]}")
         print(f"    kernel {ms:.3f} ms, bound {b_ms:.3f} ms ({by}; HBM "
-              f"{hbm:.3f} ms, bf16 tensor-core + CUDA-core flops "
+              f"{hbm:.3f} ms, bf16 tensor-core + peak flops "
               f"{ops:.3f} ms), plain {plain:.3f} ms, torch.matmul bf16 "
               f"stacked real lane product {lib:.3f} ms, widest dense stage "
               f"(dim {dim}) stacked real hi/lo {wide:.3f} ms"
@@ -1886,7 +2047,7 @@ def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
         bound_by.append(by)
         print(f"  layer {i} {[st[0] for st in layer.stages]}: kernel "
               f"{kernel_ms[-1]:.3f} ms, bound {ms:.3f} ms ({by}; HBM "
-              f"{hbm_ms:.3f}, CUDA-core flops {op_ms:.3f}), plain "
+              f"{hbm_ms:.3f}, flops at peak {op_ms:.3f}), plain "
               f"{plain_ms[-1]:.3f} ms, complex64 broadcast mul "
               + (f"{lib_ms[-1]:.3f} ms (kernel / mul "
                  f"{kernel_ms[-1] / lib_ms[-1]:.2f}x)" if lib is not None

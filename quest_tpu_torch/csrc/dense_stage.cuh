@@ -1,7 +1,7 @@
 // The dense stage shared by the layer kernel and the fused Kraus kernel.
 //
 // A tile of tile_rows x 128 amplitudes of one state sits in shared memory
-// as two planes (sre, sim). stage_dense<T, J> replaces, in place, every
+// as two planes (sre, sim). A dense stage at J replaces, in place, every
 // group of 2^J rows (J row bits packed with the 128 lanes into a
 // dim = 128 << J axis) by the complex product M v, where the operator M is
 // read from global memory stored TRANSPOSED (op[e * dim + o] = M[o][e]),
@@ -9,17 +9,14 @@
 // `scale` (1 in the layer kernel; the Kraus kernel's 1/sqrt(p_j)) and
 // written only to groups whose global row passes the row condition.
 //
-// Work split of stage_dense<T, J>, which serves J = 1, 2 (full-precision
-// rowmxu stages): a warp owns up to four groups at once (each operator
-// element it loads serves all of them), thread `lane` accumulates output
-// columns lane, lane + 32, ...; each warp reads all inputs of its groups
-// before it writes any output, and the groups of different warps are
-// disjoint, so no second shared-memory buffer is needed. FMA loops on the
-// CUDA cores, the operator read from L2 through __ldg by every pass.
-//
-// stage_dense_lane<T> is the same function at J = 0 (the lane and clane
-// stages, the Kraus kernel's drawn operator, the MXU tile on lane targets),
-// redesigned for Hopper; its header below has the details.
+// stage_dense_exact<T, J> is the full-precision stage at every J: J = 0
+// through stage_dense_lane<T> (the lane and clane stages, the Kraus
+// kernel's drawn operator, the MXU tile on lane targets), J = 1, 2 through
+// stage_dense_row<T, J> (full-precision rowmxu stages, the MXU tile on row
+// targets). One body: exact FMA on the CUDA cores from an operator ring of
+// K slabs beside the tile, the whole tile's outputs in registers, so the
+// operator is read once per tile per stage. Its header below has the
+// details.
 //
 // stage_dense_fast<J> is the FAST tier's form of the same stage (float32
 // tiles only), the TPU kernel's bf16-split products
@@ -122,79 +119,6 @@ __device__ __forceinline__ int combo_offset(int m, long long packed, int k) {
     if ((m >> t) & 1) r |= 1 << bit_at(packed, t);
   }
   return r;
-}
-
-template <typename T, int J>
-__device__ void stage_dense(T* sre, T* sim, int tile_rows, long long base_row,
-                            long long packed, const T* __restrict__ op_re,
-                            const T* __restrict__ op_im, long long row_mask,
-                            long long row_want, T scale) {
-  constexpr int kDim = kLanes << J;
-  constexpr int kOut = kDim / 32;  // outputs per thread per group
-  constexpr int kGroups = 4 >> J;  // groups per warp pass
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int groups = tile_rows >> J;
-
-  for (int g0 = warp * kGroups; g0 < groups; g0 += kWarps * kGroups) {
-    int row0[kGroups];
-    bool active[kGroups];
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-      active[n] = g0 + n < groups;
-      row0[n] = active[n] ? insert_zeros(g0 + n, packed, J) : 0;
-    }
-    T acc_re[kGroups][kOut];
-    T acc_im[kGroups][kOut];
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        acc_re[n][i] = T(0);
-        acc_im[n][i] = T(0);
-      }
-    }
-#pragma unroll 2
-    for (int e = 0; e < kDim; ++e) {
-      const int roff = combo_offset(e >> 7, packed, J);
-      const int l = e & (kLanes - 1);
-      T xr[kGroups], xi[kGroups];
-#pragma unroll
-      for (int n = 0; n < kGroups; ++n) {
-        const int idx = ((row0[n] | roff) << 7) | l;
-        xr[n] = active[n] ? sre[idx] : T(0);
-        xi[n] = active[n] ? sim[idx] : T(0);
-      }
-      const T* wr = op_re + static_cast<size_t>(e) * kDim + lane;
-      const T* wi = op_im + static_cast<size_t>(e) * kDim + lane;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        const T a = __ldg(wr + 32 * i);
-        const T b = __ldg(wi + 32 * i);
-#pragma unroll
-        for (int n = 0; n < kGroups; ++n) {
-          acc_re[n][i] = fma(xr[n], a, fma(-xi[n], b, acc_re[n][i]));
-          acc_im[n][i] = fma(xr[n], b, fma(xi[n], a, acc_im[n][i]));
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < kGroups; ++n) {
-      if (!active[n]) continue;
-      if (row_mask && ((base_row + row0[n]) & row_mask) != row_want) continue;
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        // output column o = lane + 32 i lies in row combination i / 4
-        const int o = lane + 32 * i;
-        const int idx = ((row0[n] | combo_offset(i >> 2, packed, J)) << 7)
-                        | (o & (kLanes - 1));
-        sre[idx] = acc_re[n][i] * scale;
-        sim[idx] = acc_im[n][i] * scale;
-      }
-    }
-    __syncwarp();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -448,61 +372,81 @@ __device__ void stage_dense_fast(float* sre, float* sim,
 }
 
 // ---------------------------------------------------------------------------
-// The full-precision lane stage: exact FMA fed by a cp.async K-slab ring
+// The full-precision dense stages: exact FMA fed by a cp.async K-slab ring
 // ---------------------------------------------------------------------------
 //
-// stage_dense_lane<T> computes stage_dense<T, 0>'s function: every row of
-// the tile (a group at J = 0) becomes scale * M v over its 128 lanes, in
-// place, written only to rows that pass the row condition. What bounds it:
-// 8 * 128 real flops per amplitude on the CUDA cores (a 30-qubit float32
-// stage is 1.1e12 flops, 16.4 ms at 67 TFLOP/s; float64 runs at half the
-// rate), against a 128 KiB (float32) / 256 KiB (float64) operator that
-// every tile needs whole. The old loop (stage_dense<T, 0>) streamed that
-// operator from L2 once per four rows: 4 MiB of L2 reads per 128 KiB
-// tile, 8 loads per 64 FMAs. The design:
+// stage_dense_exact<T, J> replaces every group of 2^J rows of the tile by
+// scale * M v over its dim = 128 << J inputs, in place, written only to
+// groups that pass the row condition. J = 0 is the lane stage
+// (stage_dense_lane: the lane and clane stages, the Kraus kernel's drawn
+// operator, the MXU tile on lane targets); J = 1, 2 are the rowmxu stages
+// (stage_dense_row: full-precision rowmxu stages, the MXU tile on row
+// targets). A group's rows are insert_zeros(g) | combo_offset(m), m < 2^J:
+// adjacent only when the row bits start at row bit 0. What bounds it:
+// 8 * dim real flops per amplitude on the CUDA cores (a 30-qubit float32
+// lane stage is 1.1e12 flops, 16.4 ms at 67 TFLOP/s; float64 runs at half
+// that rate on the CUDA cores: the card's fp64 peak, 67 TFLOP/s, is on the
+// FP64 tensor cores, which an exact stage does not use), against a
+// 128 KiB - 4 MiB operator that every tile needs whole. The first designs
+// (a warp on 4 >> J groups at a time) streamed that operator from L2 once
+// per warp pass: 4-64 MiB of L2 reads per tile, one load per two to eight
+// FMAs. The design:
 // - The whole tile is one chunk and the outputs live in registers. Thread
-//   (gb, ob) = (tid / 16, tid % 16) owns rows gb + 16 n (n < kLaneRows: 8
-//   at float32, 4 at float64, so the 128 / 64-row tile) and the 8 outputs
-//   q * (128 / kRuns) + kVec * ob + i, i < kVec, in kRuns runs of one
-//   128-bit vector (kVec = 4 floats or 2 doubles): 64 / 32 complex
-//   accumulators, 128 registers at either dtype. The operator is read from
-//   L2 once per tile per stage.
-// - The operator streams in K slabs (32 inputs at float32, 16 at float64)
-//   through a two-stage ring beside the tile. The pool stores M^T, so a
-//   slab is two contiguous 16 KiB blocks (op_re and op_im rows [K k,
-//   K k + K)), copied by cp.async.cg; the next slab's copy is issued right
-//   after the barrier that opens the current slab's products, one barrier
-//   per slab. Ring: 2 x 32 KiB = 64 KiB (lane_scratch_bytes), 192 KiB
+//   (gb, ob) = (tid / (16 << J), tid % (16 << J)) owns groups
+//   gb + (16 >> J) n (n < kGroups: 8 at float32, 4 at float64, so the
+//   tile's 128 / 64 rows) and the 8 outputs q * (dim / kRuns) + kVec * ob
+//   + i, i < kVec, in kRuns runs of one 128-bit vector (kVec = 4 floats or
+//   2 doubles): 64 / 32 complex accumulators, 128 registers at either
+//   dtype. The operator is read from L2 once per tile per stage.
+// - The operator streams in K slabs through a two-stage ring beside the
+//   tile. The pool stores M^T, so a slab is two contiguous 16 KiB blocks
+//   (op_re and op_im rows [K k, K k + K), K = lane_k >> J: 32 / 16 / 8
+//   inputs at float32, 16 / 8 / 4 at float64), copied by cp.async.cg
+//   (lane_fetch_op); the next slab's copy is issued right after the
+//   barrier that opens the current slab's products, one barrier per slab.
+//   Ring: 2 x 32 KiB = 64 KiB at every J (lane_scratch_bytes), 192 KiB
 //   with the tile.
-// - Shared loads are 128 bits. The 16 threads of a half warp read one
-//   operator row's 256 contiguous bytes per run (conflict-free; the other
-//   half warp reads the same bytes, a broadcast). For the inputs the warp's
-//   lanes share their rows (a broadcast): a warp holds two row blocks,
-//   gb = 2w and 2w + 1, so each 128-bit read of x[g][e .. e + kVec) has two
-//   addresses. They lie in one bank quad (rows are 512 B / 1 KiB apart):
-//   two wavefronts per load, against 8 (float32) / 4 (float64) FMA
-//   instructions per loaded value. The inputs are read one block ahead:
-//   a row's next kVec inputs right after its last product with the
-//   current ones, so the reads overlap the other rows' products.
-// - In place: the tile's inputs are read from the tile in every slab, so
-//   after the last slab's products one barrier separates every thread's
-//   last read from the writes; then each thread writes its accumulators,
-//   times scale, for the rows that pass the row condition. Rows past a
-//   small tile (fewer than 16 * kLaneRows rows) read the tile's last row and
-//   are never written.
-// - Exact: every accumulator takes the old loop's complex multiply-add,
-//   re = fma(xr, a, fma(-xi, b, re)), im = fma(xr, b, fma(xi, a, im)),
-//   over e = 0, 1, ..., 127 in order, in fp32 or fp64: the same sums in
-//   the same order as stage_dense<T, 0>. No tensor cores.
+// - Shared loads are 128 bits. A warp's operator reads are 256 (J = 0) or
+//   512 contiguous bytes per run (conflict-free; at J = 0 the other half
+//   warp reads the same bytes, a broadcast). For the inputs the threads
+//   along the outputs share their groups: at J >= 1 a whole warp does, so
+//   each 128-bit input read has one address (a broadcast); at J = 0 a warp
+//   holds two row blocks, gb = 2w and 2w + 1, two addresses in one bank
+//   quad (rows are 512 B / 1 KiB apart), two wavefronts per load against
+//   8 / 4 FMA instructions per loaded value. A thread's group offsets are
+//   computed once per stage; the offset of an input block's row
+//   combination once per block, the same for the whole block. Inputs are
+//   read one block ahead: a group's next kVec inputs right after its last
+//   product with the current ones, so the reads overlap the other groups'
+//   products. Each input's operator values are read one run (one 128-bit
+//   vector of each plane) at a time, and each run's products over all of
+//   the thread's groups come before the next run's read, so only one run's
+//   operator registers are live (the float64 lane stage reads its four
+//   runs at once: kLiveRuns).
+// - In place: after the last slab's products one barrier separates every
+//   thread's last read of the tile from the writes; then each thread
+//   writes its accumulators, times scale, for the groups that pass the row
+//   condition. Groups past a small tile (fewer than 16 * kGroups rows) read
+//   the tile's last group and are never written.
+// - Exact: every accumulator takes the first designs' complex
+//   multiply-add, re = fma(xr, a, fma(-xi, b, re)), im = fma(xr, b,
+//   fma(xi, a, im)), over e = 0, 1, ..., dim - 1 in order, in fp32 or fp64:
+//   the same sums in the same order, so the same bits. No tensor cores.
+// - The lane stage is inlined into its callers; the row stages are not:
+//   inlined beside the lane stage, the layer kernel's float32 instance
+//   needed more than 255 registers (on an H100 it spilled and its lane
+//   stage ran slower); as functions of their own they leave the lane
+//   stage's allocation as it was, and a call costs nothing next to a
+//   stage's 32-128 K FMAs a thread.
 
 // Inputs per K slab of the lane stage: 16 KiB of each operator plane.
 __host__ __device__ constexpr int lane_k(int itemsize) {
   return kLanes / itemsize;
 }
-// Shared memory of the lane stage's ring beside the tile: two stages, each
-// a K slab of op_re then the same rows of op_im, 64 KiB at either dtype.
-// Every full-precision launch reserves it (the Python side mirrors it:
-// ops/layer_kernel.py lane_scratch_bytes).
+// Shared memory of the dense stages' ring beside the tile: two stages, each
+// a K slab of op_re then the same rows of op_im, 64 KiB at either dtype and
+// every J. Every full-precision launch reserves it (the Python side mirrors
+// it: ops/layer_kernel.py lane_scratch_bytes).
 __host__ __device__ constexpr size_t lane_scratch_bytes(int itemsize) {
   return 2 * static_cast<size_t>(lane_k(itemsize)) * kLanes * 2 * itemsize;
 }
@@ -526,8 +470,9 @@ __device__ __forceinline__ void store_128(double* d, const double* s) {
   *reinterpret_cast<double2*>(d) = make_double2(s[0], s[1]);
 }
 
-// Start the copy of lane slab k into a ring stage: rows [K k, K k + K) of
-// op_re, then of op_im, 16 bytes per cp.async, all threads.
+// Start the copy of slab k into a ring stage: the k-th 16 KiB of op_re,
+// then of op_im (rows [K k, K k + K) of M^T at any J), 16 bytes per
+// cp.async, all threads.
 template <typename T>
 __device__ __forceinline__ void lane_fetch_op(T* dst, const T* op_re,
                                               const T* op_im, int k) {
@@ -546,34 +491,47 @@ __device__ __forceinline__ void lane_fetch_op(T* dst, const T* op_re,
   cp_async_commit();
 }
 
-// op_re / op_im: the operator's M^T planes (op[e * 128 + o] = M[o][e]),
+// op_re / op_im: the operator's M^T planes (op[e * dim + o] = M[o][e]),
 // 16-byte aligned. ring: lane_scratch_bytes(sizeof(T)) bytes, 16-aligned.
-template <typename T>
-__device__ __forceinline__ void stage_dense_lane(
+// packed: the J row bits, ascending, one per byte.
+template <typename T, int J>
+__device__ __forceinline__ void stage_dense_exact(
     T* sre, T* sim, T* ring, int tile_rows, long long base_row,
-    const T* __restrict__ op_re, const T* __restrict__ op_im,
-    long long row_mask, long long row_want, T scale) {
-  constexpr int kK = lane_k(sizeof(T));
-  constexpr int kSlabs = kLanes / kK;
-  constexpr int kStage = 2 * kK * kLanes;           // ring stage, elements
+    long long packed, const T* __restrict__ op_re,
+    const T* __restrict__ op_im, long long row_mask, long long row_want,
+    T scale) {
+  constexpr int kDim = kLanes << J;
+  constexpr int kK = lane_k(sizeof(T)) >> J;
+  constexpr int kSlabs = kDim / kK;
+  constexpr int kStage = 2 * kK * kDim;             // ring stage, elements
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  constexpr int kLaneRows = 32 / static_cast<int>(sizeof(T));
+  constexpr int kGroups = 32 / static_cast<int>(sizeof(T));
   constexpr int kOuts = 8;                          // outputs per thread
   constexpr int kRuns = kOuts / kVec;
-  constexpr int kRunStride = kLanes / kRuns;
-  const int ob = threadIdx.x & 15;
-  const int gb = threadIdx.x >> 4;
+  constexpr int kRunStride = kDim / kRuns;
+  constexpr int kOutThreads = kDim / kOuts;         // 16 << J
+  constexpr int kGroupStride = kThreads / kOutThreads;
+  // operator runs whose values are live at once: one, except in the
+  // float64 lane stage, which reads all four first (one at a time, the
+  // layer kernel's float64 instance reached 255 registers and spilled;
+  // at float32 one at a time is the faster lane stage)
+  constexpr int kLiveRuns = (J == 0 && sizeof(T) == 8) ? kRuns : 1;
+  const int ob = threadIdx.x % kOutThreads;
+  const int gb = threadIdx.x / kOutThreads;
   const int col = kVec * ob;
+  const int groups = tile_rows >> J;
 
-  int xoff[kLaneRows];
+  // each group's first row, as an offset into the planes
+  int xoff[kGroups];
 #pragma unroll
-  for (int n = 0; n < kLaneRows; ++n) {
-    xoff[n] = min(gb + 16 * n, tile_rows - 1) * kLanes;
+  for (int n = 0; n < kGroups; ++n) {
+    xoff[n] = insert_zeros(min(gb + kGroupStride * n, groups - 1), packed, J)
+              * kLanes;
   }
-  T acc_re[kLaneRows][kOuts];
-  T acc_im[kLaneRows][kOuts];
+  T acc_re[kGroups][kOuts];
+  T acc_im[kGroups][kOuts];
 #pragma unroll
-  for (int n = 0; n < kLaneRows; ++n) {
+  for (int n = 0; n < kGroups; ++n) {
 #pragma unroll
     for (int p = 0; p < kOuts; ++p) {
       acc_re[n][p] = T(0);
@@ -581,12 +539,12 @@ __device__ __forceinline__ void stage_dense_lane(
     }
   }
 
-  // inputs [e, e + kVec) of every row of this thread, one block ahead:
-  // a row's next block is read right after the row's last product with
-  // the current one, so the reads overlap the other rows' products
-  T xr[kLaneRows][kVec], xi[kLaneRows][kVec];
+  // inputs [e, e + kVec) of every group of this thread, one block ahead
+  // (input e of a group sits at its first row + the offset of row
+  // combination e >> 7 + lane e & 127; input 0 at the first row)
+  T xr[kGroups][kVec], xi[kGroups][kVec];
 #pragma unroll
-  for (int n = 0; n < kLaneRows; ++n) {
+  for (int n = 0; n < kGroups; ++n) {
     load_128(xr[n], sre + xoff[n]);
     load_128(xi[n], sim + xoff[n]);
   }
@@ -599,38 +557,44 @@ __device__ __forceinline__ void stage_dense_lane(
     cp_async_wait_all();
     __syncthreads();
     const T* w_re = ring + (k & 1) * kStage;
-    const T* w_im = w_re + kK * kLanes;
+    const T* w_im = w_re + kK * kDim;
     if (k + 1 < kSlabs) {
       lane_fetch_op<T>(ring + ((k + 1) & 1) * kStage, op_re, op_im, k + 1);
     }
 #pragma unroll 1
     for (int e0 = 0; e0 < kK; e0 += kVec) {
-      // the block after [K k + e0, K k + e0 + kVec); past the last one the
-      // last again (read, never used)
-      const int next = min(k * kK + e0 + kVec, kLanes - kVec);
+      // the block after [K k + e0, K k + e0 + kVec), as an offset from a
+      // group's first row; past the last one the last again (read, never
+      // used)
+      const int after = min(k * kK + e0 + kVec, kDim - kVec);
+      const int next = combo_offset(after >> 7, packed, J) * kLanes
+                       + (after & (kLanes - 1));
 #pragma unroll
       for (int t = 0; t < kVec; ++t) {
         // operator row e of this thread's outputs
-        const T* wr = w_re + (e0 + t) * kLanes + col;
-        const T* wi = w_im + (e0 + t) * kLanes + col;
+        const T* wr = w_re + (e0 + t) * kDim + col;
+        const T* wi = w_im + (e0 + t) * kDim + col;
         T a[kOuts], b[kOuts];
 #pragma unroll
-        for (int q = 0; q < kRuns; ++q) {
-          load_128(a + q * kVec, wr + q * kRunStride);
-          load_128(b + q * kVec, wi + q * kRunStride);
-        }
+        for (int q0 = 0; q0 < kRuns; q0 += kLiveRuns) {
 #pragma unroll
-        for (int n = 0; n < kLaneRows; ++n) {
-#pragma unroll
-          for (int p = 0; p < kOuts; ++p) {
-            acc_re[n][p] = fma(xr[n][t], a[p],
-                               fma(-xi[n][t], b[p], acc_re[n][p]));
-            acc_im[n][p] = fma(xr[n][t], b[p],
-                               fma(xi[n][t], a[p], acc_im[n][p]));
+          for (int q = q0; q < q0 + kLiveRuns; ++q) {
+            load_128(a + q * kVec, wr + q * kRunStride);
+            load_128(b + q * kVec, wi + q * kRunStride);
           }
-          if (t == kVec - 1) {
-            load_128(xr[n], sre + xoff[n] + next);
-            load_128(xi[n], sim + xoff[n] + next);
+#pragma unroll
+          for (int n = 0; n < kGroups; ++n) {
+#pragma unroll
+            for (int p = q0 * kVec; p < (q0 + kLiveRuns) * kVec; ++p) {
+              acc_re[n][p] = fma(xr[n][t], a[p],
+                                 fma(-xi[n][t], b[p], acc_re[n][p]));
+              acc_im[n][p] = fma(xr[n][t], b[p],
+                                 fma(xi[n][t], a[p], acc_im[n][p]));
+            }
+            if (t == kVec - 1 && q0 + kLiveRuns == kRuns) {
+              load_128(xr[n], sre + xoff[n] + next);
+              load_128(xi[n], sim + xoff[n] + next);
+            }
           }
         }
       }
@@ -640,22 +604,49 @@ __device__ __forceinline__ void stage_dense_lane(
   // every thread has read all of its inputs from the tile
   __syncthreads();
 #pragma unroll
-  for (int n = 0; n < kLaneRows; ++n) {
-    const int g = gb + 16 * n;
-    if (g >= tile_rows) continue;
-    if (row_mask && ((base_row + g) & row_mask) != row_want) continue;
+  for (int n = 0; n < kGroups; ++n) {
+    // the group's first row, from g again (taken from xoff, the layer
+    // kernel's float64 instance spilled)
+    const int g = gb + kGroupStride * n;
+    if (g >= groups) continue;
+    const int row0 = insert_zeros(g, packed, J);
+    if (row_mask && ((base_row + row0) & row_mask) != row_want) continue;
 #pragma unroll
     for (int q = 0; q < kRuns; ++q) {
+      const int o = q * kRunStride + col;
+      const int at = (row0 | combo_offset(o >> 7, packed, J)) * kLanes
+                     + (o & (kLanes - 1));
       T out_re[kVec], out_im[kVec];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         out_re[i] = acc_re[n][q * kVec + i] * scale;
         out_im[i] = acc_im[n][q * kVec + i] * scale;
       }
-      store_128(sre + g * kLanes + q * kRunStride + col, out_re);
-      store_128(sim + g * kLanes + q * kRunStride + col, out_im);
+      store_128(sre + at, out_re);
+      store_128(sim + at, out_im);
     }
   }
+}
+
+// The lane stage (J = 0: every row is a group), inlined into its callers.
+template <typename T>
+__device__ __forceinline__ void stage_dense_lane(
+    T* sre, T* sim, T* ring, int tile_rows, long long base_row,
+    const T* __restrict__ op_re, const T* __restrict__ op_im,
+    long long row_mask, long long row_want, T scale) {
+  stage_dense_exact<T, 0>(sre, sim, ring, tile_rows, base_row, 0, op_re,
+                          op_im, row_mask, row_want, scale);
+}
+
+// The row stages (J = 1, 2), each a function of its own.
+template <typename T, int J>
+__device__ __noinline__ void stage_dense_row(
+    T* sre, T* sim, T* ring, int tile_rows, long long base_row,
+    long long packed, const T* __restrict__ op_re,
+    const T* __restrict__ op_im, long long row_mask, long long row_want,
+    T scale) {
+  stage_dense_exact<T, J>(sre, sim, ring, tile_rows, base_row, packed, op_re,
+                          op_im, row_mask, row_want, scale);
 }
 
 // One coalesced copy of a tile of both planes between global and shared

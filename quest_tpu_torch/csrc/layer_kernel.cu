@@ -24,18 +24,17 @@
 // so a layer of L gates costs one state pass, not L. Tiles are disjoint
 // and each block touches only its own, so updating the planes in place is
 // safe. Inside a stage every amplitude is owned by one thread (row, rowk,
-// rowdiag, and the lane stages' outputs) or one warp (full-precision rowmxu
-// stages); an owner reads all its inputs into registers before it writes
-// (the lane stages: every thread reads, one barrier, every thread writes),
-// so no second shared-memory buffer is needed.
+// rowdiag, and the dense stages' outputs); an owner reads all its inputs
+// into registers before it writes (the dense stages: every thread reads,
+// one barrier, every thread writes), so no second shared-memory buffer is
+// needed.
 // The dense products are exact FMA loops on the CUDA cores. The lane and
-// clane stages (stage_dense_lane, dense_stage.cuh) keep the whole tile's
+// clane stages (stage_dense_lane, dense_stage.cuh) and the rowmxu stages
+// (stage_dense_row<T, J>, J = 1, 2: dim = 128 << J) keep the whole tile's
 // outputs in registers and stream their operator once per tile through a
 // two-stage cp.async ring of 32 KiB K slabs beside the tile (64 KiB,
 // lane_scratch_bytes, reserved by every full-precision launch: 192 KiB in
-// all). The rowmxu stages (stage_dense<T, J>, J = 1, 2) read their
-// operator from L2 through __ldg, each warp on up to 4 >> J rows at once.
-// No tensor cores, no TMA.
+// all). No tensor cores, no TMA.
 //
 // The FAST tier (quest_layer_apply_fast_f32; the TPU kernel's fast=True,
 // pallas_kernels.py:237-260, 339-355) runs the dense stages on the bf16
@@ -343,17 +342,19 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         const size_t dim = static_cast<size_t>(kLanes) << kj;
         const T* op_im = op + dim * dim;
+        T* lane_ring = sim + tile_rows * kLanes;
         if (kj == 0) {
-          T* lane_ring = sim + tile_rows * kLanes;
           quest::stage_dense_lane<T>(sre, sim, lane_ring, tile_rows,
                                      base_row, op, op_im, row_mask, row_want,
                                      T(1));
         } else if (kj == 1) {
-          quest::stage_dense<T, 1>(sre, sim, tile_rows, base_row, packed, op,
-                                   op_im, row_mask, row_want, T(1));
+          quest::stage_dense_row<T, 1>(sre, sim, lane_ring, tile_rows,
+                                       base_row, packed, op, op_im, row_mask,
+                                       row_want, T(1));
         } else {
-          quest::stage_dense<T, 2>(sre, sim, tile_rows, base_row, packed, op,
-                                   op_im, row_mask, row_want, T(1));
+          quest::stage_dense_row<T, 2>(sre, sim, lane_ring, tile_rows,
+                                       base_row, packed, op, op_im, row_mask,
+                                       row_want, T(1));
         }
       }
     } else if (tag == kRowK) {
