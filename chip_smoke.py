@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 12       # the density phase
     python3 chip_smoke.py --only 13,12d   # gradients, density sweeps
     python3 chip_smoke.py --only 14       # the main-path remainder
+    python3 chip_smoke.py --only 9g       # trajectory gradients
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -87,6 +88,25 @@ Phases (any unmet check exits non-zero and prints no result line):
    their plain versions on a whole wave's batch, trajectories/s, the Kraus
    kernel's ms beside its bound, plain version and one complex64
    ``torch.matmul``, and a ``torch.profiler`` breakdown of one wave;
+   9g. trajectory gradients: phase 9's circuit with its two ry columns as
+   44 Params, ``expectation_grad`` over 256 trajectories in waves of 128
+   (the adjoint walk over each wave): the batched layer kernel launches
+   once per layer and wave forward and once adjoint over the 2T stack, the
+   Kraus kernel once per channel and wave forward (with its index output)
+   and once adjoint (one-hot probabilities); first the walk over the
+   first wave's first two trajectories with every launch against its
+   plain version on its own input (the index output too); the value
+   column equal to ``expectation``'s mean at the same seed and wave size
+   bit for bit; those two trajectories' gradients in four Params against
+   a float64 central difference of their fixed-branch objective replayed
+   on the card (<= 1e-3 of max|g|); a 12-qubit copy card against CPU on
+   the same uniforms (<= 1e-4 of max|g|); on a wave of the path the index
+   output against ``draw_plain`` and the adjoint Kraus step against its
+   plain version, then the index output at the edge draws;
+   seconds, trajectories/s beside ``expectation``'s, the cost in value
+   waves, peak memory, a ``torch.profiler`` breakdown of one 8-trajectory
+   gradient wave (device activity only), and the adjoint layers' ms over
+   2T;
 10. the FAST tier on the main path: the 30-qubit brickwork compiled with
     ``tier="fast"`` (and by an error budget that selects FAST), its
     ``rowmxu`` stages, one FAST launch per layer, every layer against
@@ -191,6 +211,10 @@ PLAIN_QUBITS = 26
 ROW_STAGE_QUBITS = 26                  # phase 3e: the row stages past L2
 SWEEP_QUBITS, SWEEP_LAYERS, SWEEP_BATCH, SWEEP_TERMS = 24, 2, 64, 24
 TRAJ_QUBITS, TRAJ_WAVE, TRAJ_MAX = 22, 128, 1024
+TRAJ_GRAD_MAX, TRAJ_GRAD_SEED = 256, 29     # phase 9g: two waves
+TRAJ_GRAD_PROFILE = 8                        # its profiled wave, cut
+# phase 9g's central-difference columns: lane and row qubits, both columns
+TRAJ_GRAD_COLUMNS = ("a1", "a15", "b3", "b20")
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 # the card's peak rate for each plane dtype (by itemsize), which a bound
 # takes: float32 on the CUDA cores, float64 on the FP64 tensor cores; the
@@ -1304,6 +1328,25 @@ def trajectory_circuit(qt, num_qubits: int, rng):
     return c
 
 
+def param_trajectory_circuit(qt, num_qubits: int, rng):
+    """trajectory_circuit with its two ry columns recorded as Params a<q>
+    and b<q> (2n parameters), at the angles it draws from ``rng``: returns
+    (circuit, their values in the circuit's parameter order)."""
+    c = qt.Circuit(num_qubits)
+    values = {}
+    for q in range(num_qubits):
+        values[f"a{q}"] = float(rng.uniform(0.2, 2.8))
+        c.ry(q, c.parameter(f"a{q}"))
+    c.damp(2, 0.2)
+    for q in range(num_qubits - 1):
+        c.cnot(q, q + 1)
+    c.dephase(4, 0.15)
+    for q in range(num_qubits):
+        values[f"b{q}"] = float(rng.uniform(0.2, 2.8))
+        c.ry(q, c.parameter(f"b{q}"))
+    return c, np.array([values[nm] for nm in c.param_names])
+
+
 def reset_counts(lk, kk):
     for fn in (lk.apply_layer, lk.apply_layer_batched):
         fn.launches = fn.fast_launches = fn.diag_launches = 0
@@ -1630,6 +1673,285 @@ def phase_trajectories(torch, qt, lk, kk, card):
     return {"launches_layer": batched, "launches_kraus": kraus,
             "rows": rows, "traj_per_s": TRAJ_MAX / run_s,
             "kraus": (k_ms, k_bound, k_by, k_plain, k_lib, kerr)}
+
+
+def held_kraus(torch, kk, errs):
+    """A stand-in for ``kk.fused_kraus_apply_batched`` that launches the
+    kernel and holds its output, and its index output where one is asked
+    for, against the plain version on the same input, appending
+    ``(max|diff|, relative, indices equal)`` to ``errs``. Returns ``(the
+    wrapper, the stand-in)``."""
+    launch = kk.fused_kraus_apply_batched
+
+    def held(states, num_qubits, kstack, probs, u01, index_out=None):
+        index = torch.empty(states.shape[0], dtype=torch.int32,
+                            device=states.device)
+        plain = kk.fused_kraus_apply_batched_plain(
+            states.clone(), num_qubits, kstack, probs, u01, index)
+        launch(states, num_qubits, kstack, probs, u01, index_out)
+        torch.cuda.synchronize()
+        same = index_out is None or torch.equal(index_out, index)
+        errs.append(rel_err(states, plain) + (same,))
+        del plain
+        return states
+
+    held.launches = 0
+    return launch, held
+
+
+def traj_objective(torch, red, tp, pm, draws, operands, baseline):
+    """The fixed-branch objective of 2 trajectories, ``<psi~|(H - b)|psi~>
+    / N0``: the chain replayed with each channel's RECORDED operator ``K_j
+    / sqrt(p_j)`` (``draws``) at the parameter rows ``pm``, no draw made,
+    then ``<psi|H|psi> - b |psi|^2`` of the unnormalised result."""
+    states = tp._start(None).expand(len(pm), 2, -1).clone(
+        memory_format=torch.contiguous_format)
+    tp._replay(states, pm, draws)
+    h = red.pauli_sum_total_sv(states, *operands)
+    return (h - baseline * (states * states).sum(dim=(1, 2))).cpu().numpy()
+
+
+def phase_traj_gradients(torch, qt, lk, kk, card):
+    """Phase 9g: expectation_grad on phase 9's circuit with its ry columns
+    as Params."""
+    from quest_tpu_torch.ops import reductions as red
+    n, wave = TRAJ_QUBITS, TRAJ_WAVE
+    waves = TRAJ_GRAD_MAX // wave
+    print(f"phase 9g: trajectory gradients (adjoint walk over the wave), "
+          f"{n} qubits, complex64, expectation_grad over {TRAJ_GRAD_MAX} "
+          f"trajectories in waves of {wave}, on {card}")
+    rng = np.random.default_rng(2110)
+    circ, pv = param_trajectory_circuit(qt, n, rng)
+    names = circ.param_names
+    terms = [[(q, 3)] for q in range(n)]
+    coeffs = list(rng.normal(size=n))
+    env = qt.createQuESTEnv(seed=[7])
+    tp = circ.compile_trajectories(env)
+    kinds = [item[0] for item in tp._items]
+    n_layers, n_fused = kinds.count("layer"), kinds.count("kraus_fused")
+    print(f"  items: {kinds}")
+    check(n_layers >= 1 and n_fused == 2 and kinds.count("u_fn") == 2 * n
+          and len(names) == 2 * n,
+          f"{n_layers} layers, {n_fused} fused channels and "
+          f"{kinds.count('u_fn')} Param rotations on the path")
+    hterms, hcoeffs = red.validated_pauli_terms(terms, coeffs, n)
+    operands = red.pauli_terms_operands(hterms, hcoeffs, n)
+    steps, mark = [], time.perf_counter()
+
+    def step(name):
+        nonlocal mark
+        now = time.perf_counter()
+        steps.append(f"{name} {now - mark:.1f}")
+        mark = now
+
+    # 1. the first two trajectories of the first wave (its uniforms, the
+    # first wave's baseline 0) through the walk, every launch held against
+    # its plain version on its own input (the Kraus kernel's index output
+    # too); this also packs the adjoint layers before the timed run
+    uniforms = tp._draw_uniforms(tp._generator(TRAJ_GRAD_SEED),
+                                 (1, TRAJ_GRAD_MAX, tp.num_channels))[0]
+    adjoint_ids = {id(op) for op in tp._adjoints().values()
+                   if getattr(op, "kind", None) == "layer"}
+    layer_errs, kraus_errs = [], []
+    layer_launch, layer_held = held_batched(torch, lk, layer_errs)
+    kraus_launch, kraus_held = held_kraus(torch, kk, kraus_errs)
+    lk.apply_layer_batched, kk.fused_kraus_apply_batched = \
+        layer_held, kraus_held
+    try:
+        _, rows, tape = tp._grad_rows(
+            tp._start(None), uniforms[:2], np.repeat(pv[None], 2, 0),
+            torch.zeros(2, device="cuda"), operands)
+    finally:
+        lk.apply_layer_batched = layer_launch
+        kk.fused_kraus_apply_batched = kraus_launch
+    rows = rows.cpu().numpy()
+    draws = tape.draws
+    del tape
+    step("held walk")
+    fwd = [e[1:] for e in layer_errs if e[0] not in adjoint_ids]
+    back = [e[1:] for e in layer_errs if e[0] in adjoint_ids]
+    held_err = max(e for e, _ in fwd + back)
+    check(len(fwd) == len(back) == n_layers
+          and max(r for _, r in fwd + back) <= 1e-5,
+          f"each of {len(fwd)} forward and {len(back)} adjoint layers' "
+          f"kernel output on its own input vs its plain version: max|diff| "
+          f"/ max|plain| {max(r for _, r in fwd + back):.3e} <= 1e-5")
+    kraus_err = max(e[0] for e in kraus_errs)
+    check(len(kraus_errs) == 2 * n_fused and all(e[2] for e in kraus_errs)
+          and max(e[1] for e in kraus_errs) <= 1e-5,
+          f"{len(kraus_errs)} Kraus launches ({n_fused} forward with index "
+          f"output, {n_fused} adjoint with one-hot probabilities) vs plain "
+          f"on their own inputs: indices equal, max|diff| / max|plain| "
+          f"{max(e[1] for e in kraus_errs):.3e} <= 1e-5")
+
+    # 2. the gradient loop, counted and timed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    val, grad, err = tp.expectation_grad(
+        terms, coeffs, num_trajectories=TRAJ_GRAD_MAX, params=pv,
+        wave_size=wave, seed=TRAJ_GRAD_SEED)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    step("gradient")
+    peak = torch.cuda.max_memory_allocated()
+    single, batched, kraus = counts(lk, kk)
+    stats = tp.last_traj_stats
+    check(stats["waves"] == waves and stats["kind"] == "gradient"
+          and batched == 2 * n_layers * waves and kraus == 2 * n_fused * waves
+          and single == 0 and fast_counts(lk) == (0, 0, 0),
+          f"{waves} gradient waves: batched layer kernel launched {batched} "
+          f"times ({n_layers} layers x {waves} forward + the same adjoint), "
+          f"Kraus kernel {kraus} times ({n_fused} channels x {waves} forward "
+          f"+ the same adjoint)")
+    check(grad.shape == (len(names),) and err.shape == (len(names) + 1,)
+          and bool(np.isfinite(grad).all()) and bool(np.isfinite(err).all()),
+          f"<H> = {val:.6f}, {len(names)} finite gradient components, max|g| "
+          f"{float(np.abs(grad).max()):.4e}, max stderr "
+          f"{float(err[1:].max()):.4e}")
+
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    mean, stderr = tp.expectation(terms, coeffs,
+                                  num_trajectories=TRAJ_GRAD_MAX, params=pv,
+                                  wave_size=wave, seed=TRAJ_GRAD_SEED)
+    torch.cuda.synchronize()
+    value_s = time.perf_counter() - t0
+    step("value")
+    _, v_batched, v_kraus = counts(lk, kk)
+    check(val == mean and err[0] == stderr and v_batched == n_layers * waves
+          and v_kraus == n_fused * waves,
+          f"value column vs expectation at the same seed and wave size: "
+          f"{val!r} == {mean!r}, stderr {err[0]!r} == {stderr!r} (bit for "
+          f"bit); expectation launched {v_batched} layers, {v_kraus} Kraus")
+    print(f"  expectation_grad {grad_s:.3f} s ({grad_s / waves:.3f} s a "
+          f"wave), {TRAJ_GRAD_MAX / grad_s:.2f} trajectories/s; expectation "
+          f"{value_s:.3f} s, {TRAJ_GRAD_MAX / value_s:.2f} trajectories/s; a "
+          f"gradient wave costs {grad_s / value_s:.2f} value waves; peak "
+          f"device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); on {card}")
+
+    profile_device(torch, lambda: tp.expectation_grad(
+        terms, coeffs, num_trajectories=TRAJ_GRAD_PROFILE,
+        wave_size=TRAJ_GRAD_PROFILE, params=pv, seed=2),
+        f"one {TRAJ_GRAD_PROFILE}-trajectory gradient wave", top=12,
+        cpu=False)
+    step("profile")
+
+    # 3. two trajectories of the first wave against a central difference
+    # of their fixed-branch objective, replayed at float64 on the card
+    env64 = qt.createQuESTEnv(precision=qt.DOUBLE, seed=[7])
+    tp64 = circ.compile_trajectories(env64)
+    draws64 = {c: (j, p.double(), s.double()) for c, (j, p, s)
+               in draws.items()}
+    h = 1e-4
+    cols = [names.index(c) for c in TRAJ_GRAD_COLUMNS]
+    fd = np.zeros((2, len(cols)))
+    for i, col in enumerate(cols):
+        pm = np.repeat(pv[None], 4, 0)
+        pm[:2, col] += h
+        pm[2:, col] -= h
+        f = traj_objective(torch, red, tp64, pm, {
+            c: tuple(torch.cat([t, t]) for t in d)
+            for c, d in draws64.items()}, operands, 0.0)
+        fd[:, i] = (f[:2] - f[2:]) / (2 * h)
+    gmax = float(np.abs(rows).max())
+    fd_err = float(np.abs(rows[:, cols] - fd).max())
+    check(fd_err <= 1e-3 * gmax,
+          f"2 trajectories of the first wave, columns {TRAJ_GRAD_COLUMNS}, "
+          f"vs a float64 central difference (h = {h:g}) of the "
+          f"fixed-branch objective: max|diff| {fd_err:.3e} <= 1e-3 of "
+          f"max|g| {gmax:.3e} ({fd_err / gmax:.3e})")
+    del tp64
+    torch.cuda.empty_cache()
+    step("central difference")
+
+    # 4. the card against the CPU on the same uniforms, at 12 qubits
+    small, spv = param_trajectory_circuit(qt, 12, np.random.default_rng(12))
+    tp_card = small.compile_trajectories(env)
+    tp_cpu = small.compile_trajectories(qt.createQuESTEnv(
+        device="cpu", precision=qt.SINGLE, seed=[7]))
+    u = np.random.default_rng(3).uniform(size=(8, tp_card.num_channels))
+    sterms = [[(q, 3)] for q in range(12)] + [[(0, 1), (5, 1)]]
+    scoeffs = list(np.random.default_rng(4).normal(size=len(sterms)))
+    got = tp_card.expectation_grad(sterms, scoeffs, num_trajectories=8,
+                                   params=spv, wave_size=8, uniforms=u)
+    want = tp_cpu.expectation_grad(sterms, scoeffs, num_trajectories=8,
+                                   params=spv, wave_size=8, uniforms=u)
+    smax = float(np.abs(want[1]).max())
+    cpu_err = float(np.abs(got[1] - want[1]).max())
+    check(cpu_err <= 1e-4 * smax and abs(got[0] - want[0]) <= 1e-4,
+          f"12-qubit copy, 8 trajectories, same uniforms, card vs CPU: "
+          f"gradients max|diff| {cpu_err:.3e} <= 1e-4 of max|g| {smax:.3e}; "
+          f"<H> {got[0]:.6f} vs {want[0]:.6f}")
+    step("card vs CPU")
+
+    # 5. the Kraus kernel's two new uses at a wave's shapes: the index
+    # output on the path's probabilities, and the adjoint step (the stack
+    # of K^dag, one-hot probabilities) against its plain version; then the
+    # index output at the edge draws, float32 and float64
+    states = tp.trajectory_sweep(wave, params=pv)
+    k_fused = next(k for k, item in enumerate(tp._items)
+                   if item[0] == "kraus_fused")
+    _, targets, (_, estack, kemb), _ = tp._items[k_fused]
+    probs = tp._channel_probs(states, targets, torch.as_tensor(
+        estack, dtype=torch.complex64, device="cuda"))
+    u01 = torch.rand(wave, dtype=torch.float32, device="cuda")
+    index = torch.empty(wave, dtype=torch.int32, device="cuda")
+    j_plain, _ = kk.draw_plain(probs, u01)
+    kk.fused_kraus_apply_batched(states.clone(), n, kemb, probs, u01, index)
+    onehot = torch.zeros_like(probs).scatter_(
+        1, j_plain[:, None], probs.gather(1, j_plain[:, None]))
+    zeros = torch.zeros_like(u01)
+    kdag = tp._adjoints()[k_fused]
+    a = kk.fused_kraus_apply_batched(states.clone(), n, kdag, onehot, zeros)
+    b = kk.fused_kraus_apply_batched_plain(states.clone(), n, kdag, onehot,
+                                           zeros)
+    torch.cuda.synchronize()
+    adj_err, adj_rel = rel_err(a, b)
+    del a, b
+    torch.cuda.empty_cache()
+    kraus_err = max(kraus_err, adj_err)
+    check(torch.equal(index.long(), j_plain) and adj_rel <= 1e-5,
+          f"Kraus kernel over {wave} trajectories of the path: index output "
+          f"equals draw_plain's; the adjoint step (K^dag, one-hot) vs plain "
+          f"max|diff| {adj_err:.3e}, / max|plain| {adj_rel:.3e} <= 1e-5")
+    for dtype in (torch.float32, torch.float64):
+        for num_ops in (2, 4, 16, 64):
+            kemb, probs_np, u_np = kraus_case(rng, 8, num_ops)
+            probs = torch.as_tensor(probs_np, dtype=dtype, device="cuda")
+            u01 = torch.as_tensor(u_np, dtype=dtype, device="cuda")
+            base = random_batch(torch, rng, 8, CHECK_QUBITS, dtype, "cuda")
+            index = torch.full((8,), -1, dtype=torch.int32, device="cuda")
+            kk.fused_kraus_apply_batched(base, CHECK_QUBITS, kemb, probs,
+                                         u01, index)
+            j_plain, _ = kk.draw_plain(probs, u01)
+            check(torch.equal(index.long(), j_plain),
+                  f"Kraus index output, K = {num_ops:2d} {str(dtype):14s}: "
+                  f"{index.tolist()} equals draw_plain's")
+
+    step("Kraus index and adjoint")
+
+    # 6. the adjoint layers' times over the stacked 2T states
+    stacked = torch.cat([states, states])
+    del states
+    adjoints = [tp._adjoints()[k] for k, item in enumerate(tp._items)
+                if item[0] == "layer"]
+    rows_t = batched_layer_times(torch, lk, stacked, n, adjoints,
+                                 f"trajectory adjoint (2T = {2 * wave})")
+    del stacked
+    torch.cuda.empty_cache()
+    step("adjoint layer times")
+    print(f"  phase 9g seconds by step: {', '.join(steps)}")
+    return {"launches_layer": batched, "launches_kraus": kraus,
+            "rows": rows_t, "max_abs_err": held_err,
+            "kraus_max_abs_err": kraus_err, "seconds": grad_s,
+            "traj_per_s": TRAJ_GRAD_MAX / grad_s,
+            "value_traj_per_s": TRAJ_GRAD_MAX / value_s,
+            "cost_in_value_waves": grad_s / value_s, "peak_bytes": peak,
+            "fd_rel": fd_err / gmax, "cpu_rel": cpu_err / smax}
 
 
 def timed_runs(torch, fn, reps: int = 2) -> float:
@@ -2779,9 +3101,41 @@ def gradient_keys(grad, density_grad):
     return keys
 
 
-def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None):
+def traj_gradient_keys(traj_grad, kraus: bool = False):
+    """Phase 9g's numbers, as keys of the batched layer kernel's row (its
+    launches forward and adjoint, the gradient and value loops' rates,
+    the cost in value waves, peak memory, the adjoint layers over 2T) or,
+    with ``kraus``, of the Kraus kernel's (its launches, forward with the
+    index output and adjoint)."""
+    if traj_grad is None:
+        return {}
+    if kraus:
+        return {"launches_traj_gradient": traj_grad["launches_kraus"],
+                "traj_gradient_max_abs_err": traj_grad["kraus_max_abs_err"]}
+    rows = traj_grad["rows"]
+    return {
+        "launches_traj_gradient": traj_grad["launches_layer"],
+        "traj_gradient_max_abs_err": traj_grad["max_abs_err"],
+        "traj_gradient_s": traj_grad["seconds"],
+        "traj_gradient_trajectories_per_s": traj_grad["traj_per_s"],
+        "traj_value_trajectories_per_s": traj_grad["value_traj_per_s"],
+        "traj_gradient_cost_in_value_waves":
+            traj_grad["cost_in_value_waves"],
+        "traj_gradient_peak_bytes": traj_grad["peak_bytes"],
+        "traj_gradient_fd_rel_err": traj_grad["fd_rel"],
+        "traj_gradient_card_vs_cpu_rel_err": traj_grad["cpu_rel"],
+        "traj_adjoint_layer_ms": [r[0] for r in rows],
+        "traj_adjoint_layer_bound_ms": [r[1] for r in rows],
+        "traj_adjoint_layer_plain_ms": [r[3] for r in rows],
+        "traj_adjoint_layer_library_ms": [r[4] for r in rows],
+    }
+
+
+def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
+                traj_grad=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
-    rows = sweep["rows"] + traj["rows"]
+    rows = sweep["rows"] + traj["rows"] \
+        + (traj_grad["rows"] if traj_grad is not None else [])
     libs = [r[4] for r in sweep["rows"] if r[4] is not None]
     by = [r[2] for r in rows]
     k_ms, k_bound, k_by, k_plain, k_lib, kerr = traj["kraus"]
@@ -2791,7 +3145,8 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None):
         "source": "quest_tpu_torch/csrc/layer_kernel.cu",
         "replaces": "quest_tpu/ops/pallas_kernels.py:736",
         "launches": sweep["launches"] + traj["launches_layer"]
-        + (grad["launches"] if grad is not None else 0),
+        + (grad["launches"] if grad is not None else 0)
+        + (traj_grad["launches_layer"] if traj_grad is not None else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
         "max_abs_err": max(r[5] for r in rows),
@@ -2804,32 +3159,39 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None):
         "trajectory_layer_bound_ms": [r[1] for r in traj["rows"]],
         "points_per_s": sweep["points_per_s"],
         **gradient_keys(grad, density_grad),
+        **traj_gradient_keys(traj_grad),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
         "source": "quest_tpu_torch/csrc/kraus_kernel.cu",
         "replaces": "quest_tpu/ops/pallas_kernels.py:888",
-        "launches": traj["launches_kraus"],
-        "max_abs_err": kerr,
+        "launches": traj["launches_kraus"]
+        + (traj_grad["launches_kraus"] if traj_grad is not None else 0),
+        "launches_trajectories": traj["launches_kraus"],
+        "max_abs_err": max(kerr, traj_grad["kraus_max_abs_err"])
+        if traj_grad is not None else kerr,
         "ms": k_ms,
         "plain_ms": k_plain,
         "bound_ms": k_bound,
         "bound_by": k_by,
         "library_ms": k_lib,
         "trajectories_per_s": traj["traj_per_s"],
+        **traj_gradient_keys(traj_grad, kraus=True),
     }]
 
 
-def profile_device(torch, fn, what: str, top: int = 8):
+def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
     """Where ``fn()`` spends the card's time: device time per kernel name
     from torch.profiler, and the device-busy share of the host wall time
-    of the profiled call."""
+    of the profiled call. ``cpu=False`` records device activity only: a
+    call of tens of thousands of host ops otherwise takes the profiler
+    over a minute to gather."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2853,8 +3215,8 @@ def profile_device(torch, fn, what: str, top: int = 8):
               f"x{count:<4d} {name[:90]}")
 
 
-PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "12d", "13", "14")
+PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
+          "10", "11", "12", "12d", "13", "14")
 
 
 def parse_only(argv):
@@ -2917,6 +3279,10 @@ def main(argv) -> int:
         sweep = phase_sweep(torch, qt, lk, kk, card) if runs("8") else None
         traj = phase_trajectories(torch, qt, lk, kk, card) \
             if runs("9") else None
+        torch.cuda.empty_cache()
+        traj_grad = phase_traj_gradients(torch, qt, lk, kk, card) \
+            if runs("9g") else None
+        torch.cuda.empty_cache()
         fast_row = phase_fast_main(torch, qt, lk, kk, card) \
             if runs("10") else None
         torch.cuda.empty_cache()
@@ -2945,7 +3311,8 @@ def main(argv) -> int:
         if density is not None:
             tail.append(diag_row(density))
         if only is None:
-            rows = kernel_rows(row, sweep, traj, grad, density_grad) + tail
+            rows = kernel_rows(row, sweep, traj, grad, density_grad,
+                               traj_grad) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -2958,6 +3325,12 @@ def main(argv) -> int:
                 rows.append(dict(name="layer_kernel_batched",
                                  path="gradient",
                                  **gradient_keys(grad, density_grad)))
+            if traj_grad is not None:
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="traj_gradient",
+                                 **traj_gradient_keys(traj_grad)))
+                rows.append(dict(name="kraus_kernel", path="traj_gradient",
+                                 **traj_gradient_keys(traj_grad, True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -37,10 +37,15 @@
 // probabilities (T, K) and uniforms (T,) in the plane dtype. The draw reads
 // p[t, :] from global memory and the block reads operator j of the stack, so
 // nothing is sized by K: any K >= 1 works (64 for a full three-qubit set).
+// An optional (T,) int32 output receives each trajectory's drawn index j,
+// written by the block of the trajectory's first tile (null: nothing is
+// written). The gradient walk records its branches from it, so it never
+// draws a second time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o kraus_kernel.so kraus_kernel.cu
-// The C entry points return cudaGetLastError() after the launch.
+// The C entry points return cudaGetLastError() after the launch; their
+// index_out argument may be null.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -104,8 +109,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     kraus_kernel(T* re, T* im, const T* __restrict__ kstack,
                  const T* __restrict__ probs, const T* __restrict__ u01,
-                 int num_ops, int tile_rows, long long tiles_per_state,
-                 long long state_stride) {
+                 int* __restrict__ index_out, int num_ops, int tile_rows,
+                 long long tiles_per_state, long long state_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sre = reinterpret_cast<T*>(smem);
   T* sim = sre + tile_rows * kLanes;
@@ -116,6 +121,9 @@ __global__ void __launch_bounds__(kThreads)
 
   T scale;
   const int j = draw<T>(probs + traj * num_ops, num_ops, u01[traj], &scale);
+  if (index_out != nullptr && base_row == 0 && threadIdx.x == 0) {
+    index_out[traj] = j;
+  }
   const T* op_re = kstack + static_cast<size_t>(j) * 2 * kLanes * kLanes;
   const T* op_im = op_re + kLanes * kLanes;
 
@@ -129,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(void* re, void* im, const void* kstack, const void* probs,
-           const void* u01, int num_ops, long long num_traj,
+           const void* u01, void* index_out, int num_ops, long long num_traj,
            long long total_rows, int tile_rows, long long state_stride,
            void* stream) {
   if (num_ops < 1) {
@@ -149,7 +157,8 @@ int launch(void* re, void* im, const void* kstack, const void* probs,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(re), static_cast<T*>(im),
       static_cast<const T*>(kstack), static_cast<const T*>(probs),
-      static_cast<const T*>(u01), num_ops, tile_rows, tiles, state_stride);
+      static_cast<const T*>(u01), static_cast<int*>(index_out), num_ops,
+      tile_rows, tiles, state_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,21 +167,21 @@ int launch(void* re, void* im, const void* kstack, const void* probs,
 extern "C" {
 
 int quest_kraus_apply_f32(void* re, void* im, const void* kstack,
-                          const void* probs, const void* u01, int num_ops,
-                          long long num_traj, long long total_rows,
-                          int tile_rows, long long state_stride,
-                          void* stream) {
-  return launch<float>(re, im, kstack, probs, u01, num_ops, num_traj,
-                       total_rows, tile_rows, state_stride, stream);
+                          const void* probs, const void* u01, void* index_out,
+                          int num_ops, long long num_traj,
+                          long long total_rows, int tile_rows,
+                          long long state_stride, void* stream) {
+  return launch<float>(re, im, kstack, probs, u01, index_out, num_ops,
+                       num_traj, total_rows, tile_rows, state_stride, stream);
 }
 
 int quest_kraus_apply_f64(void* re, void* im, const void* kstack,
-                          const void* probs, const void* u01, int num_ops,
-                          long long num_traj, long long total_rows,
-                          int tile_rows, long long state_stride,
-                          void* stream) {
-  return launch<double>(re, im, kstack, probs, u01, num_ops, num_traj,
-                        total_rows, tile_rows, state_stride, stream);
+                          const void* probs, const void* u01, void* index_out,
+                          int num_ops, long long num_traj,
+                          long long total_rows, int tile_rows,
+                          long long state_stride, void* stream) {
+  return launch<double>(re, im, kstack, probs, u01, index_out, num_ops,
+                        num_traj, total_rows, tile_rows, state_stride, stream);
 }
 
 // Shared memory of the lane stage's ring beside the tile, for planes of

@@ -46,7 +46,8 @@ from ..core.apply import apply_diagonal, apply_unitary
 from . import layer_kernel as lk
 
 __all__ = ["UNITARY_TOL", "bind_rows", "bind_with_derivatives",
-           "item_operator", "apply_item", "is_unitary", "AdjointWalk"]
+           "item_operator", "apply_item", "unitary_matrix", "unit_modulus",
+           "is_unitary", "AdjointWalk"]
 
 # largest |U^dag U - I| (or ||d| - 1| for a diagonal) of an item the walk
 # un-computes by its adjoint; any other static item is treated as a channel
@@ -178,13 +179,15 @@ def apply_item(states: torch.Tensor, num_qubits: int, op, item, operator,
     return apply_diagonal(states, num_qubits, targets, d)
 
 
-def _unitary_matrix(m) -> bool:
+def unitary_matrix(m) -> bool:
+    """Whether ``m`` is unitary to :data:`UNITARY_TOL`."""
     m = np.asarray(m, dtype=np.complex128)
     return float(np.abs(m.conj().T @ m - np.eye(m.shape[0])).max()) \
         <= UNITARY_TOL
 
 
-def _unit_modulus(d) -> bool:
+def unit_modulus(d) -> bool:
+    """Whether every entry of ``d`` has modulus 1 to :data:`UNITARY_TOL`."""
     return float(np.abs(np.abs(np.asarray(d)) - 1.0).max()) <= UNITARY_TOL
 
 
@@ -193,14 +196,14 @@ def is_unitary(op) -> bool:
     parametrised op unless it is a channel's superoperator (``op.channel``),
     a static gate or diagonal by its matrix, a layer by every stage."""
     if op.kind == "layer":
-        return all(_unit_modulus(st[1]) if st[0] == "rowdiag"
-                   else _unitary_matrix(st[1] if st[0] in ("lane", "clane")
-                                        else st[2])
+        return all(unit_modulus(st[1]) if st[0] == "rowdiag"
+                   else unitary_matrix(st[1] if st[0] in ("lane", "clane")
+                                       else st[2])
                    for st in op.stages)
     if not op.is_static:
         return not op.channel
-    return _unitary_matrix(op.mat) if op.kind == "u" \
-        else _unit_modulus(op.diag)
+    return unitary_matrix(op.mat) if op.kind == "u" \
+        else unit_modulus(op.diag)
 
 
 def _adjoint_operator(op, operator):

@@ -16,6 +16,10 @@ below the total, so a trailing zero-probability branch is never drawn at
 zero-probability branch is skipped at ``u = 0``; ``scale =
 1/sqrt(max(p_j, tiny))``.
 
+Both take an optional ``(T,)`` int32 ``index_out`` tensor that receives each
+trajectory's drawn index ``j`` (the gradient walk records its branches from
+it; the kernel writes it from the draw it made, so nothing draws twice).
+
 On a CUDA tensor :func:`fused_kraus_apply_batched` launches the
 hand-written kernel ``csrc/kraus_kernel.cu`` (built at first use,
 ``ops/cuda_build.py``); on a CPU tensor it runs
@@ -60,7 +64,7 @@ def draw_plain(probs: torch.Tensor, u01: torch.Tensor):
 
 
 def _check(states: torch.Tensor, num_qubits: int, kstack: np.ndarray,
-           probs: torch.Tensor, u01: torch.Tensor) -> None:
+           probs: torch.Tensor, u01: torch.Tensor, index_out=None) -> None:
     if num_qubits < 7:
         raise ValueError("the fused Kraus kernel needs at least 7 qubits")
     if states.dim() != 3 or tuple(states.shape[1:]) != (2, 1 << num_qubits):
@@ -88,17 +92,28 @@ def _check(states: torch.Tensor, num_qubits: int, kstack: np.ndarray,
         if t.dtype != states.dtype or t.device != states.device:
             raise ValueError(f"{name} must be {states.dtype} on "
                              f"{states.device}")
+    if index_out is not None and (
+            index_out.dtype != torch.int32
+            or tuple(index_out.shape) != (num_traj,)
+            or index_out.device != states.device
+            or not index_out.is_contiguous()):
+        raise ValueError(f"index_out must be a contiguous ({num_traj},) "
+                         f"int32 tensor on {states.device}")
 
 
 def fused_kraus_apply_batched_plain(states: torch.Tensor, num_qubits: int,
                                     kstack: np.ndarray, probs: torch.Tensor,
-                                    u01: torch.Tensor) -> torch.Tensor:
+                                    u01: torch.Tensor,
+                                    index_out=None) -> torch.Tensor:
     """The fused Kraus step as plain PyTorch tensor ops, IN PLACE on the
     ``(T, 2, 2^n)`` states (returned): the draw of :func:`draw_plain`, the
     drawn lane operators scaled by ``1/sqrt(p_j)`` (the TPU kernel folds
-    the scale into the operator too), one batched lane product."""
-    _check(states, num_qubits, kstack, probs, u01)
+    the scale into the operator too), one batched lane product; the drawn
+    indices into ``index_out`` when it is given."""
+    _check(states, num_qubits, kstack, probs, u01, index_out)
     j, scale = draw_plain(probs, u01)
+    if index_out is not None:
+        index_out.copy_(j)
     kstack = np.asarray(kstack, dtype=np.complex128)
     kr, ki = (torch.as_tensor(np.ascontiguousarray(p), dtype=states.dtype,
                               device=states.device)
@@ -126,7 +141,7 @@ def build_library() -> tuple:
     p = ctypes.c_void_p
     for name in ("quest_kraus_apply_f32", "quest_kraus_apply_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
     lib.quest_kraus_lane_scratch_bytes.argtypes = [ctypes.c_int]
@@ -161,21 +176,23 @@ def _device_stack(kstack: np.ndarray, dtype, device) -> torch.Tensor:
 
 def fused_kraus_apply_batched(states: torch.Tensor, num_qubits: int,
                               kstack: np.ndarray, probs: torch.Tensor,
-                              u01: torch.Tensor) -> torch.Tensor:
+                              u01: torch.Tensor,
+                              index_out=None) -> torch.Tensor:
     """Draw and apply one Kraus channel for a whole trajectory batch, IN
     PLACE on the ``(T, 2, 2^n)`` states (returned): ``kstack`` is the
     ``(K, 128, 128)`` LANE-EMBEDDED operator stack, ``probs`` the ``(T,
     K)`` channel probabilities and ``u01`` the ``(T,)`` uniforms, both in
-    the plane dtype on the states' device.
+    the plane dtype on the states' device; ``index_out``, when given, a
+    ``(T,)`` int32 tensor there that receives the drawn indices.
 
     A CUDA tensor launches the kernel (one block per row tile and
     trajectory) and counts it in ``fused_kraus_apply_batched.launches``;
     a CPU tensor runs :func:`fused_kraus_apply_batched_plain`."""
     kstack = np.asarray(kstack)
-    _check(states, num_qubits, kstack, probs, u01)
+    _check(states, num_qubits, kstack, probs, u01, index_out)
     if states.device.type == "cpu":
         return fused_kraus_apply_batched_plain(states, num_qubits, kstack,
-                                               probs, u01)
+                                               probs, u01, index_out)
     if states.device.type != "cuda":
         raise ValueError(f"fused_kraus_apply_batched: unsupported device "
                          f"{states.device}")
@@ -197,6 +214,7 @@ def fused_kraus_apply_batched(states: torch.Tensor, num_qubits: int,
         err = fn(states.data_ptr(),
                  states.data_ptr() + num_amps * states.element_size(),
                  stack.data_ptr(), probs.data_ptr(), u01.data_ptr(),
+                 None if index_out is None else index_out.data_ptr(),
                  kstack.shape[0], states.shape[0], total_rows, tile_rows,
                  2 * num_amps, stream)
     _raise_on(lib, err)

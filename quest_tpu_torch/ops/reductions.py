@@ -42,7 +42,7 @@ __all__ = ["sum_compensated", "sum_pair", "dot_pair", "dot_pair_rows",
            "pauli_terms_operands", "pauli_sum_expvals_sv",
            "pauli_sum_total_sv", "pauli_sum_apply", "pauli_sum_expvals_dm",
            "pauli_sum_total_dm", "welford_wave", "welford_merge",
-           "welford_stderr"]
+           "score_surrogate", "welford_stderr"]
 
 # elements of each dot_pair input processed per step: the four product
 # streams and the cascade's first level then take 6 * 2^24 values, a few
@@ -419,6 +419,31 @@ def welford_merge(a, b):
     mean = ma + delta * nb / safe
     m2 = sa + sb + delta * delta * na * nb / safe
     return n, mean, m2
+
+
+def score_surrogate(value, logq, baseline=0.0):
+    """The differentiation surrogate of a stochastic-trajectory estimator:
+    ``value + (value - baseline) * (logq - logq)`` with the second
+    ``value``, the ``baseline`` and the second ``logq`` detached (the JAX
+    package's ``stop_gradient``). Its value is ``value``; its gradient is
+    the pathwise ``d value`` plus the score-function term ``(value -
+    baseline) d logq``, where ``logq`` is the log-probability of every
+    channel draw the trajectory took. A trajectory's channels are drawn
+    with parameter-dependent probabilities, so the pathwise term alone is
+    a biased estimate of ``d E[value]``; with the score term the mean is
+    unbiased. A ``baseline`` independent of this draw (the gradient loop's
+    running mean of earlier waves) leaves the mean unchanged, since ``E[b
+    d logq] = b d sum_j p_j = 0``, and shrinks the score term's variance.
+
+    The trajectory gradient loop (:meth:`quest_tpu_torch.ops.trajectories.
+    TrajectoryProgram.expectation_grad`) computes this gradient in closed
+    form by an adjoint walk instead; this is its definition, for callers
+    that differentiate a trajectory with ``torch.autograd``."""
+    def detached(x):
+        return x.detach() if isinstance(x, torch.Tensor) else x
+
+    return value + (detached(value) - detached(baseline)) * (
+        logq - detached(logq))
 
 
 def welford_stderr(n, m2):

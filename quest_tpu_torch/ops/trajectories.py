@@ -36,6 +36,36 @@ draw_plain`). The JAX package's XLA path draws categorically instead
 only against its Pallas walker given the same uniforms; elsewhere the parity
 is statistical. ``trajectory_sweep``, ``expectation`` and ``sample`` take
 ``uniforms=`` to feed a caller's block.
+
+Gradients (:meth:`TrajectoryProgram.expectation_grad`, the counterpart of
+the JAX package's score-corrected wave loop, ``trajectories.py:688``). The
+JAX package differentiates every trajectory with ``jax.value_and_grad``
+through :func:`~quest_tpu_torch.ops.reductions.score_surrogate`, whose
+gradient is ``dv + (v - b) dlogq``: ``v = <psi|H|psi>`` of the normalised
+final state, ``logq`` the log-probability of the drawn branches and ``b``
+the row's running mean over earlier waves. Once the branches are drawn that
+gradient has a closed form. With ``psi~`` the chain of gates and drawn
+``K_j`` without their ``1/sqrt(p_j)``, ``N = |psi~|^2`` is the product of
+the drawn ``p_j`` (so ``logq = log N`` for trace-preserving channels), and
+``v = <psi~|H|psi~>/N``, so
+
+    dv + (v - b) dlogq = 2 Re <(H - b) psi, d psi~> / sqrt(N).
+
+That is the adjoint walk of ``ops/adjoint.py`` (factor 2) over the chain
+of RECORDED operators ``K_j / sqrt(p_j)``, their scale held at its drawn
+value, from the cotangent ``(H - b) psi`` (:meth:`TrajectoryProgram.
+_grad_rows`). The forward is the value path itself, which records each
+trajectory's branch (the fused Kraus kernel writes the index it drew) and
+keeps the state entering each channel while a memory cap allows; the
+reverse runs on the ``(2T, 2, 2^n)`` stack of states and cotangents, a
+layer's adjoint in one launch of the batched layer kernel over ``2T``, a
+lane channel's adjoint in one launch of the fused Kraus kernel over the
+cotangents with the conjugate-transposed stack and one-hot probabilities
+(its draw then picks the recorded branch and scales by the recorded
+``1/sqrt(p_j)``). A channel's input past the cap is recomputed by replaying
+the recorded branches, never by a second draw. The gradient loop draws the
+value loop's uniform block, so its value column is ``expectation``'s mean
+bit for bit.
 """
 
 from __future__ import annotations
@@ -51,7 +81,8 @@ from ..core.apply import apply_diagonal, apply_unitary
 from . import kraus_kernel as kk
 from . import layer_kernel as lk
 from . import reductions as red
-from .adjoint import bind_rows
+from .adjoint import (bind_rows, bind_with_derivatives, is_unitary,
+                      unit_modulus, unitary_matrix)
 
 __all__ = ["TrajectoryProgram", "DensityMaterialisationError",
            "plan_waves", "DENSITY_DEBUG_QUBITS_ENV"]
@@ -112,6 +143,107 @@ def _gate_item(op) -> tuple:
     return ("diag", op.targets, op.diag, None)
 
 
+def _stacked(kraus_fn):
+    """A parameterized channel's ``params -> [K_k]`` as ``params -> (K, d,
+    d)`` complex128 tensor."""
+    return lambda p: torch.stack([torch.as_tensor(m, dtype=torch.complex128)
+                                  for m in kraus_fn(p)])
+
+
+def _branch_operators(ks: torch.Tensor, j: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Each trajectory's drawn operator times its scale: ``(T, d, d)`` from
+    a ``(K, d, d)`` stack shared by the batch or a ``(T, K, d, d)`` one."""
+    rows = torch.arange(j.shape[0], device=j.device)
+    sel = ks[j] if ks.dim() == 3 else ks[rows, j]
+    return sel * scale[:, None, None].to(sel.dtype)
+
+
+def _drawn(probs: torch.Tensor, j: torch.Tensor) -> tuple:
+    """``(j, p_j, 1/sqrt(p_j))`` of every trajectory, the scale by the
+    draw's rule (:func:`~quest_tpu_torch.ops.kraus_kernel.draw_plain`)."""
+    psel = probs.gather(1, j[:, None])[:, 0]
+    tiny = torch.finfo(psel.dtype).tiny
+    return j, psel, 1.0 / torch.sqrt(torch.clamp(psel, min=tiny))
+
+
+def _one_hot(psel: torch.Tensor, j: torch.Tensor, num_ops: int):
+    """``(T, K)`` probabilities holding each trajectory's recorded ``p_j``
+    at its branch and 0 elsewhere. The fused Kraus kernel's draw at ``u =
+    0`` then skips the leading zeros and stops at ``j`` (``cum = p_j > 0
+    = uu``), and scales by ``1/sqrt(p_j)``: the recorded operator,
+    replayed with no second draw."""
+    p = torch.zeros((psel.shape[0], num_ops), dtype=psel.dtype,
+                    device=psel.device)
+    return p.scatter_(1, j[:, None], psel[:, None])
+
+
+def _cross_density(lam: torch.Tensor, psi: torch.Tensor, num_qubits: int,
+                   targets, ctrl_mask: int = 0, flip_mask: int = 0):
+    """``M[t, a, b] = sum conj(lam_t[a, r]) psi_t[b, r]`` over the other
+    qubits ``r`` (inside the control subspace of ``ctrl_mask``/``flip_mask``,
+    whose semantics are the gate engine's), ``a`` and ``b`` indexing the
+    targets (bit ``j`` is ``targets[j]``): the ``(T, d, d)`` real and
+    imaginary parts of the targets' cross density of two ``(T, 2, 2^n)``
+    batches, in their dtype. ``Re <lam, G_ctrl psi> = Re sum_ab G_ab M_ab``
+    for any operator ``G`` on the targets, so one such pass gives every
+    derivative of an item: :meth:`_channel_probs`' reduction with ``lam``
+    for the second state."""
+    n = num_qubits
+    k = len(targets)
+    num_traj = psi.shape[0]
+    controls = [q for q in range(n) if (ctrl_mask >> q) & 1]
+    front = [2 + n - 1 - targets[j] for j in reversed(range(k))]
+    ctrl = [2 + n - 1 - c for c in controls]
+    rest = [2 + a for a in range(n) if 2 + a not in front + ctrl]
+    pick = tuple(0 if (flip_mask >> c) & 1 else 1 for c in controls)
+
+    def gathered(x):
+        v = x.view((num_traj, 2) + (2,) * n).permute([0, 1] + ctrl + front
+                                                      + rest)
+        if controls:
+            v = v[(slice(None), slice(None)) + pick]
+        return v.reshape(num_traj, 2 << k, -1)
+
+    # one batched product over both planes: blocks [[ar br, ar bi], [ai br,
+    # ai bi]], and conj(a) b = ar br + ai bi + i (ar bi - ai br)
+    d = 1 << k
+    blocks = torch.matmul(gathered(lam), gathered(psi).transpose(1, 2))
+    m_re = blocks[:, :d, :d] + blocks[:, d:, d:]
+    m_im = blocks[:, :d, d:] - blocks[:, d:, :d]
+    return m_re, m_im
+
+
+def _add_derivative(grads: torch.Tensor, col: int, g, m) -> None:
+    """``grads[:, col] += 2 Re sum_ab G_ab M_ab`` (:func:`_cross_density`'s
+    ``M``; ``G`` shared ``(d, d)`` or ``(T, d, d)``, numpy or a device
+    tensor): the score-corrected gradient's ``2 Re <lam, G psi>``."""
+    m_re, m_im = m
+    g = torch.as_tensor(g)
+    g_re = g.real.to(device=m_re.device, dtype=torch.float64)
+    g_im = g.imag.to(device=m_re.device, dtype=torch.float64)
+    dot = (g_re * m_re.double()).sum((-2, -1)) \
+        - (g_im * m_im.double()).sum((-2, -1))
+    grads[:, col] += 2.0 * dot
+
+
+class _Tape:
+    """What the gradient walk's forward keeps for its reverse: per channel
+    (by channel number) each trajectory's ``(j, p_j, 1/sqrt(p_j))``, and the
+    states entering the non-unitary items (by item index) while they fit
+    in ``store_bytes``."""
+
+    def __init__(self, store_bytes: int):
+        self.store_bytes = store_bytes
+        self.draws: dict = {}
+        self.stored: dict = {}
+
+    def keep(self, k: int, states: torch.Tensor) -> None:
+        size = states.numel() * states.element_size()
+        if (len(self.stored) + 1) * size <= self.store_bytes:
+            self.stored[k] = states.clone()
+
+
 class TrajectoryProgram:
     """A recorded circuit lowered to a stochastic pure-state program.
 
@@ -159,7 +291,12 @@ class TrajectoryProgram:
         self._items = self._build_kernel_items(fused) \
             if self.num_qubits >= lk.LANE_QUBITS and _layers_on(pallas, env) \
             else list(ops)
+        # the gradient walk un-computes these items by their adjoints;
+        # channels (and any non-unitary gate) take their stored input
+        self._unitary = [self._item_unitary(item) for item in self._items]
+        self._adjoint_ops: Optional[dict] = None
         self._last_traj_stats: dict = {}
+        self._batch_stats: dict = {}
 
     def _build_kernel_items(self, fused_ops):
         """The item stream of the batched walker: ``("layer", LayerOp)`` for
@@ -226,9 +363,7 @@ class TrajectoryProgram:
         if kind == "kraus":
             stack, estack = data[0], data[1]
         else:
-            stack = bind_rows(lambda p: torch.stack(
-                [torch.as_tensor(m, dtype=torch.complex128)
-                 for m in data(p)]), self.param_names, pm)
+            stack = bind_rows(_stacked(data), self.param_names, pm)
             estack = _effect_stack(stack)
         cdtype = self.env.precision.complex_dtype
         return (torch.as_tensor(stack, dtype=cdtype, device=self.env.device),
@@ -236,42 +371,290 @@ class TrajectoryProgram:
                                 device=self.env.device))
 
     def _apply_batch(self, states: torch.Tensor, uniforms: torch.Tensor,
-                     pm: np.ndarray) -> torch.Tensor:
+                     pm: np.ndarray, tape: Optional[_Tape] = None
+                     ) -> torch.Tensor:
         """Advance the ``(T, 2, 2^n)`` batch through the program IN PLACE.
         ``uniforms``: ``(T, num_channels)`` in the plane dtype on the
-        device; ``pm``: the ``(T, P)`` host parameter rows."""
-        n = self.num_qubits
-        names = self.param_names
-        for item in self._items:
-            kind = item[0]
-            if kind == "layer":
-                lk.apply_layer_batched(states, n, item[1])
-            elif kind == "kraus_fused":
-                _, targets, (_, estack, kemb), idx = item
-                es = torch.as_tensor(estack,
-                                     dtype=self.env.precision.complex_dtype,
-                                     device=states.device)
-                probs = self._channel_probs(states, targets, es)
-                kk.fused_kraus_apply_batched(
-                    states, n, kemb, probs, uniforms[:, idx].contiguous())
-            elif kind in ("kraus", "kraus_fn"):
-                _, targets, data, idx = item
-                ks, es = self._operators(data, kind, pm)
-                probs = self._channel_probs(states, targets, es)
-                j, scale = kk.draw_plain(probs, uniforms[:, idx])
-                rows = torch.arange(states.shape[0], device=states.device)
-                sel = ks[j] if ks.dim() == 3 else ks[rows, j]
-                apply_unitary(states, n, sel * scale[:, None, None].to(
-                    sel.dtype), targets)
-            elif kind in ("u", "u_fn"):
-                _, targets, data, (cmask, fmask) = item
-                u = data if kind == "u" else bind_rows(data, names, pm)
-                apply_unitary(states, n, u, targets, cmask, fmask)
-            else:
-                _, targets, data, _ = item
-                d = data if kind == "diag" else bind_rows(data, names, pm)
-                apply_diagonal(states, n, targets, d)
+        device; ``pm``: the ``(T, P)`` host parameter rows. A ``tape``
+        (the gradient walk's forward) records every channel's branches and
+        keeps the states entering the non-unitary items."""
+        for k, item in enumerate(self._items):
+            if tape is not None and not self._unitary[k]:
+                tape.keep(k, states)
+            drawn = self._apply_item(states, item, uniforms, pm,
+                                     tape is not None)
+            if drawn is not None:
+                tape.draws[item[3]] = drawn
         return states
+
+    def _apply_item(self, states: torch.Tensor, item, uniforms, pm,
+                    record: bool = False):
+        """One item of the program on the batch, in place; a channel
+        draws from its column of ``uniforms`` and, when ``record``, returns
+        the branches it drew (:func:`_drawn`)."""
+        n = self.num_qubits
+        kind = item[0]
+        if kind == "layer":
+            lk.apply_layer_batched(states, n, item[1])
+        elif kind == "kraus_fused":
+            _, targets, (_, estack, kemb), idx = item
+            es = torch.as_tensor(estack,
+                                 dtype=self.env.precision.complex_dtype,
+                                 device=states.device)
+            probs = self._channel_probs(states, targets, es)
+            index = torch.empty(states.shape[0], dtype=torch.int32,
+                                device=states.device) if record else None
+            kk.fused_kraus_apply_batched(
+                states, n, kemb, probs, uniforms[:, idx].contiguous(), index)
+            if record:
+                return _drawn(probs, index.long())
+        elif kind in ("kraus", "kraus_fn"):
+            _, targets, data, idx = item
+            ks, es = self._operators(data, kind, pm)
+            probs = self._channel_probs(states, targets, es)
+            j, scale = kk.draw_plain(probs, uniforms[:, idx])
+            apply_unitary(states, n, _branch_operators(ks, j, scale), targets)
+            if record:
+                return j, probs.gather(1, j[:, None])[:, 0], scale
+        elif kind in ("u", "u_fn"):
+            _, targets, data, (cmask, fmask) = item
+            u = data if kind == "u" else bind_rows(data, self.param_names, pm)
+            apply_unitary(states, n, u, targets, cmask, fmask)
+        else:
+            _, targets, data, _ = item
+            d = data if kind == "diag" \
+                else bind_rows(data, self.param_names, pm)
+            apply_diagonal(states, n, targets, d)
+        return None
+
+    def _replay(self, states: torch.Tensor, pm: np.ndarray, draws: dict,
+                first: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+        """Items ``first`` to ``stop`` of the program on the batch, IN
+        PLACE, every channel applying its RECORDED operator ``K_j /
+        sqrt(p_j)`` from ``draws`` (a tape's): a fused channel through the
+        fused Kraus kernel with one-hot probabilities (:func:`_one_hot`),
+        any other through the gate engine. Nothing is drawn."""
+        n = self.num_qubits
+        for item in self._items[first:stop]:
+            kind = item[0]
+            if kind not in ("kraus_fused", "kraus", "kraus_fn"):
+                self._apply_item(states, item, None, pm)
+                continue
+            _, targets, data, idx = item
+            j, psel, scale = draws[idx]
+            if kind == "kraus_fused":
+                kk.fused_kraus_apply_batched(
+                    states, n, data[2], _one_hot(psel, j, len(data[2])),
+                    torch.zeros_like(psel))
+            else:
+                ks, _ = self._operators(data, kind, pm)
+                apply_unitary(states, n, _branch_operators(ks, j, scale),
+                              targets)
+        return states
+
+    # -- the gradient walk ---------------------------------------------------
+
+    @staticmethod
+    def _item_unitary(item) -> bool:
+        kind = item[0]
+        if kind == "layer":
+            return is_unitary(item[1])
+        if kind == "u":
+            return unitary_matrix(item[2])
+        if kind == "diag":
+            return unit_modulus(item[2])
+        return kind in ("u_fn", "diag_fn")
+
+    def _adjoints(self) -> dict:
+        """Per item index, what the reverse applies for a static item: a
+        layer's adjoint layer (packed at its first launch), a gate's
+        conjugate transpose, a diagonal's conjugate, a fused channel's
+        lane-embedded stack of ``K_k^dag``. Made once, at the first
+        gradient wave."""
+        if self._adjoint_ops is None:
+            ops = {}
+            for k, item in enumerate(self._items):
+                kind = item[0]
+                if kind == "layer":
+                    ops[k] = lk.adjoint_layer(item[1])
+                elif kind == "u":
+                    ops[k] = np.conj(np.asarray(item[2],
+                                                dtype=np.complex128)).T
+                elif kind == "diag":
+                    ops[k] = np.conj(np.asarray(item[2]))
+                elif kind == "kraus_fused":
+                    ops[k] = np.ascontiguousarray(
+                        np.conj(item[2][2]).transpose(0, 2, 1))
+            self._adjoint_ops = ops
+        return self._adjoint_ops
+
+    # the bytes of states a gradient wave may keep at the inputs of its
+    # channels; None sizes it from the device's free memory
+    _grad_store_bytes: Optional[int] = None
+    # the host's share when the walk runs on the CPU
+    _CPU_STORE_BYTES = 4 << 30
+
+    def _store_bytes(self, num_traj: int, dtype: torch.dtype) -> int:
+        """What a gradient wave of ``num_traj`` trajectories may keep of
+        the states entering its channels: on the card its free memory less
+        eight batches (the stacked pair, a derivative batch and the gate
+        engine's temporaries on the pair), on the CPU a fixed share."""
+        if self._grad_store_bytes is not None:
+            return int(self._grad_store_bytes)
+        device = self.env.device
+        if device.type != "cuda":
+            return self._CPU_STORE_BYTES
+        free = torch.cuda.mem_get_info(device)[0] \
+            + torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
+        state = num_traj * 2 * (1 << self.num_qubits) * dtype.itemsize
+        return max(0, free - 8 * state)
+
+    def _derivatives(self, fn, pm: np.ndarray, what: str):
+        """``fn`` (a parametrised op's ``params -> operator``) and its
+        derivative in each parameter it reads
+        (:func:`~quest_tpu_torch.ops.adjoint.bind_with_derivatives`), bound
+        once per distinct row of ``pm``: ``(values, [(column,
+        derivative)], shared)``, one array for the batch when every row
+        binds the same values (``shared``), else one per row."""
+        uniq, inverse = np.unique(pm, axis=0, return_inverse=True)
+        values, derivs = bind_with_derivatives(fn, self.param_names, uniq,
+                                               what)
+        shared = len(uniq) == 1
+        rows = 0 if shared else np.reshape(inverse, -1)
+        return values[rows], [(c, d[rows]) for c, d in derivs], shared
+
+    def _restore(self, psi: torch.Tensor, k: int, tape: _Tape,
+                 start: torch.Tensor, pm: np.ndarray) -> None:
+        """``psi`` <- the states entering item ``k``: its stored copy, or
+        replayed with the recorded branches from the nearest stored state
+        before it (or the start)."""
+        if k in tape.stored:
+            psi.copy_(tape.stored.pop(k))
+            return
+        base = max((i for i in tape.stored if i < k), default=None)
+        psi.copy_(start if base is None else tape.stored[base])
+        self._replay(psi, pm, tape.draws, 0 if base is None else base, k)
+
+    def _reverse_param_gate(self, item, pair: torch.Tensor, grads,
+                            pm: np.ndarray) -> None:
+        """A ``u_fn``/``diag_fn`` item backwards: for each parameter it
+        reads, ``grads[:, col] += 2 Re <lam, dU psi_in>`` with ``dU psi_in
+        = (dU U^dag) psi_out``; then ``U^dag`` on states and cotangents."""
+        n = self.num_qubits
+        num_traj = grads.shape[0]
+        psi, lam = pair[:num_traj], pair[num_traj:]
+        kind, targets, fn, masks = item
+        values, derivs, shared = self._derivatives(
+            fn, pm, f"the parameter op on qubits {tuple(targets)}")
+        if kind == "u_fn":
+            cmask, fmask = masks
+            adjoint = np.conj(np.swapaxes(values, -1, -2))
+
+            def apply(states, m):
+                apply_unitary(states, n, m, targets, cmask, fmask)
+        else:
+            cmask = 0
+            adjoint = np.conj(values)
+
+            def apply(states, m):
+                apply_diagonal(states, n, targets, m)
+        if derivs:
+            # the targets ordered as the operator's axes: a diagonal's
+            # axis i is the i-th qubit sorted descending, so its flat index
+            # has the largest qubit as its top bit
+            order = targets if kind == "u_fn" else sorted(targets)
+            m = _cross_density(lam, psi, n, order, cmask,
+                               masks[1] if kind == "u_fn" else 0)
+        for col, d in derivs:
+            # dU psi_in = (dU U^dag) psi_out
+            if kind == "u_fn":
+                g = d @ adjoint
+            else:
+                g = d * adjoint
+                g = np.einsum("...i,ij->...ij", g.reshape(
+                    g.shape[:g.ndim - len(targets)] + (-1,)),
+                    np.eye(1 << len(targets)))
+            _add_derivative(grads, col, g, m)
+        apply(pair, adjoint if shared else np.concatenate([adjoint, adjoint]))
+
+    def _reverse_channel(self, k: int, item, pair: torch.Tensor, grads,
+                         pm: np.ndarray, tape: _Tape) -> None:
+        """A channel backwards, its input restored in ``psi``: a
+        parameterized channel adds ``2 Re <lam, (dK_j / sqrt(p_j))
+        psi_in>`` per parameter it reads, then ``lam <- (K_j /
+        sqrt(p_j))^dag lam`` per trajectory — for a fused channel one
+        launch of the fused Kraus kernel over the cotangents with the
+        stack of ``K_k^dag`` and one-hot probabilities."""
+        n = self.num_qubits
+        num_traj = grads.shape[0]
+        psi, lam = pair[:num_traj], pair[num_traj:]
+        kind, targets, data, idx = item
+        j, psel, scale = tape.draws[idx]
+        if kind == "kraus_fused":
+            kk.fused_kraus_apply_batched(
+                lam, n, self._adjoints()[k], _one_hot(psel, j, len(data[2])),
+                torch.zeros_like(psel))
+            return
+        ks, _ = self._operators(data, kind, pm)
+
+        if kind == "kraus_fn":
+            _, derivs, _ = self._derivatives(
+                _stacked(data), pm,
+                f"the parameter channel on qubits {tuple(targets)}")
+            m = _cross_density(lam, psi, n, targets) if derivs else None
+            for col, d in derivs:
+                dk = torch.as_tensor(d, dtype=ks.dtype, device=ks.device)
+                _add_derivative(grads, col, _branch_operators(dk, j, scale),
+                                m)
+        op = _branch_operators(ks, j, scale)
+        apply_unitary(lam, n, op.conj().transpose(-1, -2).resolve_conj(),
+                      targets)
+
+    def _grad_rows(self, start: torch.Tensor, uniforms: torch.Tensor,
+                   pm: np.ndarray, baseline: torch.Tensor, operands):
+        """One gradient wave of ``T`` trajectories from the shared ``(2,
+        2^n)`` start planes, with ``(T, C)`` uniforms, ``(T, P)`` host
+        parameter rows, a ``(T,)`` baseline ``b`` in the plane dtype and
+        the Pauli sum's operands (:func:`~quest_tpu_torch.ops.reductions.
+        pauli_terms_operands`). Returns ``(values, grads, tape)``: the
+        ``(T,)`` values, bit for bit the value path's; the float64 ``(T,
+        P)`` gradients ``2 Re <(H - b) psi, d psi~> / sqrt(N)``, each
+        trajectory's score-corrected gradient; and the forward's
+        :class:`_Tape` (its branches)."""
+        num_traj = pm.shape[0]
+        xm, ym, zm, cf = operands
+        tape = _Tape(self._store_bytes(num_traj, start.dtype))
+        pair = start.new_empty((2 * num_traj,) + tuple(start.shape))
+        psi, lam = pair[:num_traj], pair[num_traj:]
+        psi.copy_(start)
+        self._apply_batch(psi, uniforms.to(device=start.device,
+                                           dtype=start.dtype), pm, tape)
+        values = red.pauli_sum_total_sv(psi, xm, ym, zm, cf)
+        red.pauli_sum_apply(psi, xm, ym, zm, cf, out=lam)
+        lam.addcmul_(psi, baseline.view(-1, 1, 1), value=-1.0)
+        grads = torch.zeros((num_traj, len(self.param_names)),
+                            dtype=torch.float64, device=start.device)
+        adjoints = self._adjoints()
+        n = self.num_qubits
+        for k in reversed(range(len(self._items))):
+            item = self._items[k]
+            kind = item[0]
+            if not self._unitary[k]:
+                self._restore(psi, k, tape, start, pm)
+            target = pair if self._unitary[k] else lam
+            if kind == "layer":
+                lk.apply_layer_batched(target, n, adjoints[k])
+            elif kind == "u":
+                _, targets, _, (cmask, fmask) = item
+                apply_unitary(target, n, adjoints[k], targets, cmask, fmask)
+            elif kind == "diag":
+                apply_diagonal(target, n, item[1], adjoints[k])
+            elif kind in ("u_fn", "diag_fn"):
+                self._reverse_param_gate(item, pair, grads, pm)
+            else:
+                self._reverse_channel(k, item, pair, grads, pm, tape)
+        return values, grads, tape
 
     # -- inputs --------------------------------------------------------------
 
@@ -327,16 +710,39 @@ class TrajectoryProgram:
                              f"channel); got {tuple(u.shape)}")
         return u
 
+    def _row_uniforms(self, uniforms) -> torch.Tensor:
+        """One trajectory's uniforms (``(num_channels,)``, or the env's
+        generator's when None) as the ``(1, num_channels)`` block."""
+        shape = (1, self.num_channels)
+        if uniforms is None:
+            return self._draw_uniforms(self.env.generator, shape)
+        u = np.asarray(uniforms, dtype=np.float64)
+        if u.size != self.num_channels:
+            raise ValueError(f"uniforms must hold one value per channel, "
+                             f"({self.num_channels},); got shape {u.shape}")
+        return self._given_uniforms(u.reshape(shape), shape)
+
     def _run_rows(self, start: torch.Tensor, uniforms: torch.Tensor,
                   pm_rows: np.ndarray) -> torch.Tensor:
         """Fresh ``(T, 2, 2^n)`` copies of ``start`` walked through the
         program with ``(T, C)`` uniforms and ``(T, P)`` parameter rows."""
         num_traj = pm_rows.shape[0]
-        states = start.expand(num_traj, 2, start.shape[1]).contiguous()
+        # a copy even for one trajectory, where contiguous() would alias
+        states = start.expand(num_traj, 2, start.shape[1]).clone(
+            memory_format=torch.contiguous_format)
         u = uniforms.to(device=states.device, dtype=states.dtype)
         return self._apply_batch(states, u, pm_rows)
 
     # -- execution -----------------------------------------------------------
+
+    def apply(self, state_f, uniforms=None, params=None) -> torch.Tensor:
+        """Pure form: ``(2, 2^n)`` packed planes -> new planes, one
+        trajectory (the input is not changed). ``uniforms`` is its
+        ``(num_channels,)`` row (default: drawn from the env's generator);
+        ``params`` binds the circuit's Param gates and channels."""
+        return self._run_rows(self._start(state_f),
+                              self._row_uniforms(uniforms),
+                              self._param_matrix(params))[0]
 
     def trajectory_sweep(self, num_trajectories: int, params=None,
                          state_f=None, uniforms=None) -> torch.Tensor:
@@ -351,6 +757,8 @@ class TrajectoryProgram:
         shape = (num_traj, self.num_channels)
         u = self._given_uniforms(uniforms, shape) if uniforms is not None \
             else self._draw_uniforms(self.env.generator, shape)
+        self._batch_stats = {"batch_size": num_traj,
+                             "host_syncs_avoided": num_traj - 1}
         return self._run_rows(self._start(state_f), u,
                               np.repeat(pm, num_traj, axis=0))
 
@@ -372,10 +780,7 @@ class TrajectoryProgram:
                 f"program has {self.num_qubits} qubits; register has "
                 f"{qureg.num_qubits_represented}")
         pm = self._param_matrix(params)
-        shape = (1, self.num_channels)
-        u = self._given_uniforms(np.reshape(uniforms, shape), shape) \
-            if uniforms is not None \
-            else self._draw_uniforms(self.env.generator, shape)
+        u = self._row_uniforms(uniforms)
         states = qureg.state.unsqueeze(0)
         self._apply_batch(states, u.to(device=states.device,
                                        dtype=states.dtype), pm)
@@ -455,13 +860,89 @@ class TrajectoryProgram:
                               sampling_budget=sampling_budget,
                               wave_size=wave_size, live_rows=live_rows)
 
+    _NO_PARAMS = ("this circuit declares no parameters; there is nothing "
+                  "to differentiate (record angles via Circuit.parameter "
+                  "/ Param placeholders)")
+
+    def expectation_grad(self, pauli_terms, coeffs, state_f=None,
+                         num_trajectories: int = None, *, params=None,
+                         sampling_budget: Optional[float] = None,
+                         wave_size: Optional[int] = None,
+                         seed: Optional[int] = None, uniforms=None):
+        """Monte-Carlo estimate of ``<H>`` AND its parameter gradient under
+        the noisy evolution, from one wave loop. Returns ``(value, grad,
+        stderr)``: the energy, the ``(P,)`` gradient and the ``(P + 1,)``
+        standard errors (component 0 the value's).
+
+        Every trajectory's gradient carries the score-function correction
+        (:func:`~quest_tpu_torch.ops.reductions.score_surrogate`, with the
+        row's running mean over earlier waves as baseline), so the mean
+        converges to the density-path gradient; it is computed by an
+        adjoint walk over the wave (the module's docstring).
+        ``sampling_budget`` stops the loop at the first wave where EVERY
+        component's standard error fits. The uniforms are ``expectation``'s
+        (``seed``, or a ``(T, num_channels)`` block), so the value is its
+        mean bit for bit."""
+        if num_trajectories is None or int(num_trajectories) < 2:
+            raise ValueError("expectation_grad needs >= 2 trajectories "
+                             "for a standard error")
+        if not self.param_names:
+            raise ValueError(self._NO_PARAMS)
+        terms, cfs = red.validated_pauli_terms(pauli_terms, coeffs,
+                                               self.num_qubits)
+        num_traj = int(num_trajectories)
+        if uniforms is not None:
+            uniforms = self._given_uniforms(
+                uniforms, (num_traj, self.num_channels))[None]
+        means, errs, _ = self._converge(
+            self._param_matrix(params), terms, cfs, state_f, num_traj,
+            self._generator(seed), uniforms, sampling_budget=sampling_budget,
+            wave_size=wave_size, grad=True)
+        return float(means[0, 0]), means[0, 1:], errs[0]
+
+    def expectation_grad_batch(self, param_matrix, hamiltonian,
+                               num_trajectories: int, *,
+                               sampling_budget: Optional[float] = None,
+                               wave_size: Optional[int] = None,
+                               live_rows: Optional[int] = None,
+                               state_f=None, seed: Optional[int] = None):
+        """The ``(B, T)`` gradient form: one ensemble per parameter row,
+        every row's value and gradient advancing through shared gradient
+        waves; early stopping waits for every component of every live row.
+        Returns ``(values, grads, stderrs, info)``: ``(B,)``, ``(B, P)``,
+        ``(B, P + 1)`` arrays and the loop's accounting (``info["kind"] ==
+        "gradient"``)."""
+        if not self.param_names:
+            # before the shape check, which would report a (batch, 0) shape
+            raise ValueError(self._NO_PARAMS)
+        pm = np.asarray(param_matrix, dtype=np.float64)
+        if pm.ndim != 2 or pm.shape[1] != len(self.param_names):
+            raise ValueError(
+                f"param_matrix must be (batch, {len(self.param_names)}); "
+                f"got {pm.shape}")
+        if int(num_trajectories) < 2:
+            raise ValueError("expectation_grad needs >= 2 trajectories "
+                             "for a standard error")
+        terms, coeffs = red.validated_pauli_terms(*hamiltonian,
+                                                  self.num_qubits)
+        means, errs, info = self._converge(
+            pm, terms, coeffs, state_f, int(num_trajectories),
+            self._generator(seed), None, sampling_budget=sampling_budget,
+            wave_size=wave_size, live_rows=live_rows, grad=True)
+        return means[:, 0], means[:, 1:], errs, info
+
     def _converge(self, pm: np.ndarray, terms, coeffs, state_f,
                   max_trajectories: int, generator: torch.Generator,
                   uniforms, sampling_budget=None, wave_size=None,
-                  live_rows=None):
+                  live_rows=None, grad: bool = False):
         """The shared wave loop over ``(B, P)`` parameter rows. Row ``b``'s
         trajectory ``t`` uses uniform row ``uniforms[b, t]`` of one block
-        drawn up front, so wave boundaries never change a draw."""
+        drawn up front, so wave boundaries never change a draw.
+        ``grad=True`` runs gradient waves (:meth:`_grad_rows`): a second
+        running triple holds the ``P`` gradient components beside the
+        value's, the stop decision needs every component's standard error
+        to fit, and the returned means and stderrs are ``(B, P + 1)``.
+        The value's triple is folded exactly as the value loop folds it."""
         rows = pm.shape[0]
         live = rows if live_rows is None else max(1, min(int(live_rows),
                                                          rows))
@@ -476,12 +957,15 @@ class TrajectoryProgram:
         start = self._start(state_f)
         dtype, device = start.dtype, start.device
         pm_rows = np.repeat(pm, bucket, axis=0)
+        num_params = len(self.param_names)
         carry = torch.zeros((3, rows), dtype=dtype, device=device)
+        gcarry = torch.zeros((3, rows, num_params), dtype=dtype,
+                             device=device) if grad else None
         run = 0
         waves_run = 0
         early = False
         snap = None
-        stderr = np.full((rows,), np.inf)
+        stderr = np.full((rows, num_params + 1) if grad else (rows,), np.inf)
         for first, live_w in waves:
             u = uniforms[:, first:first + live_w]
             if live_w < bucket:
@@ -490,16 +974,31 @@ class TrajectoryProgram:
                 u = torch.cat([u] + [u[:, :1]] * (bucket - live_w), dim=1)
             mask = torch.zeros((bucket,), dtype=dtype, device=device)
             mask[:live_w] = 1.0
-            states = self._run_rows(start, u.reshape(rows * bucket,
-                                                     num_channels), pm_rows)
-            vals = red.pauli_sum_total_sv(states, xm, ym, zm, cf)
-            del states
+            u = u.reshape(rows * bucket, num_channels)
+            if grad:
+                # the baseline: each row's running mean over earlier waves
+                # (0 on the first), independent of this wave's draws
+                vals, grads, _ = self._grad_rows(
+                    start, u, pm_rows, carry[1].repeat_interleave(bucket),
+                    (xm, ym, zm, cf))
+            else:
+                states = self._run_rows(start, u, pm_rows)
+                vals = red.pauli_sum_total_sv(states, xm, ym, zm, cf)
+                del states
             wave_stats = red.welford_wave(vals.view(rows, bucket), mask)
             carry = torch.stack(red.welford_merge(
                 (carry[0], carry[1], carry[2]), wave_stats))
+            if grad:
+                g = grads.to(dtype).view(rows, bucket, num_params)
+                gcarry = torch.stack(red.welford_merge(
+                    (gcarry[0], gcarry[1], gcarry[2]),
+                    red.welford_wave(g.transpose(1, 2), mask)))
+                del grads, g
+                both = torch.cat([carry.unsqueeze(-1), gcarry], dim=-1)
             run += live_w
             waves_run += 1
-            snap = carry.cpu().numpy()          # the wave's ONE transfer
+            # the wave's ONE transfer
+            snap = (both if grad else carry).cpu().numpy()
             stderr = red.welford_stderr(snap[0], snap[2])
             if sampling_budget is not None and \
                     np.all(snap[0][:live] >= 2.0) and \
@@ -517,16 +1016,52 @@ class TrajectoryProgram:
                                 if sampling_budget is not None else None),
             "max_stderr": float(np.max(stderr[:live])),
             "num_terms": len(terms),
+            "kind": "gradient" if grad else "value",
         }
         self._last_traj_stats = dict(info)
+        # one device-to-host transfer per wave, where a loop over the
+        # trajectories would make one each
+        self._batch_stats = {"batch_size": rows * run,
+                             "host_syncs_avoided": rows * run - waves_run}
         return (np.asarray(snap[1], dtype=np.float64),
                 np.asarray(stderr, dtype=np.float64), info)
 
     @property
     def last_traj_stats(self) -> dict:
         """Accounting of the most recent wave loop (``trajectories_run``,
-        ``early_stopped``, waves, stderr)."""
+        ``early_stopped``, waves, stderr, ``kind``)."""
         return dict(self._last_traj_stats)
+
+    _digest_cached = None   # lazy program_digest (content-addressed)
+
+    @property
+    def program_digest(self) -> str:
+        """Stable content digest of the recorded circuit
+        (:func:`quest_tpu_torch.serve.warmcache.circuit_digest`, shared with
+        :attr:`CompiledCircuit.program_digest`); for a static circuit it
+        equals the JAX package's. A process-local id token when an op
+        resists content addressing."""
+        if self._digest_cached is None:
+            from ..serve.warmcache import circuit_digest
+            d = circuit_digest(self.circuit, False)
+            self._digest_cached = d or f"id-{id(self):x}"
+        return self._digest_cached
+
+    def dispatch_stats(self):
+        """Dispatch accounting (:class:`quest_tpu_torch.profiling.
+        DispatchStats`): recorded ops in, program items out (after the
+        peephole fusion), and the last batched call's trajectories and
+        host transfers avoided (one per wave, not one per trajectory). On
+        one device there are no relayouts and no sharding; the port keeps
+        no executable cache, so its fields keep their defaults."""
+        from ..profiling import DispatchStats
+        return DispatchStats(
+            gates_in=len(self.circuit.ops),
+            kernels_out=len(self._ops),
+            relayouts=0,
+            batch_size=self._batch_stats.get("batch_size", 0),
+            host_syncs_avoided=self._batch_stats.get("host_syncs_avoided",
+                                                     0))
 
     # -- sampling / debug -----------------------------------------------------
 

@@ -43,6 +43,13 @@ ALLOWED = {
     ("TrajectoryProgram.expectation", "shard_trajectories"): ((), SHARDING),
     ("TrajectoryProgram.expectation_batch", "key"): (("seed",), RNG),
     ("TrajectoryProgram.expectation_batch", "progress"): ((), SERVING),
+    ("TrajectoryProgram.expectation_grad", "key"): (("seed", "uniforms"),
+                                                    RNG),
+    ("TrajectoryProgram.expectation_grad", "shard_trajectories"):
+        ((), SHARDING),
+    ("TrajectoryProgram.expectation_grad_batch", "key"): (("seed",), RNG),
+    ("TrajectoryProgram.expectation_grad_batch", "progress"): ((), SERVING),
+    ("TrajectoryProgram.apply", "key"): (("uniforms",), RNG),
     ("TrajectoryProgram.sample", "key"): (("seed", "uniforms"), RNG),
     ("TrajectoryProgram.average_density", "key"): (("uniforms",), RNG),
     ("QuESTEnv.__init__", "mesh"): (("device",), SHARDING),
@@ -101,6 +108,20 @@ def test_the_comparison_covers_the_surface():
                  "TrajectoryProgram.__init__", "Qureg.device_put",
                  "Qureg.flush_gates", "QuESTEnv.__init__"):
         assert must in names, must
+
+
+def test_the_trajectory_program_is_compared_whole():
+    names = {q for q, _, _ in SHARED}
+    for must in ("expectation_grad", "expectation_grad_batch", "apply",
+                 "dispatch_stats", "expectation", "expectation_batch",
+                 "trajectory_sweep", "run", "run_batch", "sample",
+                 "average_density"):
+        assert f"TrajectoryProgram.{must}" in names, must
+    for cls in (JTrajectories, TTrajectories):
+        assert isinstance(inspect.getattr_static(cls, "program_digest"),
+                          property)
+        assert isinstance(inspect.getattr_static(cls, "last_traj_stats"),
+                          property)
 
 
 @pytest.mark.parametrize("qualname,jfn,tfn", SHARED,

@@ -124,6 +124,23 @@ def test_fused_kraus_plain_matches_pallas_interpret(num_ops):
     assert (probs[np.arange(len(j)), j] > 0).all()
 
 
+@pytest.mark.parametrize("num_ops", [1, 2, 16, 64])
+def test_fused_kraus_index_output_is_the_draw(num_ops):
+    """The optional index output (what the gradient walk records its
+    branches from) holds draw_plain's indices, and asking for it changes
+    nothing else."""
+    n = 8
+    kemb, probs, u, z = _kraus_case(num_ops)
+    pt, ut = torch.as_tensor(probs), torch.as_tensor(u)
+    index = torch.full((len(u),), -1, dtype=torch.int32)
+    with_index = kk.fused_kraus_apply_batched(_planes(z), n, kemb, pt, ut,
+                                              index)
+    without = kk.fused_kraus_apply_batched(_planes(z), n, kemb, pt, ut)
+    assert torch.equal(with_index, without)
+    assert np.array_equal(index.numpy(), kk.draw_plain(pt, ut)[0].numpy())
+    assert np.array_equal(index.numpy(), _draw_reference(probs, u))
+
+
 def test_fused_kraus_wrapper_checks_its_inputs():
     kemb, probs, u, z = _kraus_case(2)
     states = _planes(z)
@@ -138,6 +155,17 @@ def test_fused_kraus_wrapper_checks_its_inputs():
         kk.fused_kraus_apply_batched(states, 8, kemb, pt.float(), ut)
     with pytest.raises(ValueError, match="7 qubits"):
         kk.fused_kraus_apply_batched(states, 6, kemb, pt, ut)
+
+
+@pytest.mark.parametrize("index", [
+    torch.zeros(6, dtype=torch.int64), torch.zeros(5, dtype=torch.int32),
+    torch.zeros(12, dtype=torch.int32)[::2]])
+def test_fused_kraus_index_output_is_checked(index):
+    kemb, probs, u, z = _kraus_case(2)
+    with pytest.raises(ValueError, match="index_out"):
+        kk.fused_kraus_apply_batched(_planes(z), 8, kemb,
+                                     torch.as_tensor(probs),
+                                     torch.as_tensor(u), index)
 
 
 # -- whole programs -----------------------------------------------------------
