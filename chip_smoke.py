@@ -9,6 +9,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 13,12d   # gradients, density sweeps
     python3 chip_smoke.py --only 14       # the main-path remainder
     python3 chip_smoke.py --only 9g       # trajectory gradients
+    python3 chip_smoke.py --only 15,16    # dynamics, algorithms, QASM
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -176,7 +177,35 @@ Phases (any unmet check exits non-zero and prints no result line):
     against its plain version on its own input (<= 1e-5); the brickwork
     extended by its inverse as one program (178 gates in, its
     ``dispatch_stats``, a ``program_digest`` stable across compiles) back
-    to |0..0>. At most three 8 GiB registers at once.
+    to |0..0>. At most three 8 GiB registers at once;
+15. Hamiltonian dynamics at 24 qubits, complex64, batch 4, the open TFIM
+    at h = 0.7 (47 terms) after tests/test_dynamics.py's prep program (an
+    ry column of Params, a CNOT chain), every batched layer launch held
+    against its plain version on its own input: ``evolve_sweep`` with
+    ``EvolveSpec(t=0.8, steps=8, order=2)`` (one launch per prep layer;
+    ``dispatch_stats`` ``evolve_steps_fused`` 32; every row within
+    ||dpsi||_2 <= 5e-4 of the gate-form twin, the prep and
+    ``algorithms.trotter_evolution`` through ``sweep``; norms within 1e-4;
+    the last energy within 1e-5 sum|c| of a float64 reduction of the
+    returned planes; the Welford carry against the host moments), again
+    at ``tier="single"`` (the last energy within 1e-6 of |E|);
+    ``ground_sweep`` by power iteration, two 16-step segments chained
+    through ``state_f`` (no energy rises by more than 1e-5 sum|c|), and by
+    Lanczos (16 vectors: the energy within 1e-4 sum|c| of <x|H|x> of the
+    returned planes and below the start's, ||Hx - Ex||_2 beside the
+    reported residual); a 12-qubit copy on the card against the CPU in
+    float64 (1e-4 of max|amp|, Lanczos up to sign, and of sum|c|); the
+    seconds of each call, term rotations/s, one rotation's ms beside its
+    HBM bound, peak memory;
+16. the algorithm library and the QASM importer at 30 qubits, complex64,
+    every layer launch held against its plain version on its own input:
+    ``qft(30)`` from a basis state against the analytic amplitudes
+    (||dpsi||_2 <= 5e-4) and ``inverse_qft(30)`` back to it (<= 1e-4);
+    ``bernstein_vazirani(30)`` (P(secret) >= 1 - 1e-5); phase 4's
+    brickwork through ``to_qasm`` and ``parse_qasm`` against its own run
+    (|<psi|phi>| >= 1 - 1e-5); ``grover(20)`` at its own 804 iterations
+    against sin^2((2k+1) theta) (1e-3) and the analytic state; seconds
+    per run and gates/s.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -1753,7 +1782,7 @@ def phase_traj_gradients(torch, qt, lk, kk, card):
     adjoint_ids = {id(op) for op in tp._adjoints().values()
                    if getattr(op, "kind", None) == "layer"}
     layer_errs, kraus_errs = [], []
-    layer_launch, layer_held = held_batched(torch, lk, layer_errs)
+    layer_launch, layer_held = held_layers(torch, lk, layer_errs)
     kraus_launch, kraus_held = held_kraus(torch, kk, kraus_errs)
     lk.apply_layer_batched, kk.fused_kraus_apply_batched = \
         layer_held, kraus_held
@@ -2158,35 +2187,36 @@ DENSITY_QUBITS = 15            # BASELINE.json config 4: 2^30 flat amps
 DENSITY_CHECK_QUBITS = 8
 
 
-def qft_ops(n: int):
-    """The gate order of the JAX package's ``algorithms._append_qft`` on
-    qubits 0..n-1, as (kind, a, b, angle)."""
-    ops = []
-    for i in range(n - 1, -1, -1):
-        ops.append(("h", i, None, None))
-        for k, j in enumerate(range(i - 1, -1, -1), start=2):
-            ops.append(("cphase", j, i, 2.0 * np.pi / (1 << k)))
-    for i in range(n // 2):
-        ops.append(("swap", i, n - 1 - i, None))
-    return ops
+class _Recorder:
+    """Stands in for a Circuit under ``algorithms._append_qft``: each gate
+    goes to the circuit and, as the same imperative density-API call, to
+    ``calls``."""
+
+    def __init__(self, qt, circuit):
+        self.qt, self.circuit, self.calls = qt, circuit, []
+
+    def h(self, a):
+        self.circuit.h(a)
+        self.calls.append((self.qt.hadamard, (a,)))
+
+    def swap(self, a, b):
+        self.circuit.swap(a, b)
+        self.calls.append((self.qt.swapGate, (a, b)))
+
+    def cphase(self, a, b, angle):
+        self.circuit.cphase(a, b, angle)
+        self.calls.append((self.qt.controlledPhaseShift, (a, b, angle)))
 
 
 def noisy_qft(qt, n: int):
-    """The noisy QFT: the QFT ladder, then dephasing (0.01) and amplitude
-    damping (0.005) on every qubit. Returns the circuit and the same
-    program as imperative density-API calls."""
+    """The noisy QFT: the QFT ladder (``algorithms._append_qft``), then
+    dephasing (0.01) and amplitude damping (0.005) on every qubit. Returns
+    the circuit and the same program as imperative density-API calls."""
+    from quest_tpu_torch.algorithms import _append_qft
     c = qt.Circuit(n)
-    calls = []
-    for kind, a, b, angle in qft_ops(n):
-        if kind == "h":
-            c.h(a)
-            calls.append((qt.hadamard, (a,)))
-        elif kind == "swap":
-            c.swap(a, b)
-            calls.append((qt.swapGate, (a, b)))
-        else:
-            c.cphase(a, b, angle)
-            calls.append((qt.controlledPhaseShift, (a, b, angle)))
+    rec = _Recorder(qt, c)
+    _append_qft(rec, range(n))
+    calls = rec.calls
     for q in range(n):
         c.dephase(q, 0.01).damp(q, 0.005)
         calls += [(qt.mixDephasing, (q, 0.01)), (qt.mixDamping, (q, 0.005))]
@@ -2484,18 +2514,20 @@ def phase_density(torch, qt, lk, kk, card):
     return {"qft": cell, "config4": cell_b}
 
 
-def held_batched(torch, lk, errs):
-    """A stand-in for ``lk.apply_layer_batched`` that launches the kernel
-    and holds its output against the plain version on the same input,
-    appending ``(id(layer), max|diff|, max|diff| / max|plain|)`` to
-    ``errs``. Returns ``(the wrapper, the stand-in)``; the wrapper counts
-    through its module-level name, so while the stand-in stands in, it
-    holds these launches' counts."""
-    launch = lk.apply_layer_batched
+def held_layers(torch, lk, errs, batched: bool = True):
+    """A stand-in for ``lk.apply_layer_batched`` (``batched``) or
+    ``lk.apply_layer`` that launches the kernel and holds its output
+    against the plain version on the same input, appending ``(id(layer),
+    max|diff|, max|diff| / max|plain|)`` to ``errs``. Returns ``(the
+    wrapper, the stand-in)``; the wrapper counts through its module-level
+    name, so while the stand-in stands in, it holds these launches'
+    counts."""
+    launch = lk.apply_layer_batched if batched else lk.apply_layer
+    plain_fn = lk.apply_layer_batched_plain if batched \
+        else lk.apply_layer_plain
 
     def held(states, num_qubits, layer, fast=False):
-        plain = lk.apply_layer_batched_plain(states.clone(), num_qubits,
-                                             layer, fast)
+        plain = plain_fn(states.clone(), num_qubits, layer, fast)
         launch(states, num_qubits, layer, fast=fast)
         torch.cuda.synchronize()
         errs.append((id(layer),) + rel_err(states, plain))
@@ -2512,16 +2544,10 @@ def walk_held(torch, lk, cc, run):
     Returns the (max|diff|, relative) pairs of the forward layers and of
     the adjoint layers of the walk."""
     adjoint_ids = {id(a) for a in cc._adjoint_walk(None).adjoints.values()}
-    errs = []
-    launch, held = held_batched(torch, lk, errs)
-    lk.apply_layer_batched = held
-    try:
+    with HeldLayers(torch, lk, batched=True) as held:
         run()
-    finally:
-        lk.apply_layer_batched = launch
-    torch.cuda.empty_cache()
-    return ([e[1:] for e in errs if e[0] not in adjoint_ids],
-            [e[1:] for e in errs if e[0] in adjoint_ids])
+    return ([e[1:] for e in held.errs if e[0] not in adjoint_ids],
+            [e[1:] for e in held.errs if e[0] in adjoint_ids])
 
 
 def shift_oracle(cc, pm, ham, rows, cols, chunk):
@@ -2966,30 +2992,15 @@ def phase_remainder(torch, qt, lk, kk, card):
     # 14e: the inverse, each layer held against its plain version on its
     # own input (the hook stands in for the wrapper and holds its counts)
     inv = circ.inverse().compile(env)
-    rels = []
-    launch = lk.apply_layer
-
-    def held(planes, num_qubits, layer, fast=False):
-        plain = lk.apply_layer_plain(planes.clone(), num_qubits, layer,
-                                     fast)
-        launch(planes, num_qubits, layer, fast=fast)
-        torch.cuda.synchronize()
-        rels.append(rel_err(planes, plain)[1])
-        del plain
-
-    held.launches = held.fast_launches = held.diag_launches = 0
-    lk.apply_layer = held
-    try:
+    with HeldLayers(torch, lk, batched=False) as held:
         inv.run(q1)
-    finally:
-        lk.apply_layer = launch
-    torch.cuda.empty_cache()
+    rel = held.max_err()[1]
     dist = distance_to_zero_state(torch, q1.state)
-    check(held.launches == inv.num_layers == len(rels) > 0
-          and max(rels) <= 1e-5 and dist <= 1e-4,
+    check(held.launches == inv.num_layers == len(held.errs) > 0
+          and rel <= 1e-5 and dist <= 1e-4,
           f"circ.inverse() after the brickwork: ||psi - |0..0>||_2 = "
-          f"{dist:.3e}; its {len(rels)} layers vs plain on their own "
-          f"input max|diff| / max|plain| {max(rels):.3e} <= 1e-5")
+          f"{dist:.3e}; its {len(held.errs)} layers vs plain on their own "
+          f"input max|diff| / max|plain| {rel:.3e} <= 1e-5")
     out.update(launches_remainder_inverse=held.launches)
 
     # 14f: extend: the brickwork and its inverse as one program
@@ -3017,6 +3028,503 @@ def phase_remainder(torch, qt, lk, kk, card):
     qt.destroyQureg(q1, env)
     del q1
     torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 15 and 16: dynamics, the algorithm library, the QASM importer ---
+
+DYN_QUBITS, DYN_BATCH, DYN_CHECK_QUBITS = 24, 4, 12
+DYN_T, DYN_STEPS = 0.8, 8                   # EvolveSpec(0.8, 8, order=2)
+GROUND_STEPS, GROUND_TAU = 16, 0.1
+ALG_QUBITS = 30
+QFT_BASIS = 0x2B5A1C3D                      # the QFT's start |x>
+BV_SECRET = 0x15A3C6E9
+GROVER_QUBITS, GROVER_MARKED = 20, 0xBEEF5
+
+
+class HeldLayers:
+    """While open, every launch of the layer kernel (``batched``: the
+    batched entry) goes through the wrapper and is held against its plain
+    version on the same input; the stand-in holds the launches' counts
+    from 0. ``launches``/``diag_launches``/``errs`` stay readable after
+    the block."""
+
+    def __init__(self, torch, lk, batched: bool):
+        self.torch, self.lk, self.errs = torch, lk, []
+        self.name = "apply_layer_batched" if batched else "apply_layer"
+        self.launch, self.held = held_layers(torch, lk, self.errs, batched)
+
+    def __enter__(self):
+        setattr(self.lk, self.name, self.held)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.lk, self.name, self.launch)
+        self.torch.cuda.empty_cache()
+
+    @property
+    def launches(self) -> int:
+        return self.held.launches
+
+    @property
+    def diag_launches(self) -> int:
+        return self.held.diag_launches
+
+    def max_err(self):
+        """(max |kernel - plain|, max of that / max |plain|) so far."""
+        return (max((e[1] for e in self.errs), default=0.0),
+                max((e[2] for e in self.errs), default=0.0))
+
+
+def dyn_prep(qt, n: int):
+    """tests/test_dynamics.py ``prep_circuit``: an ry column of Params,
+    then a CNOT chain."""
+    c = qt.Circuit(n)
+    for q in range(n):
+        c.ry(q, c.parameter(f"y{q}"))
+    for q in range(n - 1):
+        c.cnot(q, q + 1)
+    return c
+
+
+def tfim(n: int, h: float = 0.7):
+    """The open transverse-field Ising model: sum ZZ + h sum X."""
+    terms = [[(q, 3), (q + 1, 3)] for q in range(n - 1)]
+    terms += [[(q, 1)] for q in range(n)]
+    return terms, [1.0] * (n - 1) + [h] * n
+
+
+def f64_energies(torch, red, planes, operands):
+    """``<z_b|H|z_b>`` of a ``(B, 2, N)`` batch, reduced in float64 on the
+    card: an independent float64 reduction of the planes."""
+    xm, ym, zm, cf = operands
+    return red.pauli_sum_total_sv(planes.double(), xm, ym, zm,
+                                  cf).cpu().numpy()
+
+
+def block_head(block, width: int) -> np.ndarray:
+    """The energy/residual/Welford columns of a packed block, as float64
+    host numpy (the planes stay on the card)."""
+    return block[:, :width].double().cpu().numpy()
+
+
+def block_planes(block, n: int, offset: int):
+    return block[:, offset:].view(block.shape[0], 2, 1 << n)
+
+
+def phase_dynamics(torch, qt, lk, kk, card):
+    """Phase 15: evolve_sweep / ground_sweep at 24 qubits, batch 4."""
+    from quest_tpu_torch import algorithms as alg
+    from quest_tpu_torch.ops import dynamics as dyn
+    from quest_tpu_torch.ops import reductions as red
+    n, B, S = DYN_QUBITS, DYN_BATCH, DYN_STEPS
+    ham = tfim(n)
+    T, csum = len(ham[0]), float(np.abs(ham[1]).sum())
+    print(f"phase 15: Hamiltonian dynamics, {n} qubits, complex64, batch "
+          f"{B}, open TFIM h = 0.7 ({T} terms, sum|c| {csum:.1f}), on "
+          f"{card}")
+    env = qt.createQuESTEnv(seed=[2026])
+    cc = dyn_prep(qt, n).compile(env)
+    layers = cc.num_layers
+    operands = cc._pauli_operands(ham)
+    pm = np.random.default_rng(2026).normal(size=(B, n)) * 0.3
+    spec = dyn.EvolveSpec(t=DYN_T, steps=S, order=2)
+    secs = {}
+    out = {}
+
+    reset_counts(lk, kk)
+    with HeldLayers(torch, lk, batched=True) as held:
+        # 15a: evolve, order 2
+        t0 = time.perf_counter()
+        block = cc.evolve_sweep(pm, ham, spec)
+        torch.cuda.synchronize()
+        secs["evolve_held"] = time.perf_counter() - t0
+        evolve_launches = held.launches
+        stats = cc.dispatch_stats()
+        check(layers > 0 and evolve_launches == layers
+              and counts(lk, kk)[0] == counts(lk, kk)[2] == 0,
+              f"evolve_sweep: the batched layer kernel launched "
+              f"{evolve_launches} times for the prep program's {layers} "
+              f"layer(s)")
+        check(stats.evolve_steps_fused == B * S
+              and stats.host_syncs_avoided == B * S - 1
+              and stats.batch_size == B,
+              f"dispatch_stats: evolve_steps_fused "
+              f"{stats.evolve_steps_fused}, host_syncs_avoided "
+              f"{stats.host_syncs_avoided}, batch_size {stats.batch_size}")
+        head = block_head(block, S + 3)
+        planes = block_planes(block, n, S + 3)
+        es, (cnt, mean, m2) = head[:, :S], head[:, S:].T
+        norms = (planes.double() ** 2).sum(dim=(1, 2)).cpu().numpy()
+        check(bool(np.isfinite(head).all())
+              and np.abs(norms - 1.0).max() <= 1e-4,
+              f"evolve: finite energies, norms within "
+              f"{np.abs(norms - 1.0).max():.3e} <= 1e-4 of 1")
+        e64 = f64_energies(torch, red, planes, operands)
+        d = float(np.abs(es[:, -1] - e64).max())
+        check(d <= 1e-5 * csum, f"evolve: the last step's energies vs a "
+              f"float64 reduction of the returned planes: max|dE| "
+              f"{d:.3e} <= 1e-5 sum|c| ({1e-5 * csum:.3e})")
+        mean_h = es.mean(axis=1)
+        m2_h = ((es - mean_h[:, None]) ** 2).sum(axis=1)
+        scale = (es ** 2).sum(axis=1)
+        dm = float(np.abs(mean - mean_h).max() / np.abs(mean_h).max())
+        d2 = float((np.abs(m2 - m2_h) / scale).max())
+        check(bool((cnt == S).all()) and dm <= 1e-6 and d2 <= 1e-6,
+              f"Welford (count, mean, M2) vs the host moments of the "
+              f"energies: counts {cnt.tolist()}, mean rel {dm:.3e}, M2 "
+              f"rel to sum e^2 {d2:.3e} <= 1e-6")
+
+        # the gate-form twin: the prep, then trotter_evolution
+        t0 = time.perf_counter()
+        twin = qt.Circuit(n).extend(dyn_prep(qt, n)).extend(
+            alg.trotter_evolution(n, *ham, DYN_T, S, order=2)).compile(env)
+        twin_compile_s = time.perf_counter() - t0
+        before = held.launches
+        t0 = time.perf_counter()
+        twin_planes = twin.sweep(pm)
+        torch.cuda.synchronize()
+        secs["twin_held"] = time.perf_counter() - t0
+        twin_launches = held.launches - before
+        dist = torch.linalg.vector_norm((planes - twin_planes).double(),
+                                        dim=(1, 2)).cpu().numpy()
+        check(twin_launches == twin.num_layers and dist.max() <= 5e-4,
+              f"evolve vs the gate-form twin (prep + "
+              f"trotter_evolution, {len(twin.circuit.ops)} gates, "
+              f"{twin.num_layers} layers, compiled in "
+              f"{twin_compile_s:.1f} s) through sweep: ||dpsi||_2 per row "
+              f"{np.array2string(dist, precision=3)} <= 5e-4")
+        del twin_planes, planes, block
+        torch.cuda.empty_cache()
+
+        # 15b: the same at tier="single" (compensated energies)
+        block = cc.evolve_sweep(pm, ham, spec, tier="single")
+        head = block_head(block, S)
+        e64 = f64_energies(torch, red, block_planes(block, n, S + 3),
+                           operands)
+        d = float((np.abs(head[:, -1] - e64) / np.abs(e64)).max())
+        check(d <= 1e-6, f"evolve at tier='single': the last energies vs "
+              f"the float64 reduction: max|dE| / |E| {d:.3e} <= 1e-6")
+        del block
+
+        # 15c: ground state by power iteration, two segments chained
+        # through state_f (the second from the identity continuation, as
+        # the serving layer chains them)
+        gspec = dyn.GroundSpec(steps=GROUND_STEPS, tau=GROUND_TAU)
+        e_start = cc.expectation_sweep(pm, ham)
+        t0 = time.perf_counter()
+        block = cc.ground_sweep(pm, ham, gspec)
+        torch.cuda.synchronize()
+        secs["ground_held"] = time.perf_counter() - t0
+        head = block_head(block, GROUND_STEPS + 4)
+        cont = qt.Circuit(n).compile(env)
+        block2 = cont.ground_sweep(
+            np.zeros((1, 0)), ham, gspec,
+            state_f=block_planes(block, n, GROUND_STEPS + 4)[0])
+        head2 = block_head(block2, GROUND_STEPS + 4)
+        chain = np.concatenate([e_start[:1], head[0, :GROUND_STEPS],
+                                head2[0, :GROUND_STEPS]])
+        rises = max(float(np.diff(np.concatenate(
+            [e_start[:, None], head[:, :GROUND_STEPS]], axis=1)).max()),
+            float(np.diff(chain).max()))
+        check(rises <= 1e-5 * csum,
+              f"power iteration: energies {e_start[0]:.6f} -> "
+              f"{head[0, GROUND_STEPS - 1]:.6f} -> "
+              f"{head2[0, GROUND_STEPS - 1]:.6f} (row 0, two chained "
+              f"segments), largest rise {rises:.3e} <= 1e-5 sum|c|; "
+              f"residuals {head[0, GROUND_STEPS]:.3e}, "
+              f"{head2[0, GROUND_STEPS]:.3e}")
+        del block, block2
+
+        # 15d: Lanczos
+        lspec = dyn.GroundSpec(steps=GROUND_STEPS, method="lanczos")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        block = cc.ground_sweep(pm, ham, lspec)
+        torch.cuda.synchronize()
+        secs["lanczos_held"] = time.perf_counter() - t0
+        peak_lanczos = torch.cuda.max_memory_allocated()
+        head = block_head(block, GROUND_STEPS + 4)
+        ritz = block_planes(block, n, GROUND_STEPS + 4)
+        e64 = f64_energies(torch, red, ritz, operands)
+        energy, residual = head[:, 0], head[:, GROUND_STEPS]
+        z64 = ritz.double()
+        hx = red.pauli_sum_apply_sv(z64, *operands)
+        true_res = torch.linalg.vector_norm(
+            hx - torch.as_tensor(e64, device=hx.device)[:, None, None]
+            * z64, dim=(1, 2)).cpu().numpy()
+        del hx, z64
+        d = float(np.abs(energy - e64).max())
+        check(d <= 1e-4 * csum and bool((energy < e_start).all()),
+              f"Lanczos: energies {np.array2string(energy, precision=5)} "
+              f"(start {np.array2string(e_start, precision=5)}) vs "
+              f"<x|H|x> of the returned planes in float64: max|dE| "
+              f"{d:.3e} <= 1e-4 sum|c|; reported residual "
+              f"{np.array2string(residual, precision=3)}, ||Hx - Ex||_2 "
+              f"{np.array2string(true_res, precision=3)}")
+        del block, ritz
+        torch.cuda.empty_cache()
+
+        # 15e: a 12-qubit copy on the card and on the CPU in float64
+        n12 = DYN_CHECK_QUBITS
+        ham12 = tfim(n12)
+        csum12 = float(np.abs(ham12[1]).sum())
+        pm12 = np.random.default_rng(12).normal(size=(B, n12)) * 0.3
+        cpu_env = qt.createQuESTEnv(device="cpu", precision=qt.DOUBLE)
+        cards = dyn_prep(qt, n12).compile(env)
+        cpus = dyn_prep(qt, n12).compile(cpu_env)
+        for kind, sp, unpack in (
+                ("evolve", spec, dyn.unpack_evolve_block),
+                ("ground", gspec, dyn.unpack_ground_block),
+                ("ground", lspec, dyn.unpack_ground_block)):
+            a = unpack(getattr(cards, f"{kind}_sweep")(pm12, ham12, sp),
+                       n12, sp.steps)
+            b = unpack(getattr(cpus, f"{kind}_sweep")(pm12, ham12, sp),
+                       n12, sp.steps)
+            pa, pb = a["planes"], b["planes"]
+            amp = float(np.minimum(
+                np.abs(pa - pb).max(axis=(1, 2)),
+                np.abs(pa + pb).max(axis=(1, 2)) if sp is lspec
+                else np.inf).max())
+            de = float(np.abs(a["energies"] - b["energies"]).max())
+            top = float(np.abs(pb).max())
+            check(amp <= 1e-4 * top and de <= 1e-4 * csum12,
+                  f"{n12} q card vs CPU float64, {kind} "
+                  f"{getattr(sp, 'method', 'order 2')}: max|d amp| "
+                  f"{amp:.3e} <= 1e-4 of {top:.3e}"
+                  f"{' (up to sign)' if sp is lspec else ''}, max|dE| "
+                  f"{de:.3e} <= 1e-4 sum|c|")
+        launches = held.launches
+        max_abs, max_rel = held.max_err()
+    check(launches > 0 and max_rel <= 1e-5,
+          f"every batched layer launch of the phase ({launches}) vs its "
+          f"plain version on its own input: max|diff| {max_abs:.3e}, "
+          f"/ max|plain| {max_rel:.3e} <= 1e-5")
+
+    # 15f: times, with no layer held (the ground calls' are their held
+    # calls': one held prep launch, ~30 ms, in seconds of steps)
+    torch.cuda.reset_peak_memory_stats()
+    secs["evolve"] = timed_runs(
+        torch, lambda: cc.evolve_sweep(pm, ham, spec), reps=1)
+    peak_evolve = torch.cuda.max_memory_allocated()
+    secs["twin"] = timed_runs(torch, lambda: twin.sweep(pm), reps=1)
+    rotations = B * S * 2 * T
+    rot_per_s = rotations / secs["evolve"]
+    # one term's rotation over the batch, timed alone: an X term (the
+    # xor-gather) and a ZZ term (the sign alone)
+    xm, ym, zm, cf = operands
+    z = cc.sweep(pm)
+    rot = {}
+    for name, t in (("X", n - 1), ("ZZ", 0)):
+        rot[name] = cuda_ms(torch, lambda t=t: dyn.trotter_sweep(
+            z, xm[t:t + 1], ym[t:t + 1], zm[t:t + 1], cf[t:t + 1], 1e-3),
+            reps=5)
+    # the X term's xor-gather by index_select in place of the flip
+    flip_runs, red._FLIP_RUNS = red._FLIP_RUNS, 0
+    try:
+        rot["X_index_select"] = cuda_ms(torch, lambda t=n - 1:
+            dyn.trotter_sweep(z, xm[t:t + 1], ym[t:t + 1], zm[t:t + 1],
+                              cf[t:t + 1], 1e-3), reps=5)
+    finally:
+        red._FLIP_RUNS = flip_runs
+    state_bytes = z.numel() * z.element_size()
+    del z
+    torch.cuda.empty_cache()
+    # the least a rotation can move: the batch read once and written once
+    rot_bound = 1e3 * 2.0 * state_bytes / HBM_BYTES_PER_S
+    print(f"  seconds per call: evolve {secs['evolve']:.3f} (held "
+          f"{secs['evolve_held']:.3f}), gate-form twin sweep "
+          f"{secs['twin']:.3f}, power ground {secs['ground_held']:.3f} "
+          f"(held), Lanczos {secs['lanczos_held']:.3f} (held)")
+    print(f"  evolve: {rotations} term rotations (B S 2T) in "
+          f"{secs['evolve']:.3f} s: {rot_per_s:.1f} rotations/s; one "
+          f"rotation over the batch X {rot['X']:.3f} ms (index_select "
+          f"gather {rot['X_index_select']:.3f}), ZZ "
+          f"{rot['ZZ']:.3f} ms, HBM bound {rot_bound:.3f} ms (the "
+          f"{state_bytes / 2**20:.0f} MiB batch read and written once)")
+    print(f"  peak max_memory_allocated: evolve "
+          f"{peak_evolve / 2**30:.2f} GiB, Lanczos "
+          f"{peak_lanczos / 2**30:.2f} GiB")
+    out.update(launches=launches, max_abs_err=max_abs,
+               evolve_launches=evolve_launches,
+               twin_launches=twin_launches,
+               seconds={k: round(v, 4) for k, v in secs.items()},
+               rotations_per_s=rot_per_s, rotation_ms=rot,
+               rotation_bound_ms=rot_bound, peak_bytes_evolve=peak_evolve,
+               peak_bytes_lanczos=peak_lanczos)
+    return out
+
+
+def inner_f64(torch, a, b):
+    """|<a|b>| of two (2, N) planes, in float64 on the card, in chunks."""
+    re = im = 0.0
+    chunk = 1 << 26
+    for lo in range(0, a.shape[1], chunk):
+        ar, ai = a[0, lo:lo + chunk].double(), a[1, lo:lo + chunk].double()
+        br, bi = b[0, lo:lo + chunk].double(), b[1, lo:lo + chunk].double()
+        re += float((ar * br + ai * bi).sum())
+        im += float((ar * bi - ai * br).sum())
+    return (re * re + im * im) ** 0.5
+
+
+def qft_distance(torch, planes, x: int) -> float:
+    """||psi - QFT|x>||_2 against the analytic amplitudes e^{2 pi i x k /
+    N} / sqrt(N), in float64 on the card, in chunks."""
+    num = planes.shape[1]
+    acc = 0.0
+    chunk = 1 << 26
+    for lo in range(0, num, chunk):
+        k = torch.arange(lo, min(num, lo + chunk), dtype=torch.int64,
+                         device=planes.device)
+        ph = ((x * k) % num).double() * (2.0 * np.pi / num)
+        re = planes[0, lo:lo + chunk].double() - torch.cos(ph) / num ** 0.5
+        im = planes[1, lo:lo + chunk].double() - torch.sin(ph) / num ** 0.5
+        acc += float((re * re + im * im).sum())
+    return acc ** 0.5
+
+
+def basis_distance(torch, planes, x: int) -> float:
+    """||psi - |x>||_2, in float64 on the card."""
+    sq = float(torch.linalg.vector_norm(planes, dtype=torch.float64)) ** 2
+    return max(0.0, sq - 2.0 * float(planes[0, x]) + 1.0) ** 0.5
+
+
+def grover_distance(torch, planes, marked: int, k: int):
+    """(P(marked), ||psi - psi_k||_2) after k Grover iterations from the
+    uniform state, against the analytic state (-1)^k (sin((2k+1) theta)
+    at ``marked``, cos((2k+1) theta) / sqrt(N - 1) elsewhere)."""
+    num = planes.shape[1]
+    theta = np.arcsin(num ** -0.5)
+    sign = -1.0 if k % 2 else 1.0
+    want = torch.full((num,), sign * np.cos((2 * k + 1) * theta)
+                      / (num - 1) ** 0.5, dtype=torch.float64,
+                      device=planes.device)
+    want[marked] = sign * np.sin((2 * k + 1) * theta)
+    p = float(planes[0, marked].double() ** 2 + planes[1, marked].double()
+              ** 2)
+    dist = float(torch.sqrt(((planes[0].double() - want) ** 2).sum()
+                            + (planes[1].double() ** 2).sum()))
+    return p, dist, float(np.sin((2 * k + 1) * theta) ** 2)
+
+
+def phase_algorithms(torch, qt, lk, kk, card):
+    """Phase 16: the algorithm library and the QASM importer at 30
+    qubits, complex64, every layer launch held against its plain
+    version."""
+    from quest_tpu_torch import algorithms as alg
+    n = ALG_QUBITS
+    print(f"phase 16: algorithm library and QASM importer, {n} qubits, "
+          f"complex64, on {card}")
+    env = qt.createQuESTEnv(seed=[2026])
+    out, secs, gates_per_s = {}, {}, {}
+    reset_counts(lk, kk)
+    with HeldLayers(torch, lk, batched=False) as held:
+        q = qt.createQureg(n, env)
+
+        def run(name, circ, start, reg=q):
+            """Compile ``circ`` and run it held on ``reg`` from ``start`` (a
+            basis index, or None for |0..0>); check its launches. Returns
+            the compiled program."""
+            t0 = time.perf_counter()
+            cc = circ.compile(env)
+            compile_s = time.perf_counter() - t0
+            before = (held.launches, held.diag_launches)
+            qt.initClassicalState(reg, start or 0)
+            cc.run(reg)
+            torch.cuda.synchronize()
+            launched = (held.launches - before[0],
+                        held.diag_launches - before[1])
+            check(launched[0] == cc.num_layers,
+                  f"{name}: {len(circ.ops)} gates -> "
+                  f"{len(cc.plan.items)} ops, {launched[0]} layer launches "
+                  f"({launched[1]} streaming) for {cc.num_layers} layers; "
+                  f"compiled in {compile_s:.2f} s")
+            return cc, launched
+
+        # 16a: QFT from a basis state, then its inverse back
+        qft, _ = run(f"qft({n})", alg.qft(n), QFT_BASIS)
+        dist = qft_distance(torch, q.state, QFT_BASIS)
+        check(dist <= 5e-4, f"qft({n})|x = {QFT_BASIS:#x}> vs the analytic "
+              f"amplitudes in float64: ||dpsi||_2 = {dist:.3e} <= 5e-4")
+        iqft = alg.inverse_qft(n).compile(env)
+        before = held.launches
+        iqft.run(q)
+        torch.cuda.synchronize()
+        dist = basis_distance(torch, q.state, QFT_BASIS)
+        check(held.launches - before == iqft.num_layers and dist <= 1e-4,
+              f"inverse_qft({n}) back to |x>: ||psi - |x>||_2 = "
+              f"{dist:.3e} <= 1e-4")
+
+        # 16b: Bernstein-Vazirani
+        bv, _ = run(f"bernstein_vazirani({n})",
+                    alg.bernstein_vazirani(n, BV_SECRET), None)
+        p = float(q.state[0, BV_SECRET].double() ** 2
+                  + q.state[1, BV_SECRET].double() ** 2)
+        check(p >= 1 - 1e-5, f"bernstein_vazirani({n}, {BV_SECRET:#x}): "
+              f"P(secret) = {p:.8f} >= 1 - 1e-5")
+
+        # 16c: the QASM round trip of phase 4's brickwork
+        gates = brickwork(n, MAIN_LAYERS)
+        circ = as_circuit(qt, n, gates)
+        t0 = time.perf_counter()
+        text = circ.to_qasm()
+        parsed = qt.parse_qasm(text)
+        parse_s = time.perf_counter() - t0
+        brick, _ = run("brickwork", circ, None)
+        q2 = qt.createQureg(n, env)
+        qt.initZeroState(q2)
+        back = parsed.circuit.compile(env)
+        before = held.launches
+        back.run(q2)
+        torch.cuda.synchronize()
+        fid = inner_f64(torch, q.state, q2.state)
+        check(held.launches - before == back.num_layers > 0
+              and len(parsed.circuit.ops) == len(gates)
+              and fid >= 1 - 1e-5,
+              f"QASM round trip of the brickwork ({len(text)} chars, "
+              f"written and parsed in {parse_s:.2f} s, {back.num_layers} "
+              f"layers): |<psi|phi>| = {fid:.8f} >= 1 - 1e-5")
+        qt.destroyQureg(q2, env)
+        del q2
+        torch.cuda.empty_cache()
+
+        # 16d: Grover at 20 qubits
+        # the builder's own count, round(pi/4 sqrt(2^n)): 804 at 20 qubits
+        ng = GROVER_QUBITS
+        k = int(round(np.pi / 4.0 * np.sqrt(1 << ng)))
+        q20 = qt.createQureg(ng, env)
+        groc = alg.grover(ng, GROVER_MARKED)
+        grover, _ = run(f"grover({ng}, {k} iterations)", groc, None, q20)
+        p, dist, want = grover_distance(torch, q20.state, GROVER_MARKED, k)
+        check(abs(p - want) <= 1e-3 and dist <= 1e-3,
+              f"grover({ng}): P(marked) = {p:.6f} vs sin^2((2k+1) theta) "
+              f"= {want:.6f} (<= 1e-3); ||psi - psi_k||_2 = {dist:.3e} "
+              f"<= 1e-3")
+        launches, diag = held.launches, held.diag_launches
+        max_abs, max_rel = held.max_err()
+
+    # 16e: times, with no layer held
+    for name, cc, reg in (("qft", qft, q), ("bv", bv, q),
+                          ("brickwork_qasm", back, q), ("grover", grover,
+                                                         q20)):
+        secs[name] = timed_runs(torch, lambda cc=cc, reg=reg: cc.run(reg),
+                                reps=1)
+        gates_per_s[name] = len(cc.circuit.ops) / secs[name]
+    for reg in (q, q20):
+        qt.destroyQureg(reg, env)
+    del q, q20
+    torch.cuda.empty_cache()
+    check(launches > 0 and max_rel <= 1e-5 and counts(lk, kk)[1] == 0,
+          f"every layer launch of the phase ({launches}, {diag} through "
+          f"the streaming entry) vs its plain version on its own input: "
+          f"max|diff| {max_abs:.3e}, / max|plain| {max_rel:.3e} <= 1e-5")
+    print(f"  seconds per run: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in secs.items()))
+    print(f"  gates/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in gates_per_s.items()))
+    out.update(launches=launches, diag_launches=diag, max_abs_err=max_abs,
+               seconds={k: round(v, 5) for k, v in secs.items()},
+               gates_per_s=gates_per_s)
     return out
 
 
@@ -3131,8 +3639,34 @@ def traj_gradient_keys(traj_grad, kraus: bool = False):
     }
 
 
+def dynamics_keys(dynamics):
+    """Phase 15's numbers, as keys of the batched layer kernel's row: its
+    launches on the dynamics path (the prep programs, the gate-form twin,
+    the 12-qubit copy), those held against plain, the step loop's rates
+    and times, and peak memory."""
+    if dynamics is None:
+        return {}
+    return {"launches_dynamics": dynamics["launches"],
+            "dynamics_max_abs_err": dynamics["max_abs_err"],
+            "dynamics_seconds": dynamics["seconds"],
+            "dynamics_rotations_per_s": dynamics["rotations_per_s"],
+            "dynamics_rotation_ms": dynamics["rotation_ms"],
+            "dynamics_rotation_bound_ms": dynamics["rotation_bound_ms"],
+            "dynamics_peak_bytes_evolve": dynamics["peak_bytes_evolve"],
+            "dynamics_peak_bytes_lanczos": dynamics["peak_bytes_lanczos"]}
+
+
+def algorithm_keys(algorithms):
+    """Phase 16's numbers, as keys of the layer kernel's row."""
+    return {"launches_algorithms": algorithms["launches"],
+            "diag_launches_algorithms": algorithms["diag_launches"],
+            "algorithms_max_abs_err": algorithms["max_abs_err"],
+            "algorithms_seconds": algorithms["seconds"],
+            "algorithms_gates_per_s": algorithms["gates_per_s"]}
+
+
 def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
-                traj_grad=None):
+                traj_grad=None, dynamics=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"] \
         + (traj_grad["rows"] if traj_grad is not None else [])
@@ -3146,10 +3680,12 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "replaces": "quest_tpu/ops/pallas_kernels.py:736",
         "launches": sweep["launches"] + traj["launches_layer"]
         + (grad["launches"] if grad is not None else 0)
-        + (traj_grad["launches_layer"] if traj_grad is not None else 0),
+        + (traj_grad["launches_layer"] if traj_grad is not None else 0)
+        + (dynamics["launches"] if dynamics is not None else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
-        "max_abs_err": max(r[5] for r in rows),
+        "max_abs_err": max([r[5] for r in rows] + (
+            [dynamics["max_abs_err"]] if dynamics is not None else [])),
         "ms": float(np.mean([r[0] for r in sweep["rows"]])),
         "plain_ms": float(np.mean([r[3] for r in sweep["rows"]])),
         "bound_ms": float(np.mean([r[1] for r in sweep["rows"]])),
@@ -3160,6 +3696,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "points_per_s": sweep["points_per_s"],
         **gradient_keys(grad, density_grad),
         **traj_gradient_keys(traj_grad),
+        **dynamics_keys(dynamics),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
@@ -3216,7 +3753,7 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
-          "10", "11", "12", "12d", "13", "14")
+          "10", "11", "12", "12d", "13", "14", "15", "16")
 
 
 def parse_only(argv):
@@ -3301,18 +3838,30 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         remainder = phase_remainder(torch, qt, lk, kk, card) \
             if runs("14") else None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dynamics = phase_dynamics(torch, qt, lk, kk, card) \
+            if runs("15") else None
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        algorithms = phase_algorithms(torch, qt, lk, kk, card) \
+            if runs("16") else None
+        print(f"phases 15 and 16 wall time: {t1 - t0:.1f} + "
+              f"{time.perf_counter() - t1:.1f} s")
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
             row = dict(row, **density_keys(density))
         if row is not None and remainder is not None:
             row = dict(row, remainder=remainder)
+        if row is not None and algorithms is not None:
+            row = dict(row, **algorithm_keys(algorithms))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
         if only is None:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
-                               traj_grad) + tail
+                               traj_grad, dynamics) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -3325,6 +3874,13 @@ def main(argv) -> int:
                 rows.append(dict(name="layer_kernel_batched",
                                  path="gradient",
                                  **gradient_keys(grad, density_grad)))
+            if row is None and algorithms is not None:
+                rows.append(dict(name="layer_kernel", path="algorithms",
+                                 **algorithm_keys(algorithms)))
+            if dynamics is not None:
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="dynamics",
+                                 **dynamics_keys(dynamics)))
             if traj_grad is not None:
                 rows.append(dict(name="layer_kernel_batched",
                                  path="traj_gradient",

@@ -3,12 +3,14 @@
 The QuEST-named API for state vectors and density matrices (``createQureg``,
 ``createDensityQureg``, the ``mix*`` channels, the ``calc*`` functions) and
 compiled circuits (``Circuit.compile``, with ``density=True`` for noisy
-programs on a density register) on one CUDA device, with the fused
-gate-layer kernel written by hand in CUDA C++ for Hopper
-(``csrc/layer_kernel.cu``), and the precision-tier ladder (FAST, SINGLE,
-DOUBLE; ``Circuit.compile(tier=/error_budget=)``, ``sweep(tier=)``). The
-JAX package ``quest_tpu`` is the reference this port is tested against;
-nothing here imports it or JAX.
+programs on a density register), Hamiltonian dynamics
+(``CompiledCircuit.evolve_sweep``/``ground_sweep``), the algorithm library
+(``quest_tpu_torch.algorithms``) and the QASM importer (``parse_qasm``) on
+one CUDA device, with the fused gate-layer kernel written by hand in CUDA
+C++ for Hopper (``csrc/layer_kernel.cu``), and the precision-tier ladder
+(FAST, SINGLE, DOUBLE; ``Circuit.compile(tier=/error_budget=)``,
+``sweep(tier=)``). The JAX package ``quest_tpu`` is the reference this
+port is tested against; nothing here imports it or JAX.
 
 ```python
 import quest_tpu_torch as qt
@@ -30,6 +32,8 @@ from .config import (DOUBLE, DOUBLE_TIER, FAST_TIER, QUAD_TIER, SINGLE,
 from .profiling import (choose_tier, engine_tiers, modeled_tier_error,
                         tier_runtime_tol)
 from .env import QuESTEnv
+from .ops.dynamics import EvolveSpec, GroundSpec
+from .qasm_import import ParsedQASM, load_qasm_file, parse_qasm
 from .qureg import Qureg
 from .types import (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, PauliOpType,
                     QuESTError)
@@ -40,6 +44,7 @@ __all__ = list(_api_all) + [
     "PrecisionTier", "FAST_TIER", "SINGLE_TIER", "DOUBLE_TIER", "QUAD_TIER",
     "TIER_LADDER", "tier_by_name", "choose_tier", "modeled_tier_error",
     "engine_tiers", "tier_runtime_tol",
-    "QuESTEnv", "Qureg", "PauliOpType", "PAULI_I", "PAULI_X", "PAULI_Y",
-    "PAULI_Z", "QuESTError", "ErrorCode",
+    "QuESTEnv", "Qureg", "EvolveSpec", "GroundSpec", "ParsedQASM",
+    "parse_qasm", "load_qasm_file", "PauliOpType", "PAULI_I", "PAULI_X",
+    "PAULI_Y", "PAULI_Z", "QuESTError", "ErrorCode",
 ]

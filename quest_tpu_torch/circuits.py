@@ -70,6 +70,7 @@ from .env import QuESTEnv
 from .ops import adjoint as adj
 from .ops import channels as chan
 from .ops import densmatr as dm
+from .ops import dynamics as dyn
 from .ops import layer_kernel as lk
 from .ops import reductions as red
 from .parallel.layout import LayoutPlan, plan_layout
@@ -902,10 +903,12 @@ class _LayerAccum:
                 i -= 1               # lane-blind row stage: commutes
                 continue
             if st[0] == "rowmxu" and self.mxu is not None:
-                # fold the lane matrix into the open packed operator
-                # (kron-embed over its row bits, matrix product)
-                big = np.kron(np.eye(1 << len(st[1])), m)
-                self.stages[i] = ("rowmxu", st[1], big @ st[2])
+                # fold the lane matrix into the open packed operator:
+                # kron(I, m) @ op, one (128, 128) product per row block
+                # of op (a dense kron product is 2^bits times the work)
+                op = st[2]
+                self.stages[i] = ("rowmxu", st[1], (m @ op.reshape(
+                    -1, m.shape[0], op.shape[1])).reshape(op.shape))
                 return
             break
         self.stages.append(("lane", m))
@@ -1381,14 +1384,17 @@ class CompiledCircuit:
         return self
 
     def dispatch_stats(self):
-        """Compile-time dispatch accounting
-        (:class:`quest_tpu_torch.profiling.DispatchStats`): recorded gates
-        in, kernels out (the plan's layers and plain ops), and the
-        gate-fusion pass's counters. On one device there are no relayouts
-        or collectives, so the mesh, multi-host and cache fields keep
-        their defaults."""
+        """Dispatch accounting (:class:`quest_tpu_torch.profiling.
+        DispatchStats`): recorded gates in, kernels out (the plan's layers
+        and plain ops), the gate-fusion pass's counters, and the last
+        batched dispatch's record (:meth:`_record_batch_stats`). On one
+        device there are no relayouts or collectives, so the mesh and
+        multi-host fields keep their defaults; so do the two executable-
+        cache fields, since the port runs eagerly and caches no
+        executables."""
         from .profiling import DispatchStats
         fs = self.fusion_stats
+        bs = self._batch_stats
         return DispatchStats(
             gates_in=self.circuit.depth,
             kernels_out=len(self.plan.items),
@@ -1397,13 +1403,29 @@ class CompiledCircuit:
             diag_folds=fs.diag_folds if fs else 0,
             commuted_diagonals=fs.commuted_diagonals if fs else 0,
             max_group_gates=fs.max_group_gates if fs else 0,
-            batch_size=self._last_batch,
+            batch_size=bs.get("batch_size", 0),
+            host_syncs_avoided=bs.get("host_syncs_avoided", 0),
+            batch_sharding_mode=bs.get("batch_sharding_mode", "none"),
+            evolve_steps_fused=bs.get("evolve_steps_fused", 0),
             precision_tier=self.tier.name if self.tier is not None
             else "env",
             modeled_tier_error=self._modeled_tier_error())
 
     _digest_cached = None   # lazy program_digest (content-addressed)
-    _last_batch = 0         # rows of the last batched dispatch
+    _batch_stats: dict = {}  # the last batched dispatch's record
+
+    def _record_batch_stats(self, batch: int, host_syncs_avoided: int,
+                            evolve_steps_fused: int = 0) -> None:
+        """Record one batched dispatch: its rows, its sharding mode (always
+        ``"none"``: the port runs on one device), the host synchronisations
+        a per-point client would have paid beyond this dispatch's, and the
+        dynamics steps it ran (0 for every non-dynamics dispatch). One
+        atomic swap of the whole record, so a reader never sees a torn
+        one."""
+        self._batch_stats = {"batch_size": batch,
+                             "batch_sharding_mode": "none",
+                             "host_syncs_avoided": host_syncs_avoided,
+                             "evolve_steps_fused": evolve_steps_fused}
 
     @property
     def program_digest(self) -> str:
@@ -1457,7 +1479,6 @@ class CompiledCircuit:
         ``pm[b]``."""
         plan, ops, _ = self._plan_for(tier)
         prec, fast = self._tier_exec_mode(tier)
-        self._last_batch = int(states.shape[0])
         for item in plan.items:
             op = ops[item[1]]
             adj.apply_item(states, self.num_qubits, op, item,
@@ -1545,9 +1566,13 @@ class CompiledCircuit:
         states = self._start_states(pm.shape[0], state_f, env_dt)
         rdt = self._tier_dtypes(tier, self.env)[0]
         if rdt == env_dt:
-            return self._run_plan_batched(states, pm, tier)
-        out = self._run_plan_batched(states.to(rdt), pm, tier)
-        return states.copy_(out)
+            out = self._run_plan_batched(states, pm, tier)
+        else:
+            out = states.copy_(self._run_plan_batched(states.to(rdt), pm,
+                                                      tier))
+        # a per-point client pays one dispatch and transfer per row
+        self._record_batch_stats(pm.shape[0], pm.shape[0] - 1)
+        return out
 
     def expectation_sweep(self, param_matrix, hamiltonian,
                           state_f=None, tier=None) -> np.ndarray:
@@ -1569,6 +1594,17 @@ class CompiledCircuit:
                 f"expectation_sweep state_f must be shared (2, "
                 f"{1 << self.num_qubits}) planes (run batched planes "
                 "through sweep(), then reduce)")
+        vals = self._energy_rows(pm, operands, state_f, tier)
+        # a per-point client pays at least one transfer per point (the
+        # reference: one per term per point); the sweep's is one (B,) block
+        self._record_batch_stats(
+            pm.shape[0], pm.shape[0] * max(len(hamiltonian[0]), 1) - 1)
+        return vals
+
+    def _energy_rows(self, pm: np.ndarray, operands, state_f,
+                     tier) -> np.ndarray:
+        """The float64 ``(B,)`` energies of validated rows (the body of
+        :meth:`expectation_sweep`, which also records the dispatch)."""
         rdt = self._tier_dtypes(tier, self.env)[0]
         states = self._run_plan_batched(
             self._start_states(pm.shape[0], state_f, rdt), pm, tier)
@@ -1654,6 +1690,16 @@ class CompiledCircuit:
                 "Circuit.parameter / Param placeholders)")
         operands = self._pauli_operands(hamiltonian)
         pm = self._validated_param_matrix(param_matrix)
+        out = self._value_and_grad_rows(pm, operands, state_f, tier)
+        # a parameter-shift client pays 2P + 1 energy dispatches per row
+        B = pm.shape[0]
+        self._record_batch_stats(B, B * (2 * len(self.param_names) + 1) - 1)
+        return out
+
+    def _value_and_grad_rows(self, pm: np.ndarray, operands, state_f,
+                             tier):
+        """The body of :meth:`value_and_grad_sweep` on validated rows
+        (which also records the dispatch)."""
         n = self.num_qubits
         if state_f is None:
             start = torch.zeros((2, 1 << n), dtype=torch.float64)
@@ -1701,24 +1747,27 @@ class CompiledCircuit:
         noise channels included), at the compile-time tier: a function of a
         float64 ``(P,)`` tensor returning a 0-dim one. It is a
         ``torch.autograd.Function`` whose backward is the adjoint walk, so
-        ``.backward()`` gives the :meth:`value_and_grad_sweep` row."""
-        hamiltonian = (pauli_terms, coeffs)
-        self._pauli_operands(hamiltonian)
+        ``.backward()`` gives the :meth:`value_and_grad_sweep` row. Like
+        the JAX package's, it is no batched dispatch and records none."""
+        operands = self._pauli_operands((pauli_terms, coeffs))
         compiled = self
 
         class _Energy(torch.autograd.Function):
             @staticmethod
             def forward(ctx, theta):
                 ctx.save_for_backward(theta)
-                value = compiled.expectation_sweep(
-                    _param_row(theta), hamiltonian)[0]
+                value = compiled._energy_rows(
+                    compiled._validated_param_matrix(_param_row(theta)),
+                    operands, None, compiled.tier)[0]
                 return torch.as_tensor(value, dtype=theta.dtype,
                                        device=theta.device)
 
             @staticmethod
             def backward(ctx, grad_out):
                 theta, = ctx.saved_tensors
-                grad = compiled.grad_sweep(_param_row(theta), hamiltonian)
+                grad = compiled._value_and_grad_rows(
+                    compiled._validated_param_matrix(_param_row(theta)),
+                    operands, None, compiled._grad_tier(None))[1]
                 return grad_out * torch.as_tensor(
                     grad[0], dtype=theta.dtype, device=theta.device)
 
@@ -1740,8 +1789,130 @@ class CompiledCircuit:
                 "programs; sample density registers via sampleOutcomes")
         from .parallel.sampling import sample_batched
         planes = self.sweep(param_matrix, tier=tier)
-        return sample_batched(planes, generator or self.env.generator,
-                              int(num_shots))
+        out = sample_batched(planes, generator or self.env.generator,
+                             int(num_shots))
+        # two transfers (indices and totals) where a per-point loop pays
+        # 2B (one run and one sampling sync per point)
+        self._record_batch_stats(planes.shape[0], 2 * planes.shape[0] - 2)
+        return out
+
+    # -- Hamiltonian dynamics -------------------------------------------------
+
+    def _dynamics_dispatch(self, kind: str, param_matrix, hamiltonian,
+                           spec, state_f, tier) -> torch.Tensor:
+        """The shared evolve/ground body: validate, run the prep program
+        over the batch (the batched layer kernel on the card), then
+        ``spec.steps`` steps of ``ops/dynamics.py`` on every row with the
+        Pauli-sum energy after each, fold the energies into the Welford
+        carry and pack ONE ``(B, W)`` block on the env's device. The step
+        loop reads nothing back from the device (Lanczos waits once, for
+        its eigensolver's status). Statevector programs only."""
+        if self.is_density:
+            raise ValueError(
+                f"{kind}_sweep runs on statevector-compiled programs "
+                "(Trotter rotations act on ket amplitudes); evolve "
+                "density registers through their channel circuits")
+        # the JAX package's error, before the port's own "not ported" one
+        if tier is not None and tier_by_name(tier).name == "quad":
+            raise ValueError(
+                f"{kind}_sweep cannot run at the QUAD tier: the "
+                "double-double walk has no scan-resident Trotter "
+                "form; use tier='double' for the highest rung")
+        tier = self._effective_tier(tier)
+        xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
+        n = self.num_qubits
+        pm = self._validated_param_matrix(param_matrix)
+        if state_f is not None and getattr(state_f, "shape",
+                                           None) != (2, 1 << n):
+            raise ValueError(
+                f"{kind}_sweep state_f must be shared (2, {1 << n}) "
+                f"planes; got {getattr(state_f, 'shape', None)}")
+        env_dt = self.env.precision.real_dtype
+        env_np = np.float32 if env_dt == torch.float32 else np.float64
+        # coefficients and the step size in the env's dtype, as the JAX
+        # package passes them to its executable
+        cf = coeffs.astype(env_np)
+        cf_dev = torch.as_tensor(cf, device=self.env.device)
+        comp = tier is not None and tier.compensated
+        B, S = pm.shape[0], int(spec.steps)
+
+        def energy(z):
+            vals = red.pauli_sum_expvals_sv(z, xm, ym, zm, compensated=comp)
+            return (vals.to(env_dt) * cf_dev).sum(-1)
+
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        z = self._run_plan_batched(self._start_states(B, state_f, rdt), pm,
+                                   tier)
+        es = torch.empty((B, S), dtype=env_dt, device=self.env.device)
+        residual = None
+        if kind == "evolve":
+            dt = env_np(spec.dt)
+            for s in range(S):
+                dyn.trotter_step(z, xm, ym, zm, cf, dt, order=spec.order)
+                es[:, s] = energy(z)
+        elif spec.method == "lanczos":
+            z, e, residual = dyn.lanczos_ground(z, xm, ym, zm, cf,
+                                                num_vectors=S)
+            es[:] = e.to(env_dt)[:, None]
+            residual = residual.to(env_dt)
+        else:
+            tau = env_np(spec.tau)
+            e0 = energy(z) if S == 1 else None
+            for s in range(S):
+                dyn.imag_time_step(z, xm, ym, zm, cf, tau)
+                es[:, s] = energy(z)
+            residual = (es[:, -1] - (es[:, -2] if S >= 2 else e0)).abs()
+        welford = torch.stack(red.welford_wave(es, torch.ones(
+            S, dtype=env_dt, device=es.device)), dim=1)
+        planes = z.to(env_dt)
+        out = dyn.pack_evolve_block(es, welford, planes) \
+            if residual is None else \
+            dyn.pack_ground_block(es, residual, welford, planes)
+        # a stepping client pays one dispatch and transfer per step per
+        # row; the segment leaves as ONE block
+        self._record_batch_stats(B, B * S - 1, evolve_steps_fused=B * S)
+        return out
+
+    def evolve_sweep(self, param_matrix, hamiltonian, spec, state_f=None,
+                     tier=None) -> torch.Tensor:
+        """Trotterised ``exp(-i H t)`` for a whole parameter batch.
+
+        Each row runs the compiled program from ``state_f`` (shared ``(2,
+        2^n)`` planes, default |0..0>: the state-prep circuit), then
+        ``spec.steps`` Trotter steps of order ``spec.order`` run on the
+        device over every row at once, with the Pauli-sum energy after
+        every step. ``hamiltonian``: ``(pauli_terms, coeffs)`` as in
+        :meth:`expectation_sweep`; ``spec``: an :class:`~quest_tpu_torch.
+        ops.dynamics.EvolveSpec`; ``tier`` as in :meth:`sweep` (a
+        compensated tier reduces the energies compensated), except QUAD.
+
+        Returns the packed ``(B, steps + 3 + 2^{n+1})`` real block on the
+        env's device: per-step energies, the Welford (count, mean, M2)
+        carry over them and the final planes; decode it with
+        :func:`quest_tpu_torch.ops.dynamics.unpack_evolve_block` (one
+        transfer)."""
+        if not isinstance(spec, dyn.EvolveSpec):
+            raise TypeError("spec must be an EvolveSpec")
+        return self._dynamics_dispatch("evolve", param_matrix, hamiltonian,
+                                       spec, state_f, tier)
+
+    def ground_sweep(self, param_matrix, hamiltonian, spec, state_f=None,
+                     tier=None) -> torch.Tensor:
+        """One imaginary-time (or Lanczos) ground-state SEGMENT for a
+        whole parameter batch: ``spec.steps`` iterations on the device
+        with per-iteration energies and a convergence residual (``|e_S -
+        e_{S-1}|`` for power iteration, ``|e_1 - e_0|`` at one step with
+        ``e_0`` the start's energy; the Ritz bound ``beta_m |y_m|`` for
+        Lanczos, whose energies are its one Ritz value repeated), as one
+        packed ``(B, steps + 4 + 2^{n+1})`` block
+        (:func:`quest_tpu_torch.ops.dynamics.unpack_ground_block`).
+        ``spec``: a :class:`~quest_tpu_torch.ops.dynamics.GroundSpec`.
+        Segments chain by passing a segment's output planes as the next
+        one's ``state_f``."""
+        if not isinstance(spec, dyn.GroundSpec):
+            raise TypeError("spec must be a GroundSpec")
+        return self._dynamics_dispatch("ground", param_matrix, hamiltonian,
+                                       spec, state_f, tier)
 
     def __repr__(self) -> str:
         tier = self.tier.name if self.tier is not None else "env"

@@ -40,7 +40,8 @@ __all__ = ["sum_compensated", "sum_pair", "dot_pair", "dot_pair_rows",
            "vdot_compensated", "pauli_masks", "pauli_term_bucket",
            "pauli_sum_operands", "validated_pauli_terms",
            "pauli_terms_operands", "pauli_sum_expvals_sv",
-           "pauli_sum_total_sv", "pauli_sum_apply", "pauli_sum_expvals_dm",
+           "pauli_sum_total_sv", "pauli_sum_apply", "pauli_apply_sv",
+           "pauli_sum_apply_sv", "pauli_sum_expvals_dm",
            "pauli_sum_total_dm", "welford_wave", "welford_merge",
            "score_surrogate", "welford_stderr"]
 
@@ -237,6 +238,47 @@ def _parity(v: torch.Tensor) -> torch.Tensor:
     return v & 1
 
 
+def _sign_vector(yz: int, xy: int, num_amps: int, dtype,
+                 device) -> torch.Tensor:
+    """``(-1)^popcount(j & yz)`` with ``j = k ^ xy``, for every ``k <
+    num_amps``: ``(-1)^popcount(xy & yz)`` times ``(-1)^popcount(k & yz)``,
+    the latter built by doubling up to ``yz``'s top bit and tiled (no
+    integer pass over the amplitudes)."""
+    s = torch.ones(1, dtype=dtype, device=device)
+    for q in range(yz.bit_length()):
+        s = torch.cat([s, -s if (yz >> q) & 1 else s])
+    if bin(xy & yz).count("1") % 2:
+        s = -s
+    return s.repeat(num_amps // s.shape[0])
+
+
+# runs of set bits of an xor mask that one flip takes (each run and each
+# gap between runs is an axis of the view; torch caps a view at 25 axes)
+_FLIP_RUNS = 10
+
+
+def _xor_gather(states: torch.Tensor, xy: int) -> torch.Tensor:
+    """``states[..., k ^ xy]`` as a fresh tensor: one ``torch.flip`` of a
+    view whose axes are the runs of equal bits of ``xy``, high to low
+    (xor-ing a run of bits with ones reverses it), or an ``index_select``
+    for a mask of more than ``_FLIP_RUNS`` runs."""
+    num_amps = states.shape[-1]
+    sizes, flip = [], []
+    q = num_amps.bit_length() - 1
+    while q > 0:
+        bit, top = (xy >> (q - 1)) & 1, q
+        while q > 0 and (xy >> (q - 1)) & 1 == bit:
+            q -= 1
+        if bit:
+            flip.append(states.dim() - 1 + len(sizes))
+        sizes.append(1 << (top - q))
+    if len(flip) > _FLIP_RUNS:
+        idx = torch.arange(num_amps, device=states.device) ^ xy
+        return states.index_select(-1, idx)
+    view = states.reshape(*states.shape[:-1], *sizes)
+    return torch.flip(view, flip).reshape(states.shape)
+
+
 def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask, zmask,
                          compensated: bool = False) -> torch.Tensor:
     """Per-term ``<z_b|P_t|z_b>`` for a ``(B, 2, N)`` batch of planes and
@@ -255,20 +297,19 @@ def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask, zmask,
     few GiB whatever the batch: a 24-qubit batch of 64 would otherwise
     make 8 GiB per gathered term and 4 GiB per temporary."""
     num_amps = states.shape[-1]
-    idx = torch.arange(num_amps, device=states.device)
     rows = max(1, _ROWS_AMPS // num_amps)
     out = []
     for xm, ym, zm in zip(xmask, ymask, zmask):
         xy, yz = int(xm) | int(ym), int(ym) | int(zm)
         # sign(j) = (-1)^parity(j & yz) with j = k ^ xy
-        sign = (1 - 2 * _parity((idx ^ xy) & yz)).to(states.dtype)
+        sign = _sign_vector(yz, xy, num_amps, states.dtype, states.device)
         ph = bin(int(ym)).count("1") % 4
         if compensated:
-            acc = torch.cat([_term_compensated(states[r:r + rows], idx, xy,
+            acc = torch.cat([_term_compensated(states[r:r + rows], xy,
                                                sign, ph % 2)
                              for r in range(0, states.shape[0], rows)])
         else:
-            zj = states.index_select(-1, idx ^ xy) if xy else states
+            zj = _xor_gather(states, xy) if xy else states
             if ph % 2 == 0:
                 # Re sum conj(z) z[j] sign = sum (zr zjr + zi zji) sign
                 part = (states * zj).sum(1)
@@ -282,11 +323,11 @@ def pauli_sum_expvals_sv(states: torch.Tensor, xmask, ymask, zmask,
 
 
 
-def _term_compensated(states, idx, xy: int, sign, imag: int):
+def _term_compensated(states, xy: int, sign, imag: int):
     """One Pauli term's compensated real (``imag == 0``) or imaginary part
     of ``sum conj(z) z[j] sign`` for each row of a ``(R, 2, N)`` chunk, as
     one :func:`dot_pair_rows` over the stacked planes."""
-    zj = states.index_select(-1, idx ^ xy) if xy else states
+    zj = _xor_gather(states, xy) if xy else states
     zjs = zj * sign
     if imag:
         # zr zji - zi zjr: negation is exact
@@ -310,6 +351,58 @@ def pauli_sum_total_sv(states: torch.Tensor, xmask, ymask, zmask,
     return (vals * cf).sum(-1)
 
 
+# (source plane, sign) of the output's real and imaginary plane for a
+# factor i^ph times (re + i im), ph = 0..3
+_PHASE_PLANES = (((0, 1.0), (1, 1.0)), ((1, -1.0), (0, 1.0)),
+                 ((0, -1.0), (1, -1.0)), ((1, 1.0), (0, -1.0)))
+
+
+def pauli_term_gather(states: torch.Tensor, xm, ym, zm):
+    """One Pauli string's action split in two: ``(gathered, ph)`` with
+    ``P|z> = i^ph * gathered`` for every state of a ``(..., 2, N)`` batch,
+    ``gathered = (-1)^popcount(j & (y|z)) z[j]`` with ``j = k ^ (x|y)`` (a
+    fresh tensor) and ``ph = |y| mod 4``, so a caller folds any complex
+    factor into ``ph`` and one real coefficient (:func:`add_phased`)
+    instead of materialising ``P|z>``."""
+    xy, yz = int(xm) | int(ym), int(ym) | int(zm)
+    sign = _sign_vector(yz, xy, states.shape[-1], states.dtype,
+                        states.device)
+    zj = _xor_gather(states, xy).mul_(sign) if xy else states * sign
+    return zj, bin(int(ym)).count("1") % 4
+
+
+def add_phased(out: torch.Tensor, gathered: torch.Tensor, ph: int,
+               c: float) -> torch.Tensor:
+    """``out += c * i^ph * gathered`` on ``(..., 2, N)`` planes (``c`` a
+    host float), in place."""
+    (src_re, s_re), (src_im, s_im) = _PHASE_PLANES[ph % 4]
+    out[..., 0, :].add_(gathered[..., src_re, :], alpha=c * s_re)
+    out[..., 1, :].add_(gathered[..., src_im, :], alpha=c * s_im)
+    return out
+
+
+def pauli_apply_sv(states: torch.Tensor, xmask, ymask, zmask) -> torch.Tensor:
+    """``P|z_b>`` for each state of a ``(B, 2, N)`` batch, for ONE Pauli
+    string given as host integer masks: the xor-gather, ``j``-side sign and
+    ``i^|y|`` of :func:`pauli_sum_expvals_sv`, returning the transformed
+    batch (a fresh tensor) instead of its expectation. One gather pass, no
+    per-qubit gate loop; the Trotter and imaginary-time steps
+    (``ops/dynamics.py``) build ``exp(-i theta P)`` from it."""
+    gathered, ph = pauli_term_gather(states, xmask, ymask, zmask)
+    (src_re, s_re), (src_im, s_im) = _PHASE_PLANES[ph]
+    return torch.stack([gathered[..., src_re, :] * s_re,
+                        gathered[..., src_im, :] * s_im], dim=-2)
+
+
+def pauli_sum_apply_sv(states: torch.Tensor, xmask, ymask, zmask,
+                       coeffs) -> torch.Tensor:
+    """``H|z_b> = sum_t coeffs[t] P_t|z_b>`` for each state of a ``(B, 2,
+    N)`` batch (a fresh tensor): :func:`pauli_sum_apply`, the Lanczos
+    step's matrix-vector product. Masks and coefficients are host data, so
+    the term loop reads nothing back from the device."""
+    return pauli_sum_apply(states, xmask, ymask, zmask, coeffs)
+
+
 def pauli_sum_apply(states: torch.Tensor, xmask, ymask, zmask, coeffs,
                     out: torch.Tensor = None) -> torch.Tensor:
     """``sum_t coeffs[t] P_t |z_b>`` for each state of a ``(B, 2, N)``
@@ -319,23 +412,12 @@ def pauli_sum_apply(states: torch.Tensor, xmask, ymask, zmask, coeffs,
     ``i^|y|`` as :func:`pauli_sum_expvals_sv`, one gather per term;
     zero-coefficient terms (the bucket's padding) are skipped. Written into
     ``out`` (a fresh batch by default), which is returned."""
-    num_amps = states.shape[-1]
-    idx = torch.arange(num_amps, device=states.device)
     out = torch.zeros_like(states) if out is None else out.zero_()
     for xm, ym, zm, c in zip(xmask, ymask, zmask, coeffs):
         if float(c) == 0.0:
             continue
-        xy, yz = int(xm) | int(ym), int(ym) | int(zm)
-        j = idx ^ xy
-        sign = (1 - 2 * _parity(j & yz)).to(states.dtype) * float(c)
-        zj = states.index_select(-1, j) if xy else states
-        # i^|y| (re + i im): the plane each output plane takes, and its sign
-        (src_re, s_re), (src_im, s_im) = (
-            ((0, 1.0), (1, 1.0)), ((1, -1.0), (0, 1.0)),
-            ((0, -1.0), (1, -1.0)), ((1, 1.0), (0, -1.0)),
-        )[bin(int(ym)).count("1") % 4]
-        out[:, 0].addcmul_(zj[:, src_re], sign, value=s_re)
-        out[:, 1].addcmul_(zj[:, src_im], sign, value=s_im)
+        gathered, ph = pauli_term_gather(states, xm, ym, zm)
+        add_phased(out, gathered, ph, float(c))
     return out
 
 

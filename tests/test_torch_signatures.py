@@ -1,7 +1,8 @@
 """The port's public signatures against the JAX package's.
 
-For every public name both packages define (the functions of ``api.py`` and
-the methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
+For every public name both packages define (the functions of ``api.py``,
+``algorithms.py``, ``qasm_import.py`` and ``ops/dynamics.py``, and the
+methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
 ``Qureg`` and ``QuESTEnv``), the port's parameters begin with the
 reference's, by name and in order, so a program written for the JAX
 package calls the port the same way, positionally or by keyword. The port
@@ -10,17 +11,27 @@ may add parameters after them.
 ``ALLOWED`` is the whole list of exceptions, each with its reason: a
 reference parameter the port leaves out, and the port's parameters that
 stand in its place (which the comparison then skips on the port's side).
+The dataclasses of those modules (``EvolveSpec``, ``GroundSpec``,
+``ParsedQASM``) have the same fields with the same defaults.
 """
+
+import dataclasses
 
 import inspect
 
 import pytest
 
 import quest_tpu as jq
+from quest_tpu import algorithms as jalg
 from quest_tpu import api as japi
+from quest_tpu import qasm_import as jqasm
+from quest_tpu.ops import dynamics as jdyn
 from quest_tpu.ops.trajectories import TrajectoryProgram as JTrajectories
 import quest_tpu_torch as tq
+from quest_tpu_torch import algorithms as talg
 from quest_tpu_torch import api as tapi
+from quest_tpu_torch import qasm_import as tqasm
+from quest_tpu_torch.ops import dynamics as tdyn
 from quest_tpu_torch.ops.trajectories import TrajectoryProgram as TTrajectories
 from torch_threads import one_blas_thread  # noqa: F401
 
@@ -56,6 +67,9 @@ ALLOWED = {
     ("QuESTEnv.__init__", "key"): (("generator",), RNG),
 }
 
+MODULES = (("algorithms", jalg, talg), ("qasm_import", jqasm, tqasm),
+           ("ops.dynamics", jdyn, tdyn))
+
 CLASSES = (("Circuit", jq.Circuit, tq.Circuit),
            ("CompiledCircuit", jq.CompiledCircuit, tq.CompiledCircuit),
            ("TrajectoryProgram", JTrajectories, TTrajectories),
@@ -77,6 +91,11 @@ def _shared_callables():
         jf, tf = getattr(japi, name), getattr(tapi, name, None)
         if inspect.isfunction(jf) and inspect.isfunction(tf):
             out.append((name, jf, tf))
+    for mod_name, jmod, tmod in MODULES:
+        for name in jmod.__all__:
+            jf, tf = getattr(jmod, name), getattr(tmod, name, None)
+            if inspect.isfunction(jf) and inspect.isfunction(tf):
+                out.append((f"{mod_name}.{name}", jf, tf))
     for cls_name, jcls, tcls in CLASSES:
         for name in sorted(set(vars(jcls)) & set(vars(tcls))):
             if name.startswith("_") and name != "__init__":
@@ -108,6 +127,31 @@ def test_the_comparison_covers_the_surface():
                  "TrajectoryProgram.__init__", "Qureg.device_put",
                  "Qureg.flush_gates", "QuESTEnv.__init__"):
         assert must in names, must
+
+
+def test_the_new_modules_are_compared_whole():
+    """Every public name of the algorithm library, the QASM importer and
+    the dynamics module exists in the port, and each function is
+    compared."""
+    names = {q for q, _, _ in SHARED}
+    for mod_name, jmod, tmod in MODULES:
+        assert tmod.__all__ == jmod.__all__, mod_name
+        for name in jmod.__all__:
+            assert hasattr(tmod, name), (mod_name, name)
+            if inspect.isfunction(getattr(jmod, name)):
+                assert f"{mod_name}.{name}" in names, (mod_name, name)
+    for must in ("CompiledCircuit.evolve_sweep",
+                 "CompiledCircuit.ground_sweep"):
+        assert must in names, must
+
+
+@pytest.mark.parametrize("name", ["EvolveSpec", "GroundSpec", "ParsedQASM"])
+def test_dataclass_fields_match(name):
+    mods = (jdyn, tdyn) if name != "ParsedQASM" else (jqasm, tqasm)
+    jf, tf = (dataclasses.fields(getattr(m, name)) for m in mods)
+    assert [(f.name, f.default) for f in tf] == \
+        [(f.name, f.default) for f in jf]
+    assert getattr(tq, name) is getattr(mods[1], name)
 
 
 def test_the_trajectory_program_is_compared_whole():
