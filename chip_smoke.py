@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 14       # the main-path remainder
     python3 chip_smoke.py --only 9g       # trajectory gradients
     python3 chip_smoke.py --only 15,16    # dynamics, algorithms, QASM
+    python3 chip_smoke.py --only 17       # the QUAD tier
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -143,6 +144,11 @@ Phases (any unmet check exits non-zero and prints no result line):
     (its plan has no layer); 12c. every density function of the API on 8
     qubits (a complex pure state) on the card against the CPU in float64
     (within 1e-5 of the largest value, and of the largest amplitude);
+    12e. the noisy QFT of 12a compiled at ``tier="fast"``: one FAST
+    launch per layer, each FAST layer's kernel output on its own input
+    within 1e-5 of max|plain| of its FAST plain version, the result
+    against the SINGLE program within ``modeled_tier_error(FAST, ops)``
+    of max|amp|, FAST ops/s beside SINGLE's;
     12d. density sweeps and gradients: config 4's circuit with its
     rotations as Params through ``expectation_sweep`` at 15 qubits, batch
     2, against a per-point ``run`` + ``calcExpecPauliSum`` (<= 1e-4 of
@@ -205,7 +211,29 @@ Phases (any unmet check exits non-zero and prints no result line):
     brickwork through ``to_qasm`` and ``parse_qasm`` against its own run
     (|<psi|phi>| >= 1 - 1e-5); ``grover(20)`` at its own 804 iterations
     against sin^2((2k+1) theta) (1e-3) and the analytic state; seconds
-    per run and gates/s.
+    per run and gates/s;
+17. the QUAD tier (double-double planes, ``ops/doubledouble.py``: plain
+    torch ops, no kernel; every kernel count stays 0 on each dd path):
+    17a. phase 4's brickwork at one layer and 20 qubits gate by gate
+    through the API on a QUAD, a QUAD64 and a DOUBLE register, then
+    ``calcTotalProb``, ``calcProbOfOutcome``, ``calcExpecPauliSum`` (phase
+    8's 24-term shape), ``collapseToOutcome``, ``calcInnerProduct`` and
+    ``sampleOutcomes`` (10^5 shots, the marginal of qubits 0-2 within 5
+    stderr): QUAD and QUAD64 against DOUBLE, and QUAD64 against QUAD,
+    within 1e-12 of max|amp| and of max|E|; 17b. phase 4's brickwork
+    through ``compile_dd`` at 28 qubits (QUAD) and 27 (QUAD64), 4 GiB of
+    planes each: seconds, gates/s, one dense dd gate's ms beside its HBM
+    bound (its four planes read and written once), peak memory,
+    ``total_prob`` within 1e-12 of 1; at 12 qubits the card's dd planes
+    against the CPU's from one input, equal bit for bit; 17c. phase 8's
+    HEA at batch 4 through ``expectation_sweep(tier="quad")`` on a DOUBLE
+    env: points/s, peak memory, against ``tier="double"`` (1e-10 of
+    max|E|), the DOUBLE, SINGLE and FAST energies' deviation from QUAD's;
+    ``sweep(tier="quad")`` at 12 qubits card against CPU (1e-13 of
+    max|amp|); 17d. ``BASELINE.json`` config 4 and ``mixDensityMatrix``
+    on a 12-qubit QUAD density register against a DOUBLE one (1e-12),
+    trace within 1e-12 of 1, purity in (0, 1]. The phase stays under 120
+    s and 60 GB.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -2416,6 +2444,78 @@ def density_cell(torch, qt, lk, kk, card, label, circuit, calls, init,
             "library_ms": lib_ms if len(lib_ms) == len(layer_ops) else None}
 
 
+def density_fast(torch, qt, lk, kk, card, label, circuit, init,
+                 single_cell):
+    """12e: the noisy QFT of 12a compiled with ``density=True`` at
+    ``tier="fast"``: one FAST launch per layer of its lifted plan, each
+    FAST layer's kernel output on its own input within 1e-5 of max|plain|
+    of its FAST plain version, the result against the SINGLE program's
+    within ``modeled_tier_error(FAST, ops)`` of max|amp|, and FAST ops/s
+    beside SINGLE's (12a's)."""
+    n = DENSITY_QUBITS
+    env = qt.createQuESTEnv()
+    cc = circuit.compile(env, density=True, tier="fast")
+    layer_ops = [op for op in cc._ops if op.kind == "layer"]
+    q = qt.createDensityQureg(n, env)
+    init(q)
+    reset_counts(lk, kk)
+    cc.run(q)
+    torch.cuda.synchronize()
+    fast_launches, full = lk.apply_layer.fast_launches, lk.apply_layer.launches
+    check(len(layer_ops) > 0 and fast_launches == len(layer_ops)
+          and full == 0,
+          f"{label}: FAST kernel launched {fast_launches} times for "
+          f"{len(layer_ops)} layer ops ({full} full-precision launches)")
+    errs, rels = [], []
+    launch = lk.apply_layer
+
+    def held(planes, num_qubits, layer, fast=False):
+        plain = planes.clone()
+        launch(planes, num_qubits, layer, fast=fast)
+        lk.apply_layer_plain(plain, num_qubits, layer, fast=fast)
+        torch.cuda.synchronize()
+        err, rel = rel_err(planes, plain)
+        errs.append(err)
+        rels.append(rel)
+
+    walked = qt.createDensityQureg(n, env)
+    init(walked)
+    held.launches = held.fast_launches = held.diag_launches = 0
+    lk.apply_layer = held
+    try:
+        cc.run(walked)
+    finally:
+        lk.apply_layer = launch
+    del walked
+    torch.cuda.empty_cache()
+    check(len(rels) == len(layer_ops) and max(rels) <= 1e-5,
+          f"{label}: each of {len(rels)} FAST layers' kernel vs its FAST "
+          f"plain version on its own input max|diff| / max|plain| "
+          f"{max(rels):.3e} <= 1e-5")
+    ref = qt.createDensityQureg(n, env)
+    init(ref)
+    circuit.compile(env, density=True, tier="single").run(ref)
+    ops = len(circuit.ops)
+    bound = qt.modeled_tier_error(qt.FAST_TIER, len(cc.circuit.ops))
+    _, rel = rel_err(q.state, ref.state)
+    del ref
+    torch.cuda.empty_cache()
+    check(rel <= bound, f"{label}: FAST vs SINGLE max|diff| / max|amp| "
+          f"{rel:.3e} <= modeled_tier_error(FAST, "
+          f"{len(cc.circuit.ops)}) = {bound:.3e}")
+    trace = qt.calcTotalProb(q)
+    check(abs(trace - 1.0) <= 1e-3, f"{label}: FAST trace {trace!r}")
+    run_s = timed_runs(torch, lambda: cc.run(q), reps=2)
+    print(f"  {label} on {card}: FAST compiled run {run_s * 1e3:.1f} ms, "
+          f"{ops / run_s:.1f} ops/s beside SINGLE's "
+          f"{single_cell['ops_per_s']:.1f} ops/s (12a)")
+    del q, cc
+    torch.cuda.empty_cache()
+    return {"fast_launches": fast_launches, "ops_per_s": ops / run_s,
+            "max_abs_err": max(errs), "fast_vs_single": rel,
+            "bound": bound}
+
+
 def kraus_set(rng, k: int, count: int):
     """A random CPTP set of ``count`` operators on k qubits."""
     d = 1 << k
@@ -2495,6 +2595,8 @@ def phase_density(torch, qt, lk, kk, card):
     cell = density_cell(torch, qt, lk, kk, card, "12a noisy QFT", qft,
                         qft_calls, lambda q: qt.initClassicalState(q, basis),
                         expect_layers=True)
+    fast = density_fast(torch, qt, lk, kk, card, "12e noisy QFT at FAST",
+                        qft, lambda q: qt.initClassicalState(q, basis), cell)
     config4, config4_calls, _ = density_noise(qt, n)
     cell_b = density_cell(torch, qt, lk, kk, card,
                           "12b BASELINE.json config 4", config4,
@@ -2511,7 +2613,7 @@ def phase_density(torch, qt, lk, kk, card):
     check(err <= 1e-5 and state_err <= 1e-5,
           f"12c: {len(got)} values max|card - CPU| / max|CPU| {err:.3e}, "
           f"final state {state_err:.3e} <= 1e-5 (measured q2 -> {outcome})")
-    return {"qft": cell, "config4": cell_b}
+    return {"qft": cell, "config4": cell_b, "qft_fast": fast}
 
 
 def held_layers(torch, lk, errs, batched: bool = True):
@@ -3528,6 +3630,310 @@ def phase_algorithms(torch, qt, lk, kk, card):
     return out
 
 
+# phase 17: the QUAD tier (double-double planes, ops/doubledouble.py)
+QUAD_IMPERATIVE_QUBITS = 20      # bench.py:498, the JAX package's dd row
+QUAD_BRICKWORK_QUBITS = (("QUAD", 28), ("QUAD64", 27))   # 4 GiB of planes
+QUAD_SWEEP_QUBITS, QUAD_SWEEP_BATCH = 24, 4
+QUAD_CHECK_QUBITS = 12           # card against CPU
+QUAD_DENSITY_QUBITS = 12
+QUAD_SAMPLES = 100000
+
+
+def no_launches(lk, kk, what: str) -> None:
+    """Every kernel count is still 0: the dd paths launch no kernel."""
+    got = counts(lk, kk) + fast_counts(lk) + (
+        lk.apply_layer.diag_launches, lk.apply_layer_batched.diag_launches)
+    check(not any(got), f"{what}: kernel launches {got}, expected none "
+          "(the layer, batched layer, MXU-tile and Kraus kernels have no "
+          "dd form)")
+
+
+def quad_dd_gate_bound_ms(n: int, itemsize: int) -> float:
+    """A dense dd gate's HBM bound: its four planes read once and written
+    once."""
+    return 2 * 4 * itemsize * (1 << n) / HBM_BYTES_PER_S * 1e3
+
+
+def quad_imperative(torch, qt, lk, kk, card):
+    """17a: phase 4's brickwork at one layer, gate by gate through the API
+    on a QUAD, a QUAD64 and a DOUBLE register, then the reductions, a
+    collapse, an inner product and sampleOutcomes on each."""
+    n = QUAD_IMPERATIVE_QUBITS
+    gates = brickwork(n, 1)
+    rng = np.random.default_rng(2026)
+    codes = rng.integers(0, 4, size=(SWEEP_TERMS, n))
+    coeffs = rng.normal(size=SWEEP_TERMS)
+    codes_flat = [int(c) for c in codes.reshape(-1)]
+    print(f"  17a: imperative registers, {n} qubits, {len(gates)} gates "
+          f"gate by gate, the {SWEEP_TERMS}-term Pauli sum")
+    out = {}
+    for name in ("DOUBLE", "QUAD", "QUAD64"):
+        env = qt.createQuESTEnv(precision=getattr(qt, name), seed=[17])
+        q = qt.createQureg(n, env)
+        plus = qt.createQureg(n, env)
+        qt.initPlusState(plus)
+        qt.rotateY(plus, 3, 0.4)
+        reset_counts(lk, kk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_per_gate(qt, q, gates)
+        torch.cuda.synchronize()
+        gate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        energy = qt.calcExpecPauliSum(q, codes_flat, coeffs)
+        energy_s = time.perf_counter() - t0
+        vals = {"total": qt.calcTotalProb(q),
+                "prob": qt.calcProbOfOutcome(q, 3, 1),
+                "energy": energy,
+                "inner": qt.calcInnerProduct(plus, q)}
+        amps = q.to_numpy()
+        samples = qt.sampleOutcomes(q, QUAD_SAMPLES, qubits=[0, 1, 2])
+        clone = qt.createCloneQureg(q, env)
+        vals["collapse"] = qt.collapseToOutcome(clone, 5, 0)
+        collapsed = clone.to_numpy()
+        if name != "DOUBLE":
+            no_launches(lk, kk, f"17a {name}")
+        print(f"  17a {name} on {card}: {len(gates)} gates in "
+              f"{gate_s * 1e3:.1f} ms ({gate_s / len(gates) * 1e3:.2f} ms "
+              f"per gate), calcExpecPauliSum {energy_s * 1e3:.1f} ms")
+        out[name] = (vals, amps, collapsed, samples)
+        del q, plus, clone
+        torch.cuda.empty_cache()
+    ref_vals, ref_amps, ref_col, _ = out["DOUBLE"]
+    scale = float(np.abs(ref_amps).max())
+    e_scale = max(abs(ref_vals["energy"]), 1.0)
+    marg = np.bincount(np.arange(1 << n) & 7, weights=np.abs(ref_amps) ** 2,
+                       minlength=8)
+    for name, other in (("QUAD", "DOUBLE"), ("QUAD64", "DOUBLE"),
+                        ("QUAD64", "QUAD")):
+        vals, amps, col, samples = out[name]
+        ovals, oamps, ocol, _ = out[other]
+        amp_err = float(np.abs(amps - oamps).max()) / scale
+        col_err = float(np.abs(col - ocol).max()) / scale
+        val_err = max(abs(complex(vals[k]) - complex(ovals[k]))
+                      for k in vals) / e_scale
+        check(amp_err <= 1e-12 and col_err <= 1e-12 and val_err <= 1e-12,
+              f"17a {name} vs {other}: amplitudes {amp_err:.3e}, collapsed "
+              f"{col_err:.3e} of max|amp|, values (total, prob, energy, "
+              f"inner, collapse) {val_err:.3e} of max|E| <= 1e-12")
+        hist = np.bincount(samples, minlength=8) / QUAD_SAMPLES
+        stderr = np.sqrt(marg * (1 - marg) / QUAD_SAMPLES)
+        z = float(np.max(np.abs(hist - marg) / np.maximum(stderr, 1e-12)))
+        check(z <= 5.0, f"17a {name}: sampleOutcomes marginal of qubits "
+              f"0-2 within {z:.2f} stderr of the float64 marginal (<= 5)")
+    print(f"  17a: energy {ref_vals['energy']!r} (DOUBLE), QUAD "
+          f"{out['QUAD'][0]['energy']!r}, QUAD64 "
+          f"{out['QUAD64'][0]['energy']!r}")
+    return {"gates": len(gates),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def quad_brickwork(torch, qt, lk, kk, card):
+    """17b: phase 4's brickwork through ``compile_dd`` at the widest
+    widths, timed, then at 12 qubits on the card and the CPU from one
+    input: equal bit for bit."""
+    rows = {}
+    for name, n in QUAD_BRICKWORK_QUBITS:
+        env = qt.createQuESTEnv(precision=getattr(qt, name))
+        gates = brickwork(n, MAIN_LAYERS)
+        prog = as_circuit(qt, n, gates).compile_dd(env)
+        itemsize = prog.dtype.itemsize
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(lk, kk)
+        planes = prog.init_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes = prog.run(planes)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        no_launches(lk, kk, f"17b {name}")
+        tp = prog.total_prob(planes)
+        check(abs(tp - 1.0) <= 1e-12,
+              f"17b {name} {n} q: total_prob {tp!r} within 1e-12 of 1")
+        # one dense dd gate (the first rotation) timed alone
+        step = prog._plan[0]
+        gate_ms = cuda_ms(torch, lambda: step(planes), reps=3)
+        bound = quad_dd_gate_bound_ms(n, itemsize)
+        rows[name] = {"qubits": n, "gates_per_s": len(gates) / run_s,
+                      "dd_gate_ms": gate_ms, "dd_gate_bound_ms": bound,
+                      "peak_gib": peak / 2**30, "run_s": run_s}
+        print(f"  17b {name} compile_dd brickwork, {n} qubits, "
+              f"{len(gates)} gates ({prog.num_steps} dd steps) on {card}: "
+              f"{run_s:.2f} s, {len(gates) / run_s:.1f} gates/s")
+        print(f"  17b {name}: one dense dd gate {gate_ms:.2f} ms, HBM bound "
+              f"{bound:.3f} ms ({gate_ms / bound:.0f}x the bound)")
+        print(f"  17b {name}: peak memory {peak / 2**30:.2f} GiB, "
+              f"total_prob - 1 = {tp - 1.0:.3e}")
+        if name == "QUAD":
+            profile_device(torch, lambda: step(planes),
+                           f"one dense dd gate at {n} q on {card}",
+                           cpu=False)
+        del planes, prog
+        torch.cuda.empty_cache()
+    n = QUAD_CHECK_QUBITS
+    rng = np.random.default_rng(1717)
+    psi = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    psi /= np.linalg.norm(psi)
+    circ = as_circuit(qt, n, brickwork(n, MAIN_LAYERS))
+    for name in ("QUAD", "QUAD64"):
+        prec = getattr(qt, name)
+        outs = []
+        for dev in (None, "cpu"):
+            env = qt.createQuESTEnv(precision=prec, device=dev)
+            prog = circ.compile_dd(env)
+            outs.append(prog.run(prog.pack(psi)).cpu())
+        same = torch.equal(raw_bits(torch, outs[0]), raw_bits(torch, outs[1]))
+        check(same, f"17b {name} {n} q: the dd planes (hi and lo) of the "
+              "card and the CPU equal bit for bit")
+        print(f"  17b {name} {n} q: card and CPU dd planes equal bit for "
+              "bit")
+    return rows
+
+
+def quad_sweep(torch, qt, lk, kk, card):
+    """17c: phase 8's HEA at batch 4 through ``expectation_sweep`` at the
+    QUAD rung on a DOUBLE env, against the DOUBLE rung; FAST and SINGLE
+    energies against QUAD's; ``sweep(tier="quad")`` at 12 qubits on the
+    card against the CPU."""
+    n, batch = QUAD_SWEEP_QUBITS, QUAD_SWEEP_BATCH
+    env = qt.createQuESTEnv(precision=qt.DOUBLE)
+    circ = hea_circuit(qt, n, SWEEP_LAYERS)
+    rng = np.random.default_rng(2026)
+    codes = rng.integers(0, 4, size=(SWEEP_TERMS, n))
+    coeffs = rng.normal(size=SWEEP_TERMS)
+    terms = [[(q, int(codes[t, q])) for q in range(n)]
+             for t in range(SWEEP_TERMS)]
+    pm = rng.uniform(0.0, 2.0 * np.pi, size=(batch, len(circ.param_names)))
+    cc = circ.compile(env)
+    # the dd walk alone (sweep), then with the compensated energies
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    planes = cc.sweep(pm, tier="quad")
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    walk_peak = torch.cuda.max_memory_allocated()
+    no_launches(lk, kk, "17c sweep(tier='quad')")
+    n_items = len(cc._plan_for(qt.QUAD_TIER)[0].items)
+    del planes
+    torch.cuda.empty_cache()
+    print(f"  17c sweep(tier='quad') alone: {walk_s:.2f} s for {n_items} "
+          f"plan items ({walk_s / n_items * 1e3:.1f} ms an item), peak "
+          f"{walk_peak / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    e_quad = cc.expectation_sweep(pm, (terms, coeffs), tier="quad")
+    torch.cuda.synchronize()
+    quad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    no_launches(lk, kk, "17c expectation_sweep(tier='quad')")
+    stats = cc.dispatch_stats()
+    check(stats.batch_size == batch,
+          f"17c dispatch_stats batch_size {stats.batch_size}")
+    e = {t: cc.expectation_sweep(pm, (terms, coeffs), tier=t)
+         for t in ("double", "single", "fast")}
+    scale = float(np.abs(e_quad).max())
+    dev = {t: float(np.abs(v - e_quad).max()) / scale for t, v in e.items()}
+    check(dev["double"] <= 1e-10, f"17c QUAD vs DOUBLE energies "
+          f"{dev['double']:.3e} of max|E| <= 1e-10")
+    print(f"  17c expectation_sweep(tier='quad'), {n} qubits, batch "
+          f"{batch}, {SWEEP_TERMS} terms on {card}: {quad_s:.2f} s, "
+          f"{batch / quad_s:.2f} points/s")
+    print(f"  17c: peak memory {peak / 2**30:.2f} GiB")
+    print(f"  17c: max|E - E_quad| / max|E_quad|: DOUBLE {dev['double']:.3e}, "
+          f"SINGLE {dev['single']:.3e}, FAST {dev['fast']:.3e}")
+    n12 = QUAD_CHECK_QUBITS
+    c12 = hea_circuit(qt, n12, SWEEP_LAYERS)
+    pm12 = rng.uniform(0.0, 2.0 * np.pi, size=(batch, len(c12.param_names)))
+    card_planes = c12.compile(env).sweep(pm12, tier="quad").cpu()
+    cpu_env = qt.createQuESTEnv(device="cpu", precision=qt.DOUBLE)
+    cpu_planes = c12.compile(cpu_env).sweep(pm12, tier="quad")
+    _, rel = rel_err(card_planes, cpu_planes)
+    check(rel <= 1e-13, f"17c sweep(tier='quad') {n12} q card vs CPU "
+          f"{rel:.3e} of max|amp| <= 1e-13")
+    return {"points_per_s": batch / quad_s, "peak_gib": peak / 2**30,
+            "walk_s": walk_s, "walk_peak_gib": walk_peak / 2**30,
+            "deviation": dev}
+
+
+def quad_density(torch, qt, lk, kk, card):
+    """17d: BASELINE.json config 4 (rotations, CNOTs, dephasing and
+    damping, then mixDensityMatrix) through the imperative API on a QUAD
+    and a DOUBLE density register."""
+    n = QUAD_DENSITY_QUBITS
+    _, calls, _ = density_noise(qt, n)
+    out = {}
+    for name in ("DOUBLE", "QUAD"):
+        env = qt.createQuESTEnv(precision=getattr(qt, name))
+        rho = qt.createDensityQureg(n, env)
+        other = qt.createDensityQureg(n, env)
+        qt.initClassicalState(other, 5)
+        qt.initPlusState(rho)
+        reset_counts(lk, kk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fn, args in calls:
+            fn(rho, *args)
+        qt.mixDensityMatrix(rho, 0.2, other)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if name == "QUAD":
+            no_launches(lk, kk, "17d QUAD density")
+        out[name] = (rho.to_numpy(), qt.calcTotalProb(rho),
+                     qt.calcPurity(rho))
+        print(f"  17d {name} density register, {n} qubits, "
+              f"{len(calls) + 1} calls on {card}: {run_s:.2f} s")
+        del rho, other
+        torch.cuda.empty_cache()
+    amps, trace, purity = out["QUAD"]
+    ref = out["DOUBLE"][0]
+    err = float(np.abs(amps - ref).max()) / float(np.abs(ref).max())
+    check(err <= 1e-12 and abs(trace - 1.0) <= 1e-12 and 0.0 < purity <= 1.0,
+          f"17d QUAD vs DOUBLE {err:.3e} of max|amp| <= 1e-12, trace "
+          f"{trace!r}, purity {purity!r}")
+    return {"vs_double": err, "trace": trace, "purity": purity}
+
+
+def phase_quad(torch, qt, lk, kk, card):
+    print(f"phase 17: the QUAD tier (double-double planes) on {card}")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"imperative": quad_imperative(torch, qt, lk, kk, card),
+           "brickwork": quad_brickwork(torch, qt, lk, kk, card),
+           "sweep": quad_sweep(torch, qt, lk, kk, card),
+           "density": quad_density(torch, qt, lk, kk, card)}
+    wall = time.perf_counter() - t0
+    # the brickwork and the sweep reset the peak for their own figures;
+    # the phase's peak is the largest of them and of what came after
+    peak = max(torch.cuda.max_memory_allocated() / 2**30,
+               out["imperative"]["peak_gib"], out["sweep"]["peak_gib"],
+               *(r["peak_gib"] for r in out["brickwork"].values()))
+    check(wall <= 120.0 and peak <= 60e9 / 2**30,
+          f"phase 17: {wall:.1f} s <= 120 s, peak {peak:.2f} GiB <= 60 GB")
+    print(f"  phase 17: {wall:.1f} s, peak memory {peak:.2f} GiB")
+    out["wall_s"] = wall
+    return out
+
+
+def quad_keys(quad):
+    """Phase 17's figures, as keys of the ``layer_kernel`` row (no kernel
+    runs on the dd paths)."""
+    b = quad["brickwork"]
+    return {"quad": {
+        "launches": 0,
+        "brickwork": b,
+        "sweep_points_per_s": quad["sweep"]["points_per_s"],
+        "sweep_deviation": quad["sweep"]["deviation"],
+        "density_vs_double": quad["density"]["vs_double"],
+        "wall_s": quad["wall_s"]}}
+
+
 def density_keys(density):
     """The density QFT's layer-kernel numbers, as keys of the
     ``layer_kernel`` row."""
@@ -3547,6 +3953,10 @@ def density_keys(density):
         "density_layer_library_ms": cell["library_ms"],
         "density_qft_ops_per_s": cell["ops_per_s"],
         "density_config4_ops_per_s": density["config4"]["ops_per_s"],
+        "density_fast_launches": density["qft_fast"]["fast_launches"],
+        "density_fast_max_abs_err": density["qft_fast"]["max_abs_err"],
+        "density_qft_fast_ops_per_s": density["qft_fast"]["ops_per_s"],
+        "density_fast_vs_single": density["qft_fast"]["fast_vs_single"],
     }
 
 
@@ -3753,7 +4163,7 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
-          "10", "11", "12", "12d", "13", "14", "15", "16")
+          "10", "11", "12", "12d", "13", "14", "15", "16", "17")
 
 
 def parse_only(argv):
@@ -3848,6 +4258,8 @@ def main(argv) -> int:
             if runs("16") else None
         print(f"phases 15 and 16 wall time: {t1 - t0:.1f} + "
               f"{time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+        quad = phase_quad(torch, qt, lk, kk, card) if runs("17") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -3856,6 +4268,8 @@ def main(argv) -> int:
             row = dict(row, remainder=remainder)
         if row is not None and algorithms is not None:
             row = dict(row, **algorithm_keys(algorithms))
+        if row is not None and quad is not None:
+            row = dict(row, **quad_keys(quad))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
@@ -3877,6 +4291,9 @@ def main(argv) -> int:
             if row is None and algorithms is not None:
                 rows.append(dict(name="layer_kernel", path="algorithms",
                                  **algorithm_keys(algorithms)))
+            if row is None and quad is not None:
+                rows.append(dict(name="layer_kernel", path="quad",
+                                 **quad_keys(quad)))
             if dynamics is not None:
                 rows.append(dict(name="layer_kernel_batched",
                                  path="dynamics",

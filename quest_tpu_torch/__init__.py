@@ -8,8 +8,9 @@ programs on a density register), Hamiltonian dynamics
 (``quest_tpu_torch.algorithms``) and the QASM importer (``parse_qasm``) on
 one CUDA device, with the fused gate-layer kernel written by hand in CUDA
 C++ for Hopper (``csrc/layer_kernel.cu``), and the precision-tier ladder
-(FAST, SINGLE, DOUBLE; ``Circuit.compile(tier=/error_budget=)``,
-``sweep(tier=)``). The JAX package ``quest_tpu`` is the reference this
+(FAST, SINGLE, DOUBLE, QUAD; ``Circuit.compile(tier=/error_budget=)``,
+``sweep(tier=)``), and the double-double QUAD/QUAD64 registers and
+``Circuit.compile_dd`` (``ops/doubledouble.py``). The JAX package ``quest_tpu`` is the reference this
 port is tested against; nothing here imports it or JAX.
 
 ```python
@@ -26,9 +27,9 @@ print(qt.calcProbOfOutcome(q, 1, 1)) # 0.5
 from .api import *  # noqa: F401,F403
 from .api import __all__ as _api_all
 from .circuits import Circuit, CompiledCircuit, Param
-from .config import (DOUBLE, DOUBLE_TIER, FAST_TIER, QUAD_TIER, SINGLE,
-                     SINGLE_TIER, TIER_LADDER, Precision, PrecisionTier,
-                     tier_by_name)
+from .config import (DOUBLE, DOUBLE_TIER, FAST_TIER, QUAD, QUAD64,
+                     QUAD_TIER, SINGLE, SINGLE_TIER, TIER_LADDER, Precision,
+                     PrecisionTier, tier_by_name)
 from .profiling import (choose_tier, engine_tiers, modeled_tier_error,
                         tier_runtime_tol)
 from .env import QuESTEnv
@@ -41,6 +42,7 @@ from .validation import ErrorCode
 
 __all__ = list(_api_all) + [
     "Circuit", "CompiledCircuit", "Param", "Precision", "SINGLE", "DOUBLE",
+    "QUAD", "QUAD64",
     "PrecisionTier", "FAST_TIER", "SINGLE_TIER", "DOUBLE_TIER", "QUAD_TIER",
     "TIER_LADDER", "tier_by_name", "choose_tier", "modeled_tier_error",
     "engine_tiers", "tier_runtime_tol",

@@ -18,6 +18,11 @@ package, an uncontrolled gate acts on it as the single combined operator
 ``conj(U) (x) U`` on ``(targets, targets+n)`` — one pass over the 4^n
 amplitudes where the reference makes two (``QuEST.c:175-658``) — and a
 controlled gate as the reference's two passes.
+
+A QUAD or QUAD64 register (``(4, 2^N)`` double-double planes) takes the
+same dispatch shapes through the dd kernels of ``ops/doubledouble.py``
+(``ddm``), as the JAX package's ``is_quad`` branches do; its reductions
+come back as compensated pairs combined in host double precision.
 """
 
 from __future__ import annotations
@@ -36,13 +41,14 @@ from .core.apply import apply_diagonal, apply_unitary, bitmask, split_shape
 from .env import QuESTEnv, create_quest_env, destroy_quest_env
 from .ops import channels as chan
 from .ops import densmatr as dm
+from .ops import doubledouble as ddm
 from .ops import initstates as ist
 from .ops import reductions as red
 from .ops import statevec as sv
 from .parallel.pergate import GateFusionBuffer
 from .parallel.sampling import sample_outcomes
 from .qureg import Qureg
-from .types import PauliOpType
+from .types import PauliOpType, QuESTError
 
 __all__ = [
     # env
@@ -108,6 +114,8 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
     uncontrolled, two when controlled)."""
     targets = tuple(int(t) for t in targets)
     ctrl_mask, flip_mask = bitmask(controls), bitmask(flips)
+    if qureg.is_quad:
+        return _dd_gate(qureg, u, targets, ctrl_mask, flip_mask)
     buf = qureg._fusion_buffer
     if buf is not None and not buf.flushing:
         # opt-in imperative fusion (startGateFusion): record the LOGICAL
@@ -121,6 +129,23 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
     for lift, ts, cm, fm in dm.gate_passes(targets, ctrl_mask, flip_mask,
                                            qureg.num_qubits_represented):
         apply_unitary(qureg.state, nv, lift(u), ts, cm, fm)
+
+
+def _dd_gate(qureg: Qureg, u: np.ndarray, targets: tuple,
+             ctrl_mask: int, flip_mask: int) -> None:
+    """QUAD-register gate application: dense k-qubit dd kernels
+    (``ops/doubledouble.py``) with the same density-matrix dispatch shapes
+    as the native-precision path."""
+    nv = qureg.num_qubits_in_state_vec
+    state = qureg.state
+    if not qureg.is_density_matrix:
+        qureg.state = ddm.dd_apply_kq(state, nv, u, targets, ctrl_mask,
+                                      flip_mask)
+        return
+    for lift, ts, cm, fm in dm.gate_passes(targets, ctrl_mask, flip_mask,
+                                           qureg.num_qubits_represented):
+        state = ddm.dd_apply_kq(state, nv, lift(u), ts, cm, fm)
+    qureg.state = state
 
 
 def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
@@ -137,6 +162,10 @@ def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
     if qureg.is_density_matrix:
         lift, qs = dm.diagonal_lift(qs, qureg.num_qubits_represented)
         tensor = lift(tensor)
+    if qureg.is_quad:
+        qureg.state = ddm.dd_apply_diag(
+            qureg.state, qureg.num_qubits_in_state_vec, tensor, qs)
+        return
     apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs, tensor)
 
 
@@ -159,7 +188,10 @@ def startGateFusion(qureg: Qureg, max_qubits: int = 3) -> None:
     gate-fusion engine, :mod:`quest_tpu_torch.core.fusion`, applied to the
     per-gate path). Flushing is automatic at any state read (measure,
     calc*, get*, compiled run, host copy) and at :func:`stopGateFusion`.
-    No reference counterpart."""
+    No reference counterpart; QUAD registers are unsupported (their
+    double-double kernels dispatch eagerly)."""
+    if qureg.is_quad:
+        raise QuESTError("gate fusion is not supported on QUAD registers")
     new = GateFusionBuffer(qureg, max_qubits)
     buf = qureg._fusion_buffer
     if buf is not None:
@@ -326,7 +358,7 @@ def copyStateFromGPU(qureg: Qureg) -> None:
 
 def _init(qureg: Qureg, fn, *args) -> None:
     qureg.state = fn(qureg.num_amps_total, qureg.real_dtype, qureg.device,
-                     *args)
+                     *args, quad=qureg.is_quad)
 
 
 def initBlankState(qureg: Qureg) -> None:
@@ -365,7 +397,12 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
                                     "initPureState")
     val.validate_matching_dims(qureg.num_qubits_represented,
                                pure.num_qubits_represented, "initPureState")
-    if qureg.is_density_matrix:
+    if qureg.is_quad and qureg.is_density_matrix:
+        # |psi><psi| as a dd outer product: the lo planes survive, so
+        # QUAD64 keeps its ~106-bit envelope
+        qureg.state = ddm.dd_outer(pure.state.to(qureg.device),
+                                   conj_left=False)
+    elif qureg.is_density_matrix:
         qureg.state = dm.init_pure_state(pure.state.to(qureg.device))
     else:
         qureg.state = pure.state.to(qureg.device, copy=True)
@@ -396,8 +433,10 @@ def setAmps(qureg: Qureg, start_ind: int, reals, imags,
     val.validate_state_vec(qureg.is_density_matrix, "setAmps")
     val.validate_num_amps(qureg.num_amps_total, start_ind, num_amps,
                           "setAmps")
-    vals = np.stack([np.asarray(reals, np.float64)[:num_amps],
-                     np.asarray(imags, np.float64)[:num_amps]])
+    re64 = np.asarray(reals, np.float64)[:num_amps]
+    im64 = np.asarray(imags, np.float64)[:num_amps]
+    vals = ddm._dd_split_host(re64 + 1j * im64, ddm._np_dtype(
+        qureg.real_dtype)) if qureg.is_quad else np.stack([re64, im64])
     qureg.state[:, start_ind:start_ind + num_amps] = torch.as_tensor(
         vals, dtype=qureg.real_dtype, device=qureg.device)
     qureg.qasm_log.record_comment("amplitudes were manually edited")
@@ -449,8 +488,13 @@ def setWeightedQureg(fac1, qureg1: Qureg, fac2, qureg2: Qureg,
     val.validate_matching_dims(qureg1.num_qubits_represented,
                                out.num_qubits_represented, "setWeightedQureg")
     target = out.state
-    sv.set_weighted(fac1, qureg1.state.to(target.device), fac2,
-                    qureg2.state.to(target.device), fac_out, target)
+    if out.is_quad:
+        out.state = ddm.dd_weighted(fac1, qureg1.state.to(target.device),
+                                    fac2, qureg2.state.to(target.device),
+                                    fac_out, target)
+    else:
+        sv.set_weighted(fac1, qureg1.state.to(target.device), fac2,
+                        qureg2.state.to(target.device), fac_out, target)
     out.qasm_log.record_comment(
         "the register was set to a weighted combination (possibly "
         "unphysical)")
@@ -704,9 +748,11 @@ def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
     val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
                                 "swapGate")
     buf = qureg._fusion_buffer
-    if buf is not None and not buf.flushing:
+    if qureg.is_quad or (buf is not None and not buf.flushing):
         # fusion active: the swap keeps program order with the buffered
-        # gates by riding the buffer as a dense 2-qubit member
+        # gates by riding the buffer as a dense 2-qubit member. A QUAD
+        # register applies the permutation matrix densely in dd: its
+        # entries are exact 0/1, so it stays error-free
         _apply_gate(qureg, mats.swap(), (int(q1), int(q2)))
         qureg.qasm_log.record_gate("swap", q2, (q1,))
         return
@@ -840,6 +886,13 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
                         "calcProbOfOutcome")
     val.validate_outcome(outcome, "calcProbOfOutcome")
     n = qureg.num_qubits_in_state_vec
+    if qureg.is_quad:
+        if qureg.is_density_matrix:
+            p0 = ddm.dd_prob_zero_dm(qureg.state,
+                                     qureg.num_qubits_represented, qubit)
+        else:
+            p0 = ddm.dd_prob_zero_sv(qureg.state, n, qubit)
+        return p0 if outcome == 0 else 1.0 - p0
     if qureg.is_density_matrix:
         nr = qureg.num_qubits_represented
         if qureg.env.compensated:
@@ -859,6 +912,11 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
 
 
 def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
+    if qureg.is_quad:
+        qureg.state = ddm.dd_collapse(
+            qureg.state, qureg.num_qubits_in_state_vec, qubit, outcome,
+            float(prob), density=qureg.is_density_matrix)
+        return
     if qureg.is_density_matrix:
         dm.collapse_to_known_prob_outcome(qureg.state,
                                           qureg.num_qubits_represented,
@@ -928,6 +986,10 @@ def sampleOutcomes(qureg: Qureg, num_samples: int,
         qubits = [int(q) for q in qubits]
         val.validate_multi_targets(n, qubits, "sampleOutcomes")
     planes = qureg.state
+    if qureg.is_quad:
+        # the sampling tolerance does not need the lo bits: hi + lo
+        # rounded to the plane dtype
+        planes = torch.stack([planes[0] + planes[1], planes[2] + planes[3]])
     if qureg.is_density_matrix:
         dim = 1 << n
         probs = planes[0].view(dim, dim).diagonal().clamp(min=0.0)
@@ -972,6 +1034,9 @@ def getAmp(qureg: Qureg, index: int) -> complex:
 
 def _amp_pair(qureg: Qureg, index: int) -> complex:
     pair = qureg.state[:, int(index)].double().cpu()
+    if qureg.is_quad:
+        return complex(float(pair[0]) + float(pair[1]),
+                       float(pair[2]) + float(pair[3]))
     return complex(float(pair[0]), float(pair[1]))
 
 
@@ -997,6 +1062,11 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
 
 
 def calcTotalProb(qureg: Qureg) -> float:
+    if qureg.is_quad:
+        if qureg.is_density_matrix:
+            return ddm.dd_total_prob_dm(qureg.state,
+                                        qureg.num_qubits_represented)
+        return ddm.dd_total_prob(qureg.state)
     if qureg.is_density_matrix:
         n = qureg.num_qubits_represented
         if qureg.env.compensated:
@@ -1015,6 +1085,8 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     val.validate_matching_precision(bra.env.precision.quest_prec,
                                     ket.env.precision.quest_prec,
                                     "calcInnerProduct")
+    if bra.is_quad:
+        return ddm.dd_vdot(bra.state, ket.state.to(bra.device))
     if bra.env.compensated:
         return red.vdot_compensated(bra.state, ket.state)
     re, im = sv.calc_inner_product(bra.state, ket.state)
@@ -1033,6 +1105,8 @@ def _validate_density_pair(a: Qureg, b: Qureg, func: str) -> None:
 def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
     """real(Tr(rho1^dag rho2))."""
     _validate_density_pair(rho1, rho2, "calcDensityInnerProduct")
+    if rho1.is_quad:
+        return ddm.dd_vdot(rho1.state, rho2.state.to(rho1.device)).real
     if rho1.env.compensated:
         return _pair(red.dot_pair(rho1.state, rho2.state))
     return float(dm.calc_inner_product(rho1.state, rho2.state))
@@ -1040,6 +1114,8 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
 
 def calcPurity(qureg: Qureg) -> float:
     val.validate_density_matr(qureg.is_density_matrix, "calcPurity")
+    if qureg.is_quad:
+        return ddm.dd_total_prob(qureg.state)
     if qureg.env.compensated:
         return _pair(red.dot_pair(qureg.state, qureg.state))
     return float(dm.calc_purity(qureg.state))
@@ -1057,6 +1133,13 @@ def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
                                     pure_state.env.precision.quest_prec,
                                     "calcFidelity")
     psi = pure_state.state.to(qureg.device)
+    if qureg.is_quad:
+        if qureg.is_density_matrix:
+            # <psi|rho|psi> = sum_rc rho[r,c] conj(psi_r) psi_c: a plain
+            # dd dot with the dd outer-product weights (lo planes kept)
+            w = ddm.dd_outer(psi, conj_left=True)
+            return ddm.dd_vdot(w, qureg.state, conj_a=False).real
+        return abs(ddm.dd_vdot(qureg.state, psi)) ** 2
     if qureg.is_density_matrix:
         n = qureg.num_qubits_represented
         if qureg.env.compensated:
@@ -1083,6 +1166,10 @@ def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
 
 def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
     _validate_density_pair(a, b, "calcHilbertSchmidtDistance")
+    if a.is_quad:
+        diff = ddm.dd_weighted(1.0, a.state, -1.0, b.state.to(a.device),
+                               0.0, a.state)
+        return math.sqrt(max(0.0, ddm.dd_total_prob(diff)))
     if a.env.compensated:
         d = a.state - b.state
         return math.sqrt(max(0.0, _pair(red.dot_pair(d, d))))
@@ -1110,6 +1197,11 @@ def calcExpecPauliProd(qureg: Qureg, targets: Sequence[int],
     codes_flat = [0] * n
     for t, c in zip(targets, codes):
         codes_flat[int(t)] = int(c)
+    if qureg.is_quad:
+        phi = _dd_pauli_image(qureg, codes_flat)
+        if qureg.is_density_matrix:
+            return float(ddm.dd_total_prob_dm(phi, n))
+        return float(ddm.dd_vdot(qureg.state, phi).real)
     xm, ym, zm = red.pauli_masks(codes_flat, n)
     if qureg.is_density_matrix:
         return float(red.pauli_sum_expvals_dm(qureg.state, n, xm, ym,
@@ -1138,6 +1230,17 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
     val.validate_num_pauli_sum_terms(num_terms, "calcExpecPauliSum")
     val.validate_pauli_codes(all_codes, "calcExpecPauliSum")
     codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    if qureg.is_quad:
+        # term by term on the dd planes: P_t psi, then one dd reduction
+        value = 0.0
+        for t in range(num_terms):
+            phi = _dd_pauli_image(qureg, codes_flat[t * n:(t + 1) * n])
+            if qureg.is_density_matrix:
+                value += float(coeffs[t]) * ddm.dd_total_prob_dm(phi, n)
+            else:
+                value += float(coeffs[t]) * ddm.dd_vdot(qureg.state,
+                                                        phi).real
+        return value
     xm, ym, zm, coeffs_np = red.pauli_sum_operands(
         codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
     if qureg.is_density_matrix:
@@ -1145,6 +1248,19 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
                                             coeffs_np))
     return float(red.pauli_sum_total_sv(qureg.state.unsqueeze(0), xm, ym,
                                         zm, coeffs_np)[0])
+
+
+def _dd_pauli_image(qureg: Qureg, codes: Sequence[int]) -> torch.Tensor:
+    """P psi on a QUAD register's planes for one term's per-qubit codes
+    (on a density register the Paulis act on the ket half). Pauli entries
+    are 0, +-1 and +-i, so each dd gate is exact and the order of the
+    qubits does not change a bit."""
+    phi = qureg.state
+    nv = qureg.num_qubits_in_state_vec
+    for q, code in enumerate(codes):
+        if code:
+            phi = ddm.dd_apply_kq(phi, nv, mats.PAULI_MATS[code], (q,))
+    return phi
 
 
 def applyPauliSum(in_qureg: Qureg, all_codes: Sequence[int],
@@ -1166,6 +1282,18 @@ def applyPauliSum(in_qureg: Qureg, all_codes: Sequence[int],
     val.validate_pauli_codes(all_codes, "applyPauliSum")
     n = in_qureg.num_qubits_represented
     codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    if in_qureg.is_quad:
+        acc = None
+        for t in range(num_terms):
+            phi = _dd_pauli_image(in_qureg, codes_flat[t * n:(t + 1) * n])
+            acc = ddm.dd_weighted(float(coeffs[t]), phi, 0.0, phi, 0.0,
+                                  phi) if acc is None else \
+                ddm.dd_weighted(1.0, acc, float(coeffs[t]), phi, 0.0, acc)
+        out_qureg.state = acc.to(out_qureg.device)
+        out_qureg.qasm_log.record_comment(
+            "the register was set to a Pauli-sum image (possibly "
+            "unphysical)")
+        return
     xm, ym, zm, coeffs_np = red.pauli_sum_operands(
         codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
     out = red.pauli_sum_apply(in_qureg.state.unsqueeze(0), xm, ym, zm,
@@ -1183,8 +1311,15 @@ def _apply_kraus(qureg: Qureg, targets: Sequence[int], ops) -> None:
     """The channel's superoperator on (targets, targets+n) of the flat
     density vector (``densmatr_applyMultiQubitKrausSuperoperator``
     ``QuEST_common.c:598-604``)."""
+    superop = dm.kraus_superoperator(ops)
+    if qureg.is_quad:
+        n = qureg.num_qubits_represented
+        t2 = tuple(int(t) for t in targets) \
+            + tuple(int(t) + n for t in targets)
+        qureg.state = ddm.dd_apply_kq(qureg.state, 2 * n, superop, t2)
+        return
     dm.apply_kraus_superoperator(qureg.state, qureg.num_qubits_represented,
-                                 targets, dm.kraus_superoperator(ops))
+                                 targets, superop)
 
 
 def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
@@ -1192,8 +1327,14 @@ def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
     val.validate_target(qureg.num_qubits_represented, target, "mixDephasing")
     val.validate_prob(prob, "mixDephasing", 0.5, "dephasing probability",
                       code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPHASE_PROB)
-    dm.mix_dephasing(qureg.state, qureg.num_qubits_represented, int(target),
-                     float(prob))
+    if qureg.is_quad:
+        n = qureg.num_qubits_represented
+        qureg.state = ddm.dd_apply_diag(qureg.state, 2 * n,
+                                        dm.dephasing_factors(float(prob)),
+                                        (int(target) + n, int(target)))
+    else:
+        dm.mix_dephasing(qureg.state, qureg.num_qubits_represented,
+                         int(target), float(prob))
     qureg.qasm_log.record_comment(
         f"a phase (Z) error occurred on qubit {target} with probability "
         f"{prob:g}")
@@ -1208,8 +1349,17 @@ def mixTwoQubitDephasing(qureg: Qureg, q1: int, q2: int,
     val.validate_prob(prob, "mixTwoQubitDephasing", 0.75,
                       "two-qubit dephasing probability",
                       code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPHASE_PROB)
-    dm.mix_two_qubit_dephasing(qureg.state, qureg.num_qubits_represented,
-                               int(q1), int(q2), float(prob))
+    if qureg.is_quad:
+        # diagonal on (q1, q2, q1+n, q2+n)
+        n = qureg.num_qubits_represented
+        hi, lo = max(int(q1), int(q2)), min(int(q1), int(q2))
+        qureg.state = ddm.dd_apply_diag(
+            qureg.state, 2 * n, dm.two_qubit_dephasing_factors(float(prob)),
+            (hi + n, lo + n, hi, lo))
+    else:
+        dm.mix_two_qubit_dephasing(qureg.state,
+                                   qureg.num_qubits_represented, int(q1),
+                                   int(q2), float(prob))
     qureg.qasm_log.record_comment(
         f"a phase (Z) error occurred on qubits {q1} and/or {q2} "
         f"with total probability {prob:g}")
@@ -1273,6 +1423,11 @@ def mixDensityMatrix(qureg: Qureg, other_prob: float, other: Qureg) -> None:
                                     other.env.precision.quest_prec,
                                     "mixDensityMatrix")
     src = other.state.to(qureg.device)
+    if qureg.is_quad:
+        qureg.state = ddm.dd_weighted(1.0 - float(other_prob), qureg.state,
+                                      float(other_prob), src, 0.0,
+                                      qureg.state)
+        return
     if src.data_ptr() == qureg.state.data_ptr():
         src = src.clone()      # the in-place update would read itself
     dm.mix_density_matrix(qureg.state, float(other_prob), src)

@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from . import validation as val
-from .config import QUAD_NOT_PORTED, tier_by_name
+from .config import QUAD_TIER, tier_by_name
 from .core import matrices as mats
 from .core.apply import apply_diagonal, apply_unitary, bitmask
 from .env import QuESTEnv
@@ -571,9 +571,12 @@ class Circuit:
                     "density=True and run on a density register")
             circ = self
         if tier is None and error_budget is not None:
-            from .profiling import choose_tier
+            from .profiling import choose_tier, engine_tiers
+            # compile-time tiers pin run()/apply() too, which have no dd
+            # form: QUAD stays a per-dispatch rung (a sweep's tier=)
+            ladder = [t for t in engine_tiers(env) if t.name != "quad"]
             tier = choose_tier(float(error_budget), max(len(circ.ops), 1),
-                               env)
+                               env, tiers=ladder)
         cc = CompiledCircuit(circ, env, donate=donate, fuse=fuse,
                              lookahead=lookahead, pallas=pallas,
                              supergate_k=supergate_k, fusion=fusion,
@@ -583,6 +586,22 @@ class Circuit:
         cc.is_density = density
         cc.error_budget = error_budget
         return cc
+
+    def compile_dd(self, env: QuESTEnv, dtype=None):
+        """Compile to the double-double amplitude path
+        (:class:`~quest_tpu_torch.ops.doubledouble.DDProgram`): each
+        amplitude component is an unevaluated hi+lo pair of ``dtype``
+        floats, on the env's device. ``dtype`` defaults to the env's real
+        dtype: float32 planes give a ~48-bit significand, float64 planes
+        ~106 bits (the reference's quad build analogue). Raises
+        ``ValueError`` for ops outside the dd subset (parameterised or
+        multi-target dense gates)."""
+        from .ops.doubledouble import DDProgram
+        if dtype is None:
+            dtype = np.float32 if env.precision.real_dtype == torch.float32 \
+                else np.float64
+        return DDProgram(list(self.ops), self.num_qubits, dtype=dtype,
+                         device=env.device)
 
     def compile_trajectories(self, env: QuESTEnv,
                              pallas=None) -> "TrajectoryProgram":
@@ -1197,19 +1216,27 @@ class CompiledCircuit:
         return self._plans[key]
 
     def _plan_key(self, tier) -> tuple:
-        return (self._tier_dtypes(tier, self.env)[0],
-                self._tier_exec_mode(tier)[1])
+        key = (self._tier_dtypes(tier, self.env)[0],
+               self._tier_exec_mode(tier)[1])
+        # the QUAD rung walks a layer-free plan (``layers=False``): the
+        # layer kernel has no dd form
+        if tier is not None and tier.name == "quad":
+            return key + (False,)
+        return key
 
-    def _build_plan(self, dtype: torch.dtype, fast: bool):
+    def _build_plan(self, dtype: torch.dtype, fast: bool,
+                    layers: bool = True):
         """record -> FUSE -> schedule -> supergate -> collect layers, for
         planes of ``dtype`` (the kernel's tile height) with the crossover
-        priced for the FAST tier or not."""
+        priced for the FAST tier or not; ``layers=False`` collects no
+        layers (the QUAD rung's plan)."""
         from .core.fusion import fuse_ops, resolve_fusion_k
 
         opts = self._compile_opts
         n = self.num_qubits
         tile_rows = lk.tile_rows_for(dtype)
-        use_layers = bool(opts["layers"]) and n >= lk.LANE_QUBITS
+        use_layers = bool(opts["layers"]) and layers \
+            and n >= lk.LANE_QUBITS
         mxu_policy = _mxu_policy(use_layers, dtype.itemsize, opts["mxu"],
                                  fast)
         diag_cap = 3 if use_layers else -1
@@ -1248,15 +1275,38 @@ class CompiledCircuit:
 
     # -- precision tiers -----------------------------------------------------
 
-    def _resolve_tier(self, tier):
-        """Validate a tier request (None passes through). QUAD is not
-        ported and raises; DOUBLE needs an f64-storage environment,
-        because results leave the engine as env-dtype planes."""
+    def _resolve_tier(self, tier, dispatch: bool = False):
+        """Validate a tier request (None passes through); ``dispatch``
+        marks a per-dispatch request (sweep/expectation_sweep/
+        sample_sweep) as opposed to the compile-time tier. QUAD runs on
+        double-double planes through the batched engine's dd walk
+        (:meth:`_run_dd_batched`) as a per-dispatch tier only, and needs
+        an f64-storage env: results leave the engine as env-dtype planes,
+        so on an f32 env the ~2^-49-significand dd values would round
+        straight back to f32 and the tier would quietly deliver SINGLE
+        accuracy. DOUBLE needs an f64-storage environment for the same
+        reason."""
         if tier is None:
             return None
         tier = tier_by_name(tier)
         if tier.name == "quad":
-            raise NotImplementedError(QUAD_NOT_PORTED)
+            if not dispatch:
+                raise ValueError(
+                    "the QUAD tier is a per-DISPATCH rung: pass "
+                    "tier='quad' to sweep/expectation_sweep/"
+                    "sample_sweep — a compile-time quad tier would pin "
+                    "run()/apply() to the plan, which has no dd form; "
+                    "for static circuits Circuit.compile_dd is the "
+                    "whole-program dd path")
+            if self.env.precision.real_dtype != torch.float64:
+                raise ValueError(
+                    "the QUAD tier's double-double planes recombine to "
+                    "env-dtype planes at the engine boundary: it needs "
+                    "an f64-storage environment (precision=DOUBLE) so "
+                    "the ~48-bit significand survives the exit; on this "
+                    "env use Circuit.compile_dd (static circuits) "
+                    "instead")
+            return tier
         if tier.real_dtype == torch.float64 and \
                 self.env.precision.real_dtype != torch.float64:
             raise ValueError(
@@ -1271,7 +1321,7 @@ class CompiledCircuit:
         compile-time tier, else None (the environment's precision)."""
         if tier is None:
             return self.tier
-        return self._resolve_tier(tier)
+        return self._resolve_tier(tier, dispatch=True)
 
     @staticmethod
     def _tier_exec_mode(tier) -> tuple:
@@ -1283,7 +1333,12 @@ class CompiledCircuit:
 
     @staticmethod
     def _tier_dtypes(tier, env) -> tuple:
-        """(real, complex) EXECUTION dtypes for one dispatch."""
+        """(real, complex) EXECUTION dtypes for one dispatch. QUAD's
+        planes are float32 dd pairs, but its engine boundary is float64:
+        casting the entry states to float32 would destroy the precision
+        the dd split is about to keep."""
+        if tier is not None and tier.name == "quad":
+            return torch.float64, torch.complex128
         rdt = tier.real_dtype if tier is not None \
             else env.precision.real_dtype
         return rdt, (torch.complex64 if rdt == torch.float32
@@ -1453,6 +1508,11 @@ class CompiledCircuit:
             raise ValueError(
                 f"circuit has {self.num_qubits} qubits; register state "
                 f"vector has {qureg.num_qubits_in_state_vec}")
+        if qureg.is_quad:
+            raise ValueError(
+                "QUAD registers hold double-double planes; compile with "
+                "Circuit.compile_dd and run on its packed planes, or use "
+                "the imperative API (which routes to dd kernels)")
         state = qureg.state       # drains a pending fusion buffer
         if state.dtype != self.env.precision.real_dtype:
             raise ValueError("register precision differs from the "
@@ -1476,7 +1536,10 @@ class CompiledCircuit:
                           tier=None) -> torch.Tensor:
         """Walk ``tier``'s plan over ``(B, 2, 2^n)`` states (already in the
         tier's plane dtype), IN PLACE, row ``b`` binding parameter row
-        ``pm[b]``."""
+        ``pm[b]``. The QUAD tier walks double-double planes instead
+        (:meth:`_run_dd_batched`)."""
+        if tier is not None and tier.name == "quad":
+            return self._run_dd_batched(states, pm)
         plan, ops, _ = self._plan_for(tier)
         prec, fast = self._tier_exec_mode(tier)
         for item in plan.items:
@@ -1484,6 +1547,39 @@ class CompiledCircuit:
             adj.apply_item(states, self.num_qubits, op, item,
                            adj.item_operator(op, self.param_names, pm),
                            prec, fast)
+        return states
+
+    def _run_dd_batched(self, states: torch.Tensor,
+                        pm: np.ndarray) -> torch.Tensor:
+        """The QUAD rung: the float64 ``(B, 2, 2^n)`` states split into
+        float32 double-double planes ``(B, 4, 2^n)``, which walk the
+        layer-free plan — every dense item through
+        :func:`~quest_tpu_torch.ops.doubledouble.dd_apply_kq_traced`, every
+        diagonal through the dd factor step, with a Param op's operator
+        bound per row as complex128 before its dd split (so parameterised
+        sweeps ride the dd path the standalone ``DDProgram`` rejects) —
+        then recombine to float64 at the boundary, written back into
+        ``states`` IN PLACE. No kernel of the layer engine runs here."""
+        from .ops import doubledouble as dd
+        plan, ops, _ = self._plan_for(QUAD_TIER)
+        n = self.num_qubits
+        device = states.device
+        planes = dd.dd_split_planes(states[:, 0], states[:, 1],
+                                    QUAD_TIER.real_dtype)
+        for _, i, targets, cmask, fmask, axis_order in plan.items:
+            op = ops[i]
+            operator = torch.as_tensor(
+                np.asarray(adj.item_operator(op, self.param_names, pm),
+                           dtype=np.complex128), device=device)
+            if op.kind == "u":
+                planes = dd.dd_apply_kq_traced(planes, n, operator, targets,
+                                               cmask, fmask)
+                continue
+            lead = operator.dim() - len(targets)
+            operator = operator.permute(tuple(range(lead)) + tuple(
+                lead + a for a in axis_order))
+            planes = dd.dd_apply_diag_traced(planes, n, operator, targets)
+        states.copy_(dd.dd_join_planes(planes))
         return states
 
     def _validated_param_matrix(self, param_matrix) -> np.ndarray:

@@ -100,7 +100,9 @@ class QuESTEnv:
 def default_compensated(precision: Precision) -> bool:
     """The compensated-reductions default: on for single precision (where
     naive float32 accumulation falls ~5 decades short of the reference's
-    1e-10 scalar tolerance), off for double."""
+    1e-10 scalar tolerance), off for double and the double-double QUAD
+    formats (their reductions are compensated by construction). QUAD64's
+    float64 planes need no guard: torch never narrows them."""
     return precision.quest_prec == 1
 
 

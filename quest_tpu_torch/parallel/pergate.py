@@ -3,7 +3,9 @@
 Counterpart of the fusion buffer of the JAX package's ``parallel/pergate.py``.
 The sharded per-gate engine of that module (lazy qubit layout, pair
 exchanges) waits for the port's multi-device slice (ROADMAP Queue 1 item
-8); on one device every fused group is one call of the gate engine.
+8); on one device every fused group is one call of the gate engine. QUAD
+registers never take it: ``api.startGateFusion`` raises on them, as the
+JAX package's does (their double-double gates dispatch eagerly).
 """
 
 from __future__ import annotations

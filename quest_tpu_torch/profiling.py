@@ -26,8 +26,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .config import (DOUBLE_TIER, FAST_TIER, SINGLE_TIER, TIER_LADDER,
-                     tier_by_name)
+from .config import (DOUBLE_TIER, FAST_TIER, QUAD_TIER, SINGLE_TIER,
+                     TIER_LADDER, tier_by_name)
 
 __all__ = ["TierErrorModel", "DEFAULT_TIER_MODEL", "tier_error_model",
            "measure_tier_model", "modeled_tier_error", "engine_tiers",
@@ -214,14 +214,17 @@ def modeled_tier_error(tier, num_gates: int,
 
 
 def engine_tiers(env) -> tuple:
-    """The rungs the port executes on ``env``, in rank order: FAST and
-    SINGLE always (float32 planes), DOUBLE on a float64 environment
-    (results leave the engine as env-dtype planes, so on a float32 env a
-    DOUBLE execution would round straight back to float32). QUAD is not
-    ported yet and is never offered."""
+    """The rungs the batched engine executes on ``env``, in rank order:
+    FAST and SINGLE always (float32 planes), DOUBLE and QUAD on a float64
+    environment (results leave the engine as env-dtype planes, so on a
+    float32 env a DOUBLE execution would round straight back to float32,
+    and QUAD's ~48-bit dd significand would too). QUAD executes through
+    the engine's double-double walk as a per-dispatch tier, so a budget
+    only it meets selects it, as in the JAX package."""
     tiers = [FAST_TIER, SINGLE_TIER]
     if env is not None and env.precision.real_dtype == torch.float64:
         tiers.append(DOUBLE_TIER)
+        tiers.append(QUAD_TIER)
     return tuple(tiers)
 
 
@@ -245,8 +248,8 @@ def choose_tier(error_budget: float, num_gates: int, env=None,
         f"error budget {error_budget:g} is unmeetable on this "
         f"environment: the most accurate available tier models "
         f"{best:g} over {num_gates} gates (create the environment with "
-        f"precision=DOUBLE for the DOUBLE tier; the QUAD tier is not "
-        f"ported yet)")
+        f"precision=DOUBLE for the DOUBLE and QUAD tiers, or use the "
+        f"double-double compile_dd path)")
 
 
 def tier_runtime_tol(tier, num_gates: int,

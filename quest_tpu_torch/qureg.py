@@ -1,5 +1,9 @@
 """The quantum register: one ``(2, 2^N)`` float tensor of amplitudes.
 
+A QUAD or QUAD64 register holds ``(4, 2^N)`` double-double planes
+``[re_hi, re_lo, im_hi, im_lo]`` instead (``ops/doubledouble.py``); its
+host copies combine them to complex128.
+
 Counterpart of the JAX package's ``qureg.py`` on one device. The split
 re/im planes keep the reference's layout (bit ``q`` of the amplitude index
 is qubit ``q``; ``QuEST.h:161-192``). A density matrix of n qubits is the
@@ -23,6 +27,7 @@ import torch
 
 from .core.packing import pack_host, unpack_host
 from .env import QuESTEnv
+from .ops.doubledouble import _dd_split_host, dd_unpack
 from .qasm import QASMLogger
 
 __all__ = ["Qureg"]
@@ -98,9 +103,9 @@ class Qureg:
 
     @property
     def is_quad(self) -> bool:
-        """QUAD (double-double) registers are not ported (ROADMAP Queue 1
-        item 5): always False."""
-        return False
+        """True for QUAD/QUAD64 registers: (4, 2^N) double-double planes
+        (``ops/doubledouble.py``), the QuEST_PREC=4 analogue."""
+        return self.env.precision.quest_prec == 4
 
     @property
     def num_amps_per_chunk(self) -> int:
@@ -134,14 +139,17 @@ class Qureg:
                 f"holds {self.num_amps_total} amplitudes")
         np_dtype = np.float32 if self.real_dtype == torch.float32 \
             else np.float64
-        self.state = torch.from_numpy(  # discards pending gates
-            pack_host(host_array, np_dtype)).to(self.device)
+        arr = _dd_split_host(host_array, np_dtype) if self.is_quad \
+            else pack_host(host_array, np_dtype)
+        self.state = torch.from_numpy(arr).to(  # discards pending gates
+            self.device)
 
     def to_numpy(self) -> np.ndarray:
         """Copy the FULL state to the host as a complex vector — a test
         and debug seam: O(2^n) host memory. Use ``getAmp`` or the
         ``calc*`` reductions in real programs."""
-        return unpack_host(self.state.cpu().numpy())
+        host = self.state.cpu().numpy()
+        return dd_unpack(host) if self.is_quad else unpack_host(host)
 
     def density_matrix_numpy(self) -> np.ndarray:
         """``rho[r, c]`` of a density register (host-side): the transpose

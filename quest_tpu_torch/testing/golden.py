@@ -26,6 +26,9 @@ format (one file per API function)::
 - args: floats/ints space-separated; matrix/vector args are expanded
   inline (re im pairs) and rebuilt from the function's spec.
 
+The runner takes any environment: on a ``QUAD`` or ``QUAD64`` one it
+replays the corpus through the double-double registers.
+
 The entries of ``reseed=True`` specs (``measure``, ``measureWithStats``)
 are skipped: they check the JAX package's own threefry key stream, which
 the port does not reproduce (its draws come from a ``torch.Generator``);

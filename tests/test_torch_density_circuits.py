@@ -368,3 +368,34 @@ def test_noisy_qft_through_the_layers(envs):
     on.run(d)
     assert tq.calcTotalProb(d) == pytest.approx(1.0, abs=TOL)
     assert 0.0 < tq.calcPurity(d) <= 1.0
+
+
+def test_noisy_qft_density_at_fast_matches_jax(envs):
+    """Density at FAST, held: a 4-qubit noisy QFT compiled with
+    ``density=True, tier="fast"`` (its 8-qubit lifted plan holds fused
+    layers, whose dense stages take the bf16 FAST branch) agrees with the
+    JAX package's FAST program, and with the port's own SINGLE program,
+    within ``modeled_tier_error(FAST, ops)`` of the largest amplitude."""
+    jenv, env = envs
+    n = 4
+    tc = port_noisy_qft(n)
+    jc = noisy_qft(JCircuit(n), n)
+    fast = tc.compile(env, density=True, tier="fast")
+    assert fast.num_layers >= 1
+    bar = tq.modeled_tier_error(tq.FAST_TIER, len(fast.circuit.ops))
+    got = {}
+    for name, cc in (("fast", fast),
+                     ("single", tc.compile(env, density=True,
+                                           tier="single"))):
+        d = tq.createDensityQureg(n, env)
+        tq.initClassicalState(d, 5)
+        cc.run(d)
+        got[name] = d.to_numpy()
+    jd = jq.createDensityQureg(n, jenv)
+    jq.initClassicalState(jd, 5)
+    jc.compile(jenv, density=True, tier="fast", pallas="interpret").run(jd)
+    want = jd.to_numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got["fast"] - want).max() <= bar * scale
+    assert np.abs(got["fast"] - got["single"]).max() <= bar * scale
+    assert got["fast"].dtype == np.complex128

@@ -30,7 +30,8 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.ops.adjoint, quest_tpu_torch.parallel.pergate, "
             "quest_tpu_torch.serve, quest_tpu_torch.serve.warmcache, "
             "quest_tpu_torch.ops.dynamics, quest_tpu_torch.algorithms, "
-            "quest_tpu_torch.qasm_import, chip_smoke\n"
+            "quest_tpu_torch.qasm_import, quest_tpu_torch.ops.doubledouble, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
             "or m == 'quest_tpu')\n"

@@ -4,8 +4,9 @@ Covered, on the CPU, with the same numpy-seeded inputs on both sides:
 
 - the ladder (``config.py``) and the error model and budget selector
   (``profiling.py``): fields, modeled errors and runtime tolerances to
-  1e-15, and the rung ``choose_tier`` picks (the JAX ladder minus QUAD,
-  which the port does not execute yet and never offers);
+  1e-15, and the rung ``choose_tier`` picks over the whole ladder, QUAD
+  included on a float64 environment (the compile-time ladder leaves QUAD
+  out in both packages);
 - the FAST function itself: the port's plain FAST dense stages against a
   float64 numpy oracle that rounds hi, lo and the operator to bf16 with
   ``jnp.bfloat16`` (round to nearest even, as torch and CUDA round), to
@@ -110,14 +111,13 @@ def test_modeled_error_and_runtime_tol_match_jax():
 @pytest.mark.parametrize("prec", ["single", "double"])
 def test_choose_tier_matches_jax(prec, envs):
     jenv, tenv = envs[prec]
-    ladder = [t for t in jprof.engine_tiers(jenv) if t.name != "quad"]
+    ladder = jprof.engine_tiers(jenv)
     assert [t.name for t in tq.engine_tiers(tenv)] == \
         [t.name for t in ladder]
     for budget in np.logspace(-1, -16, 31):
         for g in GATE_COUNTS:
             try:
-                want = jq.choose_tier(float(budget), g, jenv,
-                                      tiers=ladder).name
+                want = jq.choose_tier(float(budget), g, jenv).name
             except ValueError:
                 want = None
             try:
@@ -145,19 +145,24 @@ def test_choose_tier_is_monotone(envs):
 
 
 def test_quad_is_data_only(envs):
-    """A budget only QUAD meets: the JAX package picks QUAD, the port
-    raises. Asking for QUAD by name raises NotImplementedError."""
+    """QUAD in both packages: a budget only QUAD meets picks it, a
+    compile-time QUAD tier raises the same ValueError, a per-dispatch QUAD
+    sweep runs and agrees with the JAX package's, and a compile-time
+    budget (whose ladder leaves QUAD out) below DOUBLE's is unmeetable."""
     jenv, tenv = envs["double"]
     assert jq.choose_tier(1e-14, 100, jenv).name == "quad"
-    with pytest.raises(ValueError, match="unmeetable"):
-        tq.choose_tier(1e-14, 100, tenv)
-    c = tq.Circuit(3).h(0)
-    with pytest.raises(NotImplementedError, match="QUAD"):
-        c.compile(tenv, tier="quad")
-    with pytest.raises(NotImplementedError, match="QUAD"):
-        c.compile(tenv).sweep(np.zeros((1, 0)), tier=tq.QUAD_TIER)
-    with pytest.raises(ValueError, match="unmeetable"):
-        c.compile(tenv, error_budget=1e-18)
+    assert tq.choose_tier(1e-14, 100, tenv) is tq.QUAD_TIER
+    c = tq.Circuit(3).h(0).cnot(0, 2)
+    jcirc = JCircuit(3).h(0).cnot(0, 2)
+    for circ, env in ((c, tenv), (jcirc, jenv)):
+        with pytest.raises(ValueError, match="per-DISPATCH rung"):
+            circ.compile(env, tier="quad")
+        with pytest.raises(ValueError, match="unmeetable"):
+            circ.compile(env, error_budget=1e-18)
+    got = c.compile(tenv).sweep(np.zeros((1, 0)), tier=tq.QUAD_TIER)
+    want = np.asarray(jcirc.compile(jenv).sweep(np.zeros((1, 0)),
+                                                tier="quad"))
+    assert np.abs(got.numpy() - want).max() <= 1e-15
 
 
 def test_compile_selects_and_reports_the_tier(envs):
