@@ -11,6 +11,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 9g       # trajectory gradients
     python3 chip_smoke.py --only 15,16    # dynamics, algorithms, QASM
     python3 chip_smoke.py --only 17       # the QUAD tier
+    python3 chip_smoke.py --only 18       # the serving runtime
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -233,7 +234,40 @@ Phases (any unmet check exits non-zero and prints no result line):
     max|amp|); 17d. ``BASELINE.json`` config 4 and ``mixDensityMatrix``
     on a 12-qubit QUAD density register against a DOUBLE one (1e-12),
     trace within 1e-12 of 1, purity in (0, 1]. The phase stays under 120
-    s and 60 GB.
+    s and 60 GB;
+18. the serving runtime (``createSimulationService``: coalesce -> WFQ ->
+    one batched dispatch), layers on, ``max_batch`` 64, ``max_wait_s``
+    5e-3, complex64: 18a. the JAX package's own serving trace
+    (``bench.py:2236``: the 16-qubit 2-layer HEA, the 24-term Pauli sum of
+    seed 2026, 1024 requests, every 4th 64 shots, the rest the energy),
+    first the sequential client (``initZeroState``, ``run``,
+    ``calcExpecPauliSum`` / ``sampleOutcomes`` per request), then the
+    whole trace through one warmed service, submitted while paused:
+    requests/s of both, the speedup, batch occupancy, coalesce ratio,
+    padded fraction, p50/p99 latency, retries, rejects and timeouts; the
+    energies against the sequential client (1e-5 of max|E|) and against
+    direct ``expectation_sweep`` calls over the same 64-row batches
+    (1e-6), each shot request of the right shape with its total norm
+    within 1e-5 of 1; 18b. the same service at phase 8's HEA cell (24
+    qubits): 64 energy and 16 shot requests from 8 client threads, the
+    dispatch profiler at rate 1 (achieved bytes/s and ``roofline_frac``
+    against 3.35e12 B/s, at most 1.05), the energies against one direct
+    ``expectation_sweep`` (1e-6), then one more batch with every batched
+    layer launch held against ``apply_layer_batched_plain`` (1e-5 of
+    max|plain|); 18c. 4 trajectory requests of 128 trajectories on phase
+    9's circuit against a direct ``expectation_batch`` from the same
+    generator state (1e-5 of max|E|); 18d. one gradient batch (8
+    requests, 16 qubits) against a direct ``value_and_grad_sweep`` (1e-5
+    of max|g|); 18e. fault drills at 12 qubits on further services: one
+    injected transient fault (retried; results equal a clean run's), one
+    NaN-poisoned row (that request fails with ``NumericalFault``, its
+    batchmates complete), a circuit-breaker trip (a typed fast-fail),
+    and a refused batched-layer launch (the request fails with the
+    launch error, classified fatal: no retry, no plain version). In
+    18a-18d no request is retried, rejected, timed out or fast-failed and
+    no program degrades; the batched layer kernel launches on 18a, 18b
+    and 18d and the Kraus kernel on 18c, each counted around its path.
+    The phase stays under 120 s.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -3921,6 +3955,529 @@ def phase_quad(torch, qt, lk, kk, card):
     return out
 
 
+SERVE_QUBITS, SERVE_LAYERS, SERVE_TERMS = 16, 2, 24  # bench.py:2236's
+SERVE_REQUESTS, SERVE_SHOTS = 1024, 64               # defaults
+SERVE_BATCH, SERVE_WAIT = 64, 5e-3
+SERVE_CLIENTS, SERVE_SHOT_REQUESTS, SERVE_HELD = 8, 16, 8   # 18b
+SERVE_TRAJ_REQUESTS, SERVE_TRAJ_T = 4, 128                   # 18c
+SERVE_GRAD_REQUESTS = 8                                      # 18d
+SERVE_DRILL_QUBITS = 12                                      # 18e
+
+
+def serving_trace(qt, n: int, num_requests: int):
+    """bench.py:2236's trace: the HEA, the 24-term Pauli sum of seed 2026
+    and one parameter row per request, drawn in the JAX package's order."""
+    rng = np.random.default_rng(2026)
+    circ = hea_circuit(qt, n, SERVE_LAYERS)
+    codes = rng.integers(0, 4, size=(SERVE_TERMS, n))
+    coeffs = rng.normal(size=SERVE_TERMS)
+    terms = [[(q, int(codes[t, q])) for q in range(n)]
+             for t in range(SERVE_TERMS)]
+    codes_flat = [int(c) for c in codes.reshape(-1)]
+    pm = rng.uniform(0.0, 2.0 * np.pi,
+                     size=(num_requests, len(circ.param_names)))
+    return circ, terms, coeffs, codes_flat, pm
+
+
+def serving_service(qt, env, **kwargs):
+    return qt.createSimulationService(
+        env, max_batch=SERVE_BATCH, max_wait_s=SERVE_WAIT,
+        request_timeout_s=600.0, **kwargs)
+
+
+def check_clean(stats, what: str) -> None:
+    """No request of the path was retried, rejected, timed out, failed or
+    fast-failed, and no program degraded: a failing kernel cannot hide
+    behind the recovery path."""
+    s = stats["service"]
+    bad = {k: s[k] for k in ("retries", "rejected_queue_full",
+                             "rejected_deadline", "rejected_quota",
+                             "timeouts", "failed", "breaker_trips",
+                             "breaker_fastfails", "executor_faults",
+                             "degraded_dispatches") if s[k]}
+    degraded = stats["resilience"]["degraded_programs"]
+    check(not bad and not degraded,
+          f"{what}: no retry, reject, timeout, failure or breaker trip "
+          f"({bad or 'all 0'}), no degraded program ({degraded})")
+
+
+def print_service(snap, what: str) -> None:
+    print(f"  {what}: {snap['completed']} completed in {snap['batches']} "
+          f"batches, occupancy {snap['batch_occupancy']:.2f}, coalesce "
+          f"ratio {snap['coalesce_ratio']:.3f}, padded fraction "
+          f"{snap['padded_fraction']:.3f}, p50/p99 latency "
+          f"{snap['p50_latency_s'] * 1e3:.2f}/"
+          f"{snap['p99_latency_s'] * 1e3:.2f} ms, retries "
+          f"{snap['retries']}, rejects "
+          f"{snap['rejected_queue_full'] + snap['rejected_deadline']}, "
+          f"timeouts {snap['timeouts']}")
+
+
+def serving_trace_phase(torch, qt, lk, kk, card):
+    """18a and 18d: the JAX package's serving trace, sequential client and
+    service; then one gradient batch through the same service."""
+    from quest_tpu_torch.serve.metrics import ServiceMetrics
+    n, N, shots = SERVE_QUBITS, SERVE_REQUESTS, SERVE_SHOTS
+    circ, terms, coeffs, codes_flat, pm = serving_trace(qt, n, N)
+    names, ham = circ.param_names, (terms, coeffs)
+    is_sample = (np.arange(N) % 4) == 3
+    env = qt.createQuESTEnv(seed=[2026])
+    cc = circ.compile(env).precompile()
+    print(f"18a: {N} requests ({int(is_sample.sum())} of {shots} shots, "
+          f"{int((~is_sample).sum())} energies), {n}-qubit "
+          f"{SERVE_LAYERS}-layer HEA ({cc.num_layers} layers, "
+          f"{len(cc.plan.items)} ops), {SERVE_TERMS}-term Pauli sum")
+
+    q = qt.createQureg(n, env)
+    qt.initZeroState(q)
+    cc.run(q, dict(zip(names, pm[0])))
+    qt.calcExpecPauliSum(q, codes_flat, coeffs)
+    qt.sampleOutcomes(q, shots)
+    torch.cuda.synchronize()
+    off_vals, off_lat = {}, []
+    t0 = time.perf_counter()
+    for i in range(N):
+        r0 = time.perf_counter()
+        qt.initZeroState(q)
+        cc.run(q, dict(zip(names, pm[i])))
+        if is_sample[i]:
+            qt.sampleOutcomes(q, shots)
+        else:
+            off_vals[i] = qt.calcExpecPauliSum(q, codes_flat, coeffs)
+        off_lat.append(time.perf_counter() - r0)
+    off_s = time.perf_counter() - t0
+    off_lat.sort()
+    # where a sequential request's time goes: 16 requests, part by part
+    parts = np.zeros(3)
+    for i in range(16):
+        r0 = time.perf_counter()
+        qt.initZeroState(q)
+        cc.run(q, dict(zip(names, pm[i])))
+        torch.cuda.synchronize()
+        r1 = time.perf_counter()
+        qt.calcExpecPauliSum(q, codes_flat, coeffs)
+        r2 = time.perf_counter()
+        qt.sampleOutcomes(q, shots)
+        parts += (r1 - r0, r2 - r1, time.perf_counter() - r2)
+    del q
+    parts *= 1e3 / 16
+    off_rate = N / off_s
+    print(f"  service off (sequential client): {off_rate:.1f} requests/s "
+          f"({off_s:.2f} s), p50/p99 latency "
+          f"{ServiceMetrics._pct(off_lat, 50.0) * 1e3:.2f}/"
+          f"{ServiceMetrics._pct(off_lat, 99.0) * 1e3:.2f} ms; a request's "
+          f"parts: initZeroState + run {parts[0]:.2f} ms, calcExpecPauliSum "
+          f"{parts[1]:.2f} ms, sampleOutcomes {parts[2]:.2f} ms")
+
+    svc = serving_service(qt, env, max_queue=N + SERVE_BATCH)
+    n_exp, n_smp = int((~is_sample).sum()), int(is_sample.sum())
+    for count, kw in ((n_exp, {"observables": ham}),
+                      (n_smp, {"shots": shots})):
+        sizes = {min(SERVE_BATCH, count)} | (
+            {count % SERVE_BATCH} if count % SERVE_BATCH else set())
+        svc.warm(cc, batch_sizes=sorted(sizes - {0}), **kw)
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    svc.pause()
+    t0 = time.perf_counter()
+    futs = [svc.submit(cc, pm[i], shots=shots) if is_sample[i]
+            else svc.submit(cc, pm[i], observables=ham) for i in range(N)]
+    svc.resume()
+    results = [f.result(timeout=600) for f in futs]
+    on_s = time.perf_counter() - t0
+    single, batched, kraus = counts(lk, kk)
+    stats = svc.dispatch_stats()
+    snap = stats["service"]
+    on_rate = N / on_s
+    print(f"  service on: {on_rate:.1f} requests/s ({on_s:.2f} s), "
+          f"speedup {on_rate / off_rate:.2f}x over the sequential client")
+    print_service(snap, "service on")
+    check_clean(stats, "18a")
+    check(batched > 0 and single == 0 and kraus == 0,
+          f"18a launched the batched layer kernel {batched} times "
+          f"(single-state {single}, Kraus {kraus})")
+    exp_idx = np.flatnonzero(~is_sample)
+    got = np.array([results[i] for i in exp_idx], dtype=np.float64)
+    seq = np.array([off_vals[i] for i in exp_idx])
+    scale = float(np.abs(seq).max())
+    dev_seq = float(np.abs(got - seq).max()) / scale
+    check(dev_seq <= 1e-5, f"service energies vs the sequential client: "
+          f"{dev_seq:.3e} of max|E| {scale:.3e} <= 1e-5")
+    # the service dispatched each kind FIFO in batches of 64: the same
+    # rows through the engine directly, batch for batch
+    direct = np.concatenate([
+        cc.expectation_sweep(pm[exp_idx[s:s + SERVE_BATCH]], ham)
+        for s in range(0, len(exp_idx), SERVE_BATCH)])
+    dev_direct = float(np.abs(got - direct).max()) / scale
+    check(dev_direct <= 1e-6, f"service energies vs direct "
+          f"expectation_sweep of the same batches: {dev_direct:.3e} of "
+          f"max|E| <= 1e-6")
+    norm_dev = max(abs(results[i][1] - 1.0)
+                   for i in np.flatnonzero(is_sample))
+    shapes = all(results[i][0].shape == (shots,)
+                 for i in np.flatnonzero(is_sample))
+    check(shapes and norm_dev <= 1e-5,
+          f"{n_smp} shot requests of ({shots},) outcomes, total norm "
+          f"within {norm_dev:.2e} of 1 (<= 1e-5)")
+
+    # the same trace at pipeline_depth 2, then at 1 again (one card, in
+    # turns): the completion thread copies results off the device while
+    # the dispatcher launches the next batch
+    rates = {}
+    for depth in (2, 1):
+        other = serving_service(qt, env, max_queue=N + SERVE_BATCH,
+                                pipeline_depth=depth)
+        other.pause()
+        t0 = time.perf_counter()
+        ofuts = [other.submit(cc, pm[i], shots=shots) if is_sample[i]
+                 else other.submit(cc, pm[i], observables=ham)
+                 for i in range(N)]
+        other.resume()
+        ores = [f.result(timeout=600) for f in ofuts]
+        rates[depth] = N / (time.perf_counter() - t0)
+        ostats = other.dispatch_stats()
+        other.close()
+        check_clean(ostats, f"18a at pipeline_depth {depth}")
+        odev = max(abs(ores[i] - results[i]) for i in exp_idx) / scale
+        check(odev <= 1e-6, f"pipeline_depth {depth} energies vs depth 1: "
+              f"{odev:.3e} of max|E| <= 1e-6")
+    print(f"  pipeline_depth 2: {rates[2]:.1f} requests/s, depth 1 again "
+          f"{rates[1]:.1f} (first {on_rate:.1f}); depth 2 / mean depth 1 "
+          f"{2 * rates[2] / (rates[1] + on_rate):.3f}")
+
+    # 18d: one gradient batch through the same service
+    G = SERVE_GRAD_REQUESTS
+    svc.warm(cc, batch_sizes=[G], observables=ham, gradient=True)
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    svc.pause()
+    t0 = time.perf_counter()
+    gfuts = [svc.submit(cc, pm[i], observables=ham, gradient=True)
+             for i in range(G)]
+    svc.resume()
+    gres = [f.result(timeout=600) for f in gfuts]
+    grad_s = time.perf_counter() - t0
+    g_single, g_batched, g_kraus = counts(lk, kk)
+    gstats = svc.dispatch_stats()
+    svc.close()
+    vals, grads = cc.value_and_grad_sweep(pm[:G], ham)
+    got_g = np.stack([g for _, g in gres])
+    got_v = np.array([v for v, _ in gres])
+    g_dev = float(np.abs(got_g - grads).max()) / float(np.abs(grads).max())
+    v_dev = float(np.abs(got_v - vals).max()) / float(np.abs(vals).max())
+    print(f"18d: {G} gradient requests ({len(names)} parameters) in "
+          f"{grad_s:.2f} s, one batch: batched layer launches {g_batched}")
+    check_clean(gstats, "18d")
+    check(gstats["service"]["gradient_dispatches"] == 1
+          and gstats["service"]["gradients_returned"] == G,
+          f"18d coalesced {G} gradient requests into one dispatch")
+    check(g_batched > 0 and g_single == 0 and g_kraus == 0,
+          f"18d launched the batched layer kernel {g_batched} times")
+    check(g_dev <= 1e-5 and v_dev <= 1e-5,
+          f"gradients vs direct value_and_grad_sweep: {g_dev:.3e} of "
+          f"max|g| (values {v_dev:.3e} of max|E|) <= 1e-5")
+    return {"off_rate": off_rate, "on_rate": on_rate,
+            "speedup": on_rate / off_rate, "depth2_rate": rates[2],
+            "off_p50_s": ServiceMetrics._pct(off_lat, 50.0),
+            "off_p99_s": ServiceMetrics._pct(off_lat, 99.0),
+            "snap": {k: snap[k] for k in (
+                "batches", "batch_occupancy", "coalesce_ratio",
+                "padded_fraction", "p50_latency_s", "p99_latency_s")},
+            "launches": batched, "grad_launches": g_batched,
+            "dev_seq": dev_seq, "dev_direct": dev_direct,
+            "grad_dev": g_dev, "grad_s": grad_s}
+
+
+def serving_wide_phase(torch, qt, lk, kk, card):
+    """18b: the service at the 24-qubit HEA cell, 8 client threads, the
+    profiler at rate 1; then one batch held against the plain version."""
+    import threading
+    from quest_tpu_torch.telemetry import profile as tprof
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    n, ham = SWEEP_QUBITS, (terms, coeffs)
+    env = qt.createQuESTEnv(seed=[2027])
+    cc = circ.compile(env)
+    svc = serving_service(qt, env)
+    # a batch shape packs nothing of its own: one row warms the bucket 64
+    svc.warm(cc, batch_sizes=[1], observables=ham)
+    svc.warm(cc, batch_sizes=[1], shots=SERVE_SHOTS)
+    tprof.configure(sample_rate=1.0, reset=True)
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    energies = [None] * SWEEP_BATCH
+    shots = [None] * SERVE_SHOT_REQUESTS
+    errors = []
+
+    def client(tid):
+        try:
+            mine = [(i, svc.submit(cc, pm[i], observables=ham))
+                    for i in range(tid, SWEEP_BATCH, SERVE_CLIENTS)]
+            mine_s = [(i, svc.submit(cc, pm[i], shots=SERVE_SHOTS))
+                      for i in range(tid, SERVE_SHOT_REQUESTS,
+                                     SERVE_CLIENTS)]
+            for i, f in mine:
+                energies[i] = f.result(timeout=600)
+            for i, f in mine_s:
+                shots[i] = f.result(timeout=600)
+        except Exception as e:       # reported on the main thread
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    # submitted while paused, so the batches are one of 64 energies and
+    # one of 16 shots, the shapes the direct sweep below repeats
+    svc.pause()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while svc.dispatch_stats()["service"]["submitted"] < \
+            SWEEP_BATCH + SERVE_SHOT_REQUESTS and not errors:
+        time.sleep(1e-3)
+    svc.resume()
+    for t in threads:
+        t.join(timeout=900)
+    wide_s = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"18b clients finished ({errors})")
+    single, batched, kraus = counts(lk, kk)
+    stats = svc.dispatch_stats()
+    prof = stats["profile"]
+    tprof.configure(sample_rate=0.0)
+    N = SWEEP_BATCH + SERVE_SHOT_REQUESTS
+    print(f"18b: {SWEEP_BATCH} energy and {SERVE_SHOT_REQUESTS} shot "
+          f"requests from {SERVE_CLIENTS} client threads, {n}-qubit HEA: "
+          f"{wide_s:.2f} s, {N / wide_s:.2f} requests/s")
+    print_service(stats["service"], "service")
+    check_clean(stats, "18b")
+    check(batched > 0 and single == 0 and kraus == 0,
+          f"18b launched the batched layer kernel {batched} times")
+    keys = [k for k in prof["keys"].values() if k["site"] == "serve.execute"]
+    check(len(keys) >= 2, f"profiler keys for both request kinds "
+          f"({len(keys)})")
+    frac = 0.0
+    for k in keys:
+        print(f"  profile {k['kind']} b{k['bucket']}: {k['count']} "
+              f"dispatches, mean {k['mean_s'] * 1e3:.1f} ms, "
+              f"{k['bytes_per_pass'] / 1e9:.1f} GB planned, achieved "
+              f"{k['achieved_bytes_per_s'] / 1e9:.1f} GB/s, roofline_frac "
+              f"{k['roofline_frac']:.4f} of {prof['peak_bytes_per_s']:.3g} "
+              f"B/s ({prof['roofline_model']})")
+        frac = max(frac, k["roofline_frac"])
+    check(prof["peak_bytes_per_s"] == HBM_BYTES_PER_S and 0.0 < frac <= 1.05,
+          f"roofline_frac {frac:.4f} in (0, 1.05] against "
+          f"{prof['peak_bytes_per_s']:.3g} B/s")
+    direct = cc.expectation_sweep(pm, ham)
+    got = np.array(energies, dtype=np.float64)
+    scale = float(np.abs(direct).max())
+    dev = float(np.abs(got - direct).max()) / scale
+    check(dev <= 1e-6, f"18b energies vs one direct expectation_sweep: "
+          f"{dev:.3e} of max|E| {scale:.3e} <= 1e-6")
+    norm_dev = max(abs(t - 1.0) for _, t in shots)
+    check(all(idx.shape == (SERVE_SHOTS,) for idx, _ in shots)
+          and norm_dev <= 1e-5, f"{SERVE_SHOT_REQUESTS} shot requests, "
+          f"total norm within {norm_dev:.2e} of 1 (<= 1e-5)")
+    # one more batch through the service with every batched layer launch
+    # held against its plain version on the same input
+    with HeldLayers(torch, lk, batched=True) as held:
+        svc.pause()
+        hf = [svc.submit(cc, pm[i], observables=ham)
+              for i in range(SERVE_HELD)]
+        svc.resume()
+        held_e = np.array([f.result(timeout=600) for f in hf])
+    svc.close()
+    abs_err, rel = held.max_err()
+    check(held.launches > 0 and rel <= 1e-5,
+          f"18b held batch of {SERVE_HELD}: {held.launches} batched "
+          f"layer launches vs apply_layer_batched_plain, max|diff| "
+          f"{abs_err:.3e}, / max|plain| {rel:.3e} <= 1e-5")
+    check(bool(np.isfinite(held_e).all()), "held batch energies finite")
+    return {"rate": N / wide_s, "launches": batched + held.launches,
+            "roofline_frac": frac, "dev": dev, "held_err": abs_err,
+            "held_rel": rel}
+
+
+def serving_trajectory_phase(torch, qt, lk, kk, card):
+    """18c: trajectory requests on phase 9's circuit, against a direct
+    expectation_batch from the same generator state."""
+    n = TRAJ_QUBITS
+    rng = np.random.default_rng(2110)
+    circ = trajectory_circuit(qt, n, rng)
+    ham = ([[(q, 3)] for q in range(n)], list(rng.normal(size=n)))
+    env = qt.createQuESTEnv(seed=[7])
+    svc = serving_service(qt, env)
+    tp = svc.warm(circ, observables=ham, trajectories=SERVE_TRAJ_T)
+    R = SERVE_TRAJ_REQUESTS
+    qt.seedQuEST(env, [7])
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    svc.pause()
+    t0 = time.perf_counter()
+    futs = [svc.submit(circ, None, observables=ham,
+                       trajectories=SERVE_TRAJ_T) for _ in range(R)]
+    svc.resume()
+    res = [f.result(timeout=600) for f in futs]
+    traj_s = time.perf_counter() - t0
+    single, batched, kraus = counts(lk, kk)
+    stats = svc.dispatch_stats()
+    svc.close()
+    qt.seedQuEST(env, [7])
+    means, errs, _ = tp.expectation_batch(
+        np.zeros((R, 0)), ham, SERVE_TRAJ_T, live_rows=R)
+    got = np.array([m for m, _ in res])
+    scale = float(np.abs(means).max())
+    dev = float(np.abs(got - means).max()) / scale
+    print(f"18c: {R} trajectory requests of {SERVE_TRAJ_T} trajectories "
+          f"({n} qubits) in {traj_s:.2f} s, "
+          f"{R * SERVE_TRAJ_T / traj_s:.1f} trajectories/s; launches: "
+          f"batched layer {batched}, Kraus {kraus}")
+    check_clean(stats, "18c")
+    check(stats["service"]["trajectory_dispatches"] == 1,
+          "18c coalesced the trajectory requests into one wave loop")
+    check(kraus > 0 and single == 0,
+          f"18c launched the Kraus kernel {kraus} times")
+    check(dev <= 1e-5, f"trajectory energies vs direct expectation_batch "
+          f"on the same generator state: {dev:.3e} of max|E| {scale:.3e} "
+          f"<= 1e-5")
+    return {"kraus": kraus, "layer": batched, "dev": dev,
+            "traj_per_s": R * SERVE_TRAJ_T / traj_s}
+
+
+def serving_drills(torch, qt, lk, kk, card):
+    """18e: fault drills at 12 qubits on services of their own."""
+    from quest_tpu_torch.ops import cuda_build
+    from quest_tpu_torch.resilience import (FaultInjector, FaultSpec,
+                                            NumericalFault,
+                                            ResiliencePolicy, inject)
+    from quest_tpu_torch.serve import CircuitBreakerOpen
+    n, B = SERVE_DRILL_QUBITS, 8
+    circ, terms, coeffs, _, pm = serving_trace(qt, n, B)
+    ham = (terms, coeffs)
+    env = qt.createQuESTEnv(seed=[12])
+    cc = circ.compile(env)
+    clean = cc.expectation_sweep(pm, ham)
+    scale = float(np.abs(clean).max())
+
+    def batch(svc):
+        svc.pause()
+        futs = [svc.submit(cc, pm[i], observables=ham) for i in range(B)]
+        svc.resume()
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(timeout=120))
+            except Exception as e:       # the drill reads the failure
+                out.append(e)
+        return out
+
+    # no jitter: the retried requests re-form the clean run's batch
+    svc = serving_service(qt, env, resilience=ResiliencePolicy(
+        quarantine=False, backoff_jitter=0.0, seed=1))
+    with inject(FaultInjector([FaultSpec("transient", site="serve.execute",
+                                         at_calls=(0,))], seed=1)):
+        res = batch(svc)
+    snap = svc.dispatch_stats()["service"]
+    ok = all(not isinstance(r, Exception) for r in res)
+    dev = float(np.abs(np.array(res if ok else [np.nan]) - clean).max()) \
+        / scale
+    check(ok and snap["retries"] == B and snap["executor_faults"] == 1
+          and dev <= 1e-6, f"18e transient: {snap['retries']} retries "
+          f"after 1 executor fault, results vs a clean run {dev:.3e} of "
+          f"max|E| <= 1e-6")
+    with inject(FaultInjector([FaultSpec("nan", site="serve.execute",
+                                         at_calls=(0,))], seed=2)):
+        res = batch(svc)
+    bad = [i for i, r in enumerate(res) if isinstance(r, NumericalFault)]
+    good = [i for i, r in enumerate(res) if not isinstance(r, Exception)]
+    dev = max((abs(res[i] - clean[i]) for i in good), default=np.nan) \
+        / scale
+    check(len(bad) == 1 and len(good) == B - 1 and dev <= 1e-6,
+          f"18e NaN row: request {bad} failed with NumericalFault, "
+          f"{len(good)} batchmates completed ({dev:.3e} of max|E|)")
+    svc.close()
+
+    svc = serving_service(qt, env, max_retries=0, resilience=ResiliencePolicy(
+        quarantine=False, breaker_threshold=1, breaker_cooldown_s=600.0))
+    with inject(FaultInjector([FaultSpec("transient", site="serve.execute",
+                                         at_calls=(0,))], seed=3)):
+        first = svc.submit(cc, pm[0], observables=ham)
+        try:
+            first.result(timeout=120)
+        except Exception:            # the injected fault, counted below
+            pass
+        second = svc.submit(cc, pm[1], observables=ham)
+        try:
+            second.result(timeout=120)
+            fast_failed = False
+        except CircuitBreakerOpen:
+            fast_failed = True
+    snap = svc.dispatch_stats()["service"]
+    svc.close()
+    check(fast_failed and snap["breaker_trips"] == 1
+          and snap["breaker_fastfails"] == 1,
+          f"18e breaker: tripped {snap['breaker_trips']} time(s), the next "
+          f"request fast-failed typed ({fast_failed})")
+
+    launch = lk.apply_layer_batched
+    refused = {"calls": 0}
+
+    def refuse(*args, **kwargs):
+        refused["calls"] += 1
+        raise cuda_build.KernelLaunchError(
+            "layer kernel launch failed: refused (drill)")
+
+    def forbidden(*args, **kwargs):
+        raise SmokeFailure("a plain version ran on the card")
+
+    plain = lk.apply_layer_batched_plain
+    svc = serving_service(qt, env)
+    lk.apply_layer_batched, lk.apply_layer_batched_plain = refuse, forbidden
+    try:
+        res = batch(svc)
+    finally:
+        lk.apply_layer_batched, lk.apply_layer_batched_plain = launch, plain
+    snap = svc.dispatch_stats()["service"]
+    svc.close()
+    check(cc.num_layers > 0 and refused["calls"] >= 1
+          and all(isinstance(r, cuda_build.KernelLaunchError) for r in res)
+          and snap["failed_fatal"] == B and snap["retries"] == 0,
+          f"18e refused launch: {B} requests failed with the launch error "
+          f"(fatal {snap['failed_fatal']}, retries {snap['retries']})")
+    print(f"18e: drills at {n} qubits passed (transient retried, NaN row "
+          "quarantined, breaker fast-fail, refused launch fatal)")
+
+
+def phase_serving(torch, qt, lk, kk, card):
+    print(f"phase 18: the serving runtime on {card}, max_batch "
+          f"{SERVE_BATCH}, max_wait_s {SERVE_WAIT}, complex64")
+    t0 = time.perf_counter()
+    trace = serving_trace_phase(torch, qt, lk, kk, card)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    wide = serving_wide_phase(torch, qt, lk, kk, card)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    traj = serving_trajectory_phase(torch, qt, lk, kk, card)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    serving_drills(torch, qt, lk, kk, card)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"phase 18 wall time {wall:.1f} s: 18a+18d {t1 - t0:.1f}, 18b "
+          f"{t2 - t1:.1f}, 18c {t3 - t2:.1f}, 18e "
+          f"{time.perf_counter() - t3:.1f}")
+    check(wall <= 120.0, f"phase 18 wall time {wall:.1f} s <= 120 s")
+    by_path = {"18a": trace["launches"], "18b": wide["launches"],
+               "18c": traj["layer"], "18d": trace["grad_launches"]}
+    print(f"  serving launches: batched layer {by_path}, Kraus (18c) "
+          f"{traj['kraus']}")
+    return {"layer_launches": sum(by_path.values()),
+            "launches_by_path": by_path, "kraus_launches": traj["kraus"],
+            "on_rate": trace["on_rate"], "off_rate": trace["off_rate"],
+            "depth2_rate": trace["depth2_rate"],
+            "roofline_frac": wide["roofline_frac"],
+            "held_err": wide["held_err"], "wall_s": wall}
+
+
 def quad_keys(quad):
     """Phase 17's figures, as keys of the ``layer_kernel`` row (no kernel
     runs on the dd paths)."""
@@ -4075,8 +4632,25 @@ def algorithm_keys(algorithms):
             "algorithms_gates_per_s": algorithms["gates_per_s"]}
 
 
+def serving_keys(serving, kraus: bool = False):
+    """The serving path's keys of the batched layer kernel's row (its
+    launches on 18a, 18b and 18d, 18b's roofline share, the held batch's
+    error) or of the Kraus kernel's row (its launches on 18c)."""
+    if serving is None:
+        return {}
+    if kraus:
+        return {"launches_serving": serving["kraus_launches"]}
+    return {"launches_serving": serving["layer_launches"],
+            "serving_launches_by_path": serving["launches_by_path"],
+            "serving_requests_per_s": serving["on_rate"],
+            "serving_sequential_requests_per_s": serving["off_rate"],
+            "serving_depth2_requests_per_s": serving["depth2_rate"],
+            "serving_roofline_frac": serving["roofline_frac"],
+            "serving_held_max_abs_err": serving["held_err"]}
+
+
 def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
-                traj_grad=None, dynamics=None):
+                traj_grad=None, dynamics=None, serving=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"] \
         + (traj_grad["rows"] if traj_grad is not None else [])
@@ -4091,11 +4665,13 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "launches": sweep["launches"] + traj["launches_layer"]
         + (grad["launches"] if grad is not None else 0)
         + (traj_grad["launches_layer"] if traj_grad is not None else 0)
-        + (dynamics["launches"] if dynamics is not None else 0),
+        + (dynamics["launches"] if dynamics is not None else 0)
+        + (serving["layer_launches"] if serving is not None else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
         "max_abs_err": max([r[5] for r in rows] + (
-            [dynamics["max_abs_err"]] if dynamics is not None else [])),
+            [dynamics["max_abs_err"]] if dynamics is not None else []) + (
+            [serving["held_err"]] if serving is not None else [])),
         "ms": float(np.mean([r[0] for r in sweep["rows"]])),
         "plain_ms": float(np.mean([r[3] for r in sweep["rows"]])),
         "bound_ms": float(np.mean([r[1] for r in sweep["rows"]])),
@@ -4107,13 +4683,15 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         **gradient_keys(grad, density_grad),
         **traj_gradient_keys(traj_grad),
         **dynamics_keys(dynamics),
+        **serving_keys(serving),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
         "source": "quest_tpu_torch/csrc/kraus_kernel.cu",
         "replaces": "quest_tpu/ops/pallas_kernels.py:888",
         "launches": traj["launches_kraus"]
-        + (traj_grad["launches_kraus"] if traj_grad is not None else 0),
+        + (traj_grad["launches_kraus"] if traj_grad is not None else 0)
+        + (serving["kraus_launches"] if serving is not None else 0),
         "launches_trajectories": traj["launches_kraus"],
         "max_abs_err": max(kerr, traj_grad["kraus_max_abs_err"])
         if traj_grad is not None else kerr,
@@ -4124,6 +4702,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "library_ms": k_lib,
         "trajectories_per_s": traj["traj_per_s"],
         **traj_gradient_keys(traj_grad, kraus=True),
+        **serving_keys(serving, kraus=True),
     }]
 
 
@@ -4163,7 +4742,7 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
-          "10", "11", "12", "12d", "13", "14", "15", "16", "17")
+          "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18")
 
 
 def parse_only(argv):
@@ -4260,6 +4839,9 @@ def main(argv) -> int:
               f"{time.perf_counter() - t1:.1f} s")
         torch.cuda.empty_cache()
         quad = phase_quad(torch, qt, lk, kk, card) if runs("17") else None
+        torch.cuda.empty_cache()
+        serving = phase_serving(torch, qt, lk, kk, card) \
+            if runs("18") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -4275,7 +4857,7 @@ def main(argv) -> int:
             tail.append(diag_row(density))
         if only is None:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
-                               traj_grad, dynamics) + tail
+                               traj_grad, dynamics, serving) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -4304,6 +4886,12 @@ def main(argv) -> int:
                                  **traj_gradient_keys(traj_grad)))
                 rows.append(dict(name="kraus_kernel", path="traj_gradient",
                                  **traj_gradient_keys(traj_grad, True)))
+            if serving is not None:
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="serving",
+                                 **serving_keys(serving)))
+                rows.append(dict(name="kraus_kernel", path="serving",
+                                 **serving_keys(serving, kraus=True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -9,8 +9,10 @@ programs on a density register), Hamiltonian dynamics
 one CUDA device, with the fused gate-layer kernel written by hand in CUDA
 C++ for Hopper (``csrc/layer_kernel.cu``), and the precision-tier ladder
 (FAST, SINGLE, DOUBLE, QUAD; ``Circuit.compile(tier=/error_budget=)``,
-``sweep(tier=)``), and the double-double QUAD/QUAD64 registers and
-``Circuit.compile_dd`` (``ops/doubledouble.py``). The JAX package ``quest_tpu`` is the reference this
+``sweep(tier=)``), the double-double QUAD/QUAD64 registers and
+``Circuit.compile_dd`` (``ops/doubledouble.py``), and the serving runtime
+(``createSimulationService``: ``serve/``, with ``telemetry/`` and
+``resilience/``). The JAX package ``quest_tpu`` is the reference this
 port is tested against; nothing here imports it or JAX.
 
 ```python

@@ -54,6 +54,8 @@ __all__ = [
     # env
     "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "syncQuESTSuccess",
     "reportQuESTEnv", "getEnvironmentString", "seedQuEST", "seedQuESTDefault",
+    # the serving runtime (no QuEST counterpart)
+    "createSimulationService",
     # imperative gate fusion
     "startGateFusion", "stopGateFusion", "fusedGates",
     # registers
@@ -253,6 +255,22 @@ def createQuESTEnv(num_devices: Optional[int] = None,
     return create_quest_env(num_devices=num_devices, precision=precision,
                             seed=seed, compensated=compensated,
                             device=device)
+
+
+def createSimulationService(env: QuESTEnv, **kwargs):
+    """Create the asynchronous serving runtime over ``env``
+    (:class:`quest_tpu_torch.serve.SimulationService`; no QuEST
+    counterpart): callers ``submit`` requests and get futures, and the
+    service coalesces compatible requests into one batched dispatch. The
+    keyword arguments are the service's knobs: ``max_queue``,
+    ``max_batch``, ``max_wait_s``, ``request_timeout_s``, ``max_retries``,
+    ``resilience`` (a :class:`quest_tpu_torch.resilience.ResiliencePolicy`:
+    retry backoff, circuit breaker, batch quarantine, watchdog),
+    ``trace_sample_rate`` (:mod:`quest_tpu_torch.telemetry`), ``tenants``
+    and ``pipeline_depth``. Close it with ``service.close()`` (or use it
+    as a context manager)."""
+    from .serve import SimulationService
+    return SimulationService(env, **kwargs)
 
 
 def destroyQuESTEnv(env: QuESTEnv) -> None:

@@ -57,6 +57,7 @@ cache to key).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -75,6 +76,10 @@ from .ops import layer_kernel as lk
 from .ops import reductions as red
 from .parallel.layout import LayoutPlan, plan_layout
 from .qureg import Qureg
+from .resilience import faults as _faults
+from .resilience import health as _health
+from .telemetry import profile as _profile
+from .telemetry.tracing import dispatch_annotation
 from .types import PauliOpType
 
 __all__ = ["Circuit", "CompiledCircuit", "Param"]
@@ -1202,6 +1207,10 @@ class CompiledCircuit:
         # adjoint walks over them, at a tier's first gradient sweep
         self._plans: dict = {}
         self._walks: dict = {}
+        # the health guard's cadence counter (run() may be called from
+        # several threads)
+        self._stats_lock = threading.Lock()
+        self._health_counter = 0
         self.plan, self._ops, self.fusion_stats = self._plan_for(self.tier)
         self.tile_rows = lk.tile_rows_for(
             self._tier_dtypes(self.tier, env)[0])
@@ -1330,6 +1339,19 @@ class CompiledCircuit:
         the batched engine."""
         fast = tier is not None and tier.matmul_precision == "default"
         return ("default" if fast else None), fast
+
+    @staticmethod
+    def _tier_token(tier) -> str:
+        """A tier's key component (its name, ``"env"`` for the
+        environment's precision): the serving coalescer's tier dimension
+        and the dispatch profiler's key, one definition for both."""
+        return tier.name if tier is not None else "env"
+
+    @staticmethod
+    def _dtype_token(dtype: torch.dtype) -> str:
+        """A plane dtype's name as the JAX package writes it into its keys
+        (``"float32"``, ``"float64"``)."""
+        return str(dtype).replace("torch.", "")
 
     @staticmethod
     def _tier_dtypes(tier, env) -> tuple:
@@ -1482,6 +1504,31 @@ class CompiledCircuit:
                              "host_syncs_avoided": host_syncs_avoided,
                              "evolve_steps_fused": evolve_steps_fused}
 
+    def _bytes_per_pass(self, batch: int = 1, terms: int = 0) -> float:
+        """The device traffic of ONE dispatch of this program as the plan
+        knows it: every planned item (layer or plain op) streams the re/im
+        planes once, read and written, times the batch rows, plus one pass
+        per Pauli term for energy dispatches. The dispatch profiler divides
+        it by the measured seconds for a live achieved bytes/s and
+        ``roofline_frac``."""
+        itemsize = self.env.precision.real_dtype.itemsize
+        state_bytes = 4.0 * itemsize * (1 << self.num_qubits)
+        passes = max(len(self.plan.items), 1) + max(int(terms), 0)
+        return passes * max(int(batch), 1) * state_bytes
+
+    def _batch_policy(self, batch: int, mem_factor: float = 1.0) -> dict:
+        """The batch-sharding decision for a ``batch``-point dispatch: on
+        one device always ``{"mode": "none"}`` (the JAX package chooses
+        between batch and amplitude sharding over a mesh, ROADMAP Queue 1
+        item 8)."""
+        return {"mode": "none"}
+
+    def _drift_models(self, mode: str, rows: int, pol: dict) -> dict:
+        """The drift-monitor models of one batched dispatch: the JAX
+        package models only collective seconds, which a dispatch off a
+        mesh does not pay, so none."""
+        return {}
+
     @property
     def program_digest(self) -> str:
         """Stable content digest of the recorded program
@@ -1517,9 +1564,59 @@ class CompiledCircuit:
         if state.dtype != self.env.precision.real_dtype:
             raise ValueError("register precision differs from the "
                              "circuit's compile-time environment")
-        out = self.apply(state, params)
-        if out is not state:
-            qureg.state = out
+        # the profile span opens BEFORE the fault hook, so an injected
+        # stall lands inside the measured time
+        sp = _profile.profile_dispatch("circuits.run")
+        poison = _faults.fire("circuits.run")
+        with dispatch_annotation(
+                f"quest_tpu_torch.circuits.run:{self.num_qubits}q"):
+            out = self.apply(state, params)
+        if sp is not None:
+            sp.done(out, program=self.program_digest, kind="run", bucket=1,
+                    tier=self._tier_token(self.tier),
+                    dtype=self._dtype_token(self.env.precision.real_dtype),
+                    sharding="none", bytes_per_pass=self._bytes_per_pass())
+        out = _faults.poison_output(poison, out)
+        qureg.state = self._health_tick(
+            out, is_density=qureg.is_density_matrix,
+            num_qubits=qureg.num_qubits_represented, where="run")
+
+    def _health_tick(self, planes, *, is_density: bool, num_qubits: int,
+                     where: str, tier=None):
+        """The numerical health guard at the dispatch boundary: every
+        ``cadence``-th guarded dispatch (the global config,
+        :func:`quest_tpu_torch.resilience.health.configure` /
+        ``QUEST_TPU_HEALTH_EVERY``) checks the output's invariants —
+        NaN/Inf, statevector norm, density trace — in one reduction,
+        raising a typed ``NumericalFault`` or renormalizing in the degraded
+        mode. One int compare when the guard is off (the default).
+
+        With a precision tier the check is the tier's fidelity monitor:
+        the drift threshold widens to the tier's runtime tolerance
+        (:func:`quest_tpu_torch.profiling.tier_runtime_tol`) and a
+        violation carries the ``"precision"`` fault kind, which the serving
+        recovery answers by re-executing one tier up."""
+        cfg = _health.get_config()
+        if cfg.cadence <= 0:
+            return planes
+        with self._stats_lock:
+            self._health_counter += 1
+            due = (self._health_counter % cfg.cadence) == 0
+        if not due:
+            return planes
+        drift_kind = None
+        if tier is None:
+            tier = self.tier
+        if tier is not None:
+            from .profiling import tier_runtime_tol
+            tol = tier_runtime_tol(tier, max(self.circuit.depth, 1))
+            if tol > cfg.norm_tol:
+                cfg = dataclasses.replace(cfg, norm_tol=tol)
+            drift_kind = "precision"
+        return _health.check_planes(
+            planes, is_density=is_density, num_qubits=num_qubits,
+            config=cfg, where=f"{where} ({self.num_qubits}q program)",
+            drift_kind=drift_kind)
 
 
     # -- batched ensemble engine --------------------------------------------

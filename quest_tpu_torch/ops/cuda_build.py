@@ -6,7 +6,13 @@ libraries of one build live in ``build/quest_tpu_torch/<key>/``, where the
 key is a hash over ALL sources in ``csrc/`` (the ``.cuh`` headers they
 share included) and the flags: a change to any source rebuilds every
 library, and the first kernel a program calls builds them all, one
-``nvcc`` per source, all started together.
+``nvcc`` per source, all started together. The build runs once per
+process under a lock, whichever thread asks first (a serving dispatcher
+and a caller warming a program may ask at the same moment).
+
+A build that fails raises :class:`KernelBuildError`, and a launch that
+CUDA refuses raises :class:`KernelLaunchError`: the serving runtime
+classifies both as fatal (no retry, no fallback).
 """
 
 from __future__ import annotations
@@ -17,13 +23,25 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "NVCC_FLAGS", "sources_key", "build_all", "library"]
+__all__ = ["CSRC", "NVCC_FLAGS", "KernelBuildError", "KernelLaunchError",
+           "sources_key", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no ``nvcc``, or ``nvcc``
+    failed on a source)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A built kernel's C entry point refused a launch (its CUDA error
+    string is the message)."""
 
 
 def _nvcc() -> str:
@@ -33,8 +51,9 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the port's kernels are built from "
-                       "quest_tpu_torch/csrc with the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: the port's kernels are built "
+                           "from quest_tpu_torch/csrc with the CUDA "
+                           "toolkit")
 
 
 def _sources() -> list:
@@ -54,11 +73,7 @@ def _build_dir() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def build_all() -> dict:
-    """Compile every ``csrc/*.cu`` not yet built under the current key
-    (all ``nvcc`` processes at once) and load each library. Returns
-    ``{stem: (ctypes.CDLL, path, compiler_output)}``; the output is empty
-    for a library found already built."""
+def _build_all() -> dict:
     out_dir = _build_dir() / sources_key()
     out_dir.mkdir(parents=True, exist_ok=True)
     units = [p for p in _sources() if p.suffix == ".cu"]
@@ -86,11 +101,29 @@ def build_all() -> dict:
                 proc.kill()
                 proc.wait()
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return {src.stem: (ctypes.CDLL(str(out_dir / f"{src.stem}.so")),
                        str(out_dir / f"{src.stem}.so"),
                        logs.get(src.stem, ""))
             for src in units}
+
+
+_BUILD_LOCK = threading.Lock()
+
+
+def build_all() -> dict:
+    """Compile every ``csrc/*.cu`` not yet built under the current key
+    (all ``nvcc`` processes at once) and load each library, once per
+    process: concurrent first callers wait on one lock and share the one
+    build. Returns ``{stem: (ctypes.CDLL, path, compiler_output)}``; the
+    output is empty for a library found already built."""
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+# the cache's accounting and reset, where callers read them
+build_all.cache_info = _build_all.cache_info
+build_all.cache_clear = _build_all.cache_clear
 
 
 def library(stem: str) -> tuple:

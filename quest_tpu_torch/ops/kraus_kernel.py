@@ -153,8 +153,9 @@ def build_library() -> tuple:
 
 def _raise_on(lib, err: int) -> None:
     if err != 0:
-        raise RuntimeError("Kraus kernel launch failed: "
-                           + lib.quest_kraus_error_string(err).decode())
+        raise cuda_build.KernelLaunchError(
+            "Kraus kernel launch failed: "
+            + lib.quest_kraus_error_string(err).decode())
 
 
 def shared_memory_for(num_qubits: int, dtype: torch.dtype) -> int:

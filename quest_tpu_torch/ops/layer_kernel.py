@@ -968,8 +968,9 @@ def _launch(states: torch.Tensor, num_qubits: int, layer: LayerOp,
         else:
             err = fn(*head, total_rows, tile_rows, *tail, stream)
     if err != 0:
-        raise RuntimeError("layer kernel launch failed: "
-                           + lib.quest_layer_error_string(err).decode())
+        raise cuda_build.KernelLaunchError(
+            "layer kernel launch failed: "
+            + lib.quest_layer_error_string(err).decode())
     return diagonal
 
 
@@ -1187,8 +1188,9 @@ def apply_mxu_tile(planes: torch.Tensor, num_qubits: int, u,
         else:
             err = lib.quest_mxu_tile_f64(*head, *tail)
     if err != 0:
-        raise RuntimeError("MXU-tile launch failed: "
-                           + lib.quest_layer_error_string(err).decode())
+        raise cuda_build.KernelLaunchError(
+            "MXU-tile launch failed: "
+            + lib.quest_layer_error_string(err).decode())
     apply_mxu_tile.launches += 1
     return planes
 

@@ -254,6 +254,9 @@ class TrajectoryProgram:
     observables with :meth:`expectation` (waves, early stopping).
     """
 
+    tier = None          # trajectory dispatches run at the env precision
+    is_density = False   # pure states at statevector cost
+
     def __init__(self, circuit, env, pallas=None):
         """``pallas`` as in ``Circuit.compile``: None or True runs static
         gate runs through the batched layer kernel and lane channels
@@ -839,11 +842,16 @@ class TrajectoryProgram:
                           sampling_budget: Optional[float] = None,
                           wave_size: Optional[int] = None,
                           live_rows: Optional[int] = None, state_f=None,
-                          seed: Optional[int] = None):
+                          progress=None, seed: Optional[int] = None):
         """The ``(B, T)`` form: one ensemble per parameter row, all rows
-        advancing through shared waves. Early stopping waits for every live
-        row (``live_rows`` leaves padded rows out of the decision). Returns
-        ``(means, stderrs, info)`` with ``(B,)`` arrays."""
+        advancing through shared waves (the serving runtime's
+        ``kind="trajectory"`` dispatch). Early stopping waits for every
+        live row (``live_rows`` leaves padded rows out of the decision).
+        ``progress``, when given, is called after every wave with
+        ``{"wave", "trajectories_run", "max_trajectories", "max_stderr"}``
+        from the wave's existing host snapshot (no extra transfer); an
+        exception it raises is swallowed. Returns ``(means, stderrs,
+        info)`` with ``(B,)`` arrays."""
         pm = np.asarray(param_matrix, dtype=np.float64)
         if pm.ndim != 2 or pm.shape[1] != len(self.param_names):
             raise ValueError(
@@ -858,7 +866,8 @@ class TrajectoryProgram:
                               state_f, int(num_trajectories),
                               self._generator(seed), None,
                               sampling_budget=sampling_budget,
-                              wave_size=wave_size, live_rows=live_rows)
+                              wave_size=wave_size, live_rows=live_rows,
+                              progress=progress)
 
     _NO_PARAMS = ("this circuit declares no parameters; there is nothing "
                   "to differentiate (record angles via Circuit.parameter "
@@ -905,11 +914,13 @@ class TrajectoryProgram:
                                sampling_budget: Optional[float] = None,
                                wave_size: Optional[int] = None,
                                live_rows: Optional[int] = None,
-                               state_f=None, seed: Optional[int] = None):
+                               state_f=None, progress=None,
+                               seed: Optional[int] = None):
         """The ``(B, T)`` gradient form: one ensemble per parameter row,
         every row's value and gradient advancing through shared gradient
         waves; early stopping waits for every component of every live row.
-        Returns ``(values, grads, stderrs, info)``: ``(B,)``, ``(B, P)``,
+        ``progress`` as in :meth:`expectation_batch`. Returns ``(values,
+        grads, stderrs, info)``: ``(B,)``, ``(B, P)``,
         ``(B, P + 1)`` arrays and the loop's accounting (``info["kind"] ==
         "gradient"``)."""
         if not self.param_names:
@@ -928,13 +939,14 @@ class TrajectoryProgram:
         means, errs, info = self._converge(
             pm, terms, coeffs, state_f, int(num_trajectories),
             self._generator(seed), None, sampling_budget=sampling_budget,
-            wave_size=wave_size, live_rows=live_rows, grad=True)
+            wave_size=wave_size, live_rows=live_rows, grad=True,
+            progress=progress)
         return means[:, 0], means[:, 1:], errs, info
 
     def _converge(self, pm: np.ndarray, terms, coeffs, state_f,
                   max_trajectories: int, generator: torch.Generator,
                   uniforms, sampling_budget=None, wave_size=None,
-                  live_rows=None, grad: bool = False):
+                  live_rows=None, grad: bool = False, progress=None):
         """The shared wave loop over ``(B, P)`` parameter rows. Row ``b``'s
         trajectory ``t`` uses uniform row ``uniforms[b, t]`` of one block
         drawn up front, so wave boundaries never change a draw.
@@ -1000,6 +1012,17 @@ class TrajectoryProgram:
             # the wave's ONE transfer
             snap = (both if grad else carry).cpu().numpy()
             stderr = red.welford_stderr(snap[0], snap[2])
+            if progress is not None:
+                # the per-wave signal, from the wave's host snapshot
+                try:
+                    progress({"wave": int(waves_run),
+                              "trajectories_run": int(run),
+                              "max_trajectories": int(max_trajectories),
+                              "max_stderr": float(np.max(stderr[:live]))})
+                # a listener is caller code: one that fails must never
+                # end the wave loop
+                except Exception:
+                    pass
             if sampling_budget is not None and \
                     np.all(snap[0][:live] >= 2.0) and \
                     np.all(stderr[:live] <= float(sampling_budget)):

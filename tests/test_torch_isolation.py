@@ -31,6 +31,18 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.serve, quest_tpu_torch.serve.warmcache, "
             "quest_tpu_torch.ops.dynamics, quest_tpu_torch.algorithms, "
             "quest_tpu_torch.qasm_import, quest_tpu_torch.ops.doubledouble, "
+            "quest_tpu_torch.telemetry, quest_tpu_torch.telemetry.metrics, "
+            "quest_tpu_torch.telemetry.events, "
+            "quest_tpu_torch.telemetry.tracing, "
+            "quest_tpu_torch.telemetry.profile, "
+            "quest_tpu_torch.telemetry.ledger, "
+            "quest_tpu_torch.telemetry.export, "
+            "quest_tpu_torch.telemetry.endpoints, "
+            "quest_tpu_torch.resilience, quest_tpu_torch.resilience.faults, "
+            "quest_tpu_torch.resilience.health, "
+            "quest_tpu_torch.resilience.recovery, "
+            "quest_tpu_torch.serve.metrics, quest_tpu_torch.serve.coalesce, "
+            "quest_tpu_torch.serve.sched, quest_tpu_torch.serve.engine, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
@@ -269,3 +281,50 @@ def test_interpret_on_a_cuda_env_raises():
         c.compile(env, pallas="interpret")
     with pytest.raises(ValueError, match="plain version"):
         c.compile_trajectories(env, pallas="interpret")
+
+
+def test_concurrent_first_builds_run_the_build_once(tmp_path, monkeypatch):
+    """Two threads that ask for the kernels at the same moment (a serving
+    dispatcher and a caller warming a program) share one build: ``nvcc``
+    runs once per source, and both get the same libraries. The compiler
+    is a stub that sleeps, so an unlocked build would overlap."""
+    import threading
+    import types
+
+    from quest_tpu_torch.ops import cuda_build
+    calls = tmp_path / "calls"
+    stub = tmp_path / "nvcc"
+    stub.write_text("#!/bin/sh\n"
+                    f"echo run >> {calls}\n"
+                    "sleep 0.2\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = \"-o\" ]; then shift; : > \"$1\"; fi\n"
+                    "  shift\n"
+                    "done\n")
+    stub.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(stub))
+    monkeypatch.setattr(cuda_build, "_build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "ctypes", types.SimpleNamespace(
+        CDLL=lambda path: ("library", path)))
+    cuda_build.build_all.cache_clear()
+    got, errors = [], []
+
+    def first_use():
+        try:
+            got.append(cuda_build.build_all())
+        except Exception as e:           # reported by the main thread
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=first_use) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads) and not errors
+        units = [p for p in cuda_build._sources() if p.suffix == ".cu"]
+        assert calls.read_text().count("run") == len(units)
+        assert got[0] is got[1] and set(got[0]) == {p.stem for p in units}
+        assert cuda_build.build_all.cache_info().misses == 1
+    finally:
+        cuda_build.build_all.cache_clear()

@@ -1,9 +1,11 @@
 """The port's public signatures against the JAX package's.
 
 For every public name both packages define (the functions of ``api.py``,
-``algorithms.py``, ``qasm_import.py`` and ``ops/dynamics.py``, and the
-methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
-``Qureg`` and ``QuESTEnv``), the port's parameters begin with the
+``algorithms.py``, ``qasm_import.py``, ``ops/dynamics.py``,
+``serve/coalesce.py``, ``serve/sched.py`` and ``resilience/recovery.py``,
+and the methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
+``Qureg``, ``QuESTEnv`` and ``SimulationService``), the port's
+parameters begin with the
 reference's, by name and in order, so a program written for the JAX
 package calls the port the same way, positionally or by keyword. The port
 may add parameters after them.
@@ -27,18 +29,25 @@ from quest_tpu import api as japi
 from quest_tpu import qasm_import as jqasm
 from quest_tpu.ops import dynamics as jdyn
 from quest_tpu.ops.trajectories import TrajectoryProgram as JTrajectories
+from quest_tpu.resilience import recovery as jrec
+from quest_tpu.serve import SimulationService as JService
+from quest_tpu.serve import coalesce as jco
+from quest_tpu.serve import sched as jsched
 import quest_tpu_torch as tq
 from quest_tpu_torch import algorithms as talg
 from quest_tpu_torch import api as tapi
 from quest_tpu_torch import qasm_import as tqasm
 from quest_tpu_torch.ops import dynamics as tdyn
 from quest_tpu_torch.ops.trajectories import TrajectoryProgram as TTrajectories
+from quest_tpu_torch.resilience import recovery as trec
+from quest_tpu_torch.serve import SimulationService as TService
+from quest_tpu_torch.serve import coalesce as tco
+from quest_tpu_torch.serve import sched as tsched
 from torch_threads import one_blas_thread  # noqa: F401
 
 RNG = ("the RNG decision (ROADMAP): the port draws from a "
        "torch.Generator or caller-given uniforms, never jax.random keys")
 SHARDING = "waits for the multi-device slice (ROADMAP Queue 1 item 8)"
-SERVING = "waits for the serving slice (ROADMAP Queue 1 item 10)"
 
 # (qualified name, reference parameter) -> (port parameters in its place,
 # reason)
@@ -53,13 +62,11 @@ ALLOWED = {
     ("TrajectoryProgram.expectation", "key"): (("seed", "uniforms"), RNG),
     ("TrajectoryProgram.expectation", "shard_trajectories"): ((), SHARDING),
     ("TrajectoryProgram.expectation_batch", "key"): (("seed",), RNG),
-    ("TrajectoryProgram.expectation_batch", "progress"): ((), SERVING),
     ("TrajectoryProgram.expectation_grad", "key"): (("seed", "uniforms"),
                                                     RNG),
     ("TrajectoryProgram.expectation_grad", "shard_trajectories"):
         ((), SHARDING),
     ("TrajectoryProgram.expectation_grad_batch", "key"): (("seed",), RNG),
-    ("TrajectoryProgram.expectation_grad_batch", "progress"): ((), SERVING),
     ("TrajectoryProgram.apply", "key"): (("uniforms",), RNG),
     ("TrajectoryProgram.sample", "key"): (("seed", "uniforms"), RNG),
     ("TrajectoryProgram.average_density", "key"): (("uniforms",), RNG),
@@ -68,13 +75,16 @@ ALLOWED = {
 }
 
 MODULES = (("algorithms", jalg, talg), ("qasm_import", jqasm, tqasm),
-           ("ops.dynamics", jdyn, tdyn))
+           ("ops.dynamics", jdyn, tdyn), ("serve.coalesce", jco, tco),
+           ("serve.sched", jsched, tsched),
+           ("resilience.recovery", jrec, trec))
 
 CLASSES = (("Circuit", jq.Circuit, tq.Circuit),
            ("CompiledCircuit", jq.CompiledCircuit, tq.CompiledCircuit),
            ("TrajectoryProgram", JTrajectories, TTrajectories),
            ("Qureg", jq.Qureg, tq.Qureg),
-           ("QuESTEnv", jq.QuESTEnv, tq.QuESTEnv))
+           ("QuESTEnv", jq.QuESTEnv, tq.QuESTEnv),
+           ("SimulationService", JService, TService))
 
 
 def _function(obj):
@@ -130,9 +140,9 @@ def test_the_comparison_covers_the_surface():
 
 
 def test_the_new_modules_are_compared_whole():
-    """Every public name of the algorithm library, the QASM importer and
-    the dynamics module exists in the port, and each function is
-    compared."""
+    """Every public name of the algorithm library, the QASM importer, the
+    dynamics module and the serving policy modules (coalescing, WFQ,
+    recovery) exists in the port, and each function is compared."""
     names = {q for q, _, _ in SHARED}
     for mod_name, jmod, tmod in MODULES:
         assert tmod.__all__ == jmod.__all__, mod_name
@@ -142,6 +152,21 @@ def test_the_new_modules_are_compared_whole():
                 assert f"{mod_name}.{name}" in names, (mod_name, name)
     for must in ("CompiledCircuit.evolve_sweep",
                  "CompiledCircuit.ground_sweep"):
+        assert must in names, must
+
+
+def test_the_serving_core_is_compared_whole():
+    names = {q for q, _, _ in SHARED}
+    for must in ("createSimulationService", "SimulationService.__init__",
+                 "SimulationService.submit", "SimulationService.warm",
+                 "SimulationService.optimize", "SimulationService.evolve",
+                 "SimulationService.ground_state",
+                 "SimulationService.dispatch_stats",
+                 "SimulationService.close", "SimulationService.quiesce",
+                 "SimulationService.set_tenant",
+                 "SimulationService.timeline", "serve.coalesce.split_ready",
+                 "serve.sched.plan_wfq_schedule",
+                 "resilience.recovery.classify"):
         assert must in names, must
 
 
