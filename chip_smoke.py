@@ -12,6 +12,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 15,16    # dynamics, algorithms, QASM
     python3 chip_smoke.py --only 17       # the QUAD tier
     python3 chip_smoke.py --only 18       # the serving runtime
+    python3 chip_smoke.py --only 19       # router, warm cache, handles
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -267,7 +268,41 @@ Phases (any unmet check exits non-zero and prints no result line):
     18a-18d no request is retried, rejected, timed out or fast-failed and
     no program degrades; the batched layer kernel launches on 18a, 18b
     and 18d and the Kraus kernel on 18c, each counted around its path.
-    The phase stays under 120 s.
+    The phase stays under 120 s;
+19. the rest of serving, complex64, under the port's lock-order check
+    (``quest_tpu_torch/testing/lockcheck.py``, no violation): 19a. the
+    JAX package's replicated-serving cell (``bench.py:2812`` at its
+    defaults: the 16-qubit 2-layer HEA, the 24-term Pauli sum of seed
+    2028, 512 requests, ``max_batch`` 32, two replicas sharing the card,
+    buckets 1-32 warmed through a ``WarmCache``) played twice through a
+    ``ServiceRouter``, clean and with replica 0's dispatcher crashed at
+    request 256: requests/s, p99, failovers, quarantines, restarts and
+    readmissions; no request dropped or failed, every energy within 1e-5
+    of max|E| of one direct ``expectation_sweep``; one more routed batch
+    with its batched layer launches held against
+    ``apply_layer_batched_plain`` (1e-5 of max|plain|); then
+    restart-to-ready of one service against an empty cache directory and
+    the populated one (misses and packs, then hits and no pack); 19b.
+    ``service.optimize`` (Adam, 10 iterates) on serving-grad-16q's HEA:
+    each iterate's value and gradient against a direct
+    ``value_and_grad_sweep`` at its point (1e-5 of max|g|); the same run
+    checkpointed, killed by a transient fault at iterate 5 and resumed,
+    equal to the clean run bit for bit; the HEA with a ``damp`` column at
+    ``trajectories=128`` for 2 iterates, every fused Kraus launch held
+    against ``fused_kraus_apply_batched_plain``; 19c.
+    dynamics-tfim-24q-b4's program at batch 1: ``service.evolve(t=0.8,
+    steps=8, segment_steps=4)`` in two segments against one direct
+    ``evolve_sweep`` (1e-6 of max|E|), and ``service.ground_state`` (4
+    segments) checkpointed, killed after segment 2 and resumed, equal to
+    the uninterrupted run bit for bit; 19d. a 24-qubit register and a
+    12-qubit QUAD register through ``checkpoint.save``/``load`` bit for
+    bit, ``checkpointed_run`` of phase 8's HEA in 4 segments equal to the
+    same segments run plainly bit for bit (and to the whole circuit's run
+    within 1e-5 of max|amp|), ``checkpointed_sweep`` of 32 rows in
+    segments of 16 within 1e-6 of max|E| of one ``expectation_sweep``.
+    The batched layer kernel launches on 19a-19d and the Kraus kernel on
+    19b's noisy objective, each counted around its sub-phase. The phase
+    stays under 120 s.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -4478,6 +4513,510 @@ def phase_serving(torch, qt, lk, kk, card):
             "held_err": wide["held_err"], "wall_s": wall}
 
 
+ROUTER_REQUESTS, ROUTER_BATCH = 512, 32        # bench.py:2812's defaults
+ROUTER_REPLICAS, ROUTER_SEED, ROUTER_HELD = 2, 2028, 4
+OPT_ITERS, OPT_FAULT_AT, OPT_LR = 10, 5, 0.05               # 19b
+OPT_TRAJECTORIES, OPT_TRAJ_ITERS, OPT_DAMP = 128, 2, 0.02
+CKPT_QUAD_QUBITS, CKPT_SEGMENTS = 12, 4                     # 19d
+CKPT_SWEEP_ROWS, CKPT_SWEEP_SEGMENT = 32, 16
+
+
+def router_trace(qt, n: int):
+    """bench.py:2812's trace: the HEA, the 24-term Pauli sum of seed 2028
+    and one parameter row per request, drawn in the JAX package's
+    order."""
+    rng = np.random.default_rng(ROUTER_SEED)
+    circ = hea_circuit(qt, n, SERVE_LAYERS)
+    codes = rng.integers(0, 4, size=(SERVE_TERMS, n))
+    coeffs = rng.normal(size=SERVE_TERMS)
+    terms = [[(q, int(codes[t, q])) for q in range(n)]
+             for t in range(SERVE_TERMS)]
+    pm = rng.uniform(0.0, 2.0 * np.pi,
+                     size=(ROUTER_REQUESTS, len(circ.param_names)))
+    return circ, (terms, coeffs), pm
+
+
+def wait_until(pred, timeout: float = 60.0) -> bool:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if pred():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def router_phase(torch, qt, lk, kk, card, tmp):
+    """19a: the replicated-serving cell, clean and with a replica killed,
+    then restart-to-ready against an empty and a populated warm cache."""
+    from quest_tpu_torch.resilience import SupervisorPolicy
+    from quest_tpu_torch.serve import (ServiceRouter, WarmCache,
+                                       replica_envs)
+    n, N = SERVE_QUBITS, ROUTER_REQUESTS
+    circ, ham, pm = router_trace(qt, n)
+    names = circ.param_names
+    buckets = [1 << k for k in range(ROUTER_BATCH.bit_length())]
+    oracle_env = qt.createQuESTEnv(seed=[ROUTER_SEED])
+    want = circ.compile(oracle_env).expectation_sweep(pm, ham)
+    scale = float(np.abs(want).max())
+    cache = WarmCache(f"{tmp}/warm")
+    sup = SupervisorPolicy(poll_s=0.01, stall_timeout_s=10.0,
+                           restart_backoff_s=0.02)
+    print(f"19a: {N} requests, {n}-qubit {SERVE_LAYERS}-layer HEA, "
+          f"{SERVE_TERMS}-term Pauli sum, {ROUTER_REPLICAS} replicas on "
+          f"{card}, max_batch {ROUTER_BATCH}, buckets {buckets}")
+    runs = {}
+    for label, kill_at in (("clean", None), ("kill", N // 2)):
+        router = ServiceRouter(
+            replica_envs(ROUTER_REPLICAS, seed=[ROUTER_SEED]),
+            supervisor=sup, warm_cache=cache, max_batch=ROUTER_BATCH,
+            max_wait_s=SERVE_WAIT, max_queue=N + ROUTER_BATCH,
+            request_timeout_s=600.0, max_retries=4)
+        router.warm(circ, batch_sizes=buckets, observables=ham)
+        torch.cuda.synchronize()
+        reset_counts(lk, kk)
+        t0 = time.perf_counter()
+        futs = []
+        for i in range(N):
+            if kill_at is not None and i == kill_at:
+                router._replicas[0].service._debug_crash()
+            futs.append(router.submit(circ, dict(zip(names, pm[i])),
+                                      observables=ham))
+        outcomes = []
+        for f in futs:
+            try:
+                outcomes.append(("ok", float(f.result(timeout=600))))
+            except Exception as e:        # a typed failure, counted below
+                outcomes.append((type(e).__name__, None))
+        wall = time.perf_counter() - t0
+        single, batched, kraus = counts(lk, kk)
+        if kill_at is not None:
+            check(wait_until(lambda: router.metrics.snapshot()[
+                "readmissions"] >= 1), "19a: the killed replica was "
+                "restarted, probed and readmitted")
+        held = None
+        if kill_at is not None:
+            with HeldLayers(torch, lk, batched=True) as held:
+                hf = [router.submit(circ, dict(zip(names, pm[i])),
+                                    observables=ham)
+                      for i in range(ROUTER_HELD)]
+                held_e = np.array([f.result(timeout=600) for f in hf])
+        stats = router.dispatch_stats()
+        router.close()
+        r = stats["router"]
+        dropped = sum(k == "TimeoutError" for k, _ in outcomes)
+        typed = sum(k not in ("ok", "TimeoutError") for k, _ in outcomes)
+        got = np.array([v if v is not None else np.nan
+                        for _, v in outcomes])
+        dev = float(np.nanmax(np.abs(got - want))) / scale
+        runs[label] = {"rate": N / wall, "p99_s": r["p99_latency_s"],
+                       "launches": batched, "dev": dev}
+        print(f"  {label}: {N / wall:.1f} requests/s ({wall:.2f} s) on "
+              f"{card}, p99 {r['p99_latency_s'] * 1e3:.1f} ms, failovers "
+              f"{r['failovers']}, quarantines {r['replica_quarantines']}, "
+              f"restarts {r['replica_restarts']}, readmissions "
+              f"{r['readmissions']}, dropped {dropped}, typed failures "
+              f"{typed}, batched layer launches {batched}")
+        check(dropped == 0 and typed == 0, f"19a {label}: no dropped "
+              f"({dropped}) and no failed ({typed}) request")
+        check(dev <= 1e-5, f"19a {label}: energies vs one direct "
+              f"expectation_sweep {dev:.3e} of max|E| {scale:.3e} <= 1e-5")
+        check(batched > 0 and single == 0 and kraus == 0,
+              f"19a {label} launched the batched layer kernel {batched} "
+              f"times (single {single}, Kraus {kraus})")
+        if kill_at is not None:
+            check(r["failovers"] >= 1 and r["replica_quarantines"] >= 1
+                  and r["replica_restarts"] >= 1
+                  and r["readmissions"] >= 1,
+                  "19a kill: failover, quarantine, restart, readmission")
+            abs_err, rel = held.max_err()
+            check(held.launches > 0 and rel <= 1e-5
+                  and bool(np.isfinite(held_e).all()),
+                  f"19a held batch of {ROUTER_HELD}: {held.launches} "
+                  f"batched layer launches vs apply_layer_batched_plain, "
+                  f"max|diff| {abs_err:.3e}, / max|plain| {rel:.3e} <= "
+                  "1e-5")
+            runs[label].update(held_launches=held.launches,
+                               held_err=abs_err, restarts=r[
+                                   "replica_restarts"],
+                               failovers=r["failovers"])
+    restart = {}
+    for label, root in (("cold", f"{tmp}/cold"), ("warm", f"{tmp}/warm")):
+        packs = lk._operands.packs
+        cache_s = [0.0]
+        wc = WarmCache(root)
+        warm_form = wc.warm_form
+
+        def timed_warm_form(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return warm_form(*args, **kwargs)
+            finally:
+                cache_s[0] += time.perf_counter() - t
+
+        wc.warm_form = timed_warm_form
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = qt.createSimulationService(
+            qt.createQuESTEnv(seed=[ROUTER_SEED]), max_batch=ROUTER_BATCH,
+            max_wait_s=SERVE_WAIT, warm_cache=wc)
+        svc.warm(circ, batch_sizes=buckets, observables=ham)
+        torch.cuda.synchronize()
+        ready = time.perf_counter() - t0
+        snap = svc.metrics.snapshot()
+        svc.close()
+        restart[label] = {"ready_s": ready, "cache_s": cache_s[0],
+                          "hits": snap["warm_cache_hits"],
+                          "misses": snap["warm_cache_misses"],
+                          "packs": lk._operands.packs - packs}
+        print(f"  restart-to-ready, {label} cache: {ready:.3f} s on {card}"
+              f" ({cache_s[0]:.3f} s of it in the cache's warm_form), "
+              f"{restart[label]['hits']} hits, "
+              f"{restart[label]['misses']} misses, "
+              f"{restart[label]['packs']} layers packed")
+    cold, warm = restart["cold"], restart["warm"]
+    check(cold["misses"] == len(buckets) and cold["hits"] == 0
+          and cold["packs"] > 0, "19a cold restart: every bucket a miss")
+    check(warm["hits"] == len(buckets) and warm["misses"] == 0
+          and warm["packs"] == 0, "19a warm restart: every bucket a hit, "
+          "nothing packed")
+    print(f"  warm restart speedup {cold['ready_s'] / warm['ready_s']:.2f}x")
+    return {"runs": runs, "restart": restart,
+            "launches": runs["clean"]["launches"]
+            + runs["kill"]["launches"],
+            "held_launches": runs["kill"]["held_launches"],
+            "held_err": runs["kill"]["held_err"]}
+
+
+def optimizer_phase(torch, qt, lk, kk, card, tmp):
+    """19b: service.optimize on serving-grad-16q's HEA, a resumed run,
+    and a noisy objective through the trajectory gradient."""
+    from quest_tpu_torch.resilience import FaultInjector, FaultSpec, inject
+    n = SERVE_QUBITS
+    circ, terms, coeffs, _, pm = serving_trace(qt, n, 1)
+    ham = (terms, coeffs)
+    env = qt.createQuESTEnv(seed=[2029])
+    svc = serving_service(qt, env)
+    cc = svc.warm(circ, batch_sizes=[1], observables=ham, gradient=True)
+    seen = []
+    submit = svc.submit
+
+    def recording(circuit, params=None, **kwargs):
+        fut = submit(circuit, params, **kwargs)
+        seen.append(fut)
+        return fut
+
+    svc.submit = recording
+    problem = qt.createVariationalProblem(circ, ham, pm[0])
+    kw = dict(max_iters=OPT_ITERS, tol=0.0, learning_rate=OPT_LR)
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    handle = svc.optimize(problem, "adam", **kw)
+    clean = list(handle.iterates())
+    res = handle.result(timeout=600)
+    wall = time.perf_counter() - t0
+    single, batched, kraus = counts(lk, kk)
+    svc.submit = submit
+    got = [f.result(timeout=600) for f in seen]
+    xs = np.stack([it["x"] for it in clean])
+    vals, grads = cc.value_and_grad_sweep(xs, ham)
+    g_dev = max(float(np.abs(g - grads[i]).max())
+                for i, (_, g) in enumerate(got)) / float(
+                    np.abs(grads).max())
+    v_dev = max(abs(v - vals[i]) for i, (v, _) in enumerate(got)) \
+        / float(np.abs(vals).max())
+    print(f"19b: Adam, {len(clean)} iterates of {len(circ.param_names)} "
+          f"parameters in {wall:.2f} s on {card} ({wall / OPT_ITERS * 1e3:.1f}"
+          f" ms an iterate), value {clean[0]['value']:.6f} -> "
+          f"{clean[-1]['value']:.6f}; batched layer launches {batched}")
+    check(len(clean) == OPT_ITERS and res["iterations"] == OPT_ITERS,
+          f"19b ran {len(clean)} iterates")
+    check(batched > 0 and single == 0 and kraus == 0,
+          f"19b launched the batched layer kernel {batched} times")
+    check(g_dev <= 1e-5 and v_dev <= 1e-5, f"19b iterates vs direct "
+          f"value_and_grad_sweep: {g_dev:.3e} of max|g| (values "
+          f"{v_dev:.3e} of max|E|) <= 1e-5")
+
+    path = f"{tmp}/opt.npz"
+    reset_counts(lk, kk)
+    fault = FaultInjector([FaultSpec("transient", site="serve.optimize",
+                                     at_calls=(OPT_FAULT_AT,))], seed=1)
+    with inject(fault):
+        h = svc.optimize(problem, "adam", checkpoint_path=path,
+                         max_restarts=0, **kw)
+        first = list(h.iterates())
+    failed = h.exception
+    h = svc.optimize(problem, "adam", checkpoint_path=path, **kw)
+    second = list(h.iterates())
+    resumed = h.result(timeout=600)
+    r_batched = counts(lk, kk)[1]
+    both = first + second
+    same = len(both) == OPT_ITERS and all(
+        a["value"] == b["value"] and np.array_equal(a["x"], b["x"])
+        for a, b in zip(both, clean))
+    print(f"  checkpointed run: killed at iterate {len(first)} "
+          f"({type(failed).__name__}), resumed from iterate "
+          f"{resumed['resumed_from']}: {len(both)} iterates, equal to the "
+          f"clean run bit for bit: {same}")
+    check(failed is not None and len(first) == OPT_FAULT_AT
+          and resumed["resumed_from"] == OPT_FAULT_AT - 1 and same,
+          "19b resume after the fault equals the clean run bit for bit")
+
+    noisy = hea_circuit(qt, n, SERVE_LAYERS)
+    for q in range(n):
+        noisy.damp(q, OPT_DAMP)
+    errs = []
+    launch, held = held_kraus(torch, kk, errs)
+    reset_counts(lk, kk)
+    kk.fused_kraus_apply_batched = held
+    try:
+        t0 = time.perf_counter()
+        h = svc.optimize(qt.createVariationalProblem(
+            noisy, ham, pm[0], trajectories=OPT_TRAJECTORIES), "adam",
+            max_iters=OPT_TRAJ_ITERS, tol=0.0, learning_rate=OPT_LR)
+        traj = list(h.iterates())
+        h.result(timeout=600)
+        traj_s = time.perf_counter() - t0
+    finally:
+        kk.fused_kraus_apply_batched = launch
+    t_batched = lk.apply_layer_batched.launches
+    stats = svc.dispatch_stats()
+    svc.close()
+    k_err = max((e[0] for e in errs), default=0.0)
+    k_rel = max((e[1] for e in errs), default=0.0)
+    print(f"  noisy objective ({OPT_TRAJECTORIES} trajectories, damp "
+          f"{OPT_DAMP} on every qubit): {len(traj)} iterates in "
+          f"{traj_s:.2f} s on {card}; Kraus launches {held.launches}, "
+          f"batched layer {t_batched}; each Kraus launch vs "
+          f"fused_kraus_apply_batched_plain max|diff| {k_err:.3e}, / "
+          f"max|plain| {k_rel:.3e}")
+    check_clean(stats, "19b")
+    check(len(traj) == OPT_TRAJ_ITERS and held.launches > 0
+          and t_batched > 0 and k_rel <= 1e-5
+          and all(e[2] for e in errs)
+          and all(np.isfinite(it["value"]) for it in traj),
+          f"19b noisy objective: the Kraus kernel launched "
+          f"{held.launches} times, each held against its plain version "
+          f"(<= 1e-5, draws equal)")
+    return {"launches": batched + r_batched + t_batched,
+            "kraus_launches": held.launches, "kraus_err": k_err,
+            "iterate_ms": wall / OPT_ITERS * 1e3, "grad_dev": g_dev,
+            "traj_s": traj_s}
+
+
+def dynamics_serving_phase(torch, qt, lk, kk, card, tmp):
+    """19c: streamed evolve and a resumed ground-state search at 24
+    qubits, batch 1."""
+    from quest_tpu_torch.ops import dynamics as dyn
+    from quest_tpu_torch.resilience import FaultInjector, FaultSpec, inject
+    n = DYN_QUBITS
+    circ, ham = dyn_prep(qt, n), tfim(n)
+    params = np.random.default_rng(2030).uniform(0.0, np.pi, size=n)
+    env = qt.createQuESTEnv(seed=[2030])
+    svc = serving_service(qt, env)
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    h = svc.evolve(circ, params, hamiltonian=ham, t=0.8, steps=8,
+                   segment_steps=4)
+    segs = list(h.iterates())
+    res = h.result(timeout=600)
+    evolve_s = time.perf_counter() - t0
+    batched = counts(lk, kk)[1]
+    cc = circ.compile(env)
+    block = cc.evolve_sweep(params[None], ham,
+                            dyn.EvolveSpec(t=0.8, steps=8, order=2))
+    direct = dyn.unpack_evolve_block(block, n, 8)["energies"][0]
+    direct = np.asarray(direct.cpu() if hasattr(direct, "cpu") else direct,
+                        dtype=np.float64)
+    scale = float(np.abs(direct).max())
+    dev = float(np.abs(res["energies"] - direct).max()) / scale
+    print(f"19c: evolve t=0.8 in 8 steps as {len(segs)} segments at {n} "
+          f"qubits in {evolve_s:.2f} s on {card}; energies vs one direct "
+          f"evolve_sweep {dev:.3e} of max|E|; batched layer launches "
+          f"{batched}")
+    check(len(segs) == 2 and res["steps"] == 8 and dev <= 1e-6,
+          f"19c evolve: 2 segments, energies vs direct {dev:.3e} <= 1e-6")
+    check(batched > 0, f"19c launched the batched layer kernel {batched} "
+          "times")
+    kw = dict(hamiltonian=ham, max_segments=4, tol=1e-12)
+    t0 = time.perf_counter()
+    h = svc.ground_state(circ, params, **kw)
+    list(h.iterates())
+    clean = h.result(timeout=600)
+    ground_s = time.perf_counter() - t0
+    path = f"{tmp}/ground.npz"
+    with inject(FaultInjector([FaultSpec("transient", site="serve.evolve",
+                                         at_calls=(2,))], seed=1)):
+        h = svc.ground_state(circ, params, checkpoint_path=path,
+                             max_restarts=0, **kw)
+        first = list(h.iterates())
+    failed = h.exception
+    h = svc.ground_state(circ, params, checkpoint_path=path, **kw)
+    second = list(h.iterates())
+    res = h.result(timeout=600)
+    stats = svc.dispatch_stats()
+    svc.close()
+    same = all(np.array_equal(res[k], clean[k])
+               for k in ("planes", "energies", "welford")) \
+        and res["residual"] == clean["residual"]
+    print(f"  ground_state: {clean['segments']} segments in {ground_s:.2f}"
+          f" s on {card}, energy {clean['energy']:.6f}, residual "
+          f"{clean['residual']:.3e}; killed after segment {len(first)} "
+          f"({type(failed).__name__}), resumed from "
+          f"{res['resumed_from']}, equal bit for bit: {same}")
+    check_clean(stats, "19c")
+    check(failed is not None and len(first) == 2 and len(second) == 2
+          and res["resumed_from"] == 1 and same,
+          "19c ground_state resumed after segment 2 equals the "
+          "uninterrupted run bit for bit")
+    return {"launches": batched, "evolve_s": evolve_s,
+            "ground_s": ground_s, "dev": dev}
+
+
+def checkpoint_phase(torch, qt, lk, kk, card, tmp):
+    """19d: register checkpoints, checkpointed_run and
+    checkpointed_sweep."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.ops import reductions as red
+    from quest_tpu_torch.resilience import segments as seg
+    n = SWEEP_QUBITS
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    env = qt.createQuESTEnv(seed=[2031])
+    params = dict(zip(circ.param_names, pm[0]))
+    q = qt.createQureg(n, env)
+    qt.initZeroState(q)
+    circ.compile(env).run(q, params)
+    whole = q.state.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(q, f"{tmp}/reg24")
+    back = qt.createQureg(n, env)
+    ckpt.load(back, f"{tmp}/reg24")
+    torch.cuda.synchronize()
+    io_s = time.perf_counter() - t0
+    same = torch.equal(back.state.view(torch.int32),
+                       whole.view(torch.int32))
+    quad_env = qt.createQuESTEnv(precision=qt.QUAD, seed=[2031])
+    qq = qt.createQureg(CKPT_QUAD_QUBITS, quad_env)
+    qt.initDebugState(qq)
+    qt.hadamard(qq, 3)
+    ckpt.save(qq, f"{tmp}/quad12")
+    qb = qt.createQureg(CKPT_QUAD_QUBITS, quad_env)
+    ckpt.load(qb, f"{tmp}/quad12")
+    quad_same = qb.state.shape[0] == 4 and torch.equal(
+        qb.state.view(torch.int32), qq.state.view(torch.int32))
+    print(f"19d: a {n}-qubit register saved and loaded in {io_s:.2f} s on "
+          f"{card} ({whole.numel() * whole.element_size() / 2**20:.0f} "
+          f"MiB), bit for bit: {same}; a {CKPT_QUAD_QUBITS}-qubit QUAD "
+          f"register: {quad_same}")
+    check(same and quad_same, "19d checkpoints round-trip bit for bit")
+
+    reset_counts(lk, kk)
+    seg_q = qt.createQureg(n, env)
+    qt.initZeroState(seg_q)
+    t0 = time.perf_counter()
+    stats = seg.checkpointed_run(circ, seg_q, params,
+                                 num_segments=CKPT_SEGMENTS,
+                                 ckpt_dir=f"{tmp}/segs")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    single = lk.apply_layer.launches
+    plain_q = qt.createQureg(n, env)
+    qt.initZeroState(plain_q)
+    for part in seg.split_circuit(circ, CKPT_SEGMENTS):
+        part.compile(env).run(plain_q, params)
+    seg_same = torch.equal(seg_q.state.view(torch.int32),
+                           plain_q.state.view(torch.int32))
+    amp_dev = float((seg_q.state - whole).abs().max()
+                    / whole.abs().max())
+    print(f"  checkpointed_run in {stats['segments']} segments, "
+          f"{stats['checkpoints']} snapshots, {run_s:.2f} s on {card}: "
+          f"equal to the segments run plainly bit for bit: {seg_same}; "
+          f"vs the whole circuit's run {amp_dev:.3e} of max|amp|; layer "
+          f"kernel launches {single}")
+    check(seg_same and amp_dev <= 1e-5 and stats["restarts"] == 0,
+          "19d checkpointed_run equals the plain run of its segments")
+
+    circ16, terms16, coeffs16, _, pm16 = serving_trace(
+        qt, SERVE_QUBITS, CKPT_SWEEP_ROWS)
+    cc16 = circ16.compile(env)
+    reset_counts(lk, kk)
+    t0 = time.perf_counter()
+    planes, sweep_stats = seg.checkpointed_sweep(
+        cc16, pm16, segment_rows=CKPT_SWEEP_SEGMENT,
+        ckpt_path=f"{tmp}/sweep.npz")
+    sweep_s = time.perf_counter() - t0
+    batched = counts(lk, kk)[1]
+    operands = cc16._pauli_operands((terms16, coeffs16))
+    got = red.pauli_sum_total_sv(
+        torch.from_numpy(planes).to(env.device), *operands).cpu().numpy()
+    want = cc16.expectation_sweep(pm16, (terms16, coeffs16))
+    dev = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    print(f"  checkpointed_sweep of {CKPT_SWEEP_ROWS} rows in "
+          f"{sweep_stats['segments']} segments ({SERVE_QUBITS} q) in "
+          f"{sweep_s:.2f} s on {card}: energies vs one expectation_sweep "
+          f"{dev:.3e} of max|E|; batched layer launches {batched}")
+    check(sweep_stats["segments"] == CKPT_SWEEP_ROWS // CKPT_SWEEP_SEGMENT
+          and dev <= 1e-6 and batched > 0,
+          "19d checkpointed_sweep within 1e-6 of max|E|, batched launches")
+    return {"launches": batched, "single_launches": single,
+            "run_s": run_s, "io_s": io_s, "sweep_dev": dev}
+
+
+def phase_serving_rest(torch, qt, lk, kk, card):
+    import shutil
+    import tempfile
+    from quest_tpu_torch.testing import lockcheck
+    print(f"phase 19: the rest of serving on {card}, complex64, under the "
+          "port's lock-order check")
+    tmp = tempfile.mkdtemp(prefix="quest_tpu_torch_smoke19_")
+    was = lockcheck.installed()
+    lockcheck.install()
+    before = len(lockcheck.violations())
+    t0 = time.perf_counter()
+    try:
+        router = router_phase(torch, qt, lk, kk, card, tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        opt = optimizer_phase(torch, qt, lk, kk, card, tmp)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        dyn = dynamics_serving_phase(torch, qt, lk, kk, card, tmp)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        ck = checkpoint_phase(torch, qt, lk, kk, card, tmp)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        new = lockcheck.violations()[before:]
+        if not was:
+            lockcheck.uninstall()
+    wall = time.perf_counter() - t0
+    print(f"phase 19 wall time {wall:.1f} s on {card}: 19a {t1 - t0:.1f}, "
+          f"19b {t2 - t1:.1f}, 19c {t3 - t2:.1f}, 19d "
+          f"{time.perf_counter() - t3:.1f}")
+    check(not new and lockcheck.find_cycle() is None,
+          f"phase 19 lock order: {len(new)} violations "
+          f"({[str(v) for v in new[:2]]})")
+    check(wall <= 120.0, f"phase 19 wall time {wall:.1f} s <= 120 s")
+    by_path = {"19a": router["launches"] + router["held_launches"],
+               "19b": opt["launches"], "19c": dyn["launches"],
+               "19d": ck["launches"]}
+    print(f"  launches: batched layer {by_path}, Kraus (19b) "
+          f"{opt['kraus_launches']}, layer kernel (19d checkpointed_run) "
+          f"{ck['single_launches']}")
+    return {"layer_launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "kraus_launches": opt["kraus_launches"],
+            "kraus_err": opt["kraus_err"],
+            "single_launches": ck["single_launches"],
+            "held_err": router["held_err"],
+            "router_rates": {k: v["rate"]
+                             for k, v in router["runs"].items()},
+            "restart": router["restart"], "wall_s": wall}
+
+
 def quad_keys(quad):
     """Phase 17's figures, as keys of the ``layer_kernel`` row (no kernel
     runs on the dd paths)."""
@@ -4649,8 +5188,31 @@ def serving_keys(serving, kraus: bool = False):
             "serving_held_max_abs_err": serving["held_err"]}
 
 
+def serving_rest_keys(rest, kraus: bool = False, single: bool = False):
+    """Phase 19's keys: of the batched layer kernel's row (its launches on
+    19a-19d, the held 19a batch's error, the router's requests/s clean and
+    with a replica killed, restart-to-ready cold and warm), of the Kraus
+    kernel's (19b's noisy objective) or, with ``single``, of the layer
+    kernel's (19d's checkpointed run)."""
+    if rest is None:
+        return {}
+    if single:
+        return {"launches_checkpointed_run": rest["single_launches"]}
+    if kraus:
+        return {"launches_serving_rest": rest["kraus_launches"],
+                "serving_rest_max_abs_err": rest["kraus_err"]}
+    restart = rest["restart"]
+    return {"launches_serving_rest": rest["layer_launches"],
+            "serving_rest_launches_by_path": rest["launches_by_path"],
+            "serving_rest_held_max_abs_err": rest["held_err"],
+            "router_requests_per_s": rest["router_rates"],
+            "restart_to_ready_s": {k: v["ready_s"]
+                                   for k, v in restart.items()}}
+
+
 def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
-                traj_grad=None, dynamics=None, serving=None):
+                traj_grad=None, dynamics=None, serving=None,
+                serving_rest=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"] \
         + (traj_grad["rows"] if traj_grad is not None else [])
@@ -4666,12 +5228,16 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         + (grad["launches"] if grad is not None else 0)
         + (traj_grad["launches_layer"] if traj_grad is not None else 0)
         + (dynamics["launches"] if dynamics is not None else 0)
-        + (serving["layer_launches"] if serving is not None else 0),
+        + (serving["layer_launches"] if serving is not None else 0)
+        + (serving_rest["layer_launches"] if serving_rest is not None
+           else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
         "max_abs_err": max([r[5] for r in rows] + (
             [dynamics["max_abs_err"]] if dynamics is not None else []) + (
-            [serving["held_err"]] if serving is not None else [])),
+            [serving["held_err"]] if serving is not None else []) + (
+            [serving_rest["held_err"]] if serving_rest is not None
+            else [])),
         "ms": float(np.mean([r[0] for r in sweep["rows"]])),
         "plain_ms": float(np.mean([r[3] for r in sweep["rows"]])),
         "bound_ms": float(np.mean([r[1] for r in sweep["rows"]])),
@@ -4684,6 +5250,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         **traj_gradient_keys(traj_grad),
         **dynamics_keys(dynamics),
         **serving_keys(serving),
+        **serving_rest_keys(serving_rest),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
@@ -4691,10 +5258,14 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "replaces": "quest_tpu/ops/pallas_kernels.py:888",
         "launches": traj["launches_kraus"]
         + (traj_grad["launches_kraus"] if traj_grad is not None else 0)
-        + (serving["kraus_launches"] if serving is not None else 0),
+        + (serving["kraus_launches"] if serving is not None else 0)
+        + (serving_rest["kraus_launches"] if serving_rest is not None
+           else 0),
         "launches_trajectories": traj["launches_kraus"],
-        "max_abs_err": max(kerr, traj_grad["kraus_max_abs_err"])
-        if traj_grad is not None else kerr,
+        "max_abs_err": max([kerr] + (
+            [traj_grad["kraus_max_abs_err"]] if traj_grad is not None
+            else []) + ([serving_rest["kraus_err"]]
+                        if serving_rest is not None else [])),
         "ms": k_ms,
         "plain_ms": k_plain,
         "bound_ms": k_bound,
@@ -4703,6 +5274,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         "trajectories_per_s": traj["traj_per_s"],
         **traj_gradient_keys(traj_grad, kraus=True),
         **serving_keys(serving, kraus=True),
+        **serving_rest_keys(serving_rest, kraus=True),
     }]
 
 
@@ -4742,7 +5314,8 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
 
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
-          "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18")
+          "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18",
+          "19")
 
 
 def parse_only(argv):
@@ -4842,6 +5415,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         serving = phase_serving(torch, qt, lk, kk, card) \
             if runs("18") else None
+        torch.cuda.empty_cache()
+        serving_rest = phase_serving_rest(torch, qt, lk, kk, card) \
+            if runs("19") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -4852,12 +5428,15 @@ def main(argv) -> int:
             row = dict(row, **algorithm_keys(algorithms))
         if row is not None and quad is not None:
             row = dict(row, **quad_keys(quad))
+        if row is not None and serving_rest is not None:
+            row = dict(row, **serving_rest_keys(serving_rest, single=True))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
         if only is None:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
-                               traj_grad, dynamics, serving) + tail
+                               traj_grad, dynamics, serving,
+                               serving_rest) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -4892,6 +5471,16 @@ def main(argv) -> int:
                                  **serving_keys(serving)))
                 rows.append(dict(name="kraus_kernel", path="serving",
                                  **serving_keys(serving, kraus=True)))
+            if serving_rest is not None:
+                rows.append(dict(name="layer_kernel", path="serving_rest",
+                                 **serving_rest_keys(serving_rest,
+                                                     single=True)))
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="serving_rest",
+                                 **serving_rest_keys(serving_rest)))
+                rows.append(dict(name="kraus_kernel", path="serving_rest",
+                                 **serving_rest_keys(serving_rest,
+                                                     kraus=True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

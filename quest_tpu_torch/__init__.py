@@ -10,9 +10,13 @@ one CUDA device, with the fused gate-layer kernel written by hand in CUDA
 C++ for Hopper (``csrc/layer_kernel.cu``), and the precision-tier ladder
 (FAST, SINGLE, DOUBLE, QUAD; ``Circuit.compile(tier=/error_budget=)``,
 ``sweep(tier=)``), the double-double QUAD/QUAD64 registers and
-``Circuit.compile_dd`` (``ops/doubledouble.py``), and the serving runtime
+``Circuit.compile_dd`` (``ops/doubledouble.py``), the serving runtime
 (``createSimulationService``: ``serve/``, with ``telemetry/`` and
-``resilience/``). The JAX package ``quest_tpu`` is the reference this
+``resilience/``), the replicated router over replicas sharing the card
+(``createServiceRouter``) with its persistent warm-start cache, the
+optimizer and dynamics handles (``service.optimize``/``evolve``/
+``ground_state``), and register checkpoints
+(``quest_tpu_torch.checkpoint``). The JAX package ``quest_tpu`` is the reference this
 port is tested against; nothing here imports it or JAX.
 
 ```python
@@ -38,6 +42,10 @@ from .env import QuESTEnv
 from .ops.dynamics import EvolveSpec, GroundSpec
 from .qasm_import import ParsedQASM, load_qasm_file, parse_qasm
 from .qureg import Qureg
+from .serve import (AllReplicasUnavailable, Adam, DynamicsHandle,
+                    DynamicsProblem, GradientDescent, OptimizationHandle,
+                    ServiceRouter, SimulationService, VariationalProblem,
+                    WarmCache)
 from .types import (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, PauliOpType,
                     QuESTError)
 from .validation import ErrorCode
@@ -51,4 +59,7 @@ __all__ = list(_api_all) + [
     "QuESTEnv", "Qureg", "EvolveSpec", "GroundSpec", "ParsedQASM",
     "parse_qasm", "load_qasm_file", "PauliOpType", "PAULI_I", "PAULI_X",
     "PAULI_Y", "PAULI_Z", "QuESTError", "ErrorCode",
+    "SimulationService", "ServiceRouter", "AllReplicasUnavailable",
+    "WarmCache", "VariationalProblem", "OptimizationHandle",
+    "GradientDescent", "Adam", "DynamicsProblem", "DynamicsHandle",
 ]

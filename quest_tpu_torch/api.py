@@ -55,7 +55,8 @@ __all__ = [
     "createQuESTEnv", "destroyQuESTEnv", "syncQuESTEnv", "syncQuESTSuccess",
     "reportQuESTEnv", "getEnvironmentString", "seedQuEST", "seedQuESTDefault",
     # the serving runtime (no QuEST counterpart)
-    "createSimulationService",
+    "createSimulationService", "createServiceRouter",
+    "createVariationalProblem",
     # imperative gate fusion
     "startGateFusion", "stopGateFusion", "fusedGates",
     # registers
@@ -271,6 +272,39 @@ def createSimulationService(env: QuESTEnv, **kwargs):
     as a context manager)."""
     from .serve import SimulationService
     return SimulationService(env, **kwargs)
+
+
+def createServiceRouter(envs=None, **kwargs):
+    """Create the replicated serving front end: N
+    :class:`quest_tpu_torch.serve.SimulationService` replicas behind one
+    ``submit()`` with health-aware routing, replica failover with
+    supervised restart, and the persistent warm-start cache
+    (:class:`quest_tpu_torch.serve.router.ServiceRouter`; no QuEST
+    counterpart). Pass ``envs`` (one ``QuESTEnv`` per replica, e.g. from
+    :func:`quest_tpu_torch.serve.replica_envs`: on one card every replica
+    shares the device) or ``num_replicas=``; the other keyword arguments
+    are the per-replica service knobs plus ``supervisor`` (a
+    :class:`quest_tpu_torch.resilience.SupervisorPolicy`),
+    ``max_failovers``, ``hedge_after_s`` and ``warm_cache``. Close it with
+    ``router.close()`` (or use it as a context manager)."""
+    from .serve import ServiceRouter
+    return ServiceRouter(envs, **kwargs)
+
+
+def createVariationalProblem(circuit, observables, x0, **kwargs):
+    """Name a variational workload for the optimizer-in-the-loop serving
+    API (:class:`quest_tpu_torch.serve.optimize.VariationalProblem`; no
+    QuEST counterpart): ``circuit`` (a recorded
+    :class:`~quest_tpu_torch.circuits.Circuit` with Param angles), the
+    ``(pauli_terms, coeffs)`` objective, and the starting point ``x0``
+    (name->angle dict or ordered vector). Keyword arguments:
+    ``trajectories``/``sampling_budget`` (noisy objectives through the
+    trajectory gradient) and ``tier``. Run it with
+    ``service.optimize(problem, ...)`` or ``router.optimize(...)``: each
+    iterate is one coalesced gradient dispatch, and the returned handle
+    streams iterates."""
+    from .serve import VariationalProblem
+    return VariationalProblem(circuit, observables, x0, **kwargs)
 
 
 def destroyQuESTEnv(env: QuESTEnv) -> None:

@@ -2107,6 +2107,157 @@ class CompiledCircuit:
         return self._dynamics_dispatch("ground", param_matrix, hamiltonian,
                                        spec, state_f, tier)
 
+    # -- warm-start artifacts (serve/warmcache.py) ---------------------------
+
+    def _warm_form_key(self, kind: str, mode: str, tier=None) -> tuple:
+        """The JAX package's form key of one warm form: the ``sweep``
+        booleans (shared start state, not donated), the batch mode, the
+        plane dtype and the tier token. The tier is part of the form, so
+        another tier's artifact is a miss, never a wrong program."""
+        dtstr = self._dtype_token(self.env.precision.real_dtype)
+        tok = self._tier_token(tier)
+        if kind == "sweep":
+            return ("sweep", True, False, mode, dtstr, tok)
+        if kind == "energy":
+            return ("energy", mode, dtstr, tok)
+        if kind == "grad":
+            return ("grad", mode, dtstr, tok)
+        raise ValueError(f"unknown warm form kind {kind!r}")
+
+    def lower_batched(self, kind: str, batch: int, hamiltonian=None,
+                      lower: bool = True, tier=None):
+        """The warm form one batched dispatch kind runs: ``kind`` is
+        ``"sweep"`` (broadcast start state: the serving dispatcher's
+        state/sample form), ``"energy"`` or ``"grad"`` (the value-and-grad
+        form, whose adjoint layers are its own). Returns ``(form,
+        args_shapes, artifact)``: the JAX package's cache coordinates, and
+        the :class:`~quest_tpu_torch.serve.warmcache.WarmArtifact` the
+        form's first dispatch would compute (every layer it launches
+        packed at the form's tier, the plain ops' static operators, and a
+        description of the plan), ready for :meth:`install_batched_aot`.
+        ``lower=False`` computes the coordinates only and packs nothing,
+        so a cache hit never pays the packing."""
+        if batch < 1:
+            raise ValueError("batch must be >= 1")
+        tier = self._grad_tier(tier) if kind == "grad" \
+            else self._effective_tier(tier)
+        mode = self._batch_policy(int(batch))["mode"]
+        n = self.num_qubits
+        shapes = ((2, 1 << n), (int(batch), len(self.param_names)))
+        if kind in ("energy", "grad"):
+            if hamiltonian is None:
+                raise ValueError(f"kind={kind!r} needs hamiltonian=")
+            if kind == "grad" and not self.param_names:
+                raise ValueError(
+                    "kind='grad' needs a parameterised circuit (no Param "
+                    "placeholders declared)")
+            shapes += tuple(tuple(t.shape)
+                            for t in self._pauli_operands(hamiltonian))
+        form = self._warm_form_key(kind, mode, tier)
+        if not lower:
+            return form, shapes, None
+        return form, shapes, self._pack_form(form, shapes, tier)
+
+    def _form_layers(self, form: tuple, tier) -> list:
+        """``[(name, layer)]``: the layers a form launches, named by their
+        plan item (``L<k>``), and a gradient form's adjoint layers
+        (``A<k>``)."""
+        plan, ops, _ = self._plan_for(tier)
+        items = [(k, ops[it[1]]) for k, it in enumerate(plan.items)
+                 if ops[it[1]].kind == "layer"]
+        out = [(f"L{k}", op) for k, op in items]
+        if form[0] == "grad":
+            walk = self._adjoint_walk(tier)
+            out += [(f"A{k}", walk.adjoints[id(op)]) for k, op in items]
+        return out
+
+    def _form_description(self, form: tuple, shapes: tuple, tier) -> dict:
+        """The JSON description of a form's plan: every item's kind,
+        targets, masks and axis order, whether it is static, and a layer's
+        stage tags. An artifact installs only onto the plan it
+        describes."""
+        plan, ops, _ = self._plan_for(tier)
+        items = []
+        for _, i, targets, cmask, fmask, axis_order in plan.items:
+            op = ops[i]
+            stages = [st[0] for st in op.stages] if op.kind == "layer" \
+                else []
+            items.append([op.kind, [int(t) for t in targets], int(cmask),
+                          int(fmask), [int(a) for a in axis_order or ()],
+                          bool(op.is_static), stages])
+        return {"version": 1, "form": list(form),
+                "shapes": [list(s) for s in shapes],
+                "num_qubits": self.num_qubits,
+                "is_density": bool(self.is_density), "items": items}
+
+    def _pack_form(self, form: tuple, shapes: tuple, tier):
+        """Pack a form's layers and put its static operators on the device
+        (counted like a first dispatch's: ``pack_layer``), and return them
+        with the plan's description as one artifact."""
+        from .serve.warmcache import WarmArtifact
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        _, fast = self._tier_exec_mode(tier)
+        device = self.env.device
+        n = self.num_qubits
+        desc = self._form_description(form, shapes, tier)
+        tensors, layers = {}, {}
+        for name, layer in self._form_layers(form, tier):
+            lk.pack_layer(layer, n, rdt, device, fast)
+            d, pool, fpool, max_j, tile_rows, total_rows = \
+                lk.packed_operands(layer, n, rdt, device, fast)
+            tensors[f"{name}.desc"] = d
+            tensors[f"{name}.pool"] = pool
+            if fpool is not None:
+                tensors[f"{name}.fast_pool"] = fpool
+            layers[name] = [max_j, tile_rows, total_rows]
+        plan, ops, _ = self._plan_for(tier)
+        static = []
+        for _, i, _, _, _, axis_order in plan.items:
+            op = ops[i]
+            if op.kind != "layer" and op.is_static:
+                tensors[f"S{i}"] = self._static_operator(i, op, axis_order,
+                                                         rdt, device)
+                static.append(i)
+        desc.update(layers=layers, static=static)
+        return WarmArtifact(desc, tensors)
+
+    def install_batched_aot(self, form: tuple, args_shapes: tuple,
+                            compiled) -> None:
+        """Install one warm form's artifact (typically loaded from the
+        persistent warm cache) for an exact ``(form, arg shapes)`` slot:
+        its packed operands go where a launch finds them
+        (``layer_kernel.install_packed``) and its static operators where
+        ``run`` finds them, so the form's first dispatch packs nothing.
+        Raises ``ValueError`` when the artifact describes another plan or
+        lacks an operand."""
+        form, args_shapes = tuple(form), tuple(tuple(s) for s in
+                                               args_shapes)
+        tok = form[-1]
+        tier = None if tok == "env" else tier_by_name(tok)
+        desc = dict(compiled.description)
+        layers, static = desc.pop("layers", {}), desc.pop("static", [])
+        if desc != self._form_description(form, args_shapes, tier):
+            raise ValueError("the warm artifact describes another plan "
+                             "than this program's")
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        _, fast = self._tier_exec_mode(tier)
+        device = self.env.device
+        tensors = compiled.tensors
+        names = self._form_layers(form, tier)
+        try:
+            packed = [(layer, (tensors[f"{name}.desc"].to(device),
+                               tensors[f"{name}.pool"].to(device),
+                               tensors[f"{name}.fast_pool"].to(device)
+                               if fast else None, *layers[name]))
+                      for name, layer in names]
+            operators = {i: tensors[f"S{i}"].to(device) for i in static}
+        except KeyError as e:
+            raise ValueError(f"the warm artifact lacks operand {e}") from e
+        for layer, ops in packed:
+            lk.install_packed(layer, self.num_qubits, rdt, device, fast, ops)
+        for i, t in operators.items():
+            self._dev_operators[(rdt, device, i)] = t
+
     def __repr__(self) -> str:
         tier = self.tier.name if self.tier is not None else "env"
         return (f"CompiledCircuit({self.num_qubits} qubits, "

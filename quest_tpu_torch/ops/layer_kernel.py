@@ -111,7 +111,7 @@ __all__ = ["LANE_QUBITS", "TILE_ROWS", "LayerOp", "adjoint_layer",
            "apply_layer_plain", "apply_layer_batched",
            "apply_layer_batched_plain", "apply_mxu_tile",
            "apply_mxu_tile_plain", "build_library", "pack_layer",
-           "is_packed"]
+           "is_packed", "packed_operands", "install_packed"]
 
 
 def embed_lane_matrix(u: np.ndarray, targets: Sequence[int],
@@ -803,6 +803,24 @@ def is_packed(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
     planes."""
     return (num_qubits, torch.float32 if fast else dtype,
             torch.device(device), fast) in layer._packed
+
+
+def packed_operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
+                    device, fast: bool = False) -> tuple:
+    """What :func:`pack_layer` cached for these planes: ``(desc, pool,
+    fast_pool, max_j, tile_rows, total_rows)`` (``fast_pool`` None at full
+    precision). Raises ``KeyError`` when the layer is not packed."""
+    return layer._packed[(num_qubits, torch.float32 if fast else dtype,
+                          torch.device(device), fast)]
+
+
+def install_packed(layer: LayerOp, num_qubits: int, dtype: torch.dtype,
+                   device, fast: bool, packed: tuple) -> None:
+    """Install operands packed earlier (the warm cache's artifact,
+    :func:`packed_operands`' tuple) where a launch on these planes finds
+    them: the layer then packs nothing."""
+    layer._packed[(num_qubits, torch.float32 if fast else dtype,
+                   torch.device(device), fast)] = tuple(packed)
 
 
 def _operands(layer: LayerOp, num_qubits: int, dtype: torch.dtype,

@@ -15,8 +15,11 @@ survivable:
   or launch, and a sticky CUDA error, are FATAL there: they fail the
   request typed, never retry and never fall back to a plain version.
 
-The checkpoint-backed segment recovery of the JAX package waits for
-ROADMAP Queue 1 item 10.
+- :mod:`~quest_tpu_torch.resilience.segments` — checkpoint-backed
+  segment recovery for long runs and sweeps (snapshots through
+  :mod:`quest_tpu_torch.checkpoint`, re-execution from the last good
+  segment, resumable across process restarts), and the optimizer and
+  dynamics handles' progress files, in the JAX package's formats.
 """
 
 from .faults import (FaultInjector, FaultSpec, InjectedFault, SimulatedOOM,
@@ -41,4 +44,17 @@ __all__ = [
     "ResiliencePolicy", "SupervisorPolicy", "AutoscalePolicy",
     "CircuitBreaker", "classify",
     "TRANSIENT", "POISON", "FATAL",
+    # segments (lazy: they import circuits and checkpoint)
+    "split_circuit", "checkpointed_run", "checkpointed_sweep",
 ]
+
+_SEGMENT_NAMES = {"split_circuit", "checkpointed_run", "checkpointed_sweep"}
+
+
+def __getattr__(name):
+    # segments imports quest_tpu_torch.circuits; loading it lazily keeps
+    # this package importable from inside circuits.py (the fault hooks)
+    if name in _SEGMENT_NAMES:
+        from . import segments
+        return getattr(segments, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

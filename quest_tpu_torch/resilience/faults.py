@@ -35,7 +35,7 @@ Fault kinds:
   (``"router.route"``, :func:`fire_router`): the router applies them to
   the replica it was about to pick, then must fail traffic over. At the
   intra-service boundaries they are no-ops — a single service cannot
-  kill itself meaningfully. (The router is ROADMAP Queue 1 item 10.)
+  kill itself meaningfully (``serve/router.py``).
 - ``"conn_reset"`` / ``"slow_read"`` / ``"torn_body"`` /
   ``"dup_delivery"`` / ``"stale_ref"`` — WIRE-level failure domains
   (:data:`WIRE_KINDS`): a socket reset before the response, a

@@ -137,8 +137,8 @@ class ResiliencePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class SupervisorPolicy:
-    """The replica supervisor's knobs (the replicated ``ServiceRouter``
-    of ROADMAP Queue 1 item 10, which this policy waits for): when to
+    """The replica supervisor's knobs (the replicated ``ServiceRouter``,
+    ``serve/router.py``): when to
     quarantine a replica, how to restart it, and what a half-open
     readmission probe must pass.
 
@@ -205,8 +205,8 @@ class AutoscalePolicy:
     consecutive decisions so a scale-up's own warm-up latency can't
     trigger a second one. :meth:`decide` is pure: the host-side replay
     (:func:`~quest_tpu_torch.serve.sched.plan_wfq_schedule`) drives it
-    now, the replicated router of ROADMAP Queue 1 item 10 will drive the
-    SAME function."""
+    and the replicated router (``serve/router.py``) drive the SAME
+    function."""
 
     min_replicas: int = 1
     max_replicas: int = 4

@@ -102,10 +102,6 @@ __all__ = ["ServeError", "QueueFull", "DeadlineExceeded", "ServiceClosed",
 # completion-queue shutdown sentinel (pipelined dispatch)
 _PIPE_STOP = object()
 
-# where the service's unported entry points wait
-_ITEM_10 = ("ROADMAP Queue 1 item 10 (serve/optimize.py, serve/dynamics.py "
-            "and the warm-start cache)")
-
 
 class _BoundedLRU:
     """The LRU of recorded-Circuit compilations a service keeps
@@ -309,11 +305,14 @@ class SimulationService:
         (:func:`quest_tpu_torch.telemetry.metrics.metrics_registry`), where
         its full ``dispatch_stats()`` document is registered for the
         Prometheus/JSON exporters. None auto-generates a unique name.
-    warm_cache : None | False
-        The persistent warm-start cache of the JAX package. The port's
-        form (a persisted kernel cache plus recorded shapes) is ROADMAP
-        Queue 1 item 10; until then only None/False (off) is accepted,
-        and anything else raises ``NotImplementedError``.
+    warm_cache : WarmCache | False | None
+        The persistent warm-start cache
+        (:class:`quest_tpu_torch.serve.warmcache.WarmCache`). Default None
+        resolves the ambient cache from ``QUEST_TPU_WARM_CACHE_DIR``
+        (disabled when unset); pass an explicit cache to share one, or
+        ``False`` to force it off. With a cache, :meth:`warm` LOADS each
+        form's packed operands instead of packing them (hit/miss counters
+        land in the metrics).
     perf_ledger : PerfLedger | False | None
         The persistent perf ledger (:class:`quest_tpu_torch.telemetry.ledger.
         PerfLedger`). Default None resolves ``QUEST_TPU_PERF_LEDGER_DIR``
@@ -390,10 +389,10 @@ class SimulationService:
         self._compiled = _BoundedLRU(int(max_circuits))
         self._last_cc: Optional[CompiledCircuit] = None
         self.metrics.queue_depth_fn = lambda: self._backlog
-        if warm_cache is not None and warm_cache is not False:
-            raise NotImplementedError(
-                f"the persistent warm-start cache waits for {_ITEM_10}")
-        self.warm_cache = None
+        if warm_cache is None:
+            from .warmcache import WarmCache
+            warm_cache = WarmCache.from_env()
+        self.warm_cache = warm_cache or None
         if perf_ledger is None:
             from ..telemetry.ledger import PerfLedger
             perf_ledger = PerfLedger.from_env()
@@ -913,7 +912,11 @@ class SimulationService:
         ``value_and_grad_sweep`` with ``gradient=True``,
         ``sample_sweep`` when ``shots`` is (from a private generator:
         the environment's stream is drawn on the dispatcher thread
-        only). ``tier`` warms one precision tier's plan (the traffic's
+        only). With a persistent warm cache, each bucket's form is
+        LOADED from disk when a previous process stored it
+        (``warm_cache_hits``: its layers pack nothing) and packed and
+        stored otherwise (``warm_cache_misses``), before the program is
+        precompiled. ``tier`` warms one precision tier's plan (the traffic's
         ``submit(tier=...)`` / ``error_budget`` rung). ``trajectories``
         (with ``observables=``) warms the TRAJECTORY wave loop instead —
         a recorded noisy circuit lowers through ``compile_trajectories``
@@ -950,7 +953,6 @@ class SimulationService:
             self._last_cc = compiled
             return compiled
         tier = compiled._effective_tier(tier)
-        compiled.precompile()
         if batch_sizes is not None:
             sizes = tuple(batch_sizes)
         else:
@@ -973,8 +975,22 @@ class SimulationService:
             raise ValueError("warming gradient dispatches needs "
                              "observables= (the reverse pass embeds "
                              "the Pauli-sum reduction)")
-        for bs in sizes:
-            padded = self.policy.bucket_size(int(bs), mult)
+        padded_sizes = [self.policy.bucket_size(int(bs), mult)
+                        for bs in sizes]
+        if self.warm_cache is not None:
+            # gradient forms persist too ("grad": the adjoint layers are
+            # their own), so gradient-heavy tenants restart warm
+            kind = "grad" if gradient else (
+                "energy" if observables is not None else "sweep")
+            for padded in padded_sizes:
+                status = self.warm_cache.warm_form(
+                    compiled, kind, padded, hamiltonian=ham, tier=tier)
+                if status == "hit":
+                    self.metrics.incr("warm_cache_hits")
+                elif status == "miss":
+                    self.metrics.incr("warm_cache_misses")
+        compiled.precompile()
+        for padded in padded_sizes:
             pm = np.zeros((padded, len(compiled.param_names)),
                           dtype=np.float64)
             if gradient:
@@ -998,14 +1014,43 @@ class SimulationService:
                  tenant: str = DEFAULT_TENANT,
                  yield_to_interactive: bool = True,
                  preempt_hold_s: float = 5.0):
-        """Run a variational optimization INSIDE the serving layer,
-        streaming its iterates back (the JAX package's
-        optimizer-in-the-loop API: each iterate one ``kind="gradient"``
-        submission plus a host-side optimizer step). It rides
-        ``serve/optimize.py``, which waits for ROADMAP Queue 1 item 10;
-        until then it raises ``NotImplementedError``. Gradient requests
-        themselves are served: ``submit(..., gradient=True)``."""
-        raise NotImplementedError(f"optimize() waits for {_ITEM_10}")
+        """Run a variational optimization INSIDE the serving layer and
+        stream its iterates back (the JAX package's optimizer-in-the-loop
+        API).
+
+        ``problem`` is a :class:`~quest_tpu_torch.serve.optimize.
+        VariationalProblem` (circuit + Pauli-sum objective + starting
+        point, optionally a trajectory/sampling-budget contract for noisy
+        objectives). Each iterate is ONE ``gradient=True`` submission — a
+        coalesced value-and-grad dispatch through the batched engine (on
+        the card the batched layer kernel, and for a trajectory objective
+        the fused Kraus kernel through ``expectation_grad_batch``) —
+        followed by a host-side ``optimizer`` step (``"adam"`` / ``"gd"``
+        or an ``init``/``update`` object). The returned
+        :class:`~quest_tpu_torch.serve.optimize.OptimizationHandle` yields
+        each ``{iteration, value, grad_norm, x, converged}`` from
+        ``iterates()`` as it lands and resolves the final summary via
+        ``result()``. Convergence is ``|value_k - value_{k-1}| <= tol``,
+        bounded by ``max_iters``.
+
+        ``checkpoint_path`` checkpoints every completed iterate atomically
+        (:func:`quest_tpu_torch.resilience.segments.opt_progress_save`);
+        with ``resume=True`` a killed run continues from its last good
+        iterate, digest-guarded, so a checkpoint of another problem or
+        optimizer configuration is ignored. Transient iterate faults
+        re-execute within ``max_restarts``; fatal errors fail the handle
+        with the original exception. ``tenant`` attributes every gradient
+        submission to a WFQ tenant; ``yield_to_interactive`` yields to
+        queued priority-0 work at each iterate (= checkpoint) boundary, at
+        most ``preempt_hold_s`` seconds per preemption."""
+        from .optimize import run_optimization
+        return run_optimization(
+            self, problem, optimizer, max_iters=max_iters, tol=tol,
+            learning_rate=learning_rate,
+            checkpoint_path=checkpoint_path, resume=resume,
+            max_restarts=max_restarts, tenant=tenant,
+            yield_to_interactive=yield_to_interactive,
+            preempt_hold_s=preempt_hold_s)
 
     def evolve(self, circuit, params=None, *, hamiltonian, t: float,
                steps: int, order: int = 2, init_state=None, tier=None,
@@ -1016,11 +1061,41 @@ class SimulationService:
                yield_to_interactive: bool = True,
                preempt_hold_s: float = 5.0):
         """Run real-time Hamiltonian evolution INSIDE the serving layer
-        as checkpointed segments streamed back (the JAX package's
-        ``serve/dynamics.py`` handle, which waits for ROADMAP Queue 1
-        item 10; until then this raises ``NotImplementedError``). One
-        segment is served: ``submit(..., evolve=EvolveSpec(...))``."""
-        raise NotImplementedError(f"evolve() waits for {_ITEM_10}")
+        and stream its segments back.
+
+        ``circuit`` prepares the start state (with ``params`` bound; an
+        empty circuit evolves ``init_state`` / |0...0> directly), then the
+        state evolves by ``exp(-i * hamiltonian * t)`` in ``steps`` Trotter
+        steps of ``order`` (1 or 2), recording the Pauli-sum energy after
+        EVERY step. A segment of ``segment_steps`` steps is one coalesced
+        ``evolve=`` dispatch (``CompiledCircuit.evolve_sweep``: the prep
+        program through the batched layer kernel on the card, then the
+        step loop) returning one packed block: the per-step energies, the
+        Welford carry and the exit-state planes the next segment seeds
+        from, through an identity continuation circuit. The returned
+        :class:`~quest_tpu_torch.serve.dynamics.DynamicsHandle` yields one
+        dict per segment from ``iterates()`` and resolves ``{"energy",
+        "energies", "planes", "welford", ...}`` via ``result()``.
+
+        ``checkpoint_path`` checkpoints every completed segment atomically
+        (:func:`quest_tpu_torch.resilience.segments.dyn_progress_save`,
+        digest-guarded); with ``resume=True`` a killed run continues
+        BIT-EXACTLY from its last good segment. Transient segment faults
+        re-execute within ``max_restarts``; ``tenant`` /
+        ``yield_to_interactive`` / ``preempt_hold_s`` attribute and preempt
+        as in :meth:`optimize`."""
+        from ..ops.dynamics import EvolveSpec
+        from .dynamics import DynamicsProblem, run_dynamics
+        spec = EvolveSpec(t=float(t), steps=int(steps), order=int(order))
+        problem = DynamicsProblem(
+            circuit=circuit, hamiltonian=hamiltonian, spec=spec,
+            params=params, init_state=init_state, tier=tier)
+        return run_dynamics(
+            self, problem, segment_steps=segment_steps,
+            checkpoint_path=checkpoint_path, resume=resume,
+            max_restarts=max_restarts, tenant=tenant,
+            yield_to_interactive=yield_to_interactive,
+            preempt_hold_s=preempt_hold_s)
 
     def ground_state(self, circuit, params=None, *, hamiltonian,
                      steps: int = 16, tau: float = 0.1,
@@ -1032,11 +1107,32 @@ class SimulationService:
                      yield_to_interactive: bool = True,
                      preempt_hold_s: float = 5.0):
         """Run an imaginary-time ground-state search INSIDE the serving
-        layer, segment after segment to convergence (the JAX package's
-        ``serve/dynamics.py`` handle, which waits for ROADMAP Queue 1
-        item 10; until then this raises ``NotImplementedError``). One
-        segment is served: ``submit(..., ground_state=GroundSpec(...))``."""
-        raise NotImplementedError(f"ground_state() waits for {_ITEM_10}")
+        layer and stream its segments back.
+
+        Each segment is ONE coalesced ``ground_state=`` dispatch
+        (``CompiledCircuit.ground_sweep``): ``steps`` iterations of
+        imaginary-time power iteration at time-step ``tau``
+        (``method="power"``) or a ``steps``-vector Lanczos recursion
+        (``method="lanczos"``), returning per-iteration energies, the
+        convergence residual, the Welford carry and the exit-state planes
+        in one packed block. The loop stops when the residual crosses
+        ``tol`` (bounded by ``max_segments`` segments) and the handle
+        resolves ``{"energy", "residual", "converged", ...}``.
+        Checkpointing, resume, restart, tenancy and preemption behave as
+        in :meth:`evolve`."""
+        from ..ops.dynamics import GroundSpec
+        from .dynamics import DynamicsProblem, run_dynamics
+        spec = GroundSpec(steps=int(steps), tau=float(tau),
+                          method=str(method), tol=float(tol))
+        problem = DynamicsProblem(
+            circuit=circuit, hamiltonian=hamiltonian, spec=spec,
+            params=params, init_state=init_state, tier=tier)
+        return run_dynamics(
+            self, problem, max_segments=max_segments,
+            checkpoint_path=checkpoint_path, resume=resume,
+            max_restarts=max_restarts, tenant=tenant,
+            yield_to_interactive=yield_to_interactive,
+            preempt_hold_s=preempt_hold_s)
 
     def pause(self) -> None:
         """Hold dispatching (requests keep queueing, deadlines keep
@@ -1083,7 +1179,7 @@ class SimulationService:
         else:
             self._prio_queued.pop(p, None)
 
-    # -- replica-lifecycle hooks (the router, ROADMAP Queue 1 item 10) -----
+    # -- replica-lifecycle hooks (serve/router.py) -------------------------
 
     def quiesce(self, timeout: Optional[float] = 30.0) -> bool:
         """Block until nothing is queued or mid-dispatch (the rolling-

@@ -1,7 +1,8 @@
-"""The per-service metrics registry of the serving runtime.
+"""The metrics registries of the serving runtime.
 
 Every :class:`quest_tpu_torch.serve.SimulationService` owns one
-:class:`ServiceMetrics`, built on the typed primitives in
+:class:`ServiceMetrics` and every :class:`~quest_tpu_torch.serve.router.
+ServiceRouter` one :class:`RouterMetrics`, built on the typed primitives in
 :mod:`quest_tpu_torch.telemetry.metrics`: named
 :class:`~quest_tpu_torch.telemetry.metrics.Counter` objects for the
 request lifecycle, and fixed-bucket :class:`~quest_tpu_torch.telemetry.
@@ -15,9 +16,9 @@ package's keys; ``SimulationService.dispatch_stats()`` folds it in under
 DispatchStats` fields, and the service registers that combined document
 into the process-global :func:`~quest_tpu_torch.telemetry.metrics.
 metrics_registry`, which the Prometheus/JSON exporters
-(:mod:`quest_tpu_torch.telemetry.export`) scrape. The replicated
-router's and the network front door's registries come with those
-slices (ROADMAP Queue 1 items 10 and 11).
+(:mod:`quest_tpu_torch.telemetry.export`) scrape. The network front
+door's registry (the JAX package's ``WireMetrics``) comes with that slice
+(ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import threading
 
 from ..telemetry.metrics import Counter, Histogram
 
-__all__ = ["ServiceMetrics"]
+__all__ = ["ServiceMetrics", "RouterMetrics"]
 
 
 _COUNTERS = (
@@ -51,9 +52,9 @@ _COUNTERS = (
     "breaker_fastfails",     # requests fast-failed by an open breaker
     "degraded_dispatches",   # requests run in sequential degraded mode
     "watchdog_stalls",       # dispatcher heartbeat gaps past the timeout
-    # warm-start compile cache (the JAX package's; 0 until ported):
+    # the persistent warm-start cache (serve/warmcache.py):
     "warm_cache_hits",       # warm() forms loaded from the persistent cache
-    "warm_cache_misses",     # warm() forms compiled fresh (and stored)
+    "warm_cache_misses",     # warm() forms packed fresh (and stored)
     # precision-tier execution (config.PrecisionTier):
     "fast_tier_dispatches",  # engine dispatches run at the FAST tier
     "tier_violations",       # result rows outside their tier's tolerance
@@ -62,8 +63,7 @@ _COUNTERS = (
     "trajectory_dispatches",  # coalesced trajectory wave loops executed
     "trajectories_run",       # stochastic draws those loops executed
     "trajectories_saved",     # draws early stopping skipped vs max_T
-    # gradient serving + optimizer-in-the-loop (optimize() is ported
-    # with ROADMAP Queue 1 item 10; its counters stay 0 until then):
+    # gradient serving + optimizer-in-the-loop (serve/optimize.py):
     "gradient_dispatches",    # coalesced value-and-grad executables run
     "gradients_returned",     # (value, grad) results fanned back
     "optimizer_runs",         # optimize() handles started
@@ -76,7 +76,7 @@ _COUNTERS = (
     "pipelined_batches",      # dispatches launched through the in-flight pipe
     "preemptions",            # checkpointed runs that yielded the mesh
     # Hamiltonian dynamics (ops/dynamics.py; the evolve()/ground_state()
-    # handles come with ROADMAP Queue 1 item 10):
+    # handles of serve/dynamics.py):
     "evolve_dispatches",      # coalesced Trotter-evolution segments run
     "evolve_steps_fused",     # Trotter steps iterated inside executables
     "ground_dispatches",      # coalesced ground-state segments run
@@ -276,4 +276,65 @@ class ServiceMetrics:
             # numeric leaves, so each tenant's counters/percentiles
             # export as tenants_<name>_<metric> series automatically
             "tenants": self.tenant_snapshot(),
+        }
+
+
+_ROUTER_COUNTERS = (
+    "routed",                # requests placed on a replica
+    "rerouted_full",         # re-placed after a replica's QueueFull
+    "failovers",             # re-placed after a replica fault/breaker/crash
+    "hedged_dispatches",     # duplicate dispatches issued by hedging
+    "hedge_wins",            # hedge results that resolved the request
+    "replica_quarantines",   # replicas pulled from routing by the supervisor
+    "replica_restarts",      # replacement services started
+    "readmissions",          # replicas returned to routing after a probe
+    "probe_batches",         # half-open probe batches run
+    "probe_failures",        # probes whose results failed the oracle check
+    "failed_unroutable",     # requests failed: no healthy replica in budget
+    "supervisor_errors",     # supervisor-loop iterations that raised
+    # optimizer-in-the-loop over the replicated front end: router.optimize()
+    # drives the same OptimizationHandle as the single service
+    "optimizer_runs",        # optimize() handles started on this router
+    "optimizer_iterations",  # optimizer steps executed (all handles)
+    "optimizer_converged",   # handles that met their tolerance
+    "optimizer_resumes",     # handles resumed from a checkpoint
+    # elasticity (resilience.AutoscalePolicy, ServiceRouter.scale_to):
+    "scale_ups",             # replica-pool grow operations
+    "scale_downs",           # replica-pool shrink operations
+    "preemptions",           # checkpointed runs that yielded the device
+)
+
+
+class RouterMetrics:
+    """Typed counters + a latency histogram for one
+    :class:`~quest_tpu_torch.serve.router.ServiceRouter` (the replica-level
+    view; each replica's own :class:`ServiceMetrics` stays the per-service
+    truth). Its snapshot has the JAX package's keys."""
+
+    def __init__(self, latency_window: int = 4096):
+        self._lock = threading.RLock()
+        self._c = {name: Counter(name, lock=self._lock)
+                   for name in _ROUTER_COUNTERS}
+        self._latency = Histogram(
+            "router_latency_s", "router submit-to-result seconds")
+
+    def incr(self, name: str, k: int = 1) -> None:
+        c = self._c.get(name)
+        if c is None:
+            raise KeyError(f"unknown router counter {name!r}")
+        c.inc(k)
+
+    def record_latency(self, total_s: float) -> None:
+        self._latency.observe(total_s)
+
+    def latency_histograms(self) -> dict:
+        return {"router_latency_s": self._latency.snapshot()}
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            c = {name: cnt.value for name, cnt in self._c.items()}
+        return {
+            **c,
+            "p50_latency_s": self._latency.percentile(50.0),
+            "p99_latency_s": self._latency.percentile(99.0),
         }

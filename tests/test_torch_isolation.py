@@ -16,7 +16,7 @@ import torch
 import quest_tpu_torch as tq
 from quest_tpu_torch.ops import kraus_kernel as kk
 from quest_tpu_torch.ops import layer_kernel as lk
-from torch_threads import one_blas_thread  # noqa: F401
+from torch_threads import one_blas_thread, port_lock_order  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,7 +43,10 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.resilience.recovery, "
             "quest_tpu_torch.serve.metrics, quest_tpu_torch.serve.coalesce, "
             "quest_tpu_torch.serve.sched, quest_tpu_torch.serve.engine, "
-            "chip_smoke\n"
+            "quest_tpu_torch.serve.router, quest_tpu_torch.serve.optimize, "
+            "quest_tpu_torch.serve.dynamics, quest_tpu_torch.checkpoint, "
+            "quest_tpu_torch.resilience.segments, "
+            "quest_tpu_torch.testing.lockcheck, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
             "or m == 'quest_tpu')\n"

@@ -2,9 +2,13 @@
 
 For every public name both packages define (the functions of ``api.py``,
 ``algorithms.py``, ``qasm_import.py``, ``ops/dynamics.py``,
-``serve/coalesce.py``, ``serve/sched.py`` and ``resilience/recovery.py``,
-and the methods of ``Circuit``, ``CompiledCircuit``, ``TrajectoryProgram``,
-``Qureg``, ``QuESTEnv`` and ``SimulationService``), the port's
+``serve/coalesce.py``, ``serve/sched.py``, ``serve/optimize.py``,
+``serve/dynamics.py``, ``serve/router.py``, ``serve/warmcache.py``,
+``checkpoint.py``, ``resilience/recovery.py`` and
+``resilience/segments.py``, and the methods of ``Circuit``,
+``CompiledCircuit``, ``TrajectoryProgram``, ``Qureg``, ``QuESTEnv``,
+``SimulationService``, ``ServiceRouter``, ``WarmCache`` and the optimizer
+and dynamics classes), the port's
 parameters begin with the
 reference's, by name and in order, so a program written for the JAX
 package calls the port the same way, positionally or by keyword. The port
@@ -31,8 +35,16 @@ from quest_tpu.ops import dynamics as jdyn
 from quest_tpu.ops.trajectories import TrajectoryProgram as JTrajectories
 from quest_tpu.resilience import recovery as jrec
 from quest_tpu.serve import SimulationService as JService
+from quest_tpu import checkpoint as jckpt
+from quest_tpu.resilience import segments as jseg
+from quest_tpu.serve import ServiceRouter as JRouter
+from quest_tpu.serve import WarmCache as JWarmCache
 from quest_tpu.serve import coalesce as jco
+from quest_tpu.serve import dynamics as jsdyn
+from quest_tpu.serve import optimize as jopt
+from quest_tpu.serve import router as jrouter
 from quest_tpu.serve import sched as jsched
+from quest_tpu.serve import warmcache as jwc
 import quest_tpu_torch as tq
 from quest_tpu_torch import algorithms as talg
 from quest_tpu_torch import api as tapi
@@ -41,8 +53,16 @@ from quest_tpu_torch.ops import dynamics as tdyn
 from quest_tpu_torch.ops.trajectories import TrajectoryProgram as TTrajectories
 from quest_tpu_torch.resilience import recovery as trec
 from quest_tpu_torch.serve import SimulationService as TService
+from quest_tpu_torch import checkpoint as tckpt
+from quest_tpu_torch.resilience import segments as tseg
+from quest_tpu_torch.serve import ServiceRouter as TRouter
+from quest_tpu_torch.serve import WarmCache as TWarmCache
 from quest_tpu_torch.serve import coalesce as tco
+from quest_tpu_torch.serve import dynamics as tsdyn
+from quest_tpu_torch.serve import optimize as topt
+from quest_tpu_torch.serve import router as trouter
 from quest_tpu_torch.serve import sched as tsched
+from quest_tpu_torch.serve import warmcache as twc
 from torch_threads import one_blas_thread  # noqa: F401
 
 RNG = ("the RNG decision (ROADMAP): the port draws from a "
@@ -77,14 +97,32 @@ ALLOWED = {
 MODULES = (("algorithms", jalg, talg), ("qasm_import", jqasm, tqasm),
            ("ops.dynamics", jdyn, tdyn), ("serve.coalesce", jco, tco),
            ("serve.sched", jsched, tsched),
-           ("resilience.recovery", jrec, trec))
+           ("resilience.recovery", jrec, trec),
+           ("checkpoint", jckpt, tckpt),
+           ("resilience.segments", jseg, tseg),
+           ("serve.optimize", jopt, topt), ("serve.dynamics", jsdyn, tsdyn),
+           ("serve.router", jrouter, trouter))
+
+# modules whose port exports more than the JAX package's names (the warm
+# cache's artifact class): every JAX name exists and is compared
+SUPERSET_MODULES = (("serve.warmcache", jwc, twc),)
 
 CLASSES = (("Circuit", jq.Circuit, tq.Circuit),
            ("CompiledCircuit", jq.CompiledCircuit, tq.CompiledCircuit),
            ("TrajectoryProgram", JTrajectories, TTrajectories),
            ("Qureg", jq.Qureg, tq.Qureg),
            ("QuESTEnv", jq.QuESTEnv, tq.QuESTEnv),
-           ("SimulationService", JService, TService))
+           ("SimulationService", JService, TService),
+           ("ServiceRouter", JRouter, TRouter),
+           ("WarmCache", JWarmCache, TWarmCache),
+           ("VariationalProblem", jopt.VariationalProblem,
+            topt.VariationalProblem),
+           ("OptimizationHandle", jopt.OptimizationHandle,
+            topt.OptimizationHandle),
+           ("GradientDescent", jopt.GradientDescent, topt.GradientDescent),
+           ("Adam", jopt.Adam, topt.Adam),
+           ("DynamicsProblem", jsdyn.DynamicsProblem, tsdyn.DynamicsProblem),
+           ("DynamicsHandle", jsdyn.DynamicsHandle, tsdyn.DynamicsHandle))
 
 
 def _function(obj):
@@ -101,7 +139,7 @@ def _shared_callables():
         jf, tf = getattr(japi, name), getattr(tapi, name, None)
         if inspect.isfunction(jf) and inspect.isfunction(tf):
             out.append((name, jf, tf))
-    for mod_name, jmod, tmod in MODULES:
+    for mod_name, jmod, tmod in MODULES + SUPERSET_MODULES:
         for name in jmod.__all__:
             jf, tf = getattr(jmod, name), getattr(tmod, name, None)
             if inspect.isfunction(jf) and inspect.isfunction(tf):
@@ -168,6 +206,57 @@ def test_the_serving_core_is_compared_whole():
                  "serve.sched.plan_wfq_schedule",
                  "resilience.recovery.classify"):
         assert must in names, must
+
+
+def test_the_rest_of_serving_is_compared_whole():
+    """The router, the warm cache, the optimizer and dynamics handles,
+    checkpoints and segments: every public name of the JAX package's
+    modules exists in the port, and the new entry points are compared."""
+    names = {q for q, _, _ in SHARED}
+    for mod_name, jmod, tmod in SUPERSET_MODULES:
+        assert set(jmod.__all__) <= set(tmod.__all__), mod_name
+    for must in ("createServiceRouter", "createVariationalProblem",
+                 "ServiceRouter.__init__", "ServiceRouter.submit",
+                 "ServiceRouter.warm", "ServiceRouter.optimize",
+                 "ServiceRouter.set_tenant", "ServiceRouter.scale_to",
+                 "ServiceRouter.rolling_restart",
+                 "ServiceRouter.dispatch_stats", "ServiceRouter.close",
+                 "ServiceRouter.interactive_pressure",
+                 "SimulationService.optimize", "SimulationService.evolve",
+                 "SimulationService.ground_state",
+                 "WarmCache.__init__", "WarmCache.warm_form",
+                 "WarmCache.stats", "serve.warmcache.env_fingerprint",
+                 "serve.warmcache.circuit_digest",
+                 "CompiledCircuit.lower_batched",
+                 "CompiledCircuit.install_batched_aot",
+                 "checkpoint.save", "checkpoint.load", "checkpoint.save_npz",
+                 "checkpoint.load_npz", "checkpoint.atomic_savez",
+                 "checkpoint.atomic_write_json",
+                 "resilience.segments.split_circuit",
+                 "resilience.segments.checkpointed_run",
+                 "resilience.segments.checkpointed_sweep",
+                 "resilience.segments.opt_progress_save",
+                 "resilience.segments.dyn_progress_load",
+                 "serve.optimize.run_optimization",
+                 "serve.optimize.resolve_optimizer",
+                 "serve.dynamics.run_dynamics", "serve.router.replica_envs",
+                 "VariationalProblem.digest", "OptimizationHandle.result",
+                 "OptimizationHandle.iterates", "DynamicsHandle.result",
+                 "Adam.update", "GradientDescent.update"):
+        assert must in names, must
+    assert inspect.isclass(TWarmCache.from_env.__self__)
+    for name in ("ServiceRouter", "AllReplicasUnavailable", "WarmCache",
+                 "VariationalProblem", "OptimizationHandle",
+                 "GradientDescent", "Adam", "DynamicsProblem",
+                 "DynamicsHandle", "SimulationService"):
+        assert name in tq.__all__ and getattr(tq, name) is getattr(
+            tq.serve, name), name
+    assert [f.name for f in dataclasses.fields(tsdyn.DynamicsProblem)] == \
+        [f.name for f in dataclasses.fields(jsdyn.DynamicsProblem)]
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        topt.VariationalProblem)] == [(f.name, f.default) for f in
+                                      dataclasses.fields(
+                                          jopt.VariationalProblem)]
 
 
 @pytest.mark.parametrize("name", ["EvolveSpec", "GroundSpec", "ParsedQASM"])
