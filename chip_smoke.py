@@ -13,6 +13,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 17       # the QUAD tier
     python3 chip_smoke.py --only 18       # the serving runtime
     python3 chip_smoke.py --only 19       # router, warm cache, handles
+    python3 chip_smoke.py --only 20       # the network front door
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -241,8 +242,9 @@ Phases (any unmet check exits non-zero and prints no result line):
     5e-3, complex64: 18a. the JAX package's own serving trace
     (``bench.py:2236``: the 16-qubit 2-layer HEA, the 24-term Pauli sum of
     seed 2026, 1024 requests, every 4th 64 shots, the rest the energy),
-    first the sequential client (``initZeroState``, ``run``,
-    ``calcExpecPauliSum`` / ``sampleOutcomes`` per request), then the
+    first the sequential client over the trace's first 256 requests
+    (``initZeroState``, ``run``, ``calcExpecPauliSum`` /
+    ``sampleOutcomes`` per request; cut from 1024 for time), then the
     whole trace through one warmed service, submitted while paused:
     requests/s of both, the speedup, batch occupancy, coalesce ratio,
     padded fraction, p50/p99 latency, retries, rejects and timeouts; the
@@ -302,7 +304,45 @@ Phases (any unmet check exits non-zero and prints no result line):
     segments of 16 within 1e-6 of max|E| of one ``expectation_sweep``.
     The batched layer kernel launches on 19a-19d and the Kraus kernel on
     19b's noisy objective, each counted around its sub-phase. The phase
-    stays under 120 s.
+    stays under 120 s;
+20. the network front door (``quest_tpu_torch.netserve``: ``NetServer``
+    and ``NetClient`` over loopback, the ``quest_tpu.wire/1`` form),
+    complex64, under the port's lock-order check (the locks of the timed
+    passes of 20a and 20b created outside it, as ``bench.py:3210`` does):
+    20a. the JAX package's
+    wire cell (``bench.py:3219``: the 1-layer HEA at 16 qubits, an 8-term
+    Pauli sum of seed 2026, 256 requests, every 4th the full planes, the
+    rest the energy, ``max_batch`` 32, 32 client workers, the program
+    registered outside the timed window) in-process and through the
+    socket: requests/s, p50/p99, the server's parse + serialize spans as
+    a share of request handling, bytes on the wire; whether a row's f32
+    result depends on its batchmates (one row alone and in two batches of
+    32); every wire result equal, bit for bit after the float64 cast, to
+    the value its backend future resolved with (a recording backend); the
+    wire against in-process bit for bit where rows are batch-independent,
+    else within 1e-6 of max|E| of direct sweeps of the same rows; 20b.
+    the wire-chaos cell (``bench.py:3374``, seed 2028, 64 requests: its
+    own count when its time is short, cut from 256) fault-free and under
+    2% seeded wire faults over ``faults.WIRE_KINDS`` plus a reset at call
+    2 (``retries=6``): requests/s of both, retries, resends, dedup replays
+    and joins; every completed request equal to its fault-free value (the
+    bar of 20a), every other failed typed, zero double dispatches; 20c.
+    phase 19b's optimizer problem as a resumable stream (4 Adam iterates)
+    cut after 3 events and reattached through ``/v1/resume``, equal event
+    for event to an in-process handle bit for bit; one trajectory request
+    (128 trajectories, 16 qubits) equal to its future's value, every
+    Kraus launch held against its plain version; one wire batch of 8
+    with every batched layer launch held against its plain version; one
+    ``evolve`` stream of 19c's problem at 16 qubits (its terminal event
+    carries the final planes as JSON) equal to the in-process handle bit
+    for bit; 20d. drain to a state file and restart on the same port: the
+    same client's ``circuit_ref`` submissions hit the restored registry
+    with its session readmitted (no resend, no reopen, nothing dropped);
+    a refused batched-layer launch under a wire request reaches the
+    client as the non-retryable 500 (``WireError``, no retry, no plain
+    version). The batched layer kernel launches on 20a-20d and the Kraus
+    kernel on 20c, each counted around its sub-phase. The phase stays
+    under 60 s.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -323,6 +363,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1661,7 +1702,7 @@ def phase_sweep(torch, qt, lk, kk, card):
           f"{e_rel:.3e} <= 1e-3")
     del q
 
-    reps = 2
+    reps = 1                     # one timed sweep: the script's time limit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -3992,6 +4033,8 @@ def phase_quad(torch, qt, lk, kk, card):
 
 SERVE_QUBITS, SERVE_LAYERS, SERVE_TERMS = 16, 2, 24  # bench.py:2236's
 SERVE_REQUESTS, SERVE_SHOTS = 1024, 64               # defaults
+SERVE_SEQ_REQUESTS = 256       # 18a's sequential client: the trace's first,
+#                                cut from 1024 for the script's time
 SERVE_BATCH, SERVE_WAIT = 64, 5e-3
 SERVE_CLIENTS, SERVE_SHOT_REQUESTS, SERVE_HELD = 8, 16, 8   # 18b
 SERVE_TRAJ_REQUESTS, SERVE_TRAJ_T = 4, 128                   # 18c
@@ -4071,7 +4114,7 @@ def serving_trace_phase(torch, qt, lk, kk, card):
     torch.cuda.synchronize()
     off_vals, off_lat = {}, []
     t0 = time.perf_counter()
-    for i in range(N):
+    for i in range(SERVE_SEQ_REQUESTS):
         r0 = time.perf_counter()
         qt.initZeroState(q)
         cc.run(q, dict(zip(names, pm[i])))
@@ -4096,7 +4139,7 @@ def serving_trace_phase(torch, qt, lk, kk, card):
         parts += (r1 - r0, r2 - r1, time.perf_counter() - r2)
     del q
     parts *= 1e3 / 16
-    off_rate = N / off_s
+    off_rate = SERVE_SEQ_REQUESTS / off_s
     print(f"  service off (sequential client): {off_rate:.1f} requests/s "
           f"({off_s:.2f} s), p50/p99 latency "
           f"{ServiceMetrics._pct(off_lat, 50.0) * 1e3:.2f}/"
@@ -4133,11 +4176,14 @@ def serving_trace_phase(torch, qt, lk, kk, card):
           f"(single-state {single}, Kraus {kraus})")
     exp_idx = np.flatnonzero(~is_sample)
     got = np.array([results[i] for i in exp_idx], dtype=np.float64)
-    seq = np.array([off_vals[i] for i in exp_idx])
-    scale = float(np.abs(seq).max())
-    dev_seq = float(np.abs(got - seq).max()) / scale
-    check(dev_seq <= 1e-5, f"service energies vs the sequential client: "
-          f"{dev_seq:.3e} of max|E| {scale:.3e} <= 1e-5")
+    seq_idx = sorted(off_vals)
+    seq = np.array([off_vals[i] for i in seq_idx])
+    scale = float(np.abs(got).max())
+    dev_seq = float(np.abs(np.array([results[i] for i in seq_idx])
+                           - seq).max()) / scale
+    check(dev_seq <= 1e-5, f"service energies vs the sequential client "
+          f"({len(seq_idx)} requests): {dev_seq:.3e} of max|E| "
+          f"{scale:.3e} <= 1e-5")
     # the service dispatched each kind FIFO in batches of 64: the same
     # rows through the engine directly, batch for batch
     direct = np.concatenate([
@@ -5017,6 +5063,658 @@ def phase_serving_rest(torch, qt, lk, kk, card):
             "restart": router["restart"], "wall_s": wall}
 
 
+NET_QUBITS, NET_LAYERS, NET_TERMS = SERVE_QUBITS, 1, 8   # bench.py:3219's
+NET_REQUESTS, NET_BATCH, NET_WAIT, NET_WORKERS = 256, 32, 5e-3, 32
+NET_SEED, NETCHAOS_SEED, NETCHAOS_RATE = 2026, 2028, 0.02    # :3374's
+NETCHAOS_REQUESTS = 64         # :3374's own count when its time is short
+NET_HELD, NET_OPT_ITERS, NET_OPT_CUT = 8, 4, 3                # 20c
+NET_TRAJ_T = 128
+
+
+def net_trace(qt, n: int, seed: int, num_requests: int = NET_REQUESTS):
+    """bench.py:3219's trace: the 1-layer HEA, an 8-term Pauli sum and one
+    parameter row per request, drawn in the JAX package's order."""
+    rng = np.random.default_rng(seed)
+    circ = hea_circuit(qt, n, NET_LAYERS)
+    codes = rng.integers(0, 4, size=(NET_TERMS, n))
+    coeffs = rng.normal(size=NET_TERMS)
+    ham = ([[(q, int(codes[t, q])) for q in range(n)]
+            for t in range(NET_TERMS)], coeffs)
+    pm = rng.uniform(0.0, 2.0 * np.pi,
+                     size=(num_requests, len(circ.param_names)))
+    return circ, ham, pm
+
+
+class RecordingBackend:
+    """The backend a phase-20 server stands on: it passes every call to
+    the service and keeps each submitted request's future under its
+    parameter row and kind, so the phase holds each wire result against
+    the value the backend's future resolved with."""
+
+    def __init__(self, svc):
+        self._svc = svc
+        self.futures = {}
+
+    @staticmethod
+    def key(params, kw) -> tuple:
+        kind = ("trajectory" if kw.get("trajectories") is not None
+                else "expectation" if kw.get("observables") is not None
+                else "sweep")
+        return kind, tuple(sorted((params or {}).items()))
+
+    def submit(self, circuit, params=None, **kw):
+        fut = self._svc.submit(circuit, params, **kw)
+        self.futures.setdefault(self.key(params, kw), []).append(fut)
+        return fut
+
+    def __getattr__(self, name):
+        return getattr(self._svc, name)
+
+
+def host_f64(x) -> np.ndarray:
+    """A result as float64 host numpy (a card tensor copied off first)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def bits_equal(a, b) -> bool:
+    a, b = host_f64(a), host_f64(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def timed_futures(submit, count: int):
+    """Submit ``count`` requests through ``submit(i)`` and wait for them:
+    (results, wall seconds, per-request latencies from submit to done)."""
+    import threading
+    lat = [0.0] * count
+    lock = threading.Lock()
+    t0 = time.perf_counter()
+    futs = []
+    for i in range(count):
+        s = time.perf_counter()
+        f = submit(i)
+
+        def done(_, i=i, s=s):
+            with lock:
+                lat[i] = time.perf_counter() - s
+        f.add_done_callback(done)
+        futs.append(f)
+    out = []
+    for f in futs:
+        try:
+            out.append(("ok", f.result(timeout=600)))
+        except Exception as e:        # the phase reads the failure
+            out.append((e, None))
+    return out, time.perf_counter() - t0, sorted(lat)
+
+
+def batch_dependence(cc, pm, ham):
+    """Whether a row's f32 result depends on its batchmates: one row run
+    alone, with 31 mates, and with 31 others, as an energy and as
+    planes. Returns (independent, description)."""
+    mates = np.vstack([pm[:1], pm[128:159]])
+    e = [host_f64(cc.expectation_sweep(m, ham))[0]
+         for m in (pm[:1], pm[:32], mates)]
+    p = [host_f64(cc.sweep(m)[0]) for m in (pm[:1], pm[:32], mates)]
+    e_same = [bits_equal(e[0], x) for x in e[1:]]
+    p_same = [bits_equal(p[0], x) for x in p[1:]]
+    dev = max(abs(e[0] - x) for x in e[1:])
+    return all(e_same + p_same), (
+        f"energy alone vs 2 batches of 32 bit-equal {e_same} (max|diff| "
+        f"{dev:.3e}), planes {p_same}")
+
+
+def net_service(qt, env, **kwargs):
+    return qt.createSimulationService(
+        env, max_batch=NET_BATCH, max_wait_s=NET_WAIT,
+        request_timeout_s=600.0, **kwargs)
+
+
+def wire_cell(torch, qt, lk, kk, card):
+    """20a: bench.py:3219's wire cell at 16 qubits, in-process then through
+    the loopback socket, every wire result held against its future. The
+    timed passes create their locks outside the lock-order check, as
+    bench.py:3210 does: their number is the production path's cost."""
+    from quest_tpu_torch.netserve import NetClient, NetServer
+    from quest_tpu_torch.serve.metrics import ServiceMetrics
+    from quest_tpu_torch.testing import lockcheck
+    n, N = NET_QUBITS, NET_REQUESTS
+    circ, ham, pm = net_trace(qt, n, NET_SEED)
+    names = circ.param_names
+    is_sweep = (np.arange(N) % 4) == 3
+    env = qt.createQuESTEnv(seed=[NET_SEED])
+    cc = circ.compile(env)
+    independent, dep = batch_dependence(cc, pm, ham)
+    print(f"20a: {N} requests ({int(is_sweep.sum())} sweep, "
+          f"{int((~is_sweep).sum())} expectation), {n}-qubit "
+          f"{NET_LAYERS}-layer HEA, {NET_TERMS}-term Pauli sum, max_batch "
+          f"{NET_BATCH}, {NET_WORKERS} client workers; batch composition: "
+          f"{dep}")
+    svc = net_service(qt, env, max_queue=N + NET_BATCH)
+    for count, kw in ((int((~is_sweep).sum()), {"observables": ham}),
+                      (int(is_sweep.sum()), {})):
+        sizes = {min(NET_BATCH, count)} | (
+            {count % NET_BATCH} if count % NET_BATCH else set())
+        svc.warm(circ, batch_sizes=sorted(sizes - {0}), **kw)
+
+    def kwargs(i):
+        return {} if is_sweep[i] else {"observables": ham}
+
+    def params(i):
+        return dict(zip(names, (float(x) for x in pm[i])))
+
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    with lockcheck.suspended():
+        res_in, in_s, in_lat = timed_futures(
+            lambda i: svc.submit(circ, params(i), **kwargs(i)), N)
+    in_launches = counts(lk, kk)
+    proxy = RecordingBackend(svc)
+    with lockcheck.suspended(), NetServer(proxy,
+                                          trace_sample_rate=1.0) as srv:
+        with NetClient(srv.host, srv.port, max_workers=NET_WORKERS) as cl:
+            cl.submit(circ, params(0), observables=ham).result(timeout=600)
+            proxy.futures.clear()
+            torch.cuda.synchronize()
+            reset_counts(lk, kk)
+            res_net, net_s, net_lat = timed_futures(
+                lambda i: cl.submit(circ, params(i), **kwargs(i)), N)
+            single, batched, kraus = counts(lk, kk)
+        wm = srv.metrics.snapshot()
+        spans = {"parse": 0.0, "queue": 0.0, "dispatch": 0.0,
+                 "serialize": 0.0}
+        for ctx in srv.tracer.finished():
+            for sp in ctx.to_dict()["spans"]:
+                if sp["name"] in spans and sp["duration_s"]:
+                    spans[sp["name"]] += sp["duration_s"]
+    stats = svc.dispatch_stats()
+    failed = [repr(k) for k, _ in res_in + res_net if k != "ok"]
+    check(not failed, f"20a every request answered ({failed[:3]})")
+    check_clean(stats, "20a")
+    check(batched > 0 and single == 0 and kraus == 0 and in_launches[1] > 0,
+          f"20a launched the batched layer kernel {batched} times through "
+          f"the wire ({in_launches[1]} in-process; single {single}, Kraus "
+          f"{kraus})")
+    # the wire adds no error: each result is its future's value, bit for
+    # bit after the float64 cast
+    unmatched, differ = 0, 0
+    for i, (_, got) in enumerate(res_net):
+        futs = proxy.futures.get(RecordingBackend.key(params(i), kwargs(i)))
+        if not futs:
+            unmatched += 1
+            continue
+        if not bits_equal(got, futs[0].result(timeout=600)):
+            differ += 1
+    check(unmatched == 0 and differ == 0,
+          f"20a the wire adds no error: {N - unmatched - differ} of {N} "
+          f"results equal their backend future's value bit for bit after "
+          f"the float64 cast ({unmatched} unmatched, {differ} differ)")
+    same = sum(bits_equal(a, b) for (_, a), (_, b) in zip(res_in, res_net))
+    exp_idx = np.flatnonzero(~is_sweep)
+    e_in = np.array([res_in[i][1] for i in exp_idx], dtype=np.float64)
+    e_net = np.array([res_net[i][1] for i in exp_idx], dtype=np.float64)
+    scale = float(np.abs(e_in).max())
+    if independent:
+        check(same == N, f"20a wire vs in-process: {same} of {N} rows "
+              "bit-equal (a row's result does not depend on its "
+              "batchmates, so the bar is bit-equality)")
+        dev = 0.0
+    else:
+        sw_idx = np.flatnonzero(is_sweep)
+        direct_e = np.concatenate([
+            host_f64(cc.expectation_sweep(pm[exp_idx[s:s + NET_BATCH]], ham))
+            for s in range(0, len(exp_idx), NET_BATCH)])
+        dev = float(np.abs(e_net - direct_e).max()) / scale
+        p_dev = 0.0
+        for s in range(0, len(sw_idx), NET_BATCH):
+            rows = sw_idx[s:s + NET_BATCH]
+            direct_p = host_f64(cc.sweep(pm[rows]))
+            got = np.stack([host_f64(res_net[i][1]) for i in rows])
+            p_dev = max(p_dev, float(np.abs(got - direct_p).max())
+                        / float(np.abs(direct_p).max()))
+        check(dev <= 1e-6 and p_dev <= 1e-6,
+              f"20a wire vs direct sweeps of the same rows: energies "
+              f"{dev:.3e} of max|E|, planes {p_dev:.3e} of max|amp| <= "
+              f"1e-6 ({same} of {N} rows bit-equal to in-process)")
+    in_rate, net_rate = N / in_s, N / net_s
+    ser = spans["parse"] + spans["serialize"]
+    frac = ser / max(sum(spans.values()), 1e-12)
+    pct = ServiceMetrics._pct
+    print(f"  in-process: {in_rate:.1f} requests/s ({in_s:.2f} s), p50/p99 "
+          f"{pct(in_lat, 50.0) * 1e3:.2f}/{pct(in_lat, 99.0) * 1e3:.2f} ms")
+    print(f"  wire: {net_rate:.1f} requests/s ({net_s:.2f} s, "
+          f"{net_rate / in_rate:.3f} of in-process), client p50/p99 "
+          f"{pct(net_lat, 50.0) * 1e3:.2f}/{pct(net_lat, 99.0) * 1e3:.2f} "
+          f"ms, server p50/p99 {wm['p50_request_s'] * 1e3:.2f}/"
+          f"{wm['p99_request_s'] * 1e3:.2f} ms")
+    print(f"  server spans over {N} requests: parse {spans['parse']:.3f} s, "
+          f"queue {spans['queue']:.3f} s, dispatch {spans['dispatch']:.3f} "
+          f"s, serialize {spans['serialize']:.3f} s: parse + serialize "
+          f"{100.0 * frac:.2f}% of request handling; bytes in "
+          f"{wm['bytes_in']}, out {wm['bytes_out']} (a {n}-q planes "
+          f"result {wm['bytes_out'] / max(1, wm['requests_sweep']) / 1e6:.2f}"
+          f" MB); {same} of {N} rows bit-equal to in-process; launches "
+          f"{batched} (in-process {in_launches[1]})")
+    return {"svc": svc, "env": env, "circ": circ, "ham": ham, "pm": pm,
+            "independent": independent, "dep": dep,
+            "launches": batched, "in_rate": in_rate, "net_rate": net_rate,
+            "serialize_frac": frac, "bit_equal": same, "dev": dev}
+
+
+def wire_chaos_cell(torch, qt, lk, kk, card, independent):
+    """20b: bench.py:3374's wire-chaos cell at 16 qubits: the expectation
+    trace fault-free, then under seeded wire faults (the timed passes
+    outside the lock-order check, as in 20a)."""
+    from quest_tpu_torch.netserve import NetClient, NetServer, WireError
+    from quest_tpu_torch.resilience import FaultInjector, FaultSpec, faults
+    from quest_tpu_torch.serve import ServeError
+    from quest_tpu_torch.testing import lockcheck
+    n, N = NET_QUBITS, NETCHAOS_REQUESTS
+    circ, ham, pm = net_trace(qt, n, NETCHAOS_SEED, N)
+    names = circ.param_names
+    env = qt.createQuESTEnv(seed=[NETCHAOS_SEED])
+    svc = net_service(qt, env, max_queue=N + NET_BATCH)
+    svc.warm(circ, batch_sizes=[min(N, NET_BATCH)], observables=ham)
+
+    def run(injector):
+        with lockcheck.suspended(), NetServer(svc) as srv:
+            with NetClient(srv.host, srv.port, max_workers=NET_WORKERS,
+                           retries=6, backoff_s=0.02,
+                           retry_seed=NETCHAOS_SEED) as cl:
+                cl.submit(circ, dict(zip(names, pm[0])),
+                          observables=ham).result(timeout=600)
+                with faults.inject(injector) if injector is not None \
+                        else contextlib.nullcontext():
+                    out, dt, _ = timed_futures(
+                        lambda i: cl.submit(
+                            circ, dict(zip(names, (float(x) for x in pm[i]))),
+                            observables=ham, timeout_s=600.0), N)
+                stats = cl.stats
+            return out, N / dt, stats, srv.metrics.snapshot(), \
+                srv.dedup.snapshot()
+
+    torch.cuda.synchronize()
+    reset_counts(lk, kk)
+    clean, clean_rate, _, _, clean_dd = run(None)
+    per_kind = NETCHAOS_RATE / len(faults.WIRE_KINDS)
+    inj = FaultInjector([FaultSpec(kind, site="netserve.request",
+                                   probability=per_kind,
+                                   at_calls=(2,) if kind == "conn_reset"
+                                   else ())
+                         for kind in faults.WIRE_KINDS],
+                        seed=NETCHAOS_SEED, stall_s=0.01)
+    chaos, chaos_rate, cstats, wm, dd = run(inj)
+    single, batched, kraus = counts(lk, kk)
+    stats = svc.dispatch_stats()
+    svc.close()
+    check(all(k == "ok" for k, _ in clean),
+          "20b every fault-free request answered")
+    failed = [(i, k) for i, (k, _) in enumerate(chaos) if k != "ok"]
+    untyped = [repr(k) for _, k in failed
+               if not isinstance(k, (WireError, ServeError))]
+    completed = [i for i, (k, _) in enumerate(chaos) if k == "ok"]
+    vals_c = np.array([clean[i][1] for i in completed])
+    vals_x = np.array([chaos[i][1] for i in completed])
+    scale = float(np.abs(np.array([v for _, v in clean])).max())
+    same = int(sum(bits_equal(a, b) for a, b in zip(vals_c, vals_x)))
+    dev = float(np.abs(vals_x - vals_c).max()) / scale if completed else 0.0
+    fired = inj.snapshot()
+    print(f"20b: {N} expectation requests over the wire, fault-free "
+          f"{clean_rate:.1f} requests/s, under {100 * NETCHAOS_RATE:.0f}% "
+          f"seeded wire faults {chaos_rate:.1f} requests/s (degradation "
+          f"{100.0 * (1.0 - chaos_rate / clean_rate):.1f}%); "
+          f"{fired['total_injected']} faults "
+          f"{fired['injected_by_kind']}; client retries "
+          f"{cstats['retries']}, resends {cstats['resends']}; dedup "
+          f"replays {dd['replays']}, joins {dd['joins']}, double "
+          f"dispatches {dd['double_dispatches']}; {len(completed)} "
+          f"completed ({same} bit-equal to fault-free, max dev {dev:.3e} "
+          f"of max|E|), {len(failed)} failed typed; launches {batched}")
+    check(not untyped,
+          f"20b every failed request failed typed ({untyped[:3]})")
+    check(dd["double_dispatches"] == 0 and clean_dd["double_dispatches"] == 0,
+          f"20b zero double dispatches ({dd['double_dispatches']})")
+    check(fired["total_injected"] >= 1 and cstats["retries"] >= 1,
+          "20b the faults fired and the client retried")
+    if independent:
+        check(same == len(completed), f"20b every completed chaos request "
+              f"equals its fault-free value bit for bit ({same} of "
+              f"{len(completed)})")
+    else:
+        check(dev <= 1e-6, f"20b completed chaos requests vs fault-free: "
+              f"{dev:.3e} of max|E| <= 1e-6")
+    check_clean(stats, "20b")
+    check(batched > 0 and single == 0 and kraus == 0,
+          f"20b launched the batched layer kernel {batched} times")
+    return {"launches": batched, "clean_rate": clean_rate,
+            "chaos_rate": chaos_rate, "retries": cstats["retries"],
+            "resends": cstats["resends"], "replays": dd["replays"],
+            "joins": dd["joins"], "failed": len(failed)}
+
+
+def wire_streams(torch, qt, lk, kk, card, cell):
+    """20c: a resumable optimizer stream, a trajectory request and an
+    evolve stream over the wire, and one wire-dispatched batch of each
+    kernel held against its plain version."""
+    from quest_tpu_torch.netserve import NetClient, NetServer, wire
+    from quest_tpu_torch.serve.optimize import VariationalProblem
+    n = NET_QUBITS
+    env = qt.createQuESTEnv(seed=[2029])
+    svc = net_service(qt, env)
+    proxy = RecordingBackend(svc)
+    # phase 19b's problem: the 16-q 2-layer HEA and its 24-term sum
+    circ, terms, coeffs, _, pm = serving_trace(qt, n, 1)
+    ham = (terms, [float(c) for c in coeffs])
+    x0 = dict(zip(circ.param_names, (float(x) for x in pm[0])))
+    opt = {"name": "adam", "max_iters": NET_OPT_ITERS, "tol": 0.0,
+           "learning_rate": OPT_LR}
+    h = svc.optimize(VariationalProblem(circ, ham, x0), "adam",
+                     max_iters=NET_OPT_ITERS, tol=0.0, learning_rate=OPT_LR)
+    want = list(h.iterates())
+    want_res = h.result(timeout=600)
+    with NetServer(proxy) as srv:
+        with NetClient(srv.host, srv.port) as cl:
+            torch.cuda.synchronize()
+            reset_counts(lk, kk)
+            gen = cl.stream(circ, x0, observables=ham, optimizer=opt,
+                            resumable=True)
+            head = [next(gen) for _ in range(NET_OPT_CUT)]
+            gen.close()                     # the client goes away
+            rs = srv._streams[head[0]["stream"]]
+            check(wait_until(lambda: not rs.attached()),
+                  "20c the server saw the client go")
+            tail = list(cl.resume_stream(head[0]["stream"],
+                                         head[-1]["cursor"]))
+            opt_launches = counts(lk, kk)[1]
+            events = head + tail
+            its = [e for e in events if e["event"] == "iterate"]
+            (res,) = [e for e in events if e["event"] == "result"]
+            exact = len(its) == len(want) and all(
+                e["value"] == w["value"] and e["grad_norm"] == w["grad_norm"]
+                and np.array_equal(np.array(e["x"]), w["x"])
+                and e["iteration"] == w["iteration"]
+                for e, w in zip(its, want)) \
+                and np.array_equal(np.array(res["result"]["x"]),
+                                   want_res["x"]) \
+                and res["result"]["value"] == want_res["value"]
+            cursors = [e["cursor"] for e in events]
+            print(f"20c: optimizer stream ({NET_OPT_ITERS} Adam iterates of "
+                  f"{len(x0)} parameters, 16-q HEA), cut after "
+                  f"{NET_OPT_CUT} events and resumed from cursor "
+                  f"{head[-1]['cursor']}: {len(events)} events, equal to the "
+                  f"in-process handle by cursor bit for bit: {exact}; "
+                  f"batched layer launches {opt_launches}")
+            check(exact and cursors == list(range(len(events))),
+                  "20c the resumed optimizer stream equals an uninterrupted "
+                  "in-process run, event for event")
+            check(srv.metrics.get("streams_resumed") == 1
+                  and srv.metrics.get("stream_cancels") == 0,
+                  "20c the stream resumed once and was never cancelled")
+
+            # one trajectory request: its (mean, stderr) is its future's
+            rng = np.random.default_rng(2110)
+            tcirc = trajectory_circuit(qt, n, rng)
+            tham = ([[(q, 3)] for q in range(n)],
+                    [float(c) for c in rng.normal(size=n)])
+            kerrs = []
+            launch, held = held_kraus(torch, kk, kerrs)
+            reset_counts(lk, kk)
+            kk.fused_kraus_apply_batched = held
+            try:
+                got = cl.submit(tcirc, None, observables=tham,
+                                trajectories=NET_TRAJ_T).result(timeout=600)
+            finally:
+                kk.fused_kraus_apply_batched = launch
+            t_layer = lk.apply_layer_batched.launches
+            (tfut,) = proxy.futures[("trajectory", ())]
+            t_same = bits_equal(got, tfut.result(timeout=600))
+            k_err = max((e[0] for e in kerrs), default=0.0)
+            k_rel = max((e[1] for e in kerrs), default=0.0)
+            print(f"  trajectory request ({NET_TRAJ_T} trajectories, {n} "
+                  f"q): (mean, stderr) = ({got[0]:.6f}, {got[1]:.3e}), "
+                  f"equal to the backend future's bit for bit: {t_same}; "
+                  f"Kraus launches {held.launches}, each held against "
+                  f"plain: max|diff| {k_err:.3e}, / max|plain| "
+                  f"{k_rel:.3e}; batched layer {t_layer}")
+            check(t_same and held.launches > 0 and k_rel <= 1e-5
+                  and all(e[2] for e in kerrs),
+                  "20c the wire trajectory request launched the Kraus "
+                  "kernel, each launch held against plain, and returned "
+                  "its future's value")
+
+            # one wire-dispatched batch of the batched layer kernel held
+            circ20, ham20, pm20 = cell["circ"], cell["ham"], cell["pm"]
+
+            def row20(i):
+                return dict(zip(circ20.param_names,
+                                (float(x) for x in pm20[i])))
+
+            # registered (and warmed) first, so the held batch is one
+            # dispatch of the wire's requests
+            cl.submit(circ20, row20(0), observables=ham20).result(
+                timeout=600)
+            s0 = svc.dispatch_stats()["service"]["submitted"]
+            with HeldLayers(torch, lk, batched=True) as hl:
+                svc.pause()
+                hf = [cl.submit(circ20, row20(i), observables=ham20)
+                      for i in range(NET_HELD)]
+                queued = wait_until(lambda: svc.dispatch_stats()["service"][
+                    "submitted"] >= s0 + NET_HELD)
+                svc.resume()
+                held_e = [f.result(timeout=600) for f in hf]
+            check(queued, "20c the held batch's requests reached the queue")
+            h_err, h_rel = hl.max_err()
+            print(f"  held wire batch of {NET_HELD}: {hl.launches} batched "
+                  f"layer launches vs apply_layer_batched_plain, max|diff| "
+                  f"{h_err:.3e}, / max|plain| {h_rel:.3e}")
+            check(hl.launches > 0 and h_rel <= 1e-5
+                  and bool(np.isfinite(held_e).all()),
+                  "20c the held wire batch agrees with the plain version")
+
+            # one evolve stream against the in-process handle
+            dcirc, dham = dyn_prep(qt, n), tfim(n)
+            dpar = np.random.default_rng(2030).uniform(0.0, np.pi, size=n)
+            dx = dict(zip(dcirc.param_names, (float(x) for x in dpar)))
+            hd = svc.evolve(dcirc, dx, hamiltonian=dham, t=DYN_T,
+                            steps=DYN_STEPS)
+            dwant = list(hd.iterates())
+            dres = hd.result(timeout=600)
+            reset_counts(lk, kk)
+            devents = list(cl.stream(dcirc, dx, observables=dham,
+                                     evolve={"t": DYN_T, "steps": DYN_STEPS,
+                                             "order": 2}))
+            d_launches = counts(lk, kk)[1]
+            segs = [e for e in devents if e["event"] == "segment"]
+            (dfinal,) = [e for e in devents if e["event"] == "result"]
+            d_same = len(segs) == len(dwant) and all(
+                np.array_equal(np.array(e["energies"]), w["energies"])
+                and np.array_equal(np.array(e["welford"]), w["welford"])
+                and e["energy"] == w["energy"] for e, w in zip(segs, dwant)) \
+                and np.array_equal(np.array(dfinal["result"]["planes"],
+                                            dtype=np.float64),
+                                   host_f64(dres["planes"]))
+            print(f"  evolve stream (t={DYN_T}, {DYN_STEPS} steps, {n} q): "
+                  f"{len(segs)} segment(s), segment blocks and final planes "
+                  f"equal to the in-process handle's bit for bit: {d_same}; "
+                  f"batched layer launches {d_launches}")
+            check(d_same and d_launches > 0, "20c the evolve stream equals "
+                  "the in-process run bit for bit")
+    stats = svc.dispatch_stats()
+    svc.close()
+    check_clean(stats, "20c")
+    return {"launches": opt_launches + t_layer + hl.launches + d_launches,
+            "opt_launches": opt_launches, "kraus_launches": held.launches,
+            "kraus_err": k_err, "held_err": h_err, "held_launches":
+            hl.launches}
+
+
+def wire_drain(torch, qt, lk, kk, card, cell, tmp):
+    """20d: drain a server to its state file, restart on the same state
+    and port, and serve circuit_ref submissions from the same client; then
+    a refused launch under a wire request reaches the client fatal."""
+    from quest_tpu_torch.netserve import NetClient, NetServer, WireError
+    from quest_tpu_torch.ops import cuda_build
+    svc, circ, ham, pm = cell["svc"], cell["circ"], cell["ham"], cell["pm"]
+    names = circ.param_names
+    state = f"{tmp}/netstate.json"
+
+    def params(i):
+        return dict(zip(names, (float(x) for x in pm[i])))
+
+    reset_counts(lk, kk)
+    srv1 = NetServer(svc, state_path=state)
+    port = srv1.port
+    cl = NetClient(srv1.host, port, retries=4, backoff_s=0.02)
+    try:
+        want = [cl.submit(circ, params(i), observables=ham).result(
+            timeout=600) for i in range(4)]
+        sid = cl.session
+        summary = srv1.drain()
+        srv1.close()
+        srv2 = NetServer(svc, port=port, state_path=state)
+        try:
+            got = [cl.submit(circ, params(i), observables=ham).result(
+                timeout=600) for i in range(4)]
+            (row,) = [s for s in srv2.sessions.snapshot()
+                      if s["session"] == sid]
+            restored = srv2.restored
+            m2 = srv2.metrics.snapshot()
+        finally:
+            srv2.close()
+    finally:
+        cl.close()
+    single, batched, kraus = counts(lk, kk)
+    stats = cl.stats
+    same = all(bits_equal(a, b) for a, b in zip(want, got)) \
+        if cell["independent"] else max(abs(a - b) for a, b in
+                                         zip(want, got)) <= 1e-6
+    print(f"20d: drained {summary['sessions']} session(s) and "
+          f"{summary['programs']} program(s) to the state file; the "
+          f"restarted server readmitted {restored}; the same client's 4 "
+          f"circuit_ref submissions: {m2['program_hits']} registry hits, "
+          f"{m2['program_misses']} misses, resends {stats['resends']}, "
+          f"session reopens {stats['session_reopens']}, answers equal: "
+          f"{same}; launches {batched}")
+    check(summary["persisted"] and restored["sessions"] >= 1
+          and restored["programs"] >= 1 and row["program_hits"] >= 4
+          and m2["program_misses"] == 0 and stats["resends"] == 0
+          and stats["session_reopens"] == 0 and len(got) == 4 and same,
+          "20d drain and restart: sessions readmitted, zero UnknownProgram "
+          "resends, zero dropped requests")
+
+    launch, plain = lk.apply_layer_batched, lk.apply_layer_batched_plain
+    refused = {"calls": 0}
+
+    def refuse(*args, **kwargs):
+        refused["calls"] += 1
+        raise cuda_build.KernelLaunchError(
+            "layer kernel launch failed: refused (drill)")
+
+    def forbidden(*args, **kwargs):
+        raise SmokeFailure("a plain version ran on the card")
+
+    fsvc = net_service(qt, cell["env"])
+    fatal = None
+    with NetServer(fsvc) as srv, NetClient(srv.host, srv.port, retries=6,
+                                           backoff_s=0.02) as fcl:
+        lk.apply_layer_batched, lk.apply_layer_batched_plain = \
+            refuse, forbidden
+        try:
+            fcl.submit(circ, params(5), observables=ham).result(timeout=600)
+        except WireError as e:
+            fatal = e
+        finally:
+            lk.apply_layer_batched, lk.apply_layer_batched_plain = \
+                launch, plain
+        fstats = fcl.stats
+    snap = fsvc.dispatch_stats()["service"]
+    fsvc.close()
+    print(f"  refused launch under a wire request: client raised "
+          f"{type(fatal).__name__} (HTTP {getattr(fatal, 'status', None)}): "
+          f"{str(fatal)[:90]}; client retries {fstats['retries']}, fatal "
+          f"failures {snap['failed_fatal']}")
+    check(fatal is not None and fatal.status == 500
+          and "KernelLaunchError" in str(fatal) and fstats["retries"] == 0
+          and refused["calls"] >= 1 and snap["failed_fatal"] >= 1
+          and snap["retries"] == 0,
+          "20d a refused launch reached the client as the non-retryable "
+          "server failure, with no retry")
+    return {"launches": batched}
+
+
+def phase_netserve(torch, qt, lk, kk, card):
+    import shutil
+    import tempfile
+    from quest_tpu_torch.testing import lockcheck
+    print(f"phase 20: the network front door on {card}, loopback, "
+          "complex64, under the port's lock-order check")
+    tmp = tempfile.mkdtemp(prefix="quest_tpu_torch_smoke20_")
+    was = lockcheck.installed()
+    lockcheck.install()
+    before = len(lockcheck.violations())
+    t0 = time.perf_counter()
+    cell = None
+    try:
+        cell = wire_cell(torch, qt, lk, kk, card)
+        t1 = time.perf_counter()
+        chaos = wire_chaos_cell(torch, qt, lk, kk, card, cell["independent"])
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        streams = wire_streams(torch, qt, lk, kk, card, cell)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        drain = wire_drain(torch, qt, lk, kk, card, cell, tmp)
+    finally:
+        if cell is not None:
+            cell["svc"].close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        new = lockcheck.violations()[before:]
+        if not was:
+            lockcheck.uninstall()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"phase 20 wall time {wall:.1f} s on {card}: 20a {t1 - t0:.1f}, "
+          f"20b {t2 - t1:.1f}, 20c {t3 - t2:.1f}, 20d "
+          f"{time.perf_counter() - t3:.1f}")
+    check(not new and lockcheck.find_cycle() is None,
+          f"phase 20 lock order: {len(new)} violations "
+          f"({[str(v) for v in new[:2]]})")
+    check(wall <= 60.0, f"phase 20 wall time {wall:.1f} s <= 60 s")
+    by_path = {"20a": cell["launches"], "20b": chaos["launches"],
+               "20c": streams["launches"], "20d": drain["launches"]}
+    print(f"  launches: batched layer {by_path}, Kraus (20c) "
+          f"{streams['kraus_launches']}")
+    return {"layer_launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "kraus_launches": streams["kraus_launches"],
+            "kraus_by_path": {"20c": streams["kraus_launches"]},
+            "kraus_err": streams["kraus_err"],
+            "held_err": streams["held_err"],
+            "rates": {"wire": cell["net_rate"],
+                      "in_process": cell["in_rate"],
+                      "chaos": chaos["chaos_rate"],
+                      "chaos_fault_free": chaos["clean_rate"]},
+            "serialize_frac": cell["serialize_frac"],
+            "bit_equal": cell["bit_equal"],
+            "independent": cell["independent"], "wall_s": wall}
+
+
+def netserve_keys(net, kraus: bool = False):
+    """Phase 20's keys: of the batched layer kernel's row (its launches on
+    20a-20d, requests/s through the wire and in-process, the server's
+    parse + serialize share) or of the Kraus kernel's (20c)."""
+    if net is None:
+        return {}
+    if kraus:
+        return {"launches_netserve": net["kraus_launches"],
+                "netserve_launches_by_path": net["kraus_by_path"]}
+    return {"launches_netserve": net["layer_launches"],
+            "netserve_launches_by_path": net["launches_by_path"],
+            "netserve_requests_per_s": net["rates"],
+            "netserve_serialize_frac": net["serialize_frac"]}
+
+
 def quad_keys(quad):
     """Phase 17's figures, as keys of the ``layer_kernel`` row (no kernel
     runs on the dd paths)."""
@@ -5212,7 +5910,7 @@ def serving_rest_keys(rest, kraus: bool = False, single: bool = False):
 
 def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
                 traj_grad=None, dynamics=None, serving=None,
-                serving_rest=None):
+                serving_rest=None, netserve=None):
     """The JSON rows of the batched layer kernel and the Kraus kernel."""
     rows = sweep["rows"] + traj["rows"] \
         + (traj_grad["rows"] if traj_grad is not None else [])
@@ -5230,14 +5928,16 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         + (dynamics["launches"] if dynamics is not None else 0)
         + (serving["layer_launches"] if serving is not None else 0)
         + (serving_rest["layer_launches"] if serving_rest is not None
-           else 0),
+           else 0)
+        + (netserve["layer_launches"] if netserve is not None else 0),
         "launches_sweep": sweep["launches"],
         "launches_trajectories": traj["launches_layer"],
         "max_abs_err": max([r[5] for r in rows] + (
             [dynamics["max_abs_err"]] if dynamics is not None else []) + (
             [serving["held_err"]] if serving is not None else []) + (
             [serving_rest["held_err"]] if serving_rest is not None
-            else [])),
+            else []) + (
+            [netserve["held_err"]] if netserve is not None else [])),
         "ms": float(np.mean([r[0] for r in sweep["rows"]])),
         "plain_ms": float(np.mean([r[3] for r in sweep["rows"]])),
         "bound_ms": float(np.mean([r[1] for r in sweep["rows"]])),
@@ -5251,6 +5951,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         **dynamics_keys(dynamics),
         **serving_keys(serving),
         **serving_rest_keys(serving_rest),
+        **netserve_keys(netserve),
     }, {
         "name": "kraus_kernel",
         "route": "cuda",
@@ -5260,12 +5961,14 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         + (traj_grad["launches_kraus"] if traj_grad is not None else 0)
         + (serving["kraus_launches"] if serving is not None else 0)
         + (serving_rest["kraus_launches"] if serving_rest is not None
-           else 0),
+           else 0)
+        + (netserve["kraus_launches"] if netserve is not None else 0),
         "launches_trajectories": traj["launches_kraus"],
         "max_abs_err": max([kerr] + (
             [traj_grad["kraus_max_abs_err"]] if traj_grad is not None
             else []) + ([serving_rest["kraus_err"]]
-                        if serving_rest is not None else [])),
+                        if serving_rest is not None else [])
+            + ([netserve["kraus_err"]] if netserve is not None else [])),
         "ms": k_ms,
         "plain_ms": k_plain,
         "bound_ms": k_bound,
@@ -5275,6 +5978,7 @@ def kernel_rows(layer_row, sweep, traj, grad=None, density_grad=None,
         **traj_gradient_keys(traj_grad, kraus=True),
         **serving_keys(serving, kraus=True),
         **serving_rest_keys(serving_rest, kraus=True),
+        **netserve_keys(netserve, kraus=True),
     }]
 
 
@@ -5315,7 +6019,7 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
 
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
           "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18",
-          "19")
+          "19", "20")
 
 
 def parse_only(argv):
@@ -5343,9 +6047,19 @@ def main(argv) -> int:
         print("FAIL: torch is not importable", file=sys.stderr)
         return 2
     started = time.perf_counter()
+    # each phase's wall time: what passes between one phase's ``runs``
+    # question and the next one's belongs to the phase asked about
+    walls, asked = {}, ["1-2", started]
+
+    def runs(phase):
+        now = time.perf_counter()
+        if asked[0] is not None:
+            walls[asked[0]] = walls.get(asked[0], 0.0) + now - asked[1]
+        asked[:] = [phase, now]
+        return only is None or phase in only
+
     try:
         only = parse_only(argv)
-        runs = lambda phase: only is None or phase in only
         card = phase_device(torch)
         import quest_tpu_torch as qt
         from quest_tpu_torch.ops import kraus_kernel as kk
@@ -5418,6 +6132,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         serving_rest = phase_serving_rest(torch, qt, lk, kk, card) \
             if runs("19") else None
+        torch.cuda.empty_cache()
+        netserve = phase_netserve(torch, qt, lk, kk, card) \
+            if runs("20") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -5436,7 +6153,7 @@ def main(argv) -> int:
         if only is None:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
                                traj_grad, dynamics, serving,
-                               serving_rest) + tail
+                               serving_rest, netserve) + tail
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -5481,6 +6198,11 @@ def main(argv) -> int:
                 rows.append(dict(name="kraus_kernel", path="serving_rest",
                                  **serving_rest_keys(serving_rest,
                                                      kraus=True)))
+            if netserve is not None:
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="netserve", **netserve_keys(netserve)))
+                rows.append(dict(name="kraus_kernel", path="netserve",
+                                 **netserve_keys(netserve, kraus=True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5488,6 +6210,9 @@ def main(argv) -> int:
         print(f"FAIL: {e} (run from the root of a checkout)",
               file=sys.stderr)
         return 2
+    runs(None)
+    print("phase wall times (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items() if v >= 0.05))
     print(f"script wall time {time.perf_counter() - started:.1f} s")
     if only is not None:
         # a partial run: its rows, and never the result line

@@ -131,6 +131,22 @@ def _permute(t, axes):
         else np.transpose(t, axes)
 
 
+def _wire_angle(a: Angle):
+    """JSON-able wire form of one builder angle/rate argument: a Param
+    placeholder travels by name, a static value by exact float."""
+    if isinstance(a, Param):
+        return {"param": a.name}
+    return float(a)
+
+
+def _wire_cmat(arr) -> dict:
+    """JSON-able wire form of one complex tensor. ``json.dumps`` emits
+    ``repr(float)`` so the round trip is bit-exact — the decoded matrix
+    hashes to the same ``warmcache.circuit_digest`` bytes."""
+    a = np.asarray(arr, dtype=np.complex128)
+    return {"re": a.real.tolist(), "im": a.imag.tolist()}
+
+
 class Circuit:
     """A recorded gate program over ``num_qubits`` qubits.
 
@@ -146,6 +162,14 @@ class Circuit:
         self.num_qubits = num_qubits
         self.ops: list[_Op] = []
         self._params: list[str] = []
+        # wire journal: one JSON-able row per recorded op describing the
+        # builder call that produced it (None = not wire-serializable),
+        # in the JAX package's row names and argument order.
+        # quest_tpu_torch.netserve.wire replays rows through these same
+        # builders, so a decoded circuit reproduces the exact op stream
+        # — closures included — and with it warmcache.circuit_digest.
+        self._wire: list = []
+        self._wire_depth = 0
 
     # -- parameters --------------------------------------------------------
 
@@ -171,6 +195,41 @@ class Circuit:
             return self.parameter(a.name)
         return a
 
+    def _journal(self, entry, fn):
+        """Run a builder body with ``entry`` as its wire-journal row:
+        the HIGH-LEVEL call (not the primitive it delegates to) is what
+        the wire form replays, so parameterized closures decode to the
+        same code objects they were recorded from."""
+        base = len(self.ops)
+        self._wire_depth += 1
+        try:
+            out = fn()
+        finally:
+            self._wire_depth -= 1
+        if self._wire_depth == 0:
+            added = len(self.ops) - base
+            # guarded builders append exactly one op; anything else has
+            # no 1:1 row and journals opaque rather than guessing
+            self._wire.extend([entry] if added == 1 else [None] * added)
+        return out
+
+    def _record(self, op: _Op, row) -> "Circuit":
+        """Append one primitive op with its journal row (dropped when a
+        :meth:`_journal` call above records the high-level row)."""
+        self.ops.append(op)
+        if self._wire_depth == 0:
+            self._wire.append(row)
+        return self
+
+    def _wire_rows(self) -> list:
+        """The journal, validated against the op stream (consumed by
+        ``quest_tpu_torch.netserve.wire``). A mutation path that bypassed
+        the journal (``inverse``, direct ``ops`` edits) misaligns it —
+        every row then reads opaque, never a wrong replay."""
+        if len(self._wire) != len(self.ops):
+            return [None] * len(self.ops)
+        return list(self._wire)
+
     # -- primitives --------------------------------------------------------
 
     def gate(self, u, targets: Sequence[int], controls: Sequence[int] = (),
@@ -194,15 +253,18 @@ class Circuit:
                 if not s:
                     flip |= 1 << c
         if callable(u):
-            self.ops.append(_Op("u", targets, bitmask(controls), flip,
-                                mat_fn=u))
-            return self
+            # a bare callable payload has no wire form
+            return self._record(_Op("u", targets, bitmask(controls), flip,
+                                    mat_fn=u), None)
         u = np.asarray(u, dtype=np.complex128)
         dim = 1 << len(targets)
         if u.shape != (dim, dim):
             raise ValueError(f"matrix shape {u.shape} != {(dim, dim)}")
-        self.ops.append(_Op("u", targets, bitmask(controls), flip, mat=u))
-        return self
+        return self._record(
+            _Op("u", targets, bitmask(controls), flip, mat=u),
+            ["gate", _wire_cmat(u), list(targets), list(controls),
+             [int(s) for s in control_states]
+             if control_states is not None else None])
 
     def diagonal(self, factors, qubits: Sequence[int]) -> "Circuit":
         """Record an elementwise phase factor: ``factors`` has shape
@@ -216,14 +278,15 @@ class Circuit:
         if callable(factors):
             fn = factors if axes == tuple(range(len(qubits))) else \
                 (lambda p, f=factors, a=axes: _permute(f(p), a))
-            self.ops.append(_Op("diag", desc, diag_fn=fn))
-            return self
+            return self._record(_Op("diag", desc, diag_fn=fn), None)
         t = np.asarray(factors, dtype=np.complex128)
         if t.shape != (2,) * len(qubits):
             raise ValueError(f"diagonal tensor shape {t.shape} != "
                              f"{(2,) * len(qubits)}")
-        self.ops.append(_Op("diag", desc, diag=t.transpose(axes)))
-        return self
+        # journal the CALLER's axis order: replay re-derives the
+        # sorted layout through this same method
+        return self._record(_Op("diag", desc, diag=t.transpose(axes)),
+                            ["diagonal", _wire_cmat(t), list(qubits)])
 
     # -- named gates (reference API surface) -------------------------------
 
@@ -246,31 +309,39 @@ class Circuit:
         return self.diagonal(np.array([1.0, np.exp(1j * np.pi / 4)]), (q,))
 
     def _phase_gate(self, qubits: Sequence[int], angle: Angle,
-                    exponents) -> "Circuit":
+                    exponents, row: list) -> "Circuit":
         """Record the diagonal ``exp(i angle exponents)`` on ``qubits``
         (axis ``i`` of the real ``exponents`` table indexed by the bit of
         ``qubits[i]``): the one definition of the phase-family gates, bound
-        at record time for a float angle and at run time for a Param."""
+        at record time for a float angle and at run time for a Param.
+        ``row`` is the calling builder's journal row without its angle
+        (``["rz", q]``): a Param call journals it, a static one journals
+        the ``"diagonal"`` row the JAX package writes for it."""
         angle = self._register_angle(angle)
         table = torch.as_tensor(np.asarray(exponents, dtype=np.float64))
         if isinstance(angle, Param):
-            return self.diagonal(
-                lambda p, a=angle, t=table: mats.phase_factors_traceable(
-                    _param(p, a) * t), qubits)
+            return self._journal(
+                row + [_wire_angle(angle)],
+                lambda: self.diagonal(
+                    lambda p, a=angle, t=table: mats.phase_factors_traceable(
+                        _param(p, a) * t), qubits))
         return self.diagonal(
             mats.phase_factors_traceable(float(angle) * table).numpy(),
             qubits)
 
     def phase(self, q: int, angle: Angle) -> "Circuit":
-        return self._phase_gate((q,), angle, [0.0, 1.0])
+        return self._phase_gate((q,), angle, [0.0, 1.0], ["phase", int(q)])
 
-    def _rot(self, q: int, angle: Angle, axis) -> "Circuit":
+    def _rot(self, q: int, angle: Angle, axis, controls=()) -> "Circuit":
         angle = self._register_angle(angle)
         if isinstance(angle, Param):
-            return self.gate(
-                lambda p, a=angle: mats.rotation_traceable(_param(p, a),
-                                                           axis), (q,))
-        return self.gate(mats.rotation(float(angle), axis), (q,))
+            return self._journal(
+                ["rot", int(q), _wire_angle(angle),
+                 [float(x) for x in axis], [int(c) for c in controls]],
+                lambda: self.gate(
+                    lambda p, a=angle: mats.rotation_traceable(
+                        _param(p, a), axis), (q,), controls))
+        return self.gate(mats.rotation(float(angle), axis), (q,), controls)
 
     def rx(self, q: int, angle: Angle) -> "Circuit":
         return self._rot(q, angle, (1, 0, 0))
@@ -280,7 +351,7 @@ class Circuit:
 
     def rz(self, q: int, angle: Angle) -> "Circuit":
         # diagonal fast path: exp(∓i angle/2)
-        return self._phase_gate((q,), angle, [-0.5, 0.5])
+        return self._phase_gate((q,), angle, [-0.5, 0.5], ["rz", int(q)])
 
     def rotate(self, q: int, angle: Angle, axis) -> "Circuit":
         return self._rot(q, angle, axis)
@@ -297,11 +368,13 @@ class Circuit:
     def cphase(self, control: int, target: int, angle: Angle) -> "Circuit":
         """Controlled phase shift (diag(1,1,1,e^{i angle}))."""
         return self._phase_gate((control, target), angle,
-                                [[0.0, 0.0], [0.0, 1.0]])
+                                [[0.0, 0.0], [0.0, 1.0]],
+                                ["cphase", int(control), int(target)])
 
     def crz(self, control: int, target: int, angle: Angle) -> "Circuit":
         return self._phase_gate((control, target), angle,
-                                [[0.0, 0.0], [-0.5, 0.5]])
+                                [[0.0, 0.0], [-0.5, 0.5]],
+                                ["crz", int(control), int(target)])
 
     def swap(self, q1: int, q2: int) -> "Circuit":
         return self.gate(mats.swap(), (q1, q2))
@@ -315,7 +388,8 @@ class Circuit:
         (``QuEST_cpu.c:3075-3114``)."""
         qubits = tuple(qubits)
         parity = np.indices((2,) * len(qubits)).sum(axis=0) % 2
-        return self._phase_gate(qubits, angle, -0.5 * (1.0 - 2.0 * parity))
+        return self._phase_gate(qubits, angle, -0.5 * (1.0 - 2.0 * parity),
+                                ["multi_rotate_z", [int(q) for q in qubits]])
 
     # -- channels (trajectory programs) ------------------------------------
 
@@ -333,11 +407,11 @@ class Circuit:
         targets = tuple(int(t) for t in targets)
         self._check(targets)
         if callable(ops):
-            self.ops.append(_Op("kraus", targets, kraus=ops))
-            return self
-        self.ops.append(_Op("kraus", targets, kraus=[
-            np.asarray(m, dtype=np.complex128) for m in ops]))
-        return self
+            return self._record(_Op("kraus", targets, kraus=ops), None)
+        mats_l = [np.asarray(m, dtype=np.complex128) for m in ops]
+        return self._record(
+            _Op("kraus", targets, kraus=mats_l),
+            ["kraus", [_wire_cmat(m) for m in mats_l], list(targets)])
 
     def dephase(self, q: int, prob: Angle) -> "Circuit":
         """rho -> (1-p) rho + p Z rho Z (mixDephasing semantics; max prob
@@ -345,8 +419,11 @@ class Circuit:
         time and bypasses the cap; values outside [0, 1] give NaN planes."""
         if isinstance(prob, Param):
             nm = self._register_angle(prob).name
-            return self.kraus(
-                lambda p, nm=nm: chan.dephasing_kraus_traceable(p[nm]), (q,))
+            return self._journal(
+                ["dephase", int(q), {"param": nm}],
+                lambda: self.kraus(
+                    lambda p, nm=nm: chan.dephasing_kraus_traceable(p[nm]),
+                    (q,)))
         val.validate_prob(prob, "Circuit.dephase", 0.5,
                           code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPHASE_PROB)
         return self.kraus([np.sqrt(1 - prob) * np.eye(2),
@@ -357,9 +434,11 @@ class Circuit:
         A Param ``prob`` binds at run time (see :meth:`dephase`)."""
         if isinstance(prob, Param):
             nm = self._register_angle(prob).name
-            return self.kraus(
-                lambda p, nm=nm: chan.depolarising_kraus_traceable(p[nm]),
-                (q,))
+            return self._journal(
+                ["depolarise", int(q), {"param": nm}],
+                lambda: self.kraus(
+                    lambda p, nm=nm: chan.depolarising_kraus_traceable(
+                        p[nm]), (q,)))
         val.validate_prob(prob, "Circuit.depolarise", 0.75,
                           code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPOL_PROB)
         return self.kraus(chan.depolarising_kraus(prob), (q,))
@@ -369,8 +448,11 @@ class Circuit:
         Param ``prob`` binds at run time (see :meth:`dephase`)."""
         if isinstance(prob, Param):
             nm = self._register_angle(prob).name
-            return self.kraus(
-                lambda p, nm=nm: chan.damping_kraus_traceable(p[nm]), (q,))
+            return self._journal(
+                ["damp", int(q), {"param": nm}],
+                lambda: self.kraus(
+                    lambda p, nm=nm: chan.damping_kraus_traceable(p[nm]),
+                    (q,)))
         val.validate_prob(prob, "Circuit.damp", 1.0)
         return self.kraus(chan.damping_kraus(prob), (q,))
 
@@ -396,9 +478,12 @@ class Circuit:
                     vals.append(lambda pd, nm=nm: pd[nm])
                 else:
                     vals.append(lambda pd, v=float(p): v)
-            return self.kraus(
-                lambda pd, vs=tuple(vals): chan.pauli_kraus_traceable(
-                    vs[0](pd), vs[1](pd), vs[2](pd)), (q,))
+            return self._journal(
+                ["pauli_channel", int(q), _wire_angle(prob_x),
+                 _wire_angle(prob_y), _wire_angle(prob_z)],
+                lambda: self.kraus(
+                    lambda pd, vs=tuple(vals): chan.pauli_kraus_traceable(
+                        vs[0](pd), vs[1](pd), vs[2](pd)), (q,)))
         val.validate_one_qubit_pauli_probs(prob_x, prob_y, prob_z,
                                            "Circuit.pauli_channel")
         return self.kraus(chan.pauli_kraus(prob_x, prob_y, prob_z), (q,))
@@ -452,8 +537,10 @@ class Circuit:
         def on(p):
             return isinstance(p, Param) or p > 0.0
 
-        for op in self.ops:
+        base_rows = self._wire_rows()
+        for op, row in zip(self.ops, base_rows):
             out.ops.append(op)
+            out._wire.append(row)
             if op.kind == "kraus":
                 continue
             touched = sorted(
@@ -763,6 +850,7 @@ class Circuit:
         """Append ``other``'s ops (and declare its parameters), in place."""
         if other.num_qubits != self.num_qubits:
             raise ValueError("qubit count mismatch")
+        self._wire = self._wire_rows() + other._wire_rows()
         self.ops.extend(other.ops)
         for n in other._params:
             if n not in self._params:

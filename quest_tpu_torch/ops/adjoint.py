@@ -37,6 +37,7 @@ definition by :func:`bind_with_derivatives`.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Sequence
 
 import numpy as np
@@ -103,6 +104,10 @@ class _Reads(dict):
         return super().get(name, default)
 
 
+# serializes forward-mode AD across threads (see bind_with_derivatives)
+_FORWARD_AD = threading.Lock()
+
+
 def bind_with_derivatives(fn: Callable, names: Sequence[str],
                           pm: np.ndarray, what: str):
     """A parametrised op's operator bound for every row of ``pm`` and its
@@ -127,13 +132,17 @@ def bind_with_derivatives(fn: Callable, names: Sequence[str],
     try:
         values = torch.func.vmap(at)(chosen, rows)
         derivs = []
-        for j, c in enumerate(cols):
-            tangent = torch.zeros(len(cols), dtype=torch.float64)
-            tangent[j] = 1.0
-            _, d = torch.func.vmap(
-                lambda t, r, e=tangent: torch.func.jvp(
-                    lambda tt: at(tt, r), (t,), (e,)))(chosen, rows)
-            derivs.append((c, d.resolve_conj().numpy()))
+        # torch's forward-AD dual level is one per process, not per
+        # thread: a jvp on one thread (a gradient dispatch) and on another
+        # (a warm, an optimizer loop) would each exit the other's level
+        with _FORWARD_AD:
+            for j, c in enumerate(cols):
+                tangent = torch.zeros(len(cols), dtype=torch.float64)
+                tangent[j] = 1.0
+                _, d = torch.func.vmap(
+                    lambda t, r, e=tangent: torch.func.jvp(
+                        lambda tt: at(tt, r), (t,), (e,)))(chosen, rows)
+                derivs.append((c, d.resolve_conj().numpy()))
     except (RuntimeError, TypeError) as exc:
         raise TypeError(
             f"{what} is not torch-traceable, so it cannot be "

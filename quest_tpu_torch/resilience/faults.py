@@ -45,8 +45,8 @@ Fault kinds:
   (``"netserve.*"``, :func:`fire_wire`): the front door applies them to
   the connection it is serving, and the client's idempotent retry loop
   must absorb them. At the engine and router boundaries they are
-  no-ops — there is no socket to corrupt below the wire. (The front
-  door is ROADMAP Queue 1 item 11.)
+  no-ops — there is no socket to corrupt below the wire (the front
+  door is :mod:`quest_tpu_torch.netserve`).
 
 Determinism: given the same specs, seed, and sequence of ``fire`` calls,
 the injected schedule is identical — ``at_calls`` schedules are exact,

@@ -16,9 +16,10 @@ package's keys; ``SimulationService.dispatch_stats()`` folds it in under
 DispatchStats` fields, and the service registers that combined document
 into the process-global :func:`~quest_tpu_torch.telemetry.metrics.
 metrics_registry`, which the Prometheus/JSON exporters
-(:mod:`quest_tpu_torch.telemetry.export`) scrape. The network front
-door's registry (the JAX package's ``WireMetrics``) comes with that slice
-(ROADMAP Queue 1 item 11).
+(:mod:`quest_tpu_torch.telemetry.export`) scrape. Every
+:class:`~quest_tpu_torch.netserve.server.NetServer` owns one
+:class:`WireMetrics`, the front door's counters and parse/serialize
+latencies, registered beside its backend's document.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import threading
 
 from ..telemetry.metrics import Counter, Histogram
 
-__all__ = ["ServiceMetrics", "RouterMetrics"]
+__all__ = ["ServiceMetrics", "RouterMetrics", "WireMetrics"]
 
 
 _COUNTERS = (
@@ -337,4 +338,92 @@ class RouterMetrics:
             **c,
             "p50_latency_s": self._latency.percentile(50.0),
             "p99_latency_s": self._latency.percentile(99.0),
+        }
+
+
+_WIRE_COUNTERS = (
+    # the network front door (quest_tpu_torch/netserve):
+    "requests_total",        # wire requests answered (any status)
+    "requests_sweep",        # ... by kind
+    "requests_expectation",
+    "requests_shots",
+    "requests_trajectory",
+    "requests_gradient",
+    "requests_evolve",
+    "requests_ground",
+    "errors_total",          # requests answered with an error envelope
+    "bytes_in",              # request body bytes read
+    "bytes_out",             # response body bytes written
+    "sessions_opened",       # POST /v1/session grants
+    "auth_rejections",       # 401s (unknown token/session)
+    "programs_registered",   # distinct digests decoded + warmed
+    "program_hits",          # circuit_ref submissions served from registry
+    "program_misses",        # full-circuit submissions (decode + register)
+    "qasm_submissions",      # programs that arrived as OpenQASM 2.0
+    "streams_opened",        # chunked-transfer streams started
+    "stream_events",         # ndjson events written across all streams
+    "stream_cancels",        # handles cancelled by client disconnect
+    # the hardened front door:
+    "dedup_hits",            # duplicate request_ids replayed from cache
+    "dedup_joins",           # duplicates that joined an in-flight original
+    "rate_limited",          # 429s from the per-session token bucket
+    "load_shed",             # 429s from priority-aware overload shedding
+    "read_timeouts",         # 408 slow-loris kills (read deadline)
+    "conn_rejected",         # connections refused at max_connections
+    "sessions_expired",      # sessions evicted by the idle TTL sweep
+    "streams_resumed",       # successful stream-resume attachments
+    "wire_faults",           # injected wire faults applied at this door
+    "drains",                # graceful drains completed
+    "programs_restored",     # programs readmitted from persisted state
+)
+
+
+class WireMetrics:
+    """Typed counters + parse/serialize latency histograms for one
+    :class:`~quest_tpu_torch.netserve.server.NetServer` — the wire layer's
+    own accounting, registered into the process-global metrics
+    registry next to the backend's ``dispatch_stats()`` document (one
+    ``/metrics`` scrape answers both "what did the wire do" and "what
+    did the engine do")."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._c = {name: Counter(name, lock=self._lock)
+                   for name in _WIRE_COUNTERS}
+        self._parse = Histogram("wire_parse_s",
+                                "request parse + decode seconds")
+        self._serialize = Histogram("wire_serialize_s",
+                                    "result encode seconds")
+        self._latency = Histogram("wire_request_s",
+                                  "socket receive-to-flush seconds")
+
+    def incr(self, name: str, k: int = 1) -> None:
+        c = self._c.get(name)
+        if c is None:
+            raise KeyError(f"unknown wire counter {name!r}")
+        c.inc(k)
+
+    def get(self, name: str) -> int:
+        return self._c[name].value
+
+    def record_parse(self, seconds: float) -> None:
+        self._parse.observe(seconds)
+
+    def record_serialize(self, seconds: float) -> None:
+        self._serialize.observe(seconds)
+
+    def record_request(self, seconds: float) -> None:
+        self._latency.observe(seconds)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            c = {name: cnt.value for name, cnt in self._c.items()}
+        return {
+            **c,
+            "p50_parse_s": self._parse.percentile(50.0),
+            "p99_parse_s": self._parse.percentile(99.0),
+            "p50_serialize_s": self._serialize.percentile(50.0),
+            "p99_serialize_s": self._serialize.percentile(99.0),
+            "p50_request_s": self._latency.percentile(50.0),
+            "p99_request_s": self._latency.percentile(99.0),
         }

@@ -37,12 +37,14 @@ never adds edges. The cost is a dict probe per acquisition.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
 
 __all__ = ["LockOrderViolation", "install", "uninstall", "installed",
-           "tracked_lock", "graph", "violations", "clear", "assert_clean",
+           "suspended", "tracked_lock", "graph", "violations", "clear",
+           "assert_clean",
            "find_cycle"]
 
 
@@ -309,6 +311,23 @@ def uninstall() -> None:
 
 def installed() -> bool:
     return bool(_STATE["installed"])
+
+
+@contextlib.contextmanager
+def suspended():
+    """Track no lock created inside the block (the JAX package's
+    ``suspended``): for a timed window whose number is the production
+    runtime's cost, which the check would otherwise be part of. Locks
+    created before the block keep tracking; a no-op when not
+    installed."""
+    was = installed()
+    if was:
+        uninstall()
+    try:
+        yield
+    finally:
+        if was:
+            install()
 
 
 def tracked_lock(site: str, rlock: bool = False) -> _TrackedLock:

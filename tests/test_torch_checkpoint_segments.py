@@ -457,6 +457,19 @@ class TestLockOrder:
         assert PREFIX + "a" in str(ei.value) and PREFIX + "b" in str(ei.value)
         assert any(v.site_b == PREFIX + "a" for v in lockcheck.violations())
 
+    def test_suspended_tracks_nothing_created_inside(self, port_lock_order):
+        """A lock the port creates inside ``suspended()`` is a plain lock;
+        one created after it is tracked again."""
+        from quest_tpu_torch.netserve.robust import TokenBucket
+        assert lockcheck.installed()
+        with lockcheck.suspended():
+            assert not lockcheck.installed()
+            inside = TokenBucket(1.0, 1)._lock
+        assert lockcheck.installed()
+        after = TokenBucket(1.0, 1)._lock
+        assert not isinstance(inside, lockcheck._TrackedLock)
+        assert isinstance(after, lockcheck._TrackedLock)
+
     def test_failed_acquire_leaves_the_lock_free(self):
         a = lockcheck.tracked_lock(PREFIX + "a")
         b = lockcheck.tracked_lock(PREFIX + "b")

@@ -334,3 +334,36 @@ def test_fast_gradients_within_the_modeled_bound(envs):
     bound = 4.0 * e * float(np.abs(coeffs).sum())
     diff = float(np.abs(g_fast - g_single).max())
     assert 0.0 < diff <= bound
+
+
+def test_gradients_on_several_threads_at_once(envs):
+    """torch keeps one forward-AD level per process: gradient sweeps on
+    several threads at once (a service dispatching while a front door
+    warms the same program) each get their own derivatives."""
+    import threading
+    _, tenv = envs
+    cc = _hea(tq.Circuit, 3, 1).compile(tenv)
+    terms, coeffs = [[(0, 3)], [(1, 1), (2, 1)]], [1.0, 0.5]
+    pm = np.random.default_rng(3).uniform(0, 2 * np.pi, size=(4, 6))
+    want = [np.asarray(t) for t in
+            cc.value_and_grad_sweep(pm, (terms, coeffs))]
+    got, errors = [], []
+
+    def work():
+        try:
+            for _ in range(10):
+                got.append([np.asarray(t) for t in cc.value_and_grad_sweep(
+                    pm, (terms, coeffs))])
+        except Exception as e:   # noqa: BLE001 (the test reports it)
+            errors.append(e)
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors[:1]
+    assert len(got) == 40
+    for vals, grads in got:
+        np.testing.assert_array_equal(vals, want[0])
+        np.testing.assert_array_equal(grads, want[1])

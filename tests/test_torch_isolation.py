@@ -46,7 +46,14 @@ def test_port_and_smoke_script_import_no_jax():
             "quest_tpu_torch.serve.router, quest_tpu_torch.serve.optimize, "
             "quest_tpu_torch.serve.dynamics, quest_tpu_torch.checkpoint, "
             "quest_tpu_torch.resilience.segments, "
-            "quest_tpu_torch.testing.lockcheck, chip_smoke\n"
+            "quest_tpu_torch.testing.lockcheck, "
+            "quest_tpu_torch.netserve, quest_tpu_torch.netserve.errors, "
+            "quest_tpu_torch.netserve.wire, "
+            "quest_tpu_torch.netserve.session, "
+            "quest_tpu_torch.netserve.robust, "
+            "quest_tpu_torch.netserve._pool, "
+            "quest_tpu_torch.netserve.server, "
+            "quest_tpu_torch.netserve.client, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'quest_tpu.')) "
             "or m == 'quest_tpu')\n"
@@ -331,3 +338,28 @@ def test_concurrent_first_builds_run_the_build_once(tmp_path, monkeypatch):
         assert cuda_build.build_all.cache_info().misses == 1
     finally:
         cuda_build.build_all.cache_clear()
+
+
+NETSERVE_MODULES = ("__init__", "errors", "wire", "session", "robust",
+                    "_pool", "server", "client")
+
+
+@pytest.mark.parametrize("module", NETSERVE_MODULES)
+def test_netserve_module_imports_nothing_of_jax(module):
+    """Every import statement of the front door's modules names the
+    standard library, numpy or the port itself (relative), never JAX or
+    the JAX package, including imports made inside functions."""
+    import ast
+    path = os.path.join(ROOT, "quest_tpu_torch", "netserve",
+                        f"{module}.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                    "quest_tpu")]
+    assert not bad, (module, bad)

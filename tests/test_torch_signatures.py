@@ -4,11 +4,13 @@ For every public name both packages define (the functions of ``api.py``,
 ``algorithms.py``, ``qasm_import.py``, ``ops/dynamics.py``,
 ``serve/coalesce.py``, ``serve/sched.py``, ``serve/optimize.py``,
 ``serve/dynamics.py``, ``serve/router.py``, ``serve/warmcache.py``,
-``checkpoint.py``, ``resilience/recovery.py`` and
-``resilience/segments.py``, and the methods of ``Circuit``,
+``checkpoint.py``, ``resilience/recovery.py``,
+``resilience/segments.py``, ``serve/metrics.py`` and every module of
+``netserve/``, and the methods of ``Circuit``,
 ``CompiledCircuit``, ``TrajectoryProgram``, ``Qureg``, ``QuESTEnv``,
-``SimulationService``, ``ServiceRouter``, ``WarmCache`` and the optimizer
-and dynamics classes), the port's
+``SimulationService``, ``ServiceRouter``, ``WarmCache``, the optimizer
+and dynamics classes, ``WireMetrics`` and the front door's classes), the
+port's
 parameters begin with the
 reference's, by name and in order, so a program written for the JAX
 package calls the port the same way, positionally or by keyword. The port
@@ -45,6 +47,14 @@ from quest_tpu.serve import optimize as jopt
 from quest_tpu.serve import router as jrouter
 from quest_tpu.serve import sched as jsched
 from quest_tpu.serve import warmcache as jwc
+from quest_tpu.serve import metrics as jmetrics
+from quest_tpu import netserve as jnet
+from quest_tpu.netserve import client as jnclient
+from quest_tpu.netserve import errors as jnerrors
+from quest_tpu.netserve import robust as jnrobust
+from quest_tpu.netserve import server as jnserver
+from quest_tpu.netserve import session as jnsession
+from quest_tpu.netserve import wire as jnwire
 import quest_tpu_torch as tq
 from quest_tpu_torch import algorithms as talg
 from quest_tpu_torch import api as tapi
@@ -63,6 +73,14 @@ from quest_tpu_torch.serve import optimize as topt
 from quest_tpu_torch.serve import router as trouter
 from quest_tpu_torch.serve import sched as tsched
 from quest_tpu_torch.serve import warmcache as twc
+from quest_tpu_torch.serve import metrics as tmetrics
+from quest_tpu_torch import netserve as tnet
+from quest_tpu_torch.netserve import client as tnclient
+from quest_tpu_torch.netserve import errors as tnerrors
+from quest_tpu_torch.netserve import robust as tnrobust
+from quest_tpu_torch.netserve import server as tnserver
+from quest_tpu_torch.netserve import session as tnsession
+from quest_tpu_torch.netserve import wire as tnwire
 from torch_threads import one_blas_thread  # noqa: F401
 
 RNG = ("the RNG decision (ROADMAP): the port draws from a "
@@ -101,7 +119,14 @@ MODULES = (("algorithms", jalg, talg), ("qasm_import", jqasm, tqasm),
            ("checkpoint", jckpt, tckpt),
            ("resilience.segments", jseg, tseg),
            ("serve.optimize", jopt, topt), ("serve.dynamics", jsdyn, tsdyn),
-           ("serve.router", jrouter, trouter))
+           ("serve.router", jrouter, trouter),
+           ("serve.metrics", jmetrics, tmetrics),
+           ("netserve", jnet, tnet), ("netserve.wire", jnwire, tnwire),
+           ("netserve.errors", jnerrors, tnerrors),
+           ("netserve.session", jnsession, tnsession),
+           ("netserve.robust", jnrobust, tnrobust),
+           ("netserve.server", jnserver, tnserver),
+           ("netserve.client", jnclient, tnclient))
 
 # modules whose port exports more than the JAX package's names (the warm
 # cache's artifact class): every JAX name exists and is compared
@@ -122,7 +147,17 @@ CLASSES = (("Circuit", jq.Circuit, tq.Circuit),
            ("GradientDescent", jopt.GradientDescent, topt.GradientDescent),
            ("Adam", jopt.Adam, topt.Adam),
            ("DynamicsProblem", jsdyn.DynamicsProblem, tsdyn.DynamicsProblem),
-           ("DynamicsHandle", jsdyn.DynamicsHandle, tsdyn.DynamicsHandle))
+           ("DynamicsHandle", jsdyn.DynamicsHandle, tsdyn.DynamicsHandle),
+           ("WireMetrics", jmetrics.WireMetrics, tmetrics.WireMetrics))
+
+# the front door's classes, compared whole: every public method (and
+# __init__) of the JAX package's class exists in the port's and is
+# compared
+NETSERVE_CLASSES = tuple(
+    (name, getattr(jnet, name), getattr(tnet, name))
+    for name in jnet.__all__ if isinstance(getattr(jnet, name), type)
+    and not issubclass(getattr(jnet, name), Exception)) + (
+    ("WorkerPool", jnet._pool.WorkerPool, tnet._pool.WorkerPool),)
 
 
 def _function(obj):
@@ -144,7 +179,7 @@ def _shared_callables():
             jf, tf = getattr(jmod, name), getattr(tmod, name, None)
             if inspect.isfunction(jf) and inspect.isfunction(tf):
                 out.append((f"{mod_name}.{name}", jf, tf))
-    for cls_name, jcls, tcls in CLASSES:
+    for cls_name, jcls, tcls in CLASSES + NETSERVE_CLASSES:
         for name in sorted(set(vars(jcls)) & set(vars(tcls))):
             if name.startswith("_") and name != "__init__":
                 continue
@@ -338,3 +373,45 @@ def test_num_devices_one_device_only():
         assert env.precision is tq.DOUBLE and env.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tq.createQuESTEnv(num_devices=2, device="cpu")
+
+
+def test_the_front_door_is_compared_whole():
+    """The network front door and its metrics: every public name of the
+    JAX package's ``netserve`` modules and ``WireMetrics`` exists in the
+    port, every method of their classes is compared, and the entry points
+    keep the reference's parameters in order."""
+    names = {q for q, _, _ in SHARED}
+    for cls_name, jcls, tcls in NETSERVE_CLASSES + (
+            ("WireMetrics", jmetrics.WireMetrics, tmetrics.WireMetrics),):
+        for name in vars(jcls):
+            if name.startswith("_") and name != "__init__":
+                continue
+            if _function(inspect.getattr_static(jcls, name)) is None:
+                continue
+            assert f"{cls_name}.{name}" in names, (cls_name, name)
+    for must in ("NetServer.__init__", "NetServer.drain",
+                 "NetServer.close", "NetClient.__init__",
+                 "NetClient.submit", "NetClient.stream",
+                 "NetClient.resume_stream", "NetClient.submit_wire",
+                 "netserve.wire.encode_circuit",
+                 "netserve.wire.decode_circuit",
+                 "netserve.wire.encode_request",
+                 "netserve.wire.decode_request",
+                 "netserve.wire.encode_result",
+                 "netserve.wire.parse_result",
+                 "netserve.wire.canonical_json",
+                 "netserve.errors.raise_typed",
+                 "netserve.errors.http_status",
+                 "netserve.robust.backlog_estimate",
+                 "SessionManager.__init__", "ProgramRegistry.register",
+                 "DedupWindow.begin", "TokenBucket.acquire",
+                 "ResumableStream.attach", "WireMetrics.snapshot",
+                 "WorkerPool.submit"):
+        assert must in names, must
+    assert tnet.WIRE_SCHEMA == jnet.WIRE_SCHEMA == "quest_tpu.wire/1"
+    assert tnet.REQUEST_KINDS == jnet.REQUEST_KINDS
+    assert tnwire._REQUEST_KEYS == jnwire._REQUEST_KEYS
+    assert tnwire._FORBIDDEN_DEADLINE_KEYS == jnwire._FORBIDDEN_DEADLINE_KEYS
+    assert tnwire._MAX_REQUEST_ID_LEN == jnwire._MAX_REQUEST_ID_LEN
+    assert sorted(tnwire._REPLAY) == sorted(jnwire._REPLAY)
+    assert tmetrics._WIRE_COUNTERS == jmetrics._WIRE_COUNTERS
