@@ -14,6 +14,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 18       # the serving runtime
     python3 chip_smoke.py --only 19       # router, warm cache, handles
     python3 chip_smoke.py --only 20       # the network front door
+    python3 chip_smoke.py --only 21       # amplitude-sharded registers
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -121,7 +122,8 @@ Phases (any unmet check exits non-zero and prints no result line):
     tensor-core operations), its plain version, one bf16
     ``torch.matmul`` of the stacked real lane product and one of the
     layer's widest dense stage in stacked real hi/lo form;
-11. tiers in the batched engine: phase 8's HEA sweep through
+11. tiers in the batched engine: phase 8's HEA sweep (at batch 32, the
+    cell's 64 cut for time) through
     ``expectation_sweep(tier="fast")`` and ``tier="single"``: launches
     per tier, FAST energies against SINGLE's within the modeled bound,
     SINGLE's compensated energies against a float64 host reduction of the
@@ -161,7 +163,7 @@ Phases (any unmet check exits non-zero and prints no result line):
     against parameter shift and the rate column against a central
     difference (<= 1e-3 of max|g|), peak memory, points/s;
 13. gradients: phase 8's HEA through ``value_and_grad_sweep`` at batch
-    16 (the cell's 64, cut for time): the batched layer kernel launches
+    8 (the cell's 64, cut for time): the batched layer kernel launches
     once per forward layer and once per adjoint layer, values against
     ``expectation_sweep`` (<= 1e-6 of max|E|), 2 rows x 6 parameters
     (lane qubits, tile rows, above the tile) against parameter shift (<=
@@ -342,7 +344,35 @@ Phases (any unmet check exits non-zero and prints no result line):
     client as the non-retryable 500 (``WireError``, no retry, no plain
     version). The batched layer kernel launches on 20a-20d and the Kraus
     kernel on 20c, each counted around its sub-phase. The phase stays
-    under 60 s.
+    under 60 s;
+21. amplitude-sharded registers (``parallel/``) on a mesh of four shards
+    on the one card (``createQuESTEnv(devices=["cuda:0"] * 4)``, s = 2),
+    complex64: 21a. phase 4's brickwork at 30 qubits compiled on the mesh
+    from |+...+>: the planned relayouts and cross-shard items, every
+    layer-kernel launch on each shard's 28-qubit chunk held against its
+    plain version on its own chunk, the exchanges run (counted, and each
+    one's kind, bits, bytes and ms from CUDA events), the run's seconds
+    beside the single-device run's, each relayout's peak memory (at most
+    one chunk and one block beside the register) and the run's, the
+    planes against the single-device run (1e-5 of max|amp|), the same
+    program with ``overlap=True`` (bit for bit, else 1e-6, and which), and
+    at ``tier="fast"`` (every FAST launch held against its FAST plain
+    version, the planes within the tier's modeled error); 21b.
+    ``tests/test_distributed.py``'s gates on a 28-qubit mesh register
+    against one device (1e-5): a SWAP across the boundary left as layout
+    metadata, ``getAmp`` under the permuted layout, ``calcTotalProb``,
+    ``calcProbOfOutcome``, ``collapseToOutcome`` and ``measure`` on the
+    same uniforms, the canonicalising exchange's scratch within one chunk,
+    ``sample_sharded``'s total; 21c. phase 8's HEA ``expectation_sweep`` at
+    batch 64 on the mesh in the mode ``choose_batch_sharding`` chooses
+    (``amp``), then ``batch`` forced on 8 rows and a 6-row pad-and-mask
+    (cut from 64 and 62 for time), each against the single-device sweep
+    (phase 8's when it ran; 1e-5 of max|E|) with every batched layer
+    launch held against its plain version on its own input;
+    21d. phase 12's 15-qubit noisy QFT as a density program on the mesh
+    against one device (1e-5), every launch (the streaming entry's) held
+    against its plain version on its own chunk, and ``sample_sharded``'s
+    total on its diagonal; 21e. the comm model measured on the mesh.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -391,7 +421,8 @@ CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
 BF16_TENSOR_FLOPS = 989.0e12           # dense bf16 tensor cores
 MXU_TILE_TARGETS = ((3,), (8,), (3, 8), (7, 8), (2, 5, 7))
 FAST_BUDGET = 0.1                      # an error budget only FAST needs
-GRAD_BATCH = 16                        # phase 13: the HEA cell's 64, cut
+GRAD_BATCH = 8                         # phase 13: the HEA cell's 64, cut
+FAST_SWEEP_BATCH = 32                  # phase 11: the HEA cell's 64, cut
 # phase 13's parameter-shift columns: two parameters each on lane qubits,
 # on tile rows (qubits 7-13) and above the tile (qubits >= 14)
 GRAD_COLUMNS = ("y0_1", "z1_5", "y0_9", "z1_12", "y0_17", "z1_22")
@@ -573,9 +604,14 @@ def raw_bits(torch, t):
 
 
 def rel_err(got, want):
-    """(max |got - want|, that over max |want|)."""
+    """(max |got - want|, that over max |want|). A ``want`` of zeros (a
+    chunk no amplitude has reached yet) must be matched exactly: its
+    relative error is 0 or inf."""
     err = float((got - want).abs().max())
-    return err, err / float(want.abs().max())
+    scale = float(want.abs().max())
+    if scale == 0.0:
+        return err, 0.0 if err == 0.0 else float("inf")
+    return err, err / scale
 
 
 def device_ms(torch, fn, reps: int) -> float:
@@ -1721,7 +1757,8 @@ def phase_sweep(torch, qt, lk, kk, card):
     del states
     torch.cuda.empty_cache()
     return {"launches": batched, "rows": rows, "points_per_s":
-            batch / sweep_s, "sweep_ms": sweep_s * 1e3, "bind_ms": bind_ms}
+            batch / sweep_s, "sweep_ms": sweep_s * 1e3, "bind_ms": bind_ms,
+            "energies": energies}
 
 
 def kraus_bound_ms(n: int, num_traj: int, num_ops: int, itemsize: int):
@@ -2244,11 +2281,12 @@ def phase_fast_main(torch, qt, lk, kk, card):
 
 def phase_fast_sweep(torch, qt, lk, kk, card):
     from quest_tpu_torch.ops import reductions as red
-    n, batch = SWEEP_QUBITS, SWEEP_BATCH
+    n, batch = SWEEP_QUBITS, FAST_SWEEP_BATCH
     print(f"phase 11: tiers in the batched engine, {n}-qubit "
           f"{SWEEP_LAYERS}-layer HEA, batch {batch}, {SWEEP_TERMS}-term "
           f"Pauli sum, on {card}")
     circ, terms, coeffs, _, pm = hea_problem(qt)
+    pm = pm[:batch]
     env = qt.createQuESTEnv(seed=[2026])
     cc = circ.compile(env)
     n_fast = sum(op.kind == "layer" for op in cc._plan_for(qt.FAST_TIER)[1])
@@ -6017,9 +6055,472 @@ def profile_device(torch, fn, what: str, top: int = 8, cpu: bool = True):
               f"x{count:<4d} {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: amplitude-sharded registers on a mesh of shards on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4                        # devices=["cuda:0"] * 4: s = 2
+MESH_IMPERATIVE_QUBITS = 28
+# 21c: the forced batch mode's rows and the pad-and-mask rows (the cell's
+# 64 cut for time: each sweep of the cell takes ~14 s on the card)
+MESH_BATCH_ROWS, MESH_PAD_ROWS = 8, 6
+
+
+def mesh_env(qt, **kwargs):
+    """Four amplitude shards on the one card (the env the phase runs
+    on)."""
+    return qt.createQuESTEnv(devices=["cuda:0"] * MESH_SHARDS, **kwargs)
+
+
+def chunk_err(chunks, whole) -> float:
+    """max |chunk - the same slice of the whole planes| / max |whole|."""
+    width = chunks[0].shape[-1]
+    diff = max(float((c - whole[..., d * width:(d + 1) * width]).abs().max())
+               for d, c in enumerate(chunks))
+    return diff / float(whole.abs().max())
+
+
+def print_exchanges(log, what: str) -> None:
+    total_b = sum(r["bytes"] for r in log)
+    total_ms = sum(r["ms"] for r in log)
+    print(f"  {what}: {len(log)} exchanges, {total_b / 2**30:.3f} GiB "
+          f"between shards, {total_ms:.1f} ms")
+    for rec in log:
+        print(f"    {rec['kind']:<14} k={rec['k']} "
+              f"{rec['bytes'] / 2**20:9.1f} MiB {rec['ms']:8.2f} ms")
+
+
+class ExchangePeaks:
+    """While open, every ``exchange.run_exchange`` call (the compiled
+    path's relayouts) is synchronised and measured: ``extra`` holds, per
+    call, the device memory allocated at its peak beyond what was
+    allocated when it began, ``k`` its exchanged bits."""
+
+    def __init__(self, torch, ex):
+        self.torch, self.ex, self.extra, self.k = torch, ex, [], []
+        self.run = ex.run_exchange
+
+    def __enter__(self):
+        torch, run = self.torch, self.run
+
+        def measured(chunks, plan, inplace=False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = run(chunks, plan, inplace)
+            torch.cuda.synchronize()
+            self.extra.append(torch.cuda.max_memory_allocated() - base)
+            self.k.append(plan.k)
+            return out
+
+        self.ex.run_exchange = measured
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.run_exchange = self.run
+
+
+def mesh_brickwork(torch, qt, lk, kk, card):
+    from quest_tpu_torch.parallel import exchange as ex
+    n = MAIN_QUBITS
+    print(f"  21a: phase 4's {n}-qubit brickwork compiled on the mesh, "
+          "from |+...+> (every chunk nonzero from the first layer on)")
+    env8, env1 = mesh_env(qt), qt.createQuESTEnv()
+    circ = as_circuit(qt, n, brickwork(n, MAIN_LAYERS))
+    cc = circ.compile(env8)
+    st = cc.dispatch_stats()
+    relayouts = [it for it in cc.plan.items if it[0] == "relayout"]
+    xshard = [it for it in cc.plan.items if it[0] == "xshard"]
+    print(f"  plan: {len(cc.plan.items)} items, {cc.num_layers} layers on "
+          f"{n - 2} local qubits, {st.relayouts} relayouts, "
+          f"{st.cross_shard_exchanges} cross-shard 1q items, "
+          f"{st.swaps_absorbed} SWAPs absorbed, {st.collectives_fused} "
+          f"exchanges composed; modeled {st.comm_bytes_planned / 2**30:.3f}"
+          f" GiB per run")
+    for it in relayouts:
+        moved = [int(b) for b, a in zip(it[1], it[2]) if b != a]
+        print(f"    relayout moving positions {moved}")
+    for it in xshard:
+        print(f"    cross-shard item: op {it[1]} on position {it[2][0]}")
+    q = qt.createQureg(n, env8)
+    qt.initPlusState(q)
+    register = 2 * 4 * (1 << n)
+    chunk = register // MESH_SHARDS
+    reset_counts(lk, kk)
+    ex.reset_counts()
+    with HeldLayers(torch, lk, batched=False) as held, \
+            ExchangePeaks(torch, ex) as peaks:
+        cc.run(q)
+        torch.cuda.synchronize()
+    err_abs, err_rel = held.max_err()
+    worst = max(peaks.extra, default=0)
+    check(len(peaks.extra) == st.relayouts and all(
+        e <= chunk + (chunk >> k) for e, k in zip(peaks.extra, peaks.k)),
+          f"each relayout's memory beside the register at most one chunk "
+          f"and one block: {[f'{e / chunk:.2f}' for e in peaks.extra]} "
+          f"chunks (k = {peaks.k}; chunk {chunk / 2**30:.0f} GiB)")
+    check(held.launches == cc.num_layers * MESH_SHARDS > 0
+          and err_rel <= 1e-5,
+          f"layer kernel launched {held.launches} times for {cc.num_layers}"
+          f" layers x {MESH_SHARDS} shards, each launch against its plain "
+          f"version on its own chunk: max|diff| {err_abs:.3e}, / max|plain|"
+          f" {err_rel:.3e} <= 1e-5")
+    check(ex.COUNTS["relayouts"] == st.relayouts
+          and ex.COUNTS["xshard"] == st.cross_shard_exchanges,
+          f"exchanges run: {dict(ex.COUNTS)}")
+    qt.initPlusState(q)
+    reset_counts(lk, kk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ex.start_log()
+    t0 = time.perf_counter()
+    cc.run(q)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    log = ex.stop_log()
+    launches = lk.apply_layer.launches
+    print_exchanges(log, "timed run")
+    extra = torch.cuda.max_memory_allocated() - base
+    peak = register + extra
+    print(f"  peak memory of the timed run {peak / 2**30:.2f} GiB: the "
+          f"{register / 2**30:.0f} GiB register and {extra / chunk:.2f} "
+          "chunks beside it (the gate engine's temporaries on a chunk; "
+          f"the relayouts' at most {worst / chunk:.2f})")
+
+    c1 = circ.compile(env1)
+    q1 = qt.createQureg(n, env1)
+    qt.initPlusState(q1)
+    c1.run(q1)
+    qt.initPlusState(q1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base1 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    c1.run(q1)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    extra1 = torch.cuda.max_memory_allocated() - base1
+    print(f"  the single-device run's peak beside its register: "
+          f"{extra1 / 2**30:.2f} GiB ({extra1 / chunk:.2f} chunks)")
+    err = chunk_err(q.chunks, q1.state)
+    check(err <= 1e-5, f"mesh planes vs the single-device run: max|diff| /"
+          f" max|amp| {err:.3e} <= 1e-5; run {mesh_s:.3f} s on the mesh, "
+          f"{single_s:.3f} s on one device")
+
+    cco = circ.compile(env8, overlap=True)
+    pairs = cco._overlap_pairs(cco.plan, cco._ops,
+                               cco._exchange_plans(cco.plan))
+    qo = qt.createQureg(n, env8)
+    qt.initPlusState(qo)
+    ex.reset_counts()
+    cco.run(qo)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(qo.chunks, q.chunks))
+    err_o = max(float((a - b).abs().max()) for a, b in
+                zip(qo.chunks, q.chunks)) / float(q1.state.abs().max())
+    check(same or err_o <= 1e-6,
+          f"overlap=True ({len(pairs)} relayout+gate pairs, "
+          f"{ex.COUNTS['overlapped']} run overlapped): "
+          + ("bit for bit equal" if same else
+             f"max|diff| / max|amp| {err_o:.3e} <= 1e-6 (the fused pairs' "
+             "gates run on a slab's shape)"))
+    del qo
+    torch.cuda.empty_cache()
+
+    ccf = circ.compile(env8, tier="fast")
+    qf = qt.createQureg(n, env8)
+    qt.initPlusState(qf)
+    with HeldLayers(torch, lk, batched=False) as held_f:
+        ccf.run(qf)
+        torch.cuda.synchronize()
+    fast_launches = held_f.held.fast_launches
+    f_abs, f_rel = held_f.max_err()
+    bound = qt.modeled_tier_error(qt.FAST_TIER, len(circ.ops))
+    err_f = chunk_err(qf.chunks, q1.state)
+    check(fast_launches == ccf.num_layers * MESH_SHARDS > 0
+          and f_rel <= 1e-5 and err_f <= bound,
+          f"tier fast on the mesh: {fast_launches} FAST launches held "
+          f"against their FAST plain versions (max|diff| / max|plain| "
+          f"{f_rel:.3e}); planes vs single-device SINGLE {err_f:.3e} <= "
+          f"modeled {bound:.3e}")
+    return {"launches": launches, "fast_launches": fast_launches,
+            "held_err": max(err_abs, f_abs), "mesh_s": mesh_s,
+            "single_s": single_s, "exchanges": len(log),
+            "exchange_bytes": sum(r["bytes"] for r in log),
+            "exchange_ms": sum(r["ms"] for r in log),
+            "peak_gib": peak / 2**30,
+            "exchange_peak_chunks": worst / chunk}
+
+
+def mesh_imperative(torch, qt, lk, kk, card):
+    from quest_tpu_torch.parallel import exchange as ex
+    from quest_tpu_torch.parallel import pergate as pg
+    from quest_tpu_torch.parallel.sampling import sample_sharded
+    n = MESH_IMPERATIVE_QUBITS
+    print(f"  21b: tests/test_distributed.py's gates on a {n}-qubit mesh "
+          "register against one device")
+    env8, env1 = mesh_env(qt, seed=[77]), qt.createQuESTEnv(seed=[77])
+    q1 = qt.createQureg(n, env1)
+    # a random state drawn on the card (2^29 numbers: on the host they
+    # would take most of the sub-phase)
+    planes = q1.state
+    planes.normal_(generator=torch.Generator(device=env1.device)
+                   .manual_seed(5))
+    planes.div_(torch.linalg.vector_norm(planes))
+    width = (1 << n) // MESH_SHARDS
+    q8 = qt.createQureg(n, env8)
+    q8.chunks = [q1.state[:, d * width:(d + 1) * width].clone()
+                 for d in range(MESH_SHARDS)]
+    u = random_unitary(np.random.default_rng(9), 4)
+    ex.reset_counts()
+    relayouts0 = pg.RELAYOUT_COUNT
+    for q in (q8, q1):
+        qt.hadamard(q, 0)
+        qt.hadamard(q, n - 1)
+        qt.controlledNot(q, 0, n - 1)
+        qt.controlledNot(q, n - 1, 1)
+        qt.rotateY(q, n - 2, 0.7)
+        qt.tGate(q, n - 1)
+        qt.multiRotateZ(q, [0, n - 1], 0.3)
+        qt.swapGate(q, 1, n - 1)
+        qt.twoQubitUnitary(q, 2, n - 1, u)
+        qt.multiControlledPhaseFlip(q, [0, n - 2, n - 1])
+    torch.cuda.synchronize()
+    check(q8.layout is not None and tuple(q8.layout) != tuple(range(n)),
+          f"the SWAP stayed layout metadata: {pg.RELAYOUT_COUNT - relayouts0}"
+          f" relayout(s), {ex.COUNTS['xshard']} cross-shard 1q exchanges, "
+          f"{ex.COUNTS['bytes'] / 2**30:.3f} GiB between shards")
+    scale = float(q1.state.abs().max())
+    for index in (0, 1, 1 << (n - 1), 12345678 % (1 << n), (1 << n) - 1):
+        a8, a1 = qt.getAmp(q8, index), qt.getAmp(q1, index)
+        check(abs(a8 - a1) <= 1e-5 * scale,
+              f"getAmp({index}) under the permuted layout: {a8:.6g} vs "
+              f"{a1:.6g}")
+    t8, t1 = qt.calcTotalProb(q8), qt.calcTotalProb(q1)
+    p8, p1 = qt.calcProbOfOutcome(q8, n - 1, 1), \
+        qt.calcProbOfOutcome(q1, n - 1, 1)
+    check(abs(t8 - t1) <= 1e-5 and abs(p8 - p1) <= 1e-5,
+          f"calcTotalProb {t8!r} vs {t1!r}; calcProbOfOutcome(q{n - 1}=1) "
+          f"{p8!r} vs {p1!r}")
+    c8, c1 = qt.collapseToOutcome(q8, n - 1, 1), \
+        qt.collapseToOutcome(q1, n - 1, 1)
+    qt.seedQuEST(env8, [5])
+    qt.seedQuEST(env1, [5])
+    m8 = [qt.measure(q8, k) for k in (2, n - 2, 5)]
+    m1 = [qt.measure(q1, k) for k in (2, n - 2, 5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    q8.ensure_canonical()                    # one relayout exchange
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(extra <= 2 * 4 * width,
+          f"the canonicalising exchange's scratch {extra / 2**20:.1f} MiB "
+          f"<= one chunk ({2 * 4 * width / 2**20:.0f} MiB)")
+    err = chunk_err(q8.chunks, q1.state)
+    check(abs(c8 - c1) <= 1e-5 and m8 == m1 and err <= 1e-5,
+          f"collapseToOutcome {c8!r} vs {c1!r}; measure on the same "
+          f"uniforms {m8} vs {m1}; planes max|diff| / max|amp| {err:.3e} "
+          "<= 1e-5")
+    u = torch.rand(1 << 16, generator=torch.Generator().manual_seed(3),
+                   dtype=torch.float64)
+    _, total = sample_sharded(q8.chunks, u, False, n, n - 2)
+    check(abs(total - 1.0) <= 1e-5, f"sample_sharded shot total {total!r}")
+    return {"relayouts": pg.RELAYOUT_COUNT - relayouts0}
+
+
+def mesh_sweeps(torch, qt, lk, kk, card, sweep=None):
+    """``sweep``: phase 8's result when it ran, whose energies are this
+    cell's single-device sweep (the same circuit, parameters, seed and
+    tier on the same card); else that sweep runs here."""
+    import os
+    import warnings
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    ham = (terms, coeffs)
+    n, batch = SWEEP_QUBITS, pm.shape[0]
+    print(f"  21c: phase 8's {n}-qubit HEA expectation_sweep, batch {batch}"
+          ", on the mesh, every batched layer launch held against its plain "
+          "version on its own input")
+    env8 = mesh_env(qt, seed=[2026])
+    if sweep is not None:
+        ref, single_s = sweep["energies"], sweep["sweep_ms"] / 1e3
+        print(f"  the single-device energies: phase 8's sweep "
+              f"({single_s:.2f} s)")
+    else:
+        env1 = qt.createQuESTEnv(seed=[2026])
+        t0 = time.perf_counter()
+        ref = circ.compile(env1).expectation_sweep(pm, ham)
+        single_s = time.perf_counter() - t0
+    cc = circ.compile(env8)
+    pol = cc._batch_policy(batch)
+    print(f"  choose_batch_sharding at batch {batch}: {pol}")
+    scale = float(np.abs(ref).max())
+    out = {"launches": 0, "single_s": single_s, "held_err": 0.0}
+    was = os.environ.get("QUEST_TPU_BATCH_MEM_BYTES")
+    try:
+        for label, limit, rows in (("policy", was, batch),
+                                   ("batch", str(1 << 40), MESH_BATCH_ROWS),
+                                   ("amp", "1", batch),
+                                   ("pad", str(1 << 40), MESH_PAD_ROWS)):
+            if label == "amp" and pol["mode"] == "amp":
+                continue      # the policy's own run was the amp mode's
+            if limit is None:
+                os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
+            else:
+                os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = limit
+            reset_counts(lk, kk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, \
+                    HeldLayers(torch, lk, batched=True) as held:
+                warnings.simplefilter("always")
+                vals = cc.expectation_sweep(pm[:rows], ham)
+            secs = time.perf_counter() - t0
+            mode = cc.dispatch_stats().batch_sharding_mode
+            launches = held.launches
+            h_abs, h_rel = held.max_err()
+            out["launches"] += launches
+            out["held_err"] = max(out["held_err"], h_abs)
+            err = float(np.abs(vals - ref[:rows]).max()) / scale
+            padded = any("padding" in str(w.message) for w in caught)
+            want = pol["mode"] if label == "policy" else \
+                "batch" if label == "pad" else label
+            # batch mode runs each shard's rows through the whole-state
+            # program, amp mode the mesh program on each chunk
+            ops = cc._plan_for(cc.tier, sharded=mode != "batch")[1]
+            layers = sum(1 for op in ops if op.kind == "layer")
+            check(mode == want and err <= 1e-5
+                  and launches == layers * MESH_SHARDS > 0
+                  and len(held.errs) == launches and h_rel <= 1e-5
+                  and padded == (rows % MESH_SHARDS != 0),
+                  f"{label}: mode {mode}, {rows} rows, {launches} batched "
+                  f"layer launches for {layers} layers x "
+                  f"{MESH_SHARDS} shards, each held against its plain "
+                  f"version (max|diff| {h_abs:.3e}, / max|plain| "
+                  f"{h_rel:.3e} <= 1e-5); {secs:.2f} s with the holds "
+                  f"({single_s:.2f} s for {batch} rows on one device); "
+                  f"energies max|dE| / max|E| {err:.3e} <= 1e-5"
+                  + ("; padded and masked" if padded else ""))
+    finally:
+        if was is None:
+            os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
+        else:
+            os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = was
+    return out
+
+
+def mesh_density(torch, qt, lk, kk, card):
+    from quest_tpu_torch.parallel.sampling import sample_sharded
+    n = DENSITY_QUBITS
+    print(f"  21d: phase 12's {n}-qubit noisy QFT as a density program on "
+          "the mesh")
+    circ, _ = noisy_qft(qt, n)
+    basis = 0b101100111000101 & ((1 << n) - 1)
+    env1, env8 = qt.createQuESTEnv(), mesh_env(qt)
+    d1 = qt.createDensityQureg(n, env1)
+    qt.initClassicalState(d1, basis)
+    circ.compile(env1, density=True).run(d1)
+    d8 = qt.createDensityQureg(n, env8)
+    qt.initClassicalState(d8, basis)
+    cc = circ.compile(env8, density=True)
+    layers = [cc._ops[it[1]] for it in cc.plan.items
+              if it[0] == "op" and cc._ops[it[1]].kind == "layer"]
+    diag = sum(lk.is_diagonal_layer(op) for op in layers)
+    reset_counts(lk, kk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HeldLayers(torch, lk, batched=False) as held:
+        cc.run(d8)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = held.launches
+    h_abs, h_rel = held.max_err()
+    check(launches == len(layers) * MESH_SHARDS > 0
+          and held.diag_launches == diag * MESH_SHARDS
+          and len(held.errs) == launches and h_rel <= 1e-5,
+          f"{launches} layer launches ({held.diag_launches} through the "
+          f"streaming entry) for {len(layers)} layers ({diag} of rowdiag "
+          f"stages only) x {MESH_SHARDS} shards, each held against its "
+          f"plain version on its own chunk: max|diff| {h_abs:.3e}, / "
+          f"max|plain| {h_rel:.3e} <= 1e-5")
+    err = chunk_err(d8.chunks, d1.state)
+    tr = qt.calcTotalProb(d8)
+    check(err <= 1e-5 and abs(tr - 1.0) <= 1e-4,
+          f"density planes vs one device: max|diff| / max|amp| {err:.3e} <="
+          f" 1e-5; trace {tr!r}; {cc.dispatch_stats().relayouts} relayouts,"
+          f" {secs:.3f} s with the holds")
+    u = torch.rand(1 << 16, generator=torch.Generator().manual_seed(4),
+                   dtype=torch.float64)
+    idx, total = sample_sharded(d8.chunks, u, True, n, 2 * n - 2)
+    check(abs(total - 1.0) <= 1e-5 and int(idx.max()) < (1 << n),
+          f"sample_sharded on the density diagonal: total {total!r}")
+    return {"launches": launches, "held_err": h_abs}
+
+
+def mesh_comm_model(torch, qt, card):
+    from quest_tpu_torch import profiling
+    env8 = mesh_env(qt)
+    model = profiling.comm_model(env8)
+    for key, note in profiling.COMM_MODEL_NOTES.items():
+        print(f"  {key[1][0]} x {key[0]}: {note}")
+    print(f"  21e: the comm model of {MESH_SHARDS} shards on one card "
+          f"({card}): alpha {model.alpha_s * 1e6:.2f} us, beta "
+          f"{model.beta_s_per_byte * 1e12:.3f} ps/B "
+          f"({1e-9 / model.beta_s_per_byte:.1f} GB/s of chunk permutation, "
+          f"device-to-device copies within the card), source "
+          f"{model.source}")
+    check(model.source == "measured" and model.beta_s_per_byte > 0.0,
+          "the comm model was measured on the mesh's own device")
+    return {"alpha_us": model.alpha_s * 1e6,
+            "gb_per_s": 1e-9 / model.beta_s_per_byte}
+
+
+def phase_mesh(torch, qt, lk, kk, card, sweep=None):
+    print(f"phase 21: amplitude-sharded registers, {MESH_SHARDS} shards on "
+          f"one card ({card}), SINGLE")
+    t0 = time.perf_counter()
+    out, walls = {}, []
+    for key, part in (("brickwork", mesh_brickwork),
+                      ("imperative", mesh_imperative),
+                      ("sweeps", lambda *a: mesh_sweeps(*a, sweep=sweep)),
+                      ("density", mesh_density)):
+        t1 = time.perf_counter()
+        out[key] = part(torch, qt, lk, kk, card)
+        torch.cuda.empty_cache()
+        walls.append(f"{key} {time.perf_counter() - t1:.1f}")
+    out["comm"] = mesh_comm_model(torch, qt, card)
+    print(f"  phase 21 wall time {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(walls)})")
+    return out
+
+
+def mesh_keys(mesh, batched: bool = False):
+    """The mesh path's keys of the layer kernel's rows: launches on the
+    mesh (21a's timed run and 21d; FAST in 21a) or of the batched kernel
+    (21c)."""
+    if mesh is None:
+        return {}
+    if batched:
+        return {"launches_mesh": mesh["sweeps"]["launches"],
+                "mesh_held_err": mesh["sweeps"]["held_err"]}
+    b = mesh["brickwork"]
+    return {"launches_mesh": b["launches"] + mesh["density"]["launches"],
+            "launches_mesh_fast": b["fast_launches"],
+            "mesh_held_err": max(b["held_err"],
+                                 mesh["density"]["held_err"]),
+            "mesh_run_s": b["mesh_s"], "mesh_single_device_s": b["single_s"],
+            "mesh_exchanges": b["exchanges"],
+            "mesh_exchange_bytes": b["exchange_bytes"],
+            "mesh_exchange_ms": b["exchange_ms"],
+            "mesh_peak_gib": b["peak_gib"],
+            "mesh_exchange_peak_chunks": b["exchange_peak_chunks"],
+            "mesh_comm_gb_per_s": mesh["comm"]["gb_per_s"]}
+
+
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
           "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18",
-          "19", "20")
+          "19", "20", "21")
 
 
 def parse_only(argv):
@@ -6135,6 +6636,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         netserve = phase_netserve(torch, qt, lk, kk, card) \
             if runs("20") else None
+        torch.cuda.empty_cache()
+        mesh = phase_mesh(torch, qt, lk, kk, card, sweep) \
+            if runs("21") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -6147,6 +6651,8 @@ def main(argv) -> int:
             row = dict(row, **quad_keys(quad))
         if row is not None and serving_rest is not None:
             row = dict(row, **serving_rest_keys(serving_rest, single=True))
+        if row is not None and mesh is not None:
+            row = dict(row, **mesh_keys(mesh))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
@@ -6154,6 +6660,7 @@ def main(argv) -> int:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
                                traj_grad, dynamics, serving,
                                serving_rest, netserve) + tail
+            rows[1] = dict(rows[1], **mesh_keys(mesh, batched=True))
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -6203,6 +6710,11 @@ def main(argv) -> int:
                                  path="netserve", **netserve_keys(netserve)))
                 rows.append(dict(name="kraus_kernel", path="netserve",
                                  **netserve_keys(netserve, kraus=True)))
+            if mesh is not None:
+                rows.append(dict(name="layer_kernel", path="mesh",
+                                 **mesh_keys(mesh)))
+                rows.append(dict(name="layer_kernel_batched", path="mesh",
+                                 **mesh_keys(mesh, batched=True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -19,6 +19,17 @@ package, an uncontrolled gate acts on it as the single combined operator
 amplitudes where the reference makes two (``QuEST.c:175-658``) — and a
 controlled gate as the reference's two passes.
 
+On a mesh env (``createQuESTEnv(num_devices=n)``) a register is
+amplitude-sharded over the shards' chunks (``qureg.py``) and the
+functions below route over them, as the JAX package's mesh paths do: gates
+through the lazy-layout per-gate engine (``parallel/pergate.py``; a SWAP
+is layout metadata), density channels as sharded superoperators and
+diagonals, and the ``calc*`` reductions, ``collapseToOutcome``,
+``measure``, ``sampleOutcomes``, ``getAmp`` and the ``init*`` functions
+chunk by chunk (``parallel/chunks.py``; partial sums combined in float64).
+A function not routed yet raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 8; none computes on a gathered copy.
+
 A QUAD or QUAD64 register (``(4, 2^N)`` double-double planes) takes the
 same dispatch shapes through the dd kernels of ``ops/doubledouble.py``
 (``ddm``), as the JAX package's ``is_quad`` branches do; its reductions
@@ -45,8 +56,10 @@ from .ops import doubledouble as ddm
 from .ops import initstates as ist
 from .ops import reductions as red
 from .ops import statevec as sv
+from .parallel import chunks as chk
+from .parallel import pergate as _pg
 from .parallel.pergate import GateFusionBuffer
-from .parallel.sampling import sample_outcomes
+from .parallel.sampling import sample_outcomes, sample_sharded
 from .qureg import Qureg
 from .types import PauliOpType, QuESTError
 
@@ -104,6 +117,14 @@ __all__ = [
 ]
 
 
+def _canon(*quregs) -> None:
+    """Restore canonical qubit layout on each register (a no-op off the
+    sharded per-gate path): before positional reads and
+    register-to-register functions."""
+    for q in quregs:
+        q.ensure_canonical()
+
+
 def _pair(pair) -> float:
     s, e = pair
     return float(s) + float(e)
@@ -126,12 +147,33 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
         buf.add_gate(u, targets, ctrl_mask, flip_mask)
         return
     nv = qureg.num_qubits_in_state_vec
+    if _pg.use_lazy(qureg):
+        passes = [(np.asarray, targets, ctrl_mask, flip_mask)] \
+            if not qureg.is_density_matrix else dm.gate_passes(
+                targets, ctrl_mask, flip_mask, qureg.num_qubits_represented)
+        for lift, ts, cm, fm in passes:
+            _sharded_unitary(qureg, lift(u), ts, cm, fm)
+        return
     if not qureg.is_density_matrix:
         apply_unitary(qureg.state, nv, u, targets, ctrl_mask, flip_mask)
         return
     for lift, ts, cm, fm in dm.gate_passes(targets, ctrl_mask, flip_mask,
                                            qureg.num_qubits_represented):
         apply_unitary(qureg.state, nv, lift(u), ts, cm, fm)
+
+
+def _sharded_unitary(qureg: Qureg, u, targets, ctrl_mask: int,
+                     flip_mask: int) -> None:
+    """One dense pass on a sharded register through the per-gate engine;
+    a gate wider than the chunk's local positions raises (the JAX
+    package takes its GSPMD path there; the port has no gathered
+    fallback)."""
+    if not _pg.fits_local(qureg, len(targets)):
+        raise qureg._unrouted(
+            f"a {len(targets)}-qubit dense pass wider than the "
+            f"{qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg)} "
+            "local qubits of each chunk")
+    _pg.sharded_unitary(qureg, u, targets, ctrl_mask, flip_mask)
 
 
 def _dd_gate(qureg: Qureg, u: np.ndarray, targets: tuple,
@@ -168,6 +210,10 @@ def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
     if qureg.is_quad:
         qureg.state = ddm.dd_apply_diag(
             qureg.state, qureg.num_qubits_in_state_vec, tensor, qs)
+        return
+    if _pg.use_lazy(qureg):
+        # diagonals never pair amplitudes: any position, no communication
+        _pg.sharded_diag(qureg, tensor, qs)
         return
     apply_diagonal(qureg.state, qureg.num_qubits_in_state_vec, qs, tensor)
 
@@ -248,14 +294,17 @@ def createQuESTEnv(num_devices: Optional[int] = None,
                    precision: Optional[Precision] = None,
                    seed: Optional[Sequence[int]] = None,
                    compensated: Optional[bool] = None,
-                   device=None) -> QuESTEnv:
-    """``num_devices`` of None or 1 (more raise ``NotImplementedError``
-    until ROADMAP Queue 1 item 8). ``device=None`` selects ``cuda:0`` and
-    raises where CUDA is absent; ``device="cpu"`` runs on the host (the
-    CPU tests)."""
+                   device=None, devices=None) -> QuESTEnv:
+    """``num_devices`` of None or 1 is one device: ``device=None`` selects
+    ``cuda:0`` and raises where CUDA is absent; ``device="cpu"`` runs on
+    the host (the CPU tests). ``num_devices=n > 1`` makes a mesh of ``n``
+    amplitude shards driven by this process: the first ``n`` CUDA devices
+    (``ValueError`` when fewer exist or ``n`` is not a power of 2), or
+    ``n`` host shards with ``device="cpu"``; ``devices=`` names the shards,
+    repeats allowed (``["cuda:0"] * 4``: four shards on one card)."""
     return create_quest_env(num_devices=num_devices, precision=precision,
                             seed=seed, compensated=compensated,
-                            device=device)
+                            device=device, devices=devices)
 
 
 def createSimulationService(env: QuESTEnv, **kwargs):
@@ -334,8 +383,9 @@ def getEnvironmentString(env: QuESTEnv) -> str:
         backend = f"cuda ({torch.cuda.get_device_name(env.device)})"
     else:
         backend = env.device.type
+    mode = "mesh" if env.mesh is not None else "local"
     return (f"CUDA={int(env.device.type == 'cuda')} OpenMP=0 MPI=0 TPU=0 "
-            f"backend={backend} mode=local threads=1 "
+            f"backend={backend} mode={mode} threads=1 "
             f"ranks={env.num_ranks}")
 
 
@@ -368,6 +418,10 @@ def createDensityQureg(num_qubits: int, env: QuESTEnv) -> Qureg:
 def createCloneQureg(qureg: Qureg, env: QuESTEnv) -> Qureg:
     new = Qureg(qureg.num_qubits_represented, env,
                 is_density=qureg.is_density_matrix)
+    if qureg.is_sharded:
+        qureg.ensure_canonical()
+        new.chunks = [c.clone() for c in qureg.chunks]
+        return new
     new.state = qureg.state.clone()
     return new
 
@@ -395,6 +449,10 @@ def copyStateToGPU(qureg: Qureg) -> None:
     """The amplitudes already live on the env's device (``copyStateToGPU``
     ``QuEST.h:855`` exists because the reference mirrors host and device
     copies): apply any buffered gates and wait for the device."""
+    if qureg.is_sharded:
+        qureg.flush_gates()
+        qureg.env.sync()
+        return
     state = qureg.state
     if state.device.type == "cuda":
         torch.cuda.synchronize(state.device)
@@ -408,7 +466,15 @@ def copyStateFromGPU(qureg: Qureg) -> None:
 # state initialisation (QuEST.h:383-506)
 # ---------------------------------------------------------------------------
 
+_CHUNK_INITS = {ist.blank: "blank", ist.classical: "classical",
+                ist.plus: "plus", ist.debug: "debug",
+                ist.single_qubit_outcome: "single"}
+
+
 def _init(qureg: Qureg, fn, *args) -> None:
+    if qureg.is_sharded:
+        chk.init_chunks(qureg, _CHUNK_INITS[fn], *args)
+        return
     qureg.state = fn(qureg.num_amps_total, qureg.real_dtype, qureg.device,
                      *args, quad=qureg.is_quad)
 
@@ -420,7 +486,7 @@ def initBlankState(qureg: Qureg) -> None:
 
 
 def initZeroState(qureg: Qureg) -> None:
-    _init(qureg, ist.zero)
+    _init(qureg, ist.classical, 0)
     qureg.qasm_log.record_init_zero()
 
 
@@ -449,7 +515,13 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
                                     "initPureState")
     val.validate_matching_dims(qureg.num_qubits_represented,
                                pure.num_qubits_represented, "initPureState")
-    if qureg.is_quad and qureg.is_density_matrix:
+    if qureg.is_sharded:
+        if qureg.is_density_matrix:
+            chk.init_pure_density(qureg, pure)
+        else:
+            pure.ensure_canonical()
+            qureg.chunks = [c.clone() for c in pure.chunks]
+    elif qureg.is_quad and qureg.is_density_matrix:
         # |psi><psi| as a dd outer product: the lo planes survive, so
         # QUAD64 keeps its ~106-bit envelope
         qureg.state = ddm.dd_outer(pure.state.to(qureg.device),
@@ -489,6 +561,11 @@ def setAmps(qureg: Qureg, start_ind: int, reals, imags,
     im64 = np.asarray(imags, np.float64)[:num_amps]
     vals = ddm._dd_split_host(re64 + 1j * im64, ddm._np_dtype(
         qureg.real_dtype)) if qureg.is_quad else np.stack([re64, im64])
+    if qureg.is_sharded:
+        qureg.ensure_canonical()
+        chk.set_amps(qureg, int(start_ind), vals)
+        qureg.qasm_log.record_comment("amplitudes were manually edited")
+        return
     qureg.state[:, start_ind:start_ind + num_amps] = torch.as_tensor(
         vals, dtype=qureg.real_dtype, device=qureg.device)
     qureg.qasm_log.record_comment("amplitudes were manually edited")
@@ -516,6 +593,10 @@ def cloneQureg(target: Qureg, copy: Qureg) -> None:
                                     "cloneQureg")
     val.validate_matching_dims(target.num_qubits_represented,
                                copy.num_qubits_represented, "cloneQureg")
+    if copy.is_sharded:
+        copy.ensure_canonical()
+        target.chunks = [c.clone() for c in copy.chunks]
+        return
     target.state = copy.state.to(target.device, copy=True)
 
 
@@ -539,6 +620,13 @@ def setWeightedQureg(fac1, qureg1: Qureg, fac2, qureg2: Qureg,
                                "setWeightedQureg")
     val.validate_matching_dims(qureg1.num_qubits_represented,
                                out.num_qubits_represented, "setWeightedQureg")
+    if out.is_sharded:
+        _canon(qureg1, qureg2, out)
+        chk.weighted(fac1, qureg1, fac2, qureg2, fac_out, out)
+        out.qasm_log.record_comment(
+            "the register was set to a weighted combination (possibly "
+            "unphysical)")
+        return
     target = out.state
     if out.is_quad:
         out.state = ddm.dd_weighted(fac1, qureg1.state.to(target.device),
@@ -808,6 +896,16 @@ def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
         _apply_gate(qureg, mats.swap(), (int(q1), int(q2)))
         qureg.qasm_log.record_gate("swap", q2, (q1,))
         return
+    if _pg.use_lazy(qureg):
+        # on a mesh a SWAP is layout metadata: no amplitude moves (the
+        # reference exchanges chunks, ``statevec_swapQubitAmps``
+        # ``QuEST_cpu_distributed.c:1355-1371``)
+        _pg.metadata_swap(qureg, int(q1), int(q2))
+        if qureg.is_density_matrix:
+            n = qureg.num_qubits_represented
+            _pg.metadata_swap(qureg, int(q1) + n, int(q2) + n)
+        qureg.qasm_log.record_gate("swap", q2, (q1,))
+        return
     sv.swap_amps(qureg.state, qureg.num_qubits_in_state_vec, q1, q2)
     if qureg.is_density_matrix:
         n = qureg.num_qubits_represented
@@ -938,6 +1036,15 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
                         "calcProbOfOutcome")
     val.validate_outcome(outcome, "calcProbOfOutcome")
     n = qureg.num_qubits_in_state_vec
+    if qureg.is_sharded:
+        qureg.flush_gates()
+        if qureg.is_density_matrix:
+            qureg.ensure_canonical()
+            return chk.density_prob_of_outcome(qureg, int(qubit),
+                                               int(outcome))
+        return chk.prob_of_outcome(qureg,
+                                   _pg.phys_targets(qureg, (qubit,))[0],
+                                   int(outcome))
     if qureg.is_quad:
         if qureg.is_density_matrix:
             p0 = ddm.dd_prob_zero_dm(qureg.state,
@@ -964,6 +1071,18 @@ def calcProbOfOutcome(qureg: Qureg, qubit: int, outcome: int) -> float:
 
 
 def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
+    if qureg.is_sharded:
+        # the projector is diagonal: any position, no communication
+        if qureg.is_density_matrix:
+            n = qureg.num_qubits_represented
+            fac = np.zeros((2, 2))
+            fac[outcome, outcome] = 1.0 / prob
+            _pg.sharded_diag(qureg, fac, (int(qubit) + n, int(qubit)))
+        else:
+            fac = np.zeros(2)
+            fac[outcome] = 1.0 / math.sqrt(prob)
+            _pg.sharded_diag(qureg, fac, (int(qubit),))
+        return
     if qureg.is_quad:
         qureg.state = ddm.dd_collapse(
             qureg.state, qureg.num_qubits_in_state_vec, qubit, outcome,
@@ -1037,6 +1156,21 @@ def sampleOutcomes(qureg: Qureg, num_samples: int,
     if qubits is not None:
         qubits = [int(q) for q in qubits]
         val.validate_multi_targets(n, qubits, "sampleOutcomes")
+    if qureg.is_sharded and (1 << n) >= qureg.env.num_devices:
+        # shard-local two-stage inverse CDF (needs >= 1 outcome per
+        # shard; a density register thinner than that is not routed)
+        qureg.ensure_canonical()
+        uniforms = torch.rand(int(num_samples),
+                              generator=qureg.env.generator,
+                              dtype=torch.float64)
+        idx, total = sample_sharded(
+            qureg.chunks, uniforms, qureg.is_density_matrix, n,
+            qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg))
+        if total < qureg.env.precision.eps:
+            val._fail("cannot sample a zero-probability register",
+                      "sampleOutcomes",
+                      val.ErrorCode.E_COLLAPSE_STATE_ZERO_PROB)
+        return _packed_outcomes(idx, qubits)
     planes = qureg.state
     if qureg.is_quad:
         # the sampling tolerance does not need the lo bits: hi + lo
@@ -1056,7 +1190,11 @@ def sampleOutcomes(qureg: Qureg, num_samples: int,
         # would otherwise return the last basis index for every shot
         val._fail("cannot sample a zero-probability register",
                   "sampleOutcomes", val.ErrorCode.E_COLLAPSE_STATE_ZERO_PROB)
-    idx = idx_dev.cpu().numpy().astype(np.int64)
+    return _packed_outcomes(idx_dev.cpu().numpy().astype(np.int64), qubits)
+
+
+def _packed_outcomes(idx: np.ndarray, qubits) -> np.ndarray:
+    """Basis indices, or the outcomes of ``qubits`` packed little-endian."""
     if qubits is None:
         return idx
     out = np.zeros_like(idx)
@@ -1085,6 +1223,11 @@ def getAmp(qureg: Qureg, index: int) -> complex:
 
 
 def _amp_pair(qureg: Qureg, index: int) -> complex:
+    if qureg.is_sharded:
+        # under a lazy layout the logical index maps bit by bit to its
+        # physical one; the read touches one shard
+        qureg.flush_gates()
+        return complex(*chk.amp_pair(qureg, _pg.phys_index(qureg, index)))
     pair = qureg.state[:, int(index)].double().cpu()
     if qureg.is_quad:
         return complex(float(pair[0]) + float(pair[1]),
@@ -1114,6 +1257,11 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
 
 
 def calcTotalProb(qureg: Qureg) -> float:
+    if qureg.is_sharded:
+        if qureg.is_density_matrix:
+            qureg.ensure_canonical()
+            return chk.density_total_prob(qureg)
+        return chk.total_prob(qureg)
     if qureg.is_quad:
         if qureg.is_density_matrix:
             return ddm.dd_total_prob_dm(qureg.state,
@@ -1137,6 +1285,9 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     val.validate_matching_precision(bra.env.precision.quest_prec,
                                     ket.env.precision.quest_prec,
                                     "calcInnerProduct")
+    if bra.is_sharded:
+        _canon(bra, ket)
+        return chk.inner_product(bra, ket)
     if bra.is_quad:
         return ddm.dd_vdot(bra.state, ket.state.to(bra.device))
     if bra.env.compensated:
@@ -1157,6 +1308,9 @@ def _validate_density_pair(a: Qureg, b: Qureg, func: str) -> None:
 def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
     """real(Tr(rho1^dag rho2))."""
     _validate_density_pair(rho1, rho2, "calcDensityInnerProduct")
+    if rho1.is_sharded:
+        _canon(rho1, rho2)
+        return chk.density_inner_product(rho1, rho2)
     if rho1.is_quad:
         return ddm.dd_vdot(rho1.state, rho2.state.to(rho1.device)).real
     if rho1.env.compensated:
@@ -1166,6 +1320,8 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
 
 def calcPurity(qureg: Qureg) -> float:
     val.validate_density_matr(qureg.is_density_matrix, "calcPurity")
+    if qureg.is_sharded:
+        return chk.total_prob(qureg)
     if qureg.is_quad:
         return ddm.dd_total_prob(qureg.state)
     if qureg.env.compensated:
@@ -1184,6 +1340,13 @@ def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
     val.validate_matching_precision(qureg.env.precision.quest_prec,
                                     pure_state.env.precision.quest_prec,
                                     "calcFidelity")
+    if qureg.is_sharded:
+        if qureg.is_density_matrix:
+            qureg.ensure_canonical()
+            return chk.fidelity_density(qureg, pure_state)
+        _canon(qureg, pure_state)
+        ip = chk.inner_product(qureg, pure_state)
+        return ip.real ** 2 + ip.imag ** 2
     psi = pure_state.state.to(qureg.device)
     if qureg.is_quad:
         if qureg.is_density_matrix:
@@ -1218,6 +1381,9 @@ def calcFidelity(qureg: Qureg, pure_state: Qureg) -> float:
 
 def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
     _validate_density_pair(a, b, "calcHilbertSchmidtDistance")
+    if a.is_sharded:
+        _canon(a, b)
+        return chk.hs_distance(a, b)
     if a.is_quad:
         diff = ddm.dd_weighted(1.0, a.state, -1.0, b.state.to(a.device),
                                0.0, a.state)
@@ -1255,6 +1421,11 @@ def calcExpecPauliProd(qureg: Qureg, targets: Sequence[int],
             return float(ddm.dd_total_prob_dm(phi, n))
         return float(ddm.dd_vdot(qureg.state, phi).real)
     xm, ym, zm = red.pauli_masks(codes_flat, n)
+    if qureg.is_sharded and not qureg.is_density_matrix:
+        qureg.ensure_canonical()
+        return float(chk.pauli_expvals(
+            qureg.chunks, n - _pg._shard_bits(qureg), xm, ym, zm,
+            qureg.env.compensated)[0, 0])
     if qureg.is_density_matrix:
         return float(red.pauli_sum_expvals_dm(qureg.state, n, xm, ym,
                                               zm)[0])
@@ -1295,6 +1466,11 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
         return value
     xm, ym, zm, coeffs_np = red.pauli_sum_operands(
         codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
+    if qureg.is_sharded and not qureg.is_density_matrix:
+        qureg.ensure_canonical()
+        return float(chk.pauli_total(
+            qureg.chunks, n - _pg._shard_bits(qureg), xm, ym, zm, coeffs_np,
+            qureg.env.compensated)[0])
     if qureg.is_density_matrix:
         return float(red.pauli_sum_total_dm(qureg.state, n, xm, ym, zm,
                                             coeffs_np))
@@ -1370,6 +1546,12 @@ def _apply_kraus(qureg: Qureg, targets: Sequence[int], ops) -> None:
             + tuple(int(t) + n for t in targets)
         qureg.state = ddm.dd_apply_kq(qureg.state, 2 * n, superop, t2)
         return
+    if qureg.is_sharded:
+        n = qureg.num_qubits_represented
+        t2 = tuple(int(t) for t in targets) \
+            + tuple(int(t) + n for t in targets)
+        _sharded_unitary(qureg, superop, t2, 0, 0)
+        return
     dm.apply_kraus_superoperator(qureg.state, qureg.num_qubits_represented,
                                  targets, superop)
 
@@ -1384,6 +1566,11 @@ def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
         qureg.state = ddm.dd_apply_diag(qureg.state, 2 * n,
                                         dm.dephasing_factors(float(prob)),
                                         (int(target) + n, int(target)))
+    elif qureg.is_sharded:
+        # dephasing is diagonal on (target+n, target): position-free
+        n = qureg.num_qubits_represented
+        _pg.sharded_diag(qureg, dm.dephasing_factors(float(prob)),
+                         (int(target) + n, int(target)))
     else:
         dm.mix_dephasing(qureg.state, qureg.num_qubits_represented,
                          int(target), float(prob))
@@ -1408,6 +1595,11 @@ def mixTwoQubitDephasing(qureg: Qureg, q1: int, q2: int,
         qureg.state = ddm.dd_apply_diag(
             qureg.state, 2 * n, dm.two_qubit_dephasing_factors(float(prob)),
             (hi + n, lo + n, hi, lo))
+    elif qureg.is_sharded:
+        n = qureg.num_qubits_represented
+        hi, lo = max(int(q1), int(q2)), min(int(q1), int(q2))
+        _pg.sharded_diag(qureg, dm.two_qubit_dephasing_factors(float(prob)),
+                         (hi + n, lo + n, hi, lo))
     else:
         dm.mix_two_qubit_dephasing(qureg.state,
                                    qureg.num_qubits_represented, int(q1),
@@ -1474,6 +1666,10 @@ def mixDensityMatrix(qureg: Qureg, other_prob: float, other: Qureg) -> None:
     val.validate_matching_precision(qureg.env.precision.quest_prec,
                                     other.env.precision.quest_prec,
                                     "mixDensityMatrix")
+    if qureg.is_sharded:
+        _canon(qureg, other)
+        chk.mix_density(qureg, other_prob, other)
+        return
     src = other.state.to(qureg.device)
     if qureg.is_quad:
         qureg.state = ddm.dd_weighted(1.0 - float(other_prob), qureg.state,

@@ -1,14 +1,18 @@
-"""Whole-circuit compilation for one device.
+"""Whole-circuit compilation, on one device or on a mesh of shards.
 
-Counterpart of the single-device part of the JAX package's ``circuits.py``.
+Counterpart of the JAX package's ``circuits.py``.
 A :class:`Circuit` records gates; :meth:`Circuit.compile` runs the same
 planning pipeline as the JAX package —
 
 1. gate fusion (``core/fusion.py``): runs of adjacent gates whose support
    fits in k qubits contract into one dense op, with layer-eligible runs
    fenced off when the layer pass will claim them;
-2. scheduling (``_schedule``): peephole fusion plus the identity layout
-   plan (the JAX package's pure-Python branch, ``circuits.py:1547-1554``);
+2. scheduling (``_schedule``): peephole fusion plus the layout plan (the
+   JAX package's pure-Python branch, ``circuits.py:1547-1554``): the
+   identity placement on one device; on a mesh env
+   (``createQuESTEnv(num_devices=n)``) the lazy-layout planner of
+   ``parallel/layout.py`` with relayouts, cross-shard 1q items and, with
+   the communication model, absorbed SWAPs and composed exchanges;
 3. super-gate grouping (``_group_supergates``);
 4. layer collection (``_collect_layers_plan``): runs of ops whose footprint
    fits one kernel tile become :class:`~quest_tpu_torch.ops.layer_kernel.
@@ -19,7 +23,16 @@ and :meth:`CompiledCircuit.run` walks the plan: every layer through
 version on the CPU), every other op through the gate engine
 (``core/apply.py``). PyTorch runs eagerly, so there is no whole-program
 executable; the plan is the program, applied IN PLACE to the register's
-planes.
+planes. On a mesh the same walk runs on each shard's chunk (the JAX
+package's ``shard_map`` local body, ``circuits.py:1869-1963``): layers and
+gates on ``n - s`` local qubits, a control on a device bit as a per-shard
+skip, relayouts and cross-shard items through ``parallel/exchange.py``,
+with ``overlap=True`` pairing a relayout with the gate after it as the
+slab double-buffered exchange. The batched engine chooses the batch or
+the amplitude axis per dispatch (``layout.choose_batch_sharding``): in
+``batch`` mode each shard runs whole states through the single-device
+plan (a batch not divisible by the mesh is padded and the padding
+dropped), in ``amp`` mode every state spans the mesh as chunks.
 
 The batched ensemble engine (:meth:`CompiledCircuit.sweep`,
 :meth:`~CompiledCircuit.expectation_sweep`,
@@ -56,8 +69,10 @@ cache to key).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
+import warnings
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -74,7 +89,8 @@ from .ops import densmatr as dm
 from .ops import dynamics as dyn
 from .ops import layer_kernel as lk
 from .ops import reductions as red
-from .parallel.layout import LayoutPlan, plan_layout
+from .parallel import exchange as ex
+from .parallel.layout import LayoutPlan, is_swap_op, plan_layout
 from .qureg import Qureg
 from .resilience import faults as _faults
 from .resilience import health as _health
@@ -624,9 +640,11 @@ class Circuit:
           env it raises ``ValueError`` (no path on the card takes a plain
           version).
         - ``lookahead``, ``comm_planner``, ``overlap`` and ``reorder`` steer
-          the JAX package's multi-device layout planner; on one device
-          there is nothing to plan, so they have no effect until the port
-          shards (ROADMAP Queue 1 item 8).
+          the layout planner on a mesh env (``parallel/layout.py``): the
+          relayout window, the communication-aware mode (None = on), the
+          slab double-buffered relayout+gate pairs, and the multi-host
+          eviction re-pairing. On one device there is nothing to plan and
+          they have no effect.
         - ``fusion`` is the gate-fusion support cap k (None = default 3,
           0/False = off).
         - ``density=True`` compiles the program for a DENSITY register of
@@ -1174,6 +1192,11 @@ def _collect_layers_plan(items: list, ops: list, num_local: int,
         acc = _LayerAccum(num_local, hi, mxu)
 
     for item in items:
+        if item[0] != "op":
+            # a relayout or cross-shard item: runs never cross it
+            flush()
+            out.append(item)
+            continue
         _, i, pt, cm, fm, ao = item
         if acc.try_add(ops[i], pt, cm, fm, ao):
             acc.src_items.append(item)
@@ -1229,12 +1252,43 @@ def _layer_barrier(ops: Sequence, num_qubits: int, tile_rows: int,
 
 
 def _schedule(recorded: Sequence[_Op], num_qubits: int, fuse_flag: bool,
-              diag_row_cap: int = -1):
-    """Peephole-fuse + plan the op stream on one device (the JAX package's
-    pure-Python branch). Returns ``(ops_table, LayoutPlan)``."""
+              diag_row_cap: int = -1, shard_bits: int = 0,
+              lookahead: int = 32, cost_model=None,
+              chunk_bytes: float = 0.0, host_bits: int = 0,
+              reorder: bool = True):
+    """Peephole-fuse + layout-plan the op stream (the JAX package's
+    pure-Python branch). ``cost_model``/``chunk_bytes`` switch the planner
+    to its communication-aware mode, ``host_bits``/``reorder`` to the
+    two-tier one; with reordering on a multi-host mesh both variants are
+    planned and the cheaper by modeled comm seconds is kept, as in the
+    JAX package. Returns ``(ops_table, LayoutPlan)``."""
     ops_table = _peephole_fused(recorded, diag_row_cap) if fuse_flag \
         else list(recorded)
-    return ops_table, plan_layout(ops_table, num_qubits)
+
+    def plan(ro):
+        return plan_layout(ops_table, num_qubits, shard_bits,
+                           lookahead=lookahead, cost_model=cost_model,
+                           chunk_bytes=chunk_bytes, host_bits=host_bits,
+                           reorder=ro)
+
+    return ops_table, _best_of_reorder(plan, reorder, cost_model,
+                                       chunk_bytes, host_bits)
+
+
+def _best_of_reorder(plan, reorder: bool, cost_model, chunk_bytes: float,
+                     host_bits: int):
+    """``plan(reorder)``, or on a multi-host mesh with reordering on, the
+    cheaper of ``plan(True)`` and ``plan(False)`` by modeled comm seconds
+    (ties: inter-host bytes, then launches): the greedy re-pairing can
+    lose, and reordering must never model slower."""
+    if cost_model is None or host_bits <= 0 or not reorder:
+        return plan(reorder)
+    from .parallel.layout import reorder_plan_score
+    on, off = plan(True), plan(False)
+    if reorder_plan_score(off, chunk_bytes, cost_model, host_bits) < \
+            reorder_plan_score(on, chunk_bytes, cost_model, host_bits):
+        return off
+    return on
 
 
 def _layers_on(pallas, env: QuESTEnv) -> bool:
@@ -1280,9 +1334,27 @@ class CompiledCircuit:
         self.param_names = circuit.param_names
         self.tier = self._resolve_tier(tier)
         self.donate = bool(donate)
-        # lookahead, comm_planner, overlap and reorder steer the JAX
-        # package's multi-device planner: accepted, without effect on one
-        # device (ROADMAP Queue 1 item 8)
+        n = circuit.num_qubits
+        # on a mesh the top shard_bits positions index the shard; a
+        # register smaller than the mesh stays whole on the first shard
+        self._shard_bits = env.num_devices.bit_length() - 1 \
+            if env.mesh is not None and (1 << n) >= env.num_devices else 0
+        s = self._shard_bits
+        comm_on = (comm_planner if comm_planner is not None else True) \
+            and s > 0
+        from .profiling import comm_model
+        self._cost_model = comm_model(env) if comm_on else None
+        self._chunk_bytes = 2.0 * env.precision.real_dtype.itemsize \
+            * (1 << (n - s))
+        from .parallel.multihost import host_topology
+        topo = host_topology(env.mesh) if s else None
+        self._host_bits = min(topo.host_bits, s) if topo and comm_on else 0
+        self._num_hosts = topo.num_hosts if topo else 1
+        self._reorder = True if reorder is None else bool(reorder)
+        self._lookahead = int(lookahead)
+        self._overlap = bool(overlap)
+        self._comm_stats = None
+        self._warned_nondivisible = False
         self._compile_opts = {"fuse": fuse,
                               "layers": layers and _layers_on(pallas, env),
                               "supergate_k": supergate_k, "fusion": fusion,
@@ -1299,75 +1371,119 @@ class CompiledCircuit:
         # several threads)
         self._stats_lock = threading.Lock()
         self._health_counter = 0
-        self.plan, self._ops, self.fusion_stats = self._plan_for(self.tier)
+        self.plan, self._ops, self.fusion_stats = self._plan_for(
+            self.tier, sharded=True)
         self.tile_rows = lk.tile_rows_for(
             self._tier_dtypes(self.tier, env)[0])
 
-    def _plan_for(self, tier):
+    def _plan_for(self, tier, sharded: bool = False):
         """``(plan, ops, fusion_stats)`` of the layer plan a tier executes:
-        built once per (plane dtype, FAST flag) — the tile height follows
-        the plane dtype and the crossover the FAST flag — and kept."""
-        key = self._plan_key(tier)
+        built once per (plane dtype, FAST flag, layers, shard bits) — the
+        tile height follows the plane dtype and the crossover the FAST
+        flag — and kept. ``sharded`` asks for the mesh plan (relayouts,
+        layers on the chunk's qubits); the batched engine's whole-state
+        rows and every program off a mesh walk the unsharded one."""
+        key = self._plan_key(tier, sharded)
         if key not in self._plans:
             self._plans[key] = self._build_plan(*key)
         return self._plans[key]
 
-    def _plan_key(self, tier) -> tuple:
+    def _plan_key(self, tier, sharded: bool = False) -> tuple:
+        """``(plane dtype, FAST flag)``, then ``layers`` and ``shard_bits``
+        where they differ from True and 0: the positional arguments of
+        :meth:`_build_plan`."""
         key = (self._tier_dtypes(tier, self.env)[0],
                self._tier_exec_mode(tier)[1])
         # the QUAD rung walks a layer-free plan (``layers=False``): the
         # layer kernel has no dd form
-        if tier is not None and tier.name == "quad":
-            return key + (False,)
-        return key
+        layers = not (tier is not None and tier.name == "quad")
+        if sharded and self._shard_bits:
+            return key + (layers, self._shard_bits)
+        return key if layers else key + (False,)
 
     def _build_plan(self, dtype: torch.dtype, fast: bool,
-                    layers: bool = True):
+                    layers: bool = True, shard_bits: int = 0,
+                    comm: bool = True):
         """record -> FUSE -> schedule -> supergate -> collect layers, for
         planes of ``dtype`` (the kernel's tile height) with the crossover
         priced for the FAST tier or not; ``layers=False`` collects no
-        layers (the QUAD rung's plan)."""
+        layers (the QUAD rung's plan). ``shard_bits > 0`` plans for the
+        mesh as the JAX package's ``build_pipeline`` does
+        (``circuits.py:1641-1800``): fusion and super-gates capped at the
+        chunk's local qubits, SWAPs fenced where the communication planner
+        absorbs them, diagonals kept out of super-gates, and layers
+        collected on the chunk's ``n - s`` qubits between relayouts;
+        ``comm=False`` plans with the count-based planner (the baseline
+        ``dispatch_stats`` measures the saved bytes against)."""
         from .core.fusion import fuse_ops, resolve_fusion_k
 
         opts = self._compile_opts
         n = self.num_qubits
+        s = shard_bits
+        lt = n - s
         tile_rows = lk.tile_rows_for(dtype)
         use_layers = bool(opts["layers"]) and layers \
-            and n >= lk.LANE_QUBITS
+            and lt >= lk.LANE_QUBITS
         mxu_policy = _mxu_policy(use_layers, dtype.itemsize, opts["mxu"],
                                  fast)
         diag_cap = 3 if use_layers else -1
+        cm = self._cost_model if comm and s else None
+        hb = self._host_bits if cm is not None else 0
+
+        def fence(base):
+            # an absorbed SWAP costs nothing; welded into a group it
+            # costs a pass and may force relayouts
+            if cm is None:
+                return base
+            if base is None:
+                return is_swap_op
+            return lambda op: is_swap_op(op) or base(op)
 
         recorded = list(self.circuit.ops)
         fusion_stats = None
-        k_fuse = resolve_fusion_k(opts["fusion"], n)
+        k_fuse = resolve_fusion_k(opts["fusion"], lt)
         if k_fuse >= 2:
-            barrier = _layer_barrier(recorded, n, tile_rows,
-                                     mxu_policy) if use_layers else None
+            barrier = fence(_layer_barrier(recorded, lt, tile_rows,
+                                           mxu_policy)
+                            if use_layers else None)
             recorded, fusion_stats = fuse_ops(
                 recorded, max_k=k_fuse, diag_row_cap=diag_cap,
                 barrier=barrier)
         ops, plan = _schedule(recorded, n, opts["fuse"],
-                              diag_row_cap=diag_cap)
-        supergate_k = opts["supergate_k"]
+                              diag_row_cap=diag_cap, shard_bits=s,
+                              lookahead=self._lookahead, cost_model=cm,
+                              chunk_bytes=self._chunk_bytes, host_bits=hb,
+                              reorder=self._reorder)
+        supergate_k = min(opts["supergate_k"], lt) if s \
+            else opts["supergate_k"]
         if supergate_k >= 2:
             before = len(ops)
             ops = _group_supergates(
-                ops, supergate_k, fold_diags=True,
-                barrier=_layer_barrier(ops, n, tile_rows, mxu_policy)
-                if use_layers else None)
+                ops, supergate_k, fold_diags=(s == 0),
+                barrier=fence(_layer_barrier(ops, lt, tile_rows, mxu_policy)
+                              if use_layers else None))
             if len(ops) != before:
-                plan = plan_layout(ops, n)
+                plan = _best_of_reorder(
+                    lambda ro: plan_layout(
+                        ops, n, s, lookahead=self._lookahead,
+                        cost_model=cm, chunk_bytes=self._chunk_bytes,
+                        host_bits=hb, reorder=ro),
+                    self._reorder, cm, self._chunk_bytes, hb)
         if use_layers:
-            items, ops = _collect_layers_plan(plan.items, ops, n, tile_rows,
+            items, ops = _collect_layers_plan(plan.items, ops, lt, tile_rows,
                                               mxu=mxu_policy)
             # prune the table to executed ops (fused members are
             # superseded by their LayerOp)
-            ref = sorted({it[1] for it in items})
+            ref = sorted({it[1] for it in items
+                          if it[0] in ("op", "xshard")})
             remap = {old: new for new, old in enumerate(ref)}
             ops = [ops[i] for i in ref]
-            items = [(it[0], remap[it[1]], *it[2:]) for it in items]
-            plan = LayoutPlan(items, n)
+            items = [(it[0], remap[it[1]], *it[2:])
+                     if it[0] in ("op", "xshard") else it for it in items]
+            plan = LayoutPlan(items, n, s, plan.num_relayouts,
+                              num_xshard=plan.num_xshard,
+                              swaps_absorbed=plan.swaps_absorbed,
+                              collectives_fused=plan.collectives_fused)
         return plan, ops, fusion_stats
 
     # -- precision tiers -----------------------------------------------------
@@ -1495,8 +1611,22 @@ class CompiledCircuit:
         return the result: IN PLACE on ``state_f`` when the program was
         compiled with ``donate=True`` (the default), else on a copy, which
         leaves the caller's tensor as it was. Planes of another dtype than
-        the tier's are cast in and the result copied back."""
+        the tier's are cast in and the result copied back. A program
+        compiled on a mesh takes the register's chunks instead (a list of
+        ``(2, 2^(N-s))`` tensors, shard by shard, in canonical order) and
+        returns the list."""
         n = self.num_qubits
+        if self._shard_bits:
+            if not isinstance(state_f, (list, tuple)) or \
+                    len(state_f) != self.env.num_devices:
+                raise ValueError(
+                    "a program compiled on a mesh applies to the "
+                    f"register's {self.env.num_devices} chunks (a list, "
+                    "shard by shard); run(qureg) passes them")
+            chunks = list(state_f) if self.donate else \
+                [c.clone() for c in state_f]
+            self._run_chunks(chunks, self._params(params))
+            return chunks
         if tuple(state_f.shape) != (2, 1 << n):
             raise ValueError(f"planes have shape {tuple(state_f.shape)}; "
                              f"this circuit needs (2, {1 << n})")
@@ -1509,22 +1639,114 @@ class CompiledCircuit:
             op = self._ops[i]
             if op.kind == "layer":
                 lk.apply_layer(work, n, op, fast=fast)
-            elif op.kind == "u":
-                u = self._static_operator(i, op, axis_order, rdt,
-                                          work.device) \
-                    if op.mat_fn is None else np.asarray(
-                        op.mat_fn(params), dtype=np.complex128)
-                apply_unitary(work, n, u, phys_targets, cmask, fmask,
+                continue
+            operator = self._item_operator(op, i, axis_order, params, rdt,
+                                           work.device)
+            if op.kind == "u":
+                apply_unitary(work, n, operator, phys_targets, cmask, fmask,
                               precision=prec)
             else:
-                d = self._static_operator(i, op, axis_order, rdt,
-                                          work.device) \
-                    if op.diag_fn is None else np.transpose(
-                        np.asarray(op.diag_fn(params)), axis_order)
-                apply_diagonal(work, n, phys_targets, d)
+                apply_diagonal(work, n, phys_targets, operator)
         if work is not planes:
             planes.copy_(work)
         return planes
+
+    def _item_operator(self, op, i: int, axis_order, params: dict, rdt,
+                       device):
+        """A plain op's operator for one run: the cached device tensor of
+        a static op (a diagonal already in the plan's axis order), else
+        the bound matrix or diagonal (numpy)."""
+        if op.is_static:
+            return self._static_operator(i, op, axis_order, rdt, device)
+        if op.kind == "u":
+            return np.asarray(op.mat_fn(params), dtype=np.complex128)
+        return np.ascontiguousarray(np.transpose(
+            np.asarray(op.diag_fn(params)), axis_order))
+
+    def _exchange_plans(self, plan) -> dict:
+        """The exchange choreography of each relayout item of ``plan``
+        (by item index), made once per plan."""
+        cache = self.__dict__.setdefault("_ex_plans", {})
+        if id(plan) not in cache:
+            n, s = self.num_qubits, plan.shard_bits
+            cache[id(plan)] = (plan, {
+                j: ex.plan_exchange(n, s, it[1], it[2])
+                for j, it in enumerate(plan.items) if it[0] == "relayout"})
+        return cache[id(plan)][1]
+
+    def _overlap_pairs(self, plan, ops, expl: dict) -> set:
+        """Relayout items run fused with the dense gate right after them
+        (``compile(overlap=True)``; the JAX package's rule: no
+        post-transpose, the gate away from the slab bit)."""
+        pairs = set()
+        if not self._overlap:
+            return pairs
+        items = plan.items
+        for j, it in enumerate(items):
+            if it[0] != "relayout" or j + 1 >= len(items):
+                continue
+            nxt = items[j + 1]
+            if nxt[0] == "op" and getattr(ops[nxt[1]], "kind", None) == "u" \
+                    and ex.overlap_eligible(expl[j], nxt[2], nxt[3]):
+                pairs.add(j)
+        return pairs
+
+    def _run_chunks(self, chunks: list, params: dict) -> list:
+        """The local body on every shard (the JAX package's ``shard_map``
+        program, ``circuits.py:1869-1963``), IN PLACE on the list of
+        chunks: layers through the layer kernel on each chunk's ``n - s``
+        qubits, plain ops on each chunk (a device-bit control as a
+        per-shard skip, a diagonal's device-bit axes sliced per shard),
+        relayouts and cross-shard items through ``parallel/exchange.py``.
+        Chunks of another dtype than the tier's are cast in and copied
+        back."""
+        plan, ops = self.plan, self._ops
+        s = plan.shard_bits
+        lt = self.num_qubits - s
+        prec, fast = self._tier_exec_mode(self.tier)
+        rdt = self._tier_dtypes(self.tier, self.env)[0]
+        work = chunks if chunks[0].dtype == rdt else [c.to(rdt)
+                                                      for c in chunks]
+        expl = self._exchange_plans(plan)
+        fused = self._overlap_pairs(plan, ops, expl)
+        dev = work[0].device
+        skip = False
+        for j, item in enumerate(plan.items):
+            if skip:
+                skip = False
+                continue
+            if item[0] == "relayout":
+                if j in fused:
+                    _, i, pt, cm, fm, ao = plan.items[j + 1]
+                    u = self._item_operator(ops[i], i, ao, params, rdt, dev)
+                    ex.run_exchange_overlapped(work, expl[j], u, pt, cm, fm,
+                                               precision=prec)
+                    skip = True
+                else:
+                    ex.run_exchange(work, expl[j])
+                continue
+            _, i, pt, cm, fm, ao = item
+            op = ops[i]
+            if op.kind == "layer":
+                # by index: a loop variable would keep the last chunk
+                # alive through the next relayout's out-of-place
+                # transposes, a second chunk of scratch
+                for d in range(len(work)):
+                    lk.apply_layer(work[d], lt, op, fast=fast)
+                continue
+            operator = self._item_operator(op, i, ao, params, rdt, dev)
+            if item[0] == "xshard":
+                ex.apply_1q_cross_shard(work, operator, pt[0], lt, s, cm, fm,
+                                        precision=prec)
+            elif op.kind == "u":
+                ex.apply_op_local(work, "u", operator, pt, cm, fm, lt,
+                                  precision=prec)
+            else:
+                ex.apply_op_local(work, "diag", operator, pt, 0, 0, lt)
+        if work is not chunks:
+            for c, w in zip(chunks, work):
+                c.copy_(w)
+        return chunks
 
     def precompile(self) -> "CompiledCircuit":
         """Do the first run's setup ahead of it, with no state: on the card,
@@ -1539,11 +1761,18 @@ class CompiledCircuit:
         on_card = device.type == "cuda"
         if on_card:
             lk.build_library()
-        for _, i, _, _, _, axis_order in self.plan.items:
+        num_local = self.num_qubits - self.plan.shard_bits
+        devices = set(self.env.mesh.devices) if self.plan.shard_bits \
+            else {device}
+        for item in self.plan.items:
+            if item[0] == "relayout":
+                continue
+            _, i, _, _, _, axis_order = item
             op = self._ops[i]
             if op.kind == "layer":
                 if on_card:
-                    lk.pack_layer(op, self.num_qubits, rdt, device, fast)
+                    for dev in devices:
+                        lk.pack_layer(op, num_local, rdt, dev, fast)
             elif op.is_static:
                 self._static_operator(i, op, axis_order, rdt, device)
         return self
@@ -1551,23 +1780,35 @@ class CompiledCircuit:
     def dispatch_stats(self):
         """Dispatch accounting (:class:`quest_tpu_torch.profiling.
         DispatchStats`): recorded gates in, kernels out (the plan's layers
-        and plain ops), the gate-fusion pass's counters, and the last
-        batched dispatch's record (:meth:`_record_batch_stats`). On one
-        device there are no relayouts or collectives, so the mesh and
-        multi-host fields keep their defaults; so do the two executable-
-        cache fields, since the port runs eagerly and caches no
-        executables."""
+        and plain ops), planned relayouts, the gate-fusion pass's
+        counters, the communication planner's accounting on a mesh
+        (cross-shard items, absorbed SWAPs, composed exchanges, the
+        modeled exchange bytes per run and those saved against the
+        count-based planner's plan; computed at the first call), and the
+        last batched dispatch's record (:meth:`_record_batch_stats`). The
+        two executable-cache fields keep their defaults: the port runs
+        eagerly and caches no executables."""
         from .profiling import DispatchStats
         fs = self.fusion_stats
         bs = self._batch_stats
+        comm = self._comm_accounting()
         return DispatchStats(
             gates_in=self.circuit.depth,
-            kernels_out=len(self.plan.items),
-            relayouts=0,
+            kernels_out=self.plan.num_kernels,
+            relayouts=self.plan.num_relayouts,
             fused_groups=fs.fused_groups if fs else 0,
             diag_folds=fs.diag_folds if fs else 0,
             commuted_diagonals=fs.commuted_diagonals if fs else 0,
             max_group_gates=fs.max_group_gates if fs else 0,
+            cross_shard_exchanges=self.plan.num_xshard,
+            swaps_absorbed=self.plan.swaps_absorbed,
+            collectives_fused=self.plan.collectives_fused,
+            comm_bytes_planned=comm["planned"],
+            comm_bytes_saved=comm["saved"],
+            num_hosts=self._num_hosts,
+            inter_host_collectives=comm["inter_launches"],
+            comm_bytes_inter_planned=comm["inter_planned"],
+            comm_bytes_inter_saved=comm["inter_saved"],
             batch_size=bs.get("batch_size", 0),
             host_syncs_avoided=bs.get("host_syncs_avoided", 0),
             batch_sharding_mode=bs.get("batch_sharding_mode", "none"),
@@ -1576,19 +1817,59 @@ class CompiledCircuit:
             else "env",
             modeled_tier_error=self._modeled_tier_error())
 
+    def _comm_accounting(self) -> dict:
+        """Modeled exchange bytes of the plan (mesh-total per run) and
+        those saved against the count-based planner's plan of the same
+        circuit, and the inter-host share: computed once, at the first
+        :meth:`dispatch_stats`."""
+        with self._stats_lock:
+            if self._comm_stats is not None:
+                return self._comm_stats
+        out = {"planned": 0.0, "saved": 0.0, "inter_planned": 0.0,
+               "inter_saved": 0.0, "inter_launches": 0}
+        if self.plan.shard_bits:
+            from .parallel.layout import plan_comm_stats
+            from .profiling import DEFAULT_COMM_MODEL
+            model = self._cost_model or DEFAULT_COMM_MODEL
+            hb, D = self._host_bits, self.env.num_devices
+            tot = plan_comm_stats(self.plan, self._chunk_bytes, model, D,
+                                  host_bits=hb)
+            out.update(planned=tot["bytes"],
+                       inter_planned=tot["inter_bytes"],
+                       inter_launches=tot["inter_launches"])
+            key = self._plan_key(self.tier, True)
+            if self._cost_model is not None:
+                base = self._build_plan(*key, comm=False)[0]
+                out["saved"] = max(0.0, plan_comm_stats(
+                    base, self._chunk_bytes, model, D,
+                    host_bits=hb)["bytes"] - tot["bytes"])
+                if hb > 0 and self._reorder:
+                    reorder, self._reorder = self._reorder, False
+                    try:
+                        roff = self._build_plan(*key)[0]
+                    finally:
+                        self._reorder = reorder
+                    out["inter_saved"] = max(0.0, plan_comm_stats(
+                        roff, self._chunk_bytes, model, D,
+                        host_bits=hb)["inter_bytes"] - tot["inter_bytes"])
+        with self._stats_lock:
+            self._comm_stats = out
+        return out
+
     _digest_cached = None   # lazy program_digest (content-addressed)
     _batch_stats: dict = {}  # the last batched dispatch's record
 
     def _record_batch_stats(self, batch: int, host_syncs_avoided: int,
-                            evolve_steps_fused: int = 0) -> None:
-        """Record one batched dispatch: its rows, its sharding mode (always
-        ``"none"``: the port runs on one device), the host synchronisations
-        a per-point client would have paid beyond this dispatch's, and the
-        dynamics steps it ran (0 for every non-dynamics dispatch). One
-        atomic swap of the whole record, so a reader never sees a torn
-        one."""
+                            evolve_steps_fused: int = 0,
+                            mode: str = "none") -> None:
+        """Record one batched dispatch: its rows, its sharding mode
+        (``"none"`` off a mesh, else the mode :meth:`_batch_policy` chose),
+        the host synchronisations a per-point client would have paid
+        beyond this dispatch's, and the dynamics steps it ran (0 for every
+        non-dynamics dispatch). One atomic swap of the whole record, so a
+        reader never sees a torn one."""
         self._batch_stats = {"batch_size": batch,
-                             "batch_sharding_mode": "none",
+                             "batch_sharding_mode": mode,
                              "host_syncs_avoided": host_syncs_avoided,
                              "evolve_steps_fused": evolve_steps_fused}
 
@@ -1601,21 +1882,39 @@ class CompiledCircuit:
         ``roofline_frac``."""
         itemsize = self.env.precision.real_dtype.itemsize
         state_bytes = 4.0 * itemsize * (1 << self.num_qubits)
-        passes = max(len(self.plan.items), 1) + max(int(terms), 0)
+        passes = max(self.plan.num_dispatches, 1) + max(int(terms), 0)
         return passes * max(int(batch), 1) * state_bytes
 
     def _batch_policy(self, batch: int, mem_factor: float = 1.0) -> dict:
-        """The batch-sharding decision for a ``batch``-point dispatch: on
-        one device always ``{"mode": "none"}`` (the JAX package chooses
-        between batch and amplitude sharding over a mesh, ROADMAP Queue 1
-        item 8)."""
-        return {"mode": "none"}
+        """The mesh batch-sharding decision for a ``batch``-point ensemble
+        (:func:`quest_tpu_torch.parallel.layout.choose_batch_sharding`,
+        priced by the compile-time comm model; ``{"mode": "none"}`` off a
+        mesh). ``mem_factor=2.0`` is the gradient sweeps' pricing."""
+        if not self._shard_bits:
+            return {"mode": "none"}
+        from .parallel.layout import choose_batch_sharding
+        return choose_batch_sharding(
+            self.num_qubits, batch, self.env.num_devices,
+            self.env.precision.real_dtype.itemsize,
+            self.plan.num_relayouts, cost_model=self._cost_model,
+            host_bits=self._host_bits, mem_factor=mem_factor)
 
     def _drift_models(self, mode: str, rows: int, pol: dict) -> dict:
-        """The drift-monitor models of one batched dispatch: the JAX
-        package models only collective seconds, which a dispatch off a
-        mesh does not pay, so none."""
-        return {}
+        """The drift-monitor models of one batched dispatch: only ``amp``
+        mode pays exchanges, every planned one per row (``comm_plan``) at
+        the price the policy modeled (``batch_amp_comm``)."""
+        models: dict = {}
+        if mode == "amp":
+            from .parallel.layout import plan_comm_stats
+            from .profiling import DEFAULT_COMM_MODEL
+            cps = plan_comm_stats(self.plan, self._chunk_bytes,
+                                  self._cost_model or DEFAULT_COMM_MODEL,
+                                  host_bits=self._host_bits)["seconds"]
+            if cps > 0.0:
+                models["comm_plan"] = cps * rows
+            if pol.get("amp_comm_seconds", 0.0) > 0.0:
+                models["batch_amp_comm"] = pol["amp_comm_seconds"]
+        return models
 
     @property
     def program_digest(self) -> str:
@@ -1648,6 +1947,30 @@ class CompiledCircuit:
                 "QUAD registers hold double-double planes; compile with "
                 "Circuit.compile_dd and run on its packed planes, or use "
                 "the imperative API (which routes to dd kernels)")
+        if qureg.is_sharded != bool(self._shard_bits) or (
+                qureg.is_sharded and qureg.env.mesh is not self.env.mesh):
+            raise ValueError("the register and the program were made for "
+                             "different meshes; compile on the register's "
+                             "env")
+        if qureg.is_sharded:
+            qureg.ensure_canonical()      # drains a pending fusion buffer
+            chunks = qureg.chunks
+            if chunks[0].dtype != self.env.precision.real_dtype:
+                raise ValueError("register precision differs from the "
+                                 "circuit's compile-time environment")
+            sp = _profile.profile_dispatch("circuits.run")
+            with dispatch_annotation(
+                    f"quest_tpu_torch.circuits.run:{self.num_qubits}q:"
+                    f"mesh{self.env.num_devices}"):
+                self._run_chunks(chunks, self._params(params))
+            if sp is not None:
+                sp.done(None, program=self.program_digest, kind="run",
+                        bucket=1, tier=self._tier_token(self.tier),
+                        dtype=self._dtype_token(
+                            self.env.precision.real_dtype),
+                        sharding="amp",
+                        bytes_per_pass=self._bytes_per_pass())
+            return
         state = qureg.state       # drains a pending fusion buffer
         if state.dtype != self.env.precision.real_dtype:
             raise ValueError("register precision differs from the "
@@ -1830,6 +2153,184 @@ class CompiledCircuit:
                 f"({batch}, 2, {1 << n}) batch; got {tuple(state_f.shape)}")
         return state_f.to(device=device, dtype=dtype).contiguous()
 
+    # -- the batched engine on a mesh ---------------------------------------
+
+    def _mesh_mode(self, batch: int, mem_factor: float = 1.0) -> str:
+        """``"none"`` off a mesh, else the policy's ``"batch"`` or
+        ``"amp"`` for this many rows."""
+        if not self._shard_bits:
+            return "none"
+        return self._batch_policy(batch, mem_factor)["mode"]
+
+    def _shard_twin(self, d: int) -> "CompiledCircuit":
+        """This program as it runs on shard ``d``'s device alone (one
+        device env sharing the precision, generator and compensation), for
+        ``batch`` mode: it shares the plan caches, and walks the unsharded
+        plan."""
+        twins = self.__dict__.setdefault("_twins", {})
+        if d not in twins:
+            tw = copy.copy(self)
+            tw.env = dataclasses.replace(
+                self.env, mesh=None, device=self.env.mesh.devices[d])
+            tw._shard_bits = 0
+            tw._batch_stats = {}
+            twins[d] = tw
+        return twins[d]
+
+    def _on_shards(self, pm: np.ndarray, run, state_f=None,
+                   owned: bool = False) -> list:
+        """``batch`` mode: split the rows over the shards and call
+        ``run(twin, rows, state_f)`` on each shard's twin, in shard order.
+        A batch not divisible by the mesh is padded with zero rows (and an
+        owned ``state_f`` batch with zero planes), whose results the
+        caller drops: pad-and-mask, as the JAX package does, with one
+        warning per program."""
+        B = pm.shape[0]
+        D = self.env.num_devices
+        pad = (-B) % D
+        if pad:
+            with self._stats_lock:
+                warn_now = not self._warned_nondivisible
+                self._warned_nondivisible = True
+            if warn_now:
+                warnings.warn(
+                    f"sweep batch of {B} is not divisible by the {D}-shard "
+                    f"mesh; padding to {B + pad} and masking the {pad} "
+                    "extra rows", UserWarning, stacklevel=4)
+            pm = np.concatenate([pm, np.zeros((pad,) + pm.shape[1:])])
+            if owned:
+                sf = torch.as_tensor(state_f)
+                state_f = torch.cat([sf, sf.new_zeros((pad,) + tuple(
+                    sf.shape[1:]))])
+        per = (B + pad) // D
+        out = []
+        for d in range(D):
+            sf = state_f[d * per:(d + 1) * per] if owned else state_f
+            out.append(run(self._shard_twin(d), pm[d * per:(d + 1) * per],
+                           sf))
+        return out
+
+    def _amp_start(self, batch: int, state_f, dtype) -> list:
+        """``amp`` mode's start chunks: ``(B, 2, 2^(n-s))`` per shard, of
+        |0..0>, a shared ``(2, 2^n)`` start or an owned batch."""
+        lt = self.num_qubits - self._shard_bits
+        C = 1 << lt
+        devs = self.env.mesh.devices
+        if state_f is None:
+            chunks = [torch.zeros((batch, 2, C), dtype=dtype, device=dev)
+                      for dev in devs]
+            chunks[0][:, 0, 0] = 1.0
+            return chunks
+        sf = torch.as_tensor(state_f)
+        if sf.dim() == 2:
+            if tuple(sf.shape) != (2, 1 << self.num_qubits):
+                raise ValueError(f"shared state_f must be (2, "
+                                 f"{1 << self.num_qubits}); got "
+                                 f"{tuple(sf.shape)}")
+            return [sf[:, d * C:(d + 1) * C].to(dev, dtype).expand(
+                batch, 2, C).contiguous() for d, dev in enumerate(devs)]
+        if tuple(sf.shape) != (batch, 2, 1 << self.num_qubits):
+            raise ValueError(
+                f"state_f must be shared (2, {1 << self.num_qubits}) planes "
+                f"or an owned ({batch}, 2, {1 << self.num_qubits}) batch; "
+                f"got {tuple(sf.shape)}")
+        return [sf[..., d * C:(d + 1) * C].to(dev, dtype).contiguous()
+                for d, dev in enumerate(devs)]
+
+    def _run_amp(self, pm: np.ndarray, state_f, tier) -> list:
+        """``amp`` mode: every row spans the mesh as chunks; the mesh plan
+        walks ``(B, 2, 2^(n-s))`` chunks, a layer as one launch of the
+        batched layer kernel per shard, a parameter op's operator bound per
+        row. Returns the chunks in the tier's plane dtype."""
+        if tier is not None and tier.name == "quad":
+            raise NotImplementedError(
+                "the QUAD tier on a mesh waits for ROADMAP Queue 1 item "
+                "8's remainder")
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        prec, fast = self._tier_exec_mode(tier)
+        plan, ops, _ = self._plan_for(tier, sharded=True)
+        s = plan.shard_bits
+        lt = self.num_qubits - s
+        chunks = self._amp_start(pm.shape[0], state_f, rdt)
+        expl = self._exchange_plans(plan)
+        for j, item in enumerate(plan.items):
+            if item[0] == "relayout":
+                ex.run_exchange(chunks, expl[j])
+                continue
+            op = ops[item[1]]
+            adj.apply_chunk_item(chunks, self.num_qubits, s, op, item,
+                                 adj.item_operator(op, self.param_names, pm),
+                                 prec, fast)
+        return chunks
+
+    def _amp_value_and_grad(self, pm: np.ndarray, operands, state_f,
+                            tier):
+        """``amp`` mode of :meth:`value_and_grad_sweep`: the adjoint walk
+        over the mesh plan with every row spanning the shards
+        (:class:`~quest_tpu_torch.ops.adjoint.ShardedAdjointWalk`), the
+        energies and the cotangent ``H psi`` pair of chunks by pair
+        (``parallel/chunks.py``). State-vector programs."""
+        if self.is_density:
+            raise NotImplementedError(
+                "amplitude-sharded gradients of a density program wait "
+                "for ROADMAP Queue 1 item 8's remainder; such a sweep "
+                "runs in batch mode")
+        from .parallel import chunks as chk
+        s = self._shard_bits
+        lt = self.num_qubits - s
+        rdt = self._tier_dtypes(tier, self.env)[0]
+        comp = tier is not None and tier.compensated
+        key = self._plan_key(tier, sharded=True) + ("amp",)
+        if key not in self._walks:
+            plan, ops, _ = self._plan_for(tier, sharded=True)
+            prec, fast = self._tier_exec_mode(tier)
+            self._walks[key] = adj.ShardedAdjointWalk(
+                self.num_qubits, s,
+                [(ops[it[1]] if it[0] != "relayout" else None, it)
+                 for it in plan.items],
+                self.param_names, prec, fast, self.is_density)
+        start = [c[0] for c in self._amp_start(1, state_f, rdt)]
+        xm, ym, zm, coeffs = operands
+        values, grads = self._walks[key].run(
+            pm, start,
+            lambda psi: chk.pauli_total(psi, lt, xm, ym, zm, coeffs,
+                                        compensated=comp),
+            lambda psi, lam: chk.pauli_sum_apply(psi, lt, xm, ym, zm,
+                                                 coeffs, lam),
+            self._store_bytes(pm.shape[0], rdt))
+        return (values.cpu().numpy().astype(np.float64),
+                grads.cpu().numpy())
+
+    def _mesh_sample(self, param_matrix, num_shots: int, generator,
+                     tier):
+        """:meth:`sample_sweep` on a mesh: each shard's rows drawn by its
+        twin (``batch`` mode), or each row's chunks by the shard-local
+        two-stage sampler (``amp`` mode)."""
+        from .parallel.sampling import sample_sharded, shot_bucket
+        tier = self._effective_tier(tier)
+        pm = self._validated_param_matrix(param_matrix)
+        B = pm.shape[0]
+        mode = self._mesh_mode(B)
+        if mode == "amp":
+            chunks = self._run_amp(pm, None, tier)
+            u = torch.rand((B, shot_bucket(num_shots)), generator=generator,
+                           dtype=torch.float64)
+            lt = self.num_qubits - self._shard_bits
+            idx = np.empty((B, num_shots), dtype=np.int64)
+            totals = np.empty(B)
+            for b in range(B):
+                idx[b], totals[b] = sample_sharded(
+                    [c[b] for c in chunks], u[b, :num_shots], False,
+                    self.num_qubits, lt)
+        else:
+            parts = self._on_shards(
+                pm, lambda tw, rows, sf: tw.sample_sweep(
+                    rows, num_shots, generator, tier))
+            idx = np.concatenate([p[0] for p in parts])[:B]
+            totals = np.concatenate([p[1] for p in parts])[:B]
+        self._record_batch_stats(B, 2 * B - 2, mode=mode)
+        return idx, totals
+
     def sweep(self, param_matrix, state_f=None, tier=None) -> torch.Tensor:
         """Run a whole batch of parameter vectors through the plan.
 
@@ -1840,10 +2341,28 @@ class CompiledCircuit:
         donation) when it lies on the env's device in its dtype. ``tier``
         runs this dispatch at one precision-tier rung (a ``PrecisionTier``
         or name; default the compile-time tier, else the env precision).
-        Returns the ``(B, 2, 2^n)`` planes in the env's dtype."""
+        Returns the ``(B, 2, 2^n)`` planes in the env's dtype (on a mesh,
+        gathered on the first shard's device: the rows the caller asked
+        for)."""
         tier = self._effective_tier(tier)
         pm = self._validated_param_matrix(param_matrix)
         env_dt = self.env.precision.real_dtype
+        if self._shard_bits:
+            mode = self._mesh_mode(pm.shape[0])
+            if mode == "amp":
+                out = torch.cat([c.to(self.env.device, env_dt)
+                                 for c in self._run_amp(pm, state_f, tier)],
+                                dim=-1)
+            else:
+                owned = state_f is not None and \
+                    torch.as_tensor(state_f).dim() == 3
+                out = torch.cat([o.to(self.env.device)
+                                 for o in self._on_shards(
+                    pm, lambda tw, rows, sf: tw.sweep(rows, sf, tier),
+                    state_f, owned)], dim=0)[:pm.shape[0]]
+            self._record_batch_stats(pm.shape[0], pm.shape[0] - 1,
+                                     mode=mode)
+            return out
         states = self._start_states(pm.shape[0], state_f, env_dt)
         rdt = self._tier_dtypes(tier, self.env)[0]
         if rdt == env_dt:
@@ -1879,13 +2398,36 @@ class CompiledCircuit:
         # a per-point client pays at least one transfer per point (the
         # reference: one per term per point); the sweep's is one (B,) block
         self._record_batch_stats(
-            pm.shape[0], pm.shape[0] * max(len(hamiltonian[0]), 1) - 1)
+            pm.shape[0], pm.shape[0] * max(len(hamiltonian[0]), 1) - 1,
+            mode=self._mesh_mode(pm.shape[0]))
         return vals
 
     def _energy_rows(self, pm: np.ndarray, operands, state_f,
                      tier) -> np.ndarray:
         """The float64 ``(B,)`` energies of validated rows (the body of
-        :meth:`expectation_sweep`, which also records the dispatch)."""
+        :meth:`expectation_sweep`, which also records the dispatch). On a
+        mesh: each shard's rows through the single-device walk (``batch``
+        mode), or every row over the shards' chunks, reduced pair of
+        chunks by pair (``amp`` mode, state-vector programs)."""
+        if self._shard_bits:
+            if self._mesh_mode(pm.shape[0]) == "amp":
+                if self.is_density:
+                    raise NotImplementedError(
+                        "amplitude-sharded energies of a density program "
+                        "wait for ROADMAP Queue 1 item 8's remainder; "
+                        "such a sweep runs in batch mode")
+                from .parallel import chunks as chk
+                xm, ym, zm, coeffs = operands
+                comp = tier is not None and tier.compensated
+                s = self._shard_bits
+                vals = chk.pauli_total(self._run_amp(pm, state_f, tier),
+                                       self.num_qubits - s, xm, ym, zm,
+                                       coeffs, compensated=comp)
+                return vals.cpu().numpy().astype(np.float64)
+            return np.concatenate(self._on_shards(
+                pm, lambda tw, rows, sf: tw._energy_rows(rows, operands, sf,
+                                                         tier),
+                state_f))[:pm.shape[0]]
         rdt = self._tier_dtypes(tier, self.env)[0]
         states = self._run_plan_batched(
             self._start_states(pm.shape[0], state_f, rdt), pm, tier)
@@ -1974,13 +2516,24 @@ class CompiledCircuit:
         out = self._value_and_grad_rows(pm, operands, state_f, tier)
         # a parameter-shift client pays 2P + 1 energy dispatches per row
         B = pm.shape[0]
-        self._record_batch_stats(B, B * (2 * len(self.param_names) + 1) - 1)
+        self._record_batch_stats(B, B * (2 * len(self.param_names) + 1) - 1,
+                                 mode=self._mesh_mode(B, 2.0))
         return out
 
     def _value_and_grad_rows(self, pm: np.ndarray, operands, state_f,
                              tier):
         """The body of :meth:`value_and_grad_sweep` on validated rows
-        (which also records the dispatch)."""
+        (which also records the dispatch). On a mesh each shard walks its
+        rows (``batch`` mode, priced at ``mem_factor=2``)."""
+        if self._shard_bits:
+            if self._mesh_mode(pm.shape[0], 2.0) == "amp":
+                return self._amp_value_and_grad(pm, operands, state_f, tier)
+            parts = self._on_shards(
+                pm, lambda tw, rows, sf: tw._value_and_grad_rows(
+                    rows, operands, sf, tier), state_f)
+            B = pm.shape[0]
+            return (np.concatenate([v for v, _ in parts])[:B],
+                    np.concatenate([g for _, g in parts])[:B])
         n = self.num_qubits
         if state_f is None:
             start = torch.zeros((2, 1 << n), dtype=torch.float64)
@@ -2069,6 +2622,9 @@ class CompiledCircuit:
                 "sample_sweep draws from |amp|^2 of statevector "
                 "programs; sample density registers via sampleOutcomes")
         from .parallel.sampling import sample_batched
+        if self._shard_bits:
+            return self._mesh_sample(param_matrix, int(num_shots),
+                                     generator or self.env.generator, tier)
         planes = self.sweep(param_matrix, tier=tier)
         out = sample_batched(planes, generator or self.env.generator,
                              int(num_shots))
@@ -2103,6 +2659,19 @@ class CompiledCircuit:
         xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
         n = self.num_qubits
         pm = self._validated_param_matrix(param_matrix)
+        if self._shard_bits:
+            mode = self._mesh_mode(pm.shape[0])
+            if mode == "amp":
+                raise NotImplementedError(
+                    f"amplitude-sharded {kind}_sweep waits for ROADMAP "
+                    "Queue 1 item 8's remainder")
+            out = torch.cat([o.to(self.env.device) for o in self._on_shards(
+                pm, lambda tw, rows, sf: tw._dynamics_dispatch(
+                    kind, rows, hamiltonian, spec, sf, tier), state_f)])
+            B, S = pm.shape[0], int(spec.steps)
+            self._record_batch_stats(B, B * S - 1, evolve_steps_fused=B * S,
+                                     mode=mode)
+            return out[:B]
         if state_f is not None and getattr(state_f, "shape",
                                            None) != (2, 1 << n):
             raise ValueError(

@@ -39,6 +39,14 @@ def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv,
         raise ValueError(f"{num_amps} amplitudes is not a square density "
                          "matrix (2^(2n) flat entries)")
     q = Qureg(n // 2 if is_density else n, env, is_density=is_density)
+    if q.is_sharded:
+        # each shard takes its slice of the planes (copied)
+        per = num_amps // env.num_devices
+        q.chunks = [torch.as_tensor(np.array(planes[:, d * per:(d + 1) * per]),
+                                    dtype=env.precision.real_dtype,
+                                    device=dev)
+                    for d, dev in enumerate(env.mesh.devices)]
+        return q
     # np.array copies: the register never aliases the caller's array
     q.state = torch.as_tensor(np.array(planes), dtype=env.precision.real_dtype,
                               device=env.device)
@@ -47,7 +55,12 @@ def qureg_from_planes(np_planes: np.ndarray, env: QuESTEnv,
 
 def planes_of(qureg: Qureg) -> np.ndarray:
     """The register's ``(2, 2^N)`` planes as a host numpy array (a density
-    register's flat vector)."""
+    register's flat vector); a sharded register's chunks are put in
+    canonical order and gathered on the host."""
+    if qureg.is_sharded:
+        qureg.ensure_canonical()
+        return np.concatenate([c.detach().cpu().numpy()
+                               for c in qureg.chunks], axis=1)
     return qureg.state.detach().cpu().numpy()
 
 

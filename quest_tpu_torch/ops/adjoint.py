@@ -33,6 +33,11 @@ fixed handful of batches whatever the depth:
 Layers are parameter-free (the collector admits static ops only), so the
 only derivatives are the parametrised ops', taken from their one torch
 definition by :func:`bind_with_derivatives`.
+
+On a mesh the batch may instead span the shards (the batched engine's
+``amp`` mode): :func:`apply_chunk_item` applies a plan item to a list of
+``(B, 2, 2^(n-s))`` chunks, and :class:`ShardedAdjointWalk` walks the mesh
+plan over them, a relayout's adjoint being the inverse relayout.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ from ..core.apply import apply_diagonal, apply_unitary
 from . import layer_kernel as lk
 
 __all__ = ["UNITARY_TOL", "bind_rows", "bind_with_derivatives",
-           "item_operator", "apply_item", "unitary_matrix", "unit_modulus",
-           "is_unitary", "AdjointWalk"]
+           "item_operator", "apply_item", "apply_chunk_item",
+           "unitary_matrix", "unit_modulus", "is_unitary", "AdjointWalk",
+           "ShardedAdjointWalk"]
 
 # largest |U^dag U - I| (or ||d| - 1| for a diagonal) of an item the walk
 # un-computes by its adjoint; any other static item is treated as a channel
@@ -158,8 +164,8 @@ def _what(op) -> str:
 def item_operator(op, names: Sequence[str], pm: np.ndarray):
     """The operator a plan item applies to the batch: its static matrix or
     diagonal tensor, or a parametrised op's bound per row (shared when
-    every row binds the same values); None for a layer."""
-    if op.kind == "layer":
+    every row binds the same values); None for a layer or a relayout."""
+    if op.kind in ("layer", "relayout"):
         return None
     what = _what(op)
     if op.kind == "u":
@@ -181,11 +187,60 @@ def apply_item(states: torch.Tensor, num_qubits: int, op, item, operator,
     if op.kind == "u":
         return apply_unitary(states, num_qubits, operator, targets, cmask,
                              fmask, precision=precision)
+    return apply_diagonal(states, num_qubits, targets,
+                          _diag_in_plan_order(operator, targets, axis_order))
+
+
+def _diag_in_plan_order(operator, targets, axis_order) -> np.ndarray:
+    """A diagonal's (shared or per-row) factor tensor with its qubit axes
+    in the plan item's physical order."""
     d = np.asarray(operator)
     lead = d.ndim - len(targets)
-    d = np.transpose(d, tuple(range(lead)) + tuple(
-        lead + a for a in axis_order))
-    return apply_diagonal(states, num_qubits, targets, d)
+    return np.ascontiguousarray(np.transpose(d, tuple(range(lead)) + tuple(
+        lead + a for a in axis_order)))
+
+
+class RelayoutOp:
+    """A mesh plan's relayout item as a walk step: ``plan`` the exchange
+    that realises it (``parallel.exchange.plan_exchange``)."""
+
+    kind = "relayout"
+    is_static = True
+    channel = False
+
+    def __init__(self, plan):
+        self.plan = plan
+
+
+def apply_chunk_item(chunks: list, num_qubits: int, shard_bits: int, op,
+                     item, operator, precision, fast: bool,
+                     inplace: bool = False) -> list:
+    """Apply one mesh-plan item IN PLACE to a batch held as shard chunks,
+    ``(B, 2, 2^(n-s))`` each (the batched engine's ``amp`` mode): a
+    relayout (``op`` a :class:`RelayoutOp`) through the exchange, a
+    cross-shard item through the role-split combine, a layer as one
+    batched-kernel launch per chunk, a gate or a diagonal on each chunk
+    (``parallel/exchange.py``). ``inplace`` keeps each list entry the
+    same tensor (the walk's chunks are views of its stacked pair)."""
+    from ..parallel import exchange as ex
+    lt = num_qubits - shard_bits
+    if item[0] == "relayout":
+        return ex.run_exchange(chunks, op.plan, inplace=inplace)
+    _, _, targets, cmask, fmask, axis_order = item
+    if op.kind == "layer":
+        for c in chunks:
+            lk.apply_layer_batched(c, lt, op, fast=fast)
+        return chunks
+    if item[0] == "xshard":
+        return ex.apply_1q_cross_shard(chunks, operator, targets[0], lt,
+                                       shard_bits, cmask, fmask,
+                                       precision=precision)
+    if op.kind == "u":
+        return ex.apply_op_local(chunks, "u", operator, targets, cmask,
+                                 fmask, lt, precision=precision)
+    return ex.apply_op_local(
+        chunks, "diag", _diag_in_plan_order(operator, targets, axis_order),
+        targets, 0, 0, lt)
 
 
 def unitary_matrix(m) -> bool:
@@ -203,7 +258,10 @@ def unit_modulus(d) -> bool:
 def is_unitary(op) -> bool:
     """Whether the walk may un-compute a plan item by its adjoint: a
     parametrised op unless it is a channel's superoperator (``op.channel``),
-    a static gate or diagonal by its matrix, a layer by every stage."""
+    a static gate or diagonal by its matrix, a layer by every stage, a
+    relayout always (a permutation)."""
+    if op.kind == "relayout":
+        return True
     if op.kind == "layer":
         return all(unit_modulus(st[1]) if st[0] == "rowdiag"
                    else unitary_matrix(st[1] if st[0] in ("lane", "clane")
@@ -216,6 +274,8 @@ def is_unitary(op) -> bool:
 
 
 def _adjoint_operator(op, operator):
+    if op.kind in ("layer", "relayout"):
+        return None
     if op.kind == "u":
         return np.conj(np.swapaxes(np.asarray(operator), -1, -2))
     return np.conj(np.asarray(operator))
@@ -261,15 +321,43 @@ class AdjointWalk:
         op, item = self.steps[k]
         self._apply(states, op, item, item_operator(op, self.names, pm))
 
+    # the batch primitives (ShardedAdjointWalk holds a batch as chunks)
+
+    @staticmethod
+    def _new_pair(start, batch: int):
+        """The ``(2B, 2, N)`` stack and its halves ``psi`` and ``lam``."""
+        pair = start.new_empty((2 * batch,) + tuple(start.shape))
+        return pair, pair[:batch], pair[batch:]
+
+    @staticmethod
+    def _copy(dst, src) -> None:
+        dst.copy_(src)
+
+    @staticmethod
+    def _clone(x):
+        return x.clone()
+
+    @staticmethod
+    def _nbytes(x) -> int:
+        return x.numel() * x.element_size()
+
+    @staticmethod
+    def _dot(a, b) -> torch.Tensor:
+        return _rows_dot(a, b)
+
+    @staticmethod
+    def _device(x) -> torch.device:
+        return x.device
+
     def _restore(self, psi, k: int, stored: dict, start, pm) -> None:
         """``psi`` <- the state entering item ``k``: its stored copy, or
         recomputed from the nearest stored state before it (or the
         start)."""
         if k in stored:
-            psi.copy_(stored.pop(k))
+            self._copy(psi, stored.pop(k))
             return
         base = max((j for j in stored if j < k), default=None)
-        psi.copy_(start if base is None else stored[base])
+        self._copy(psi, start if base is None else stored[base])
         for j in range(0 if base is None else base, k):
             self._forward(psi, j, pm)
 
@@ -279,14 +367,14 @@ class AdjointWalk:
         derivative vanishes off its control subspace, where the gate
         engine applies the identity, so it applies ``G + I`` there and
         takes ``Re <lam, source>`` off again."""
-        mu = source.clone()
+        mu = self._clone(source)
         controlled = op.kind == "u" and item[3] != 0
         if controlled:
             generator = generator + np.eye(generator.shape[-1])
         self._apply(mu, op, item, generator)
-        dot = _rows_dot(lam, mu)
+        dot = self._dot(lam, mu)
         if controlled:
-            dot = dot - _rows_dot(lam, source)
+            dot = dot - self._dot(lam, source)
         grads[:, col] += self.factor * dot.to(torch.float64)
 
     def run(self, pm: np.ndarray, start: torch.Tensor,
@@ -300,20 +388,19 @@ class AdjointWalk:
         grads)``, a ``(B,)`` tensor and a float64 ``(B, P)`` one, on the
         device."""
         batch = pm.shape[0]
-        pair = start.new_empty((2 * batch,) + tuple(start.shape))
-        psi, lam = pair[:batch], pair[batch:]
-        psi.copy_(start)
-        state_bytes = psi.numel() * psi.element_size()
+        pair, psi, lam = self._new_pair(start, batch)
+        self._copy(psi, start)
+        state_bytes = self._nbytes(psi)
         stored: dict = {}
         for k in range(len(self.steps)):
             if not self.unitary[k] \
                     and (len(stored) + 1) * state_bytes <= store_bytes:
-                stored[k] = psi.clone()
+                stored[k] = self._clone(psi)
             self._forward(psi, k, pm)
         values = energies(psi)
         cotangent(psi, lam)
         grads = torch.zeros((batch, len(self.names)), dtype=torch.float64,
-                            device=psi.device)
+                            device=self._device(psi))
         for k in reversed(range(len(self.steps))):
             op, item = self.steps[k]
             derivs = []
@@ -324,8 +411,7 @@ class AdjointWalk:
             else:
                 operator = item_operator(op, self.names, pm)
             adj_op = self.adjoints.get(id(op), op)
-            adjoint = None if op.kind == "layer" \
-                else _adjoint_operator(op, operator)
+            adjoint = _adjoint_operator(op, operator)
             if not self.unitary[k]:
                 self._restore(psi, k, stored, start, pm)
                 for col, d in derivs:
@@ -340,3 +426,63 @@ class AdjointWalk:
                 adjoint = np.concatenate([adjoint, adjoint])
             self._apply(pair, adj_op, item, adjoint)
         return values, grads
+
+
+class ShardedAdjointWalk(AdjointWalk):
+    """The adjoint walk over a MESH plan with the batch held as shard
+    chunks (``amp`` mode): ``psi`` and ``lam`` are lists of views into the
+    stacked pair's chunks, items apply through :func:`apply_chunk_item`
+    with every exchange in place (so the views stay the pair's halves),
+    a relayout is unitary and its adjoint the inverse relayout, and a dot
+    product sums its shards' partial dots."""
+
+    def __init__(self, num_qubits: int, shard_bits: int, steps: Sequence,
+                 names: Sequence[str], precision, fast: bool,
+                 density: bool):
+        from ..parallel.exchange import plan_exchange
+        self.shard_bits = shard_bits
+        inverse = {}
+        resolved = []
+        for op, item in steps:
+            if item[0] == "relayout":
+                before, after = item[1], item[2]
+                op = RelayoutOp(plan_exchange(num_qubits, shard_bits,
+                                              before, after))
+                inverse[id(op)] = RelayoutOp(plan_exchange(
+                    num_qubits, shard_bits, after, before))
+            resolved.append((op, item))
+        super().__init__(num_qubits, resolved, names, precision, fast,
+                         density)
+        self.adjoints.update(inverse)
+
+    def _apply(self, states, op, item, operator) -> None:
+        apply_chunk_item(states, self.num_qubits, self.shard_bits, op, item,
+                         operator, self.precision, self.fast, inplace=True)
+
+    @staticmethod
+    def _new_pair(start, batch: int):
+        pair = [c.new_empty((2 * batch,) + tuple(c.shape)) for c in start]
+        return (pair, [p[:batch] for p in pair],
+                [p[batch:] for p in pair])
+
+    @staticmethod
+    def _copy(dst, src) -> None:
+        for d, s in zip(dst, src):
+            d.copy_(s)
+
+    @staticmethod
+    def _clone(x):
+        return [c.clone() for c in x]
+
+    @staticmethod
+    def _nbytes(x) -> int:
+        return sum(c.numel() * c.element_size() for c in x)
+
+    @staticmethod
+    def _dot(a, b) -> torch.Tensor:
+        home = a[0].device
+        return sum(_rows_dot(x, y).to(home) for x, y in zip(a, b))
+
+    @staticmethod
+    def _device(x) -> torch.device:
+        return x[0].device

@@ -1,9 +1,9 @@
 """Inverse-CDF shot sampling, of one register and over batches of states.
 
 Counterpart of the single-register sampler of the JAX package's
-``sampleOutcomes`` (``api.py`` ``_jit_sample``) and of the batch samplers of
-its ``parallel/sampling.py`` (``sample_batched``, ``sample_mixture``,
-``shot_bucket``). Uniforms come from a :class:`torch.Generator` on the CPU
+``sampleOutcomes`` (``api.py`` ``_jit_sample``) and of the samplers of its
+``parallel/sampling.py`` (``sample_sharded``, ``sample_batched``,
+``sample_mixture``, ``shot_bucket``). Uniforms come from a :class:`torch.Generator` on the CPU
 (the env's, unless the caller passes another), are drawn in float64, and
 move to the states' device in the plane dtype; a CUDA batch and a CPU batch
 therefore sample with the same numbers. The JAX package draws from its
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["shot_bucket", "sample_outcomes", "sample_batched",
-           "sample_mixture"]
+           "sample_mixture", "sample_sharded"]
 
 
 def sample_outcomes(probs: torch.Tensor, uniforms: torch.Tensor):
@@ -96,3 +96,51 @@ def sample_mixture(planes: torch.Tensor, generator: torch.Generator,
     # trajectory-major round robin, so a trimmed prefix still spreads over
     # every trajectory
     return idx.T.reshape(-1)[:num_samples], totals
+
+
+def sample_sharded(chunks: list, uniforms: torch.Tensor, density: bool,
+                   num_qubits: int, local_top: int):
+    """Inverse-CDF draws from an amplitude-sharded register, shard-local in
+    two stages (the JAX package's ``sample_sharded``): each shard sums its
+    outcome probabilities in float64; a draw ``u * total`` picks its shard
+    from the running shard totals on the host, then its outcome from that
+    shard's own cumulative sum, so no shard sees another's amplitudes.
+    ``chunks`` are the canonical chunks (a density register's: the
+    diagonal it holds); ``num_qubits`` is the register's qubit count.
+    Returns ``(indices int64 ndarray, total)``."""
+    from .chunks import density_diagonal
+    cums, firsts = [], []
+    for d, c in enumerate(chunks):
+        if density:
+            diag, r0 = density_diagonal(c, d, num_qubits, local_top)
+            if diag is None:
+                cums.append(None)
+                firsts.append(0)
+                continue
+            probs = diag.clamp(min=0.0)
+        else:
+            probs = c[0] * c[0] + c[1] * c[1]
+            r0 = d << local_top
+        cums.append(torch.cumsum(probs, 0, dtype=torch.float64))
+        firsts.append(r0)
+    totals = np.array([float(cm[-1]) if cm is not None else 0.0
+                       for cm in cums])
+    edges = np.cumsum(totals)
+    total = float(edges[-1])
+    draws = uniforms.double().cpu().numpy() * total
+    shard = np.minimum(np.searchsorted(edges, draws, side="right"),
+                       len(chunks) - 1)
+    # an empty shard never takes a draw: move any onto the last non-empty
+    nonempty = np.nonzero(totals > 0.0)[0]
+    if nonempty.size:
+        shard = np.where(totals[shard] > 0.0, shard, nonempty[-1])
+    idx = np.empty(draws.shape[0], dtype=np.int64)
+    for d in np.unique(shard):
+        sel = np.nonzero(shard == d)[0]
+        cm = cums[d]
+        resid = torch.as_tensor(draws[sel] - (edges[d] - totals[d]),
+                                dtype=torch.float64, device=cm.device)
+        loc = torch.searchsorted(cm, resid, right=True).clamp_(
+            max=cm.shape[0] - 1)
+        idx[sel] = loc.cpu().numpy().astype(np.int64) + firsts[d]
+    return idx, total

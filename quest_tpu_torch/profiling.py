@@ -1,7 +1,11 @@
-"""The precision-tier error model, and compile-time dispatch accounting.
+"""The communication cost model, the precision-tier error model,
+compile-time dispatch accounting, and host-side profiling hooks.
 
-Counterpart of the tier half of the JAX package's ``profiling.py`` and of
-its :class:`DispatchStats`. The
+Counterpart of the JAX package's ``profiling.py``: :class:`CommCostModel`
+(the layout planner's objective, measured on a mesh by timing the port's
+own shard exchange), :class:`DispatchStats`, :func:`trace` (a
+``torch.profiler`` Chrome trace), :class:`GateStats` and
+:func:`probe_gate`. The
 modeled max amplitude error of one program execution at a tier is
 ``drift_per_gate[tier] * num_gates`` (floored), seeded from the ladder's
 constants (:data:`quest_tpu_torch.config.TIER_LADDER`) and refined per
@@ -18,20 +22,230 @@ default to on for an environment on a CUDA card and off on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
 import time
-from typing import Optional, Sequence
+from collections import defaultdict
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from .config import (DOUBLE_TIER, FAST_TIER, QUAD_TIER, SINGLE_TIER,
                      TIER_LADDER, tier_by_name)
 
-__all__ = ["TierErrorModel", "DEFAULT_TIER_MODEL", "tier_error_model",
-           "measure_tier_model", "modeled_tier_error", "engine_tiers",
-           "choose_tier", "tier_runtime_tol", "DispatchStats"]
+__all__ = ["trace", "GateStats", "probe_gate", "CommCostModel",
+           "DEFAULT_COMM_MODEL", "comm_model", "measure_comm_model",
+           "invalidate_comm_model", "TierErrorModel", "DEFAULT_TIER_MODEL",
+           "tier_error_model", "measure_tier_model", "modeled_tier_error",
+           "engine_tiers", "choose_tier", "tier_runtime_tol",
+           "DispatchStats"]
+
+
+# ---------------------------------------------------------------------------
+# collective cost model (the layout planner's objective function)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CommCostModel:
+    """Two-tier linear latency/bandwidth model for one mesh collective:
+    ``seconds = alpha + beta * bytes`` per shard, with a separate (alpha,
+    beta) for collectives that cross a host boundary (the JAX package's
+    model, field for field).
+
+    The layout planner (:mod:`quest_tpu_torch.parallel.layout`) prices
+    every candidate data movement with it: a relayout trading ``k``
+    device-index bits against ``k`` chunk-local bits ships ``chunk_bytes *
+    (2^k - 1) / 2^k`` per shard (plus a whole-chunk permutation when a
+    residual device-bit permutation remains); a cross-shard 1q pair
+    exchange ships the whole chunk. The inter fields default to None =
+    same as intra. Decisions depend only on cost ratios, so plans are
+    deterministic for any non-degenerate fit (alpha >= 0, beta > 0)."""
+
+    alpha_s: float              # per-collective launch latency (seconds)
+    beta_s_per_byte: float      # per-byte transfer time (seconds/byte)
+    source: str = "default"     # "default" | "measured"
+    inter_alpha_s: Optional[float] = None
+    inter_beta_s_per_byte: Optional[float] = None
+
+    def tier(self, inter: bool = False) -> tuple[float, float]:
+        """(alpha, beta) of one tier; the inter tier falls back to intra
+        when uncalibrated."""
+        if inter and self.inter_alpha_s is not None:
+            return (self.inter_alpha_s,
+                    self.inter_beta_s_per_byte
+                    if self.inter_beta_s_per_byte is not None
+                    else self.beta_s_per_byte)
+        if inter and self.inter_beta_s_per_byte is not None:
+            return (self.alpha_s, self.inter_beta_s_per_byte)
+        return (self.alpha_s, self.beta_s_per_byte)
+
+    @staticmethod
+    def all_to_all_bytes(chunk_bytes: float, k: int) -> float:
+        """Per-shard bytes shipped by a k-bit relayout exchange."""
+        if k <= 0:
+            return 0.0
+        return chunk_bytes * ((1 << k) - 1) / float(1 << k)
+
+    @staticmethod
+    def ppermute_bytes(chunk_bytes: float) -> float:
+        """Per-shard bytes shipped by a whole-chunk pair exchange."""
+        return float(chunk_bytes)
+
+    def all_to_all_seconds(self, chunk_bytes: float, k: int,
+                           inter: bool = False) -> float:
+        if k <= 0:
+            return 0.0
+        alpha, beta = self.tier(inter)
+        return alpha + beta * self.all_to_all_bytes(chunk_bytes, k)
+
+    def ppermute_seconds(self, chunk_bytes: float,
+                         inter: bool = False) -> float:
+        alpha, beta = self.tier(inter)
+        return alpha + beta * self.ppermute_bytes(chunk_bytes)
+
+
+# The JAX package's default (a few-microsecond launch and ~50 GB/s per
+# link; the inter tier ten times the latency and twenty times the cost
+# per byte), kept so both packages plan alike where nothing was measured:
+# the planner's decisions depend on ratios only.
+DEFAULT_COMM_MODEL = CommCostModel(alpha_s=5e-6, beta_s_per_byte=2e-11,
+                                   inter_alpha_s=5e-5,
+                                   inter_beta_s_per_byte=4e-10)
+
+# calibration cache keyed (mesh fingerprint, tier); failed fits are cached
+# as the default, so the microbenchmark runs at most once per key
+_COMM_MODEL_CACHE: dict = {}
+# per cache key, what the last measurement saw: the probe times, or why
+# it fell back to the default
+COMM_MODEL_NOTES: dict = {}
+
+
+def _mesh_cache_key(mesh, tier: str = "intra") -> tuple:
+    return (mesh.size, tuple(str(d) for d in mesh.devices), tier)
+
+
+def _comm_model_pinned() -> bool:
+    """``QUEST_TPU_COMM_MODEL=default`` pins :data:`DEFAULT_COMM_MODEL`:
+    no microbenchmark ever runs (tests, reproducible planning)."""
+    return os.environ.get("QUEST_TPU_COMM_MODEL", "") == "default"
+
+
+def _time_exchange(mesh, nbytes: int, trials: int) -> float:
+    """Seconds of one neighbour-ring chunk permutation of ``nbytes`` per
+    shard on ``mesh``, through the port's own exchange
+    (:func:`quest_tpu_torch.parallel.exchange._ppermute`), timed with CUDA
+    events on a card, the host clock elsewhere. On shards that share one
+    device the permutation is copied (a relabelling would move nothing),
+    so the fit is of device-to-device copies within that card."""
+    from .parallel import exchange as ex
+    n_dev = mesh.size
+    numel = max(2, nbytes // 4)
+    chunks = [torch.zeros(numel, dtype=torch.float32, device=d)
+              for d in mesh.devices]
+    pairs = tuple((i, (i + 1) % n_dev) for i in range(n_dev))
+    timer = ex._Timed(chunks, "probe")
+
+    def once():
+        ex._ppermute(chunks, pairs, timer, copy=True)
+
+    def timed() -> float:
+        dev = mesh.devices[0]
+        once()
+        if dev.type == "cuda":
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(trials):
+                once()
+            end.record()
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
+            return start.elapsed_time(end) / 1e3 / trials
+        t0 = time.perf_counter()
+        for _ in range(trials):
+            once()
+        return (time.perf_counter() - t0) / trials
+
+    # the probe's copies are not the program's: the byte counter is
+    # left as it was
+    counted = ex.COUNTS["bytes"]
+    try:
+        return timed()
+    finally:
+        ex.COUNTS["bytes"] = counted
+
+
+def measure_comm_model(mesh, probe_bytes=None,
+                       trials: int = 5) -> CommCostModel:
+    """Fit (alpha, beta) from the port's chunk permutation timed at two
+    probe sizes on ``mesh``'s own devices, cached per mesh (failed or
+    degenerate fits cache the default). One process drives the mesh, so
+    there is one tier; the inter fields stay None. ``probe_bytes``
+    defaults to 16 KiB and 128 MiB per shard on a card, where a smaller
+    large probe is still set by the launches, not the bytes (16 MiB
+    timed the same as 16 KiB on the H100), and 16 KiB and 1 MiB on the
+    host. ``QUEST_TPU_COMM_MODEL=default`` returns the default
+    unmeasured."""
+    if _comm_model_pinned():
+        return DEFAULT_COMM_MODEL
+    key = _mesh_cache_key(mesh, "model")
+    if key in _COMM_MODEL_CACHE:
+        return _COMM_MODEL_CACHE[key]
+    if probe_bytes is None:
+        probe_bytes = (1 << 14, 1 << 27) if mesh.devices[0].type == "cuda" \
+            else (1 << 14, 1 << 20)
+    model = DEFAULT_COMM_MODEL
+    try:
+        t0, t1 = (_time_exchange(mesh, int(b), trials) for b in probe_bytes)
+        b0, b1 = (float(b) for b in probe_bytes)
+        beta = (t1 - t0) / (b1 - b0)
+        alpha = t0 - beta * b0
+        COMM_MODEL_NOTES[key] = f"probe seconds {t0!r} at {b0:.0f} B, " \
+            f"{t1!r} at {b1:.0f} B"
+        if beta > 0.0 and alpha == alpha and beta == beta:
+            model = CommCostModel(alpha_s=max(alpha, 0.0),
+                                  beta_s_per_byte=beta, source="measured")
+    # quest: allow-broad-except(calibration boundary: a failed probe
+    # falls back to the default model, never breaks a compile)
+    except Exception as exc:
+        COMM_MODEL_NOTES[key] = f"probe failed: {exc!r}"
+        model = DEFAULT_COMM_MODEL
+    _COMM_MODEL_CACHE[key] = model
+    return model
+
+
+def invalidate_comm_model() -> int:
+    """Drop every cached fit so the next plan recalibrates. Returns the
+    number of entries dropped."""
+    n = len(_COMM_MODEL_CACHE)
+    _COMM_MODEL_CACHE.clear()
+    return n
+
+
+def comm_model(env=None, measure: Optional[bool] = None) -> CommCostModel:
+    """The cost model for ``env``'s mesh: the cached fit when one exists,
+    a measured one when asked, else :data:`DEFAULT_COMM_MODEL`.
+    ``measure=None`` measures on a mesh of CUDA shards and keeps the
+    default on host shards (which share one memory system: a timing fit
+    there only adds nondeterminism); ``QUEST_TPU_COMM_CALIBRATE=1``/``0``
+    overrides, ``QUEST_TPU_COMM_MODEL=default`` pins the default."""
+    mesh = getattr(env, "mesh", None) if env is not None else None
+    if mesh is None or _comm_model_pinned():
+        return DEFAULT_COMM_MODEL
+    key = _mesh_cache_key(mesh, "model")
+    if key in _COMM_MODEL_CACHE:
+        return _COMM_MODEL_CACHE[key]
+    if measure is None:
+        flag = os.environ.get("QUEST_TPU_COMM_CALIBRATE")
+        measure = flag not in ("0", "", "off") if flag is not None \
+            else mesh.devices[0].type == "cuda"
+    if measure:
+        return measure_comm_model(mesh)
+    return DEFAULT_COMM_MODEL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,3 +548,118 @@ class DispatchStats:
                 "batched_cache_evictions": self.batched_cache_evictions,
                 "precision_tier": self.precision_tier,
                 "modeled_tier_error": self.modeled_tier_error}
+
+
+@contextlib.contextmanager
+def trace(logdir: str, create_perfetto_link: bool = False):
+    """Profile everything inside the block with ``torch.profiler`` (host
+    and, where a card is in use, device activity) and write a Chrome trace
+    into ``logdir`` (``trace_<pid>_<n>.json``; opens in Perfetto).
+    ``create_perfetto_link`` is accepted for the JAX package's signature;
+    no link is made."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    n = len([f for f in os.listdir(logdir) if f.startswith("trace_")])
+    prof.export_chrome_trace(os.path.join(logdir,
+                                          f"trace_{os.getpid()}_{n}.json"))
+
+
+@dataclasses.dataclass
+class _Entry:
+    calls: int = 0
+    seconds: float = 0.0
+
+
+class GateStats:
+    """Count and time API-level gate calls.
+
+    Use as a context manager around user code: it wraps the public gate
+    functions of :mod:`quest_tpu_torch.api` (and the package's names) for
+    the block. Times are host times of the calls; the card runs them
+    asynchronously, so sync inside the block to include device
+    completion."""
+
+    GATE_NAMES = (
+        "hadamard", "pauliX", "pauliY", "pauliZ", "sGate", "tGate",
+        "phaseShift", "rotateX", "rotateY", "rotateZ", "rotateAroundAxis",
+        "compactUnitary", "unitary", "controlledNot", "controlledPauliY",
+        "controlledPhaseShift", "controlledPhaseFlip", "controlledRotateX",
+        "controlledRotateY", "controlledRotateZ", "controlledCompactUnitary",
+        "controlledUnitary", "multiControlledUnitary", "swapGate",
+        "sqrtSwapGate", "multiRotateZ", "twoQubitUnitary", "multiQubitUnitary",
+        "measure", "collapseToOutcome",
+    )
+
+    def __init__(self):
+        self.entries: dict = defaultdict(_Entry)
+        self._saved: dict = {}
+
+    def __enter__(self):
+        import quest_tpu_torch
+        from . import api
+        for name in self.GATE_NAMES:
+            fn = getattr(api, name)
+            self._saved[name] = fn
+
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                e = self.entries[_name]
+                e.calls += 1
+                e.seconds += time.perf_counter() - t0
+                return out
+
+            setattr(api, name, wrapped)
+            setattr(quest_tpu_torch, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import quest_tpu_torch
+        from . import api
+        for name, fn in self._saved.items():
+            setattr(api, name, fn)
+            setattr(quest_tpu_torch, name, fn)
+        self._saved.clear()
+        return False
+
+    @property
+    def total_calls(self) -> int:
+        return sum(e.calls for e in self.entries.values())
+
+    def report(self) -> str:
+        lines = [f"{'gate':<28}{'calls':>8}{'total s':>12}{'per call us':>14}"]
+        for name, e in sorted(self.entries.items(),
+                              key=lambda kv: -kv[1].seconds):
+            per = e.seconds / e.calls * 1e6 if e.calls else 0.0
+            lines.append(f"{name:<28}{e.calls:>8}{e.seconds:>12.4f}"
+                         f"{per:>14.1f}")
+        return "\n".join(lines)
+
+
+def probe_gate(qureg, gate_fn: Callable, num_trials: int = 20,
+               targets: Optional[range] = None) -> dict:
+    """The reference's rotate benchmark: time ``gate_fn(qureg, target)``
+    over every target qubit, ``num_trials`` each, waiting for the device
+    after each call; returns per-target mean/std/min/max seconds."""
+    import numpy as np
+    targets = targets or range(qureg.num_qubits_represented)
+    results = {}
+    for t in targets:
+        gate_fn(qureg, t)                      # warm-up (kernel builds)
+        qureg.env.sync()
+        times = []
+        for _ in range(num_trials):
+            t0 = time.perf_counter()
+            gate_fn(qureg, t)
+            qureg.flush_gates()
+            qureg.env.sync()
+            times.append(time.perf_counter() - t0)
+        arr = np.asarray(times)
+        results[int(t)] = {"mean": float(arr.mean()), "std": float(arr.std()),
+                           "min": float(arr.min()), "max": float(arr.max())}
+    return results

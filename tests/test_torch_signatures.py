@@ -28,6 +28,7 @@ import dataclasses
 import inspect
 
 import pytest
+import torch
 
 import quest_tpu as jq
 from quest_tpu import algorithms as jalg
@@ -108,7 +109,6 @@ ALLOWED = {
     ("TrajectoryProgram.apply", "key"): (("uniforms",), RNG),
     ("TrajectoryProgram.sample", "key"): (("seed", "uniforms"), RNG),
     ("TrajectoryProgram.average_density", "key"): (("uniforms",), RNG),
-    ("QuESTEnv.__init__", "mesh"): (("device",), SHARDING),
     ("QuESTEnv.__init__", "key"): (("generator",), RNG),
 }
 
@@ -368,11 +368,28 @@ def test_the_class_members_exist():
 
 
 def test_num_devices_one_device_only():
+    """``num_devices`` of None or 1 is one device; more build a mesh of
+    host shards on the CPU, and asking for more CUDA devices than exist,
+    or a count that is not a power of 2, raises ``ValueError`` as the JAX
+    package's ``create_quest_env`` does."""
     for n in (None, 1):
         env = tq.createQuESTEnv(n, tq.DOUBLE, [3], device="cpu")
         assert env.precision is tq.DOUBLE and env.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tq.createQuESTEnv(num_devices=2, device="cpu")
+        assert env.mesh is None and env.num_devices == 1
+    env = tq.createQuESTEnv(num_devices=8, device="cpu")
+    assert env.num_devices == 8 and env.mesh.size == 8
+    assert all(d.type == "cpu" for d in env.mesh.devices)
+    assert env.device == env.mesh.devices[0]
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    want = max(have + 1, 2)
+    with pytest.raises(ValueError, match=f"requested {want} devices "
+                       f"but only {have} available"):
+        tq.createQuESTEnv(num_devices=want)
+    with pytest.raises(ValueError, match="power of 2"):
+        tq.createQuESTEnv(num_devices=3, device="cpu")
+    with pytest.raises(ValueError, match="power of 2"):
+        tq.createQuESTEnv(devices=["cpu"] * 6)
+    assert tq.createQuESTEnv(devices=["cpu"] * 4).num_devices == 4
 
 
 def test_the_front_door_is_compared_whole():
