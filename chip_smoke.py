@@ -15,6 +15,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py --only 19       # router, warm cache, handles
     python3 chip_smoke.py --only 20       # the network front door
     python3 chip_smoke.py --only 21       # amplitude-sharded registers
+    python3 chip_smoke.py --only 22       # mesh ensembles, the examples
 
 ``--only`` takes a comma-separated list of the phase names below (phases 1
 and 2 always run; 6 and 7 bring 4 with them) for iterating on one kernel:
@@ -122,7 +123,7 @@ Phases (any unmet check exits non-zero and prints no result line):
     tensor-core operations), its plain version, one bf16
     ``torch.matmul`` of the stacked real lane product and one of the
     layer's widest dense stage in stacked real hi/lo form;
-11. tiers in the batched engine: phase 8's HEA sweep (at batch 32, the
+11. tiers in the batched engine: phase 8's HEA sweep (at batch 16, the
     cell's 64 cut for time) through
     ``expectation_sweep(tier="fast")`` and ``tier="single"``: launches
     per tier, FAST energies against SINGLE's within the modeled bound,
@@ -163,7 +164,7 @@ Phases (any unmet check exits non-zero and prints no result line):
     against parameter shift and the rate column against a central
     difference (<= 1e-3 of max|g|), peak memory, points/s;
 13. gradients: phase 8's HEA through ``value_and_grad_sweep`` at batch
-    8 (the cell's 64, cut for time): the batched layer kernel launches
+    4 (the cell's 64, cut for time): the batched layer kernel launches
     once per forward layer and once per adjoint layer, values against
     ``expectation_sweep`` (<= 1e-6 of max|E|), 2 rows x 6 parameters
     (lane qubits, tile rows, above the tile) against parameter shift (<=
@@ -372,7 +373,33 @@ Phases (any unmet check exits non-zero and prints no result line):
     21d. phase 12's 15-qubit noisy QFT as a density program on the mesh
     against one device (1e-5), every launch (the streaming entry's) held
     against its plain version on its own chunk, and ``sample_sharded``'s
-    total on its diagonal; 21e. the comm model measured on the mesh.
+    total on its diagonal; 21e. the comm model measured on the mesh;
+22. the ensembles on the same four shards, complex64: 22a. phase 9's
+    22-qubit trajectory program: ``batch`` mode (``shard_trajectories=
+    True``) on 256 trajectories, its planes equal to one device's on the
+    same uniforms bit for bit (when not, it prints whether one device's
+    run repeats itself and the first item after which a shard's rows part
+    from the same rows of one device's run, walked item by item); ``amp``
+    mode (the policy's memory limit at 1 byte) on one wave of 128 spanning
+    the chunks, every draw (read from a wave of the walk on the same
+    uniforms, whose planes equal the sweep's) equal to one device's and
+    the planes within 1e-6 of max|amp|; every batched layer and Kraus
+    launch of both held against its plain version on its own input; trajectories/s in each mode beside phase 9's; phase 9g's
+    program's ``expectation_grad`` over one wave of 16 in each mode
+    against one device's (1e-5 of max|g|), its launches held too; 22b.
+    phase 15's TFIM ``evolve_sweep`` and power and Lanczos
+    ``ground_sweep`` in ``amp`` mode against phase 15's energies (1e-5 of
+    max|E|), the prep's launches held; 22c. 12d's config 4 energies and
+    its 14-qubit gradients in ``amp`` mode against 12d's (1e-5), every
+    launch held; 22d. each of the 11 ``quest_tpu_torch/examples`` scripts'
+    ``main(device="cuda")`` (the Adam loops at the CPU test's step counts)
+    with its own asserts, every launch of the layer kernel, the batched
+    layer kernel and the Kraus kernel held against its plain version on
+    its own input, its deterministic numbers against the same script on
+    the CPU at DOUBLE (1e-5), the Adam loops' final energies re-evaluated
+    on the CPU at the card's parameters (1e-5), the facts a draw decides,
+    its wall time. Alone (``--only 22``) the phase computes the one-device
+    yardsticks itself.
 
 Every comparison of a kernel with its plain version holds max |kernel -
 plain| / max |plain| to 1e-5 in float32 and 1e-12 in float64: relative to
@@ -421,8 +448,8 @@ CUDA_CORE_FLOPS = {4: 67.0e12, 8: 34.0e12}
 BF16_TENSOR_FLOPS = 989.0e12           # dense bf16 tensor cores
 MXU_TILE_TARGETS = ((3,), (8,), (3, 8), (7, 8), (2, 5, 7))
 FAST_BUDGET = 0.1                      # an error budget only FAST needs
-GRAD_BATCH = 8                         # phase 13: the HEA cell's 64, cut
-FAST_SWEEP_BATCH = 32                  # phase 11: the HEA cell's 64, cut
+GRAD_BATCH = 4                         # phase 13: the HEA cell's 64, cut
+FAST_SWEEP_BATCH = 16                  # phase 11: the HEA cell's 64, cut
 # phase 13's parameter-shift columns: two parameters each on lane qubits,
 # on tile rows (qubits 7-13) and above the tile (qubits >= 14)
 GRAD_COLUMNS = ("y0_1", "z1_5", "y0_9", "z1_12", "y0_17", "z1_22")
@@ -1903,6 +1930,34 @@ def held_kraus(torch, kk, errs):
     return launch, held
 
 
+class HeldKraus:
+    """While open, every launch of the fused Kraus kernel goes through the
+    wrapper and is held against its plain version on the same input (its
+    index output too); ``launches`` and ``errs`` stay readable after."""
+
+    def __init__(self, torch, kk):
+        self.torch, self.kk, self.errs = torch, kk, []
+        self.launch, self.held = held_kraus(torch, kk, self.errs)
+
+    def __enter__(self):
+        self.kk.fused_kraus_apply_batched = self.held
+        return self
+
+    def __exit__(self, *exc):
+        self.kk.fused_kraus_apply_batched = self.launch
+
+    @property
+    def launches(self) -> int:
+        return self.held.launches
+
+    def ok(self) -> bool:
+        return all(e[2] for e in self.errs) and \
+            max((e[1] for e in self.errs), default=0.0) <= 1e-5
+
+    def max_err(self) -> float:
+        return max((e[0] for e in self.errs), default=0.0)
+
+
 def traj_objective(torch, red, tp, pm, draws, operands, baseline):
     """The fixed-branch objective of 2 trajectories, ``<psi~|(H - b)|psi~>
     / N0``: the chain replayed with each channel's RECORDED operator ``K_j
@@ -1956,18 +2011,12 @@ def phase_traj_gradients(torch, qt, lk, kk, card):
                                  (1, TRAJ_GRAD_MAX, tp.num_channels))[0]
     adjoint_ids = {id(op) for op in tp._adjoints().values()
                    if getattr(op, "kind", None) == "layer"}
-    layer_errs, kraus_errs = [], []
-    layer_launch, layer_held = held_layers(torch, lk, layer_errs)
-    kraus_launch, kraus_held = held_kraus(torch, kk, kraus_errs)
-    lk.apply_layer_batched, kk.fused_kraus_apply_batched = \
-        layer_held, kraus_held
-    try:
+    with HeldLayers(torch, lk, batched=True) as held_l, \
+            HeldKraus(torch, kk) as held_k:
         _, rows, tape = tp._grad_rows(
             tp._start(None), uniforms[:2], np.repeat(pv[None], 2, 0),
             torch.zeros(2, device="cuda"), operands)
-    finally:
-        lk.apply_layer_batched = layer_launch
-        kk.fused_kraus_apply_batched = kraus_launch
+    layer_errs, kraus_errs = held_l.errs, held_k.errs
     rows = rows.cpu().numpy()
     draws = tape.draws
     del tape
@@ -2963,6 +3012,7 @@ def phase_density_grad(torch, qt, lk, kk, card):
     del q
     torch.cuda.empty_cache()
     want = np.asarray(want)
+    config4 = {"energies": energies, "pm": pm, "seconds": sweep_s}
     rel = float(np.abs(energies - want).max() / np.abs(want).max())
     check(rel <= 1e-4 and bool(np.isfinite(energies).all()),
           f"12d config 4 with Param rotations, {n} qubits, batch "
@@ -3036,8 +3086,13 @@ def phase_density_grad(torch, qt, lk, kk, card):
           f"{len(names)} parameters")
     del cc
     torch.cuda.empty_cache()
+    # phase 22c's one-device yardsticks: the config 4 energies and the
+    # gradient cell's values and gradients, with their parameter rows
     return {"config4_rel": rel, "grad_points_per_s": batch / grad_s,
-            "energy_points_per_s": batch / energy_s, "peak_bytes": peak}
+            "energy_points_per_s": batch / energy_s, "peak_bytes": peak,
+            "config4": config4,
+            "gradients": {"values": vals, "grads": grads, "pm": pm,
+                          "seconds": grad_s}}
 
 
 REMAINDER_SHOTS = 1_000_000
@@ -3405,6 +3460,8 @@ def phase_dynamics(torch, qt, lk, kk, card):
         head = block_head(block, S + 3)
         planes = block_planes(block, n, S + 3)
         es, (cnt, mean, m2) = head[:, :S], head[:, S:].T
+        # phase 22b's one-device yardsticks
+        out["evolve_energies"] = es.copy()
         norms = (planes.double() ** 2).sum(dim=(1, 2)).cpu().numpy()
         check(bool(np.isfinite(head).all())
               and np.abs(norms - 1.0).max() <= 1e-4,
@@ -3467,6 +3524,7 @@ def phase_dynamics(torch, qt, lk, kk, card):
         torch.cuda.synchronize()
         secs["ground_held"] = time.perf_counter() - t0
         head = block_head(block, GROUND_STEPS + 4)
+        out["ground_energies"] = head[:, :GROUND_STEPS].copy()
         cont = qt.Circuit(n).compile(env)
         block2 = cont.ground_sweep(
             np.zeros((1, 0)), ham, gspec,
@@ -3498,6 +3556,7 @@ def phase_dynamics(torch, qt, lk, kk, card):
         ritz = block_planes(block, n, GROUND_STEPS + 4)
         e64 = f64_energies(torch, red, ritz, operands)
         energy, residual = head[:, 0], head[:, GROUND_STEPS]
+        out["lanczos_energies"] = energy.copy()
         z64 = ritz.double()
         hx = red.pauli_sum_apply_sv(z64, *operands)
         true_res = torch.linalg.vector_norm(
@@ -4849,11 +4908,8 @@ def optimizer_phase(torch, qt, lk, kk, card, tmp):
     noisy = hea_circuit(qt, n, SERVE_LAYERS)
     for q in range(n):
         noisy.damp(q, OPT_DAMP)
-    errs = []
-    launch, held = held_kraus(torch, kk, errs)
     reset_counts(lk, kk)
-    kk.fused_kraus_apply_batched = held
-    try:
+    with HeldKraus(torch, kk) as held:
         t0 = time.perf_counter()
         h = svc.optimize(qt.createVariationalProblem(
             noisy, ham, pm[0], trajectories=OPT_TRAJECTORIES), "adam",
@@ -4861,8 +4917,7 @@ def optimizer_phase(torch, qt, lk, kk, card, tmp):
         traj = list(h.iterates())
         h.result(timeout=600)
         traj_s = time.perf_counter() - t0
-    finally:
-        kk.fused_kraus_apply_batched = launch
+    errs = held.errs
     t_batched = lk.apply_layer_batched.launches
     stats = svc.dispatch_stats()
     svc.close()
@@ -5495,15 +5550,11 @@ def wire_streams(torch, qt, lk, kk, card, cell):
             tcirc = trajectory_circuit(qt, n, rng)
             tham = ([[(q, 3)] for q in range(n)],
                     [float(c) for c in rng.normal(size=n)])
-            kerrs = []
-            launch, held = held_kraus(torch, kk, kerrs)
             reset_counts(lk, kk)
-            kk.fused_kraus_apply_batched = held
-            try:
+            with HeldKraus(torch, kk) as held:
                 got = cl.submit(tcirc, None, observables=tham,
                                 trajectories=NET_TRAJ_T).result(timeout=600)
-            finally:
-                kk.fused_kraus_apply_batched = launch
+            kerrs = held.errs
             t_layer = lk.apply_layer_batched.launches
             (tfut,) = proxy.futures[("trajectory", ())]
             t_same = bits_equal(got, tfut.result(timeout=600))
@@ -6072,6 +6123,30 @@ def mesh_env(qt, **kwargs):
     return qt.createQuESTEnv(devices=["cuda:0"] * MESH_SHARDS, **kwargs)
 
 
+class BatchMemLimit:
+    """``QUEST_TPU_BATCH_MEM_BYTES`` set to ``value`` while open (None:
+    unset), the variable the batch-sharding policy reads."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        import os
+        self.was = os.environ.get("QUEST_TPU_BATCH_MEM_BYTES")
+        if self.value is None:
+            os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
+        else:
+            os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = str(self.value)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        if self.was is None:
+            os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
+        else:
+            os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = self.was
+
+
 def chunk_err(chunks, whole) -> float:
     """max |chunk - the same slice of the whole planes| / max |whole|."""
     width = chunks[0].shape[-1]
@@ -6358,17 +6433,13 @@ def mesh_sweeps(torch, qt, lk, kk, card, sweep=None):
     scale = float(np.abs(ref).max())
     out = {"launches": 0, "single_s": single_s, "held_err": 0.0}
     was = os.environ.get("QUEST_TPU_BATCH_MEM_BYTES")
-    try:
-        for label, limit, rows in (("policy", was, batch),
-                                   ("batch", str(1 << 40), MESH_BATCH_ROWS),
-                                   ("amp", "1", batch),
-                                   ("pad", str(1 << 40), MESH_PAD_ROWS)):
-            if label == "amp" and pol["mode"] == "amp":
-                continue      # the policy's own run was the amp mode's
-            if limit is None:
-                os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
-            else:
-                os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = limit
+    for label, limit, rows in (("policy", was, batch),
+                               ("batch", 1 << 40, MESH_BATCH_ROWS),
+                               ("amp", 1, batch),
+                               ("pad", 1 << 40, MESH_PAD_ROWS)):
+        if label == "amp" and pol["mode"] == "amp":
+            continue      # the policy's own run was the amp mode's
+        with BatchMemLimit(limit):
             reset_counts(lk, kk)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6402,11 +6473,6 @@ def mesh_sweeps(torch, qt, lk, kk, card, sweep=None):
                   f"({single_s:.2f} s for {batch} rows on one device); "
                   f"energies max|dE| / max|E| {err:.3e} <= 1e-5"
                   + ("; padded and masked" if padded else ""))
-    finally:
-        if was is None:
-            os.environ.pop("QUEST_TPU_BATCH_MEM_BYTES", None)
-        else:
-            os.environ["QUEST_TPU_BATCH_MEM_BYTES"] = was
     return out
 
 
@@ -6518,9 +6584,651 @@ def mesh_keys(mesh, batched: bool = False):
             "mesh_comm_gb_per_s": mesh["comm"]["gb_per_s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mesh's ensembles (trajectories, dynamics, density programs)
+# and the port's examples
+# ---------------------------------------------------------------------------
+
+MESH_TRAJ_BATCH = 256                 # 22a: batch mode's trajectories
+MESH_TRAJ_GRAD_WAVE = 16              # 22a: one gradient wave per mode
+
+
+def first_differing_item(torch, tp1, tp4, u, d: int):
+    """Where shard ``d``'s rows of a ``batch``-mode run first part from
+    the same rows of one device's run on the same uniforms: both walked
+    item by item (one device on all rows, the shard's twin on its own),
+    compared after each item. ``(index, kind, targets, max|diff|)``, or
+    None when every item agrees."""
+    T = u.shape[0]
+    per = T // MESH_SHARDS
+    rows = slice(d * per, (d + 1) * per)
+    tw = tp4._shard_twin(d)
+    start = tp1._start(None)
+    whole = start.expand(T, 2, start.shape[1]).clone(
+        memory_format=torch.contiguous_format)
+    part = whole[rows].clone()
+    uw = torch.as_tensor(u, dtype=start.dtype, device=start.device)
+    pm_rows = np.zeros((T, 0))
+    found = None
+    for k, item in enumerate(tp1._items):
+        tp1._apply_item(whole, item, uw, pm_rows)
+        tw._apply_item(part, item, uw[rows], pm_rows[rows])
+        if not torch.equal(whole[rows], part):
+            targets = item[1].targets if item[0] == "layer" \
+                else tuple(item[1])
+            found = (k, item[0], targets,
+                     float((whole[rows] - part).abs().max()))
+            break
+    del whole, part
+    torch.cuda.empty_cache()
+    return found
+
+
+def mesh_trajectories(torch, qt, lk, kk, card, traj=None, traj_grad=None):
+    """22a: phase 9's 22-qubit program on the mesh, in both modes."""
+    from quest_tpu_torch.ops import reductions as red
+    from quest_tpu_torch.ops.trajectories import _Tape
+    n, wave, T = TRAJ_QUBITS, TRAJ_WAVE, MESH_TRAJ_BATCH
+    print(f"  22a: phase 9's {n}-qubit trajectory program on the mesh: "
+          f"batch mode on {T} trajectories, amp mode on one wave of {wave}")
+    rng = np.random.default_rng(2110)
+    circ = trajectory_circuit(qt, n, rng)
+    terms = [[(q, 3)] for q in range(n)]
+    coeffs = list(rng.normal(size=n))
+    env1, env4 = qt.createQuESTEnv(seed=[7]), mesh_env(qt, seed=[7])
+    tp1, tp4 = (circ.compile_trajectories(e) for e in (env1, env4))
+    kinds = [item[0] for item in tp1._items]
+    n_layers, n_fused = kinds.count("layer"), kinds.count("kraus_fused")
+    u = np.random.default_rng(22).uniform(size=(T, tp1.num_channels))
+    ref = tp1.trajectory_sweep(T, uniforms=u)
+    torch.cuda.synchronize()
+    out = {"layer_launches": 0, "kraus_launches": 0, "held_err": 0.0,
+           "kraus_err": 0.0}
+
+    # batch mode: each shard's 64 rows as whole states, bit for bit
+    reset_counts(lk, kk)
+    with HeldLayers(torch, lk, batched=True) as held, \
+            HeldKraus(torch, kk) as hk:
+        got = tp4.trajectory_sweep(T, uniforms=u, shard_trajectories=True)
+        torch.cuda.synchronize()
+    h_abs, h_rel = held.max_err()
+    same = torch.equal(got, ref)
+    off = (got - ref).abs().amax(dim=(1, 2)) > 0
+    rows_off = int(off.sum())
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    first_off = int(off.nonzero()[0, 0]) if rows_off else None
+    del got
+    # is one device's own run the same twice?
+    one_repeats = None if same else torch.equal(
+        tp1.trajectory_sweep(T, uniforms=u), ref)
+    del ref
+    torch.cuda.empty_cache()
+    first_item = None if same else first_differing_item(
+        torch, tp1, tp4, u, first_off // (T // MESH_SHARDS))
+    check(tp4.dispatch_stats().batch_sharding_mode == "batch"
+          and same and held.launches == n_layers * MESH_SHARDS
+          and hk.launches == n_fused * MESH_SHARDS and h_rel <= 1e-5
+          and len(held.errs) == held.launches and hk.ok(),
+          f"batch mode, {T} trajectories: planes vs one device's on the "
+          f"same uniforms: bit for bit {same} ({rows_off} of {T} rows "
+          f"differ, max|diff| / max|amp| {err:.3e}); {held.launches} "
+          f"batched "
+          f"layer launches ({n_layers} layers x {MESH_SHARDS} shards) and "
+          f"{hk.launches} Kraus launches ({n_fused} channels x "
+          f"{MESH_SHARDS}), each held against its plain version on its own "
+          f"input (layers {h_rel:.3e} of max|plain|, Kraus "
+          f"{max((e[1] for e in hk.errs), default=0.0):.3e}, indices equal)"
+          + ("" if same else f"; one device's run repeats bit for bit "
+             f"{one_repeats}")
+          + ("" if first_item is None else
+             f"; shard {first_off // (T // MESH_SHARDS)}'s rows first "
+             f"differ from the same rows of one device's {T}-row run "
+             f"after item {first_item[0]} ({first_item[1]}, targets "
+             f"{first_item[2]}), by {first_item[3]:.3e}"))
+    out.update(batch_bit_equal=same, batch_rows_differ=rows_off,
+               batch_planes_err=err, batch_first_differing_item=first_item,
+               batch_one_device_repeats=one_repeats)
+    out["layer_launches"] += held.launches
+    out["kraus_launches"] += hk.launches
+    out["held_err"] = max(out["held_err"], h_abs)
+    out["kraus_err"] = max(out["kraus_err"], hk.max_err())
+
+    # amp mode: one wave spanning the shards, through the policy's limit
+    uw = u[:wave]
+    start = tp1._start(None)
+    pm_rows = np.zeros((wave, 0))
+    tape = _Tape(0)
+    ref = start.expand(wave, 2, start.shape[1]).clone()
+    tp1._apply_batch(ref, torch.as_tensor(uw, dtype=ref.dtype,
+                                          device=ref.device), pm_rows, tape)
+    reset_counts(lk, kk)
+    with BatchMemLimit(1), HeldLayers(torch, lk, batched=True) as held, \
+            HeldKraus(torch, kk) as hk:
+        t0 = time.perf_counter()
+        got = tp4.trajectory_sweep(wave, uniforms=uw)
+        torch.cuda.synchronize()
+        amp_held_s = time.perf_counter() - t0
+    mode = tp4.dispatch_stats().batch_sharding_mode
+    walk = tp4._mesh_walk()
+    mesh_layers = sum(1 for op, _ in walk.steps if op.kind == "layer")
+    relayouts = sum(1 for op, _ in walk.steps if op.kind == "relayout")
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    del ref
+    # the draws, from a wave of the walk on the same uniforms (the path
+    # trajectory_sweep ran), its planes equal to that run's
+    wave_run = walk.wave(torch.as_tensor(uw, dtype=start.dtype,
+                                         device=start.device))
+    again = torch.cat(wave_run.run_rows(start, pm_rows), dim=-1)
+    rerun_same = torch.equal(again, got)
+    del again
+    differ = sum(int((wave_run.draws[i][0].cpu() != tape.draws[i][0].cpu())
+                     .sum()) for i in tape.draws)
+    h_abs, h_rel = held.max_err()
+    check(mode == "amp" and differ == 0 and err <= 1e-6 and rerun_same
+          and held.launches == mesh_layers * MESH_SHARDS
+          and hk.launches == n_fused * MESH_SHARDS and h_rel <= 1e-5
+          and len(held.errs) == held.launches and hk.ok(),
+          f"amp mode, {wave} trajectories over {MESH_SHARDS} chunks of "
+          f"{n - 2} qubits ({mesh_layers} layers and {relayouts} relayouts "
+          f"in the walk): {differ} of {wave * len(tape.draws)} draws "
+          f"differ from one device's on the same uniforms; planes max|diff|"
+          f" / max|amp| {err:.3e} <= 1e-6; {held.launches} batched layer "
+          f"and {hk.launches} Kraus launches held against plain (layers "
+          f"{h_rel:.3e}, Kraus "
+          f"{max((e[1] for e in hk.errs), default=0.0):.3e}, indices "
+          f"equal); {amp_held_s:.2f} s with the holds; a wave of the "
+          f"walk on the same uniforms gives the same planes bit for bit "
+          f"{rerun_same}")
+    out.update(amp_draws_differ=differ, amp_planes_err=err,
+               amp_walk_layers=mesh_layers, amp_walk_relayouts=relayouts)
+    out["layer_launches"] += held.launches
+    out["kraus_launches"] += hk.launches
+    out["held_err"] = max(out["held_err"], h_abs)
+    out["kraus_err"] = max(out["kraus_err"], hk.max_err())
+    del got, tape, wave_run
+    torch.cuda.empty_cache()
+
+    # trajectories/s in each mode (no holds), beside phase 9's
+    rates = {}
+    for label, limit, num, force in (("batch", None, T, True),
+                                     ("amp", 1, wave, None)):
+        with BatchMemLimit(limit):
+            tp4.expectation(terms, coeffs, num_trajectories=num,
+                            wave_size=wave, seed=3,
+                            shard_trajectories=force)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tp4.expectation(terms, coeffs, num_trajectories=num,
+                            wave_size=wave, seed=1,
+                            shard_trajectories=force)
+            torch.cuda.synchronize()
+            rates[label] = num / (time.perf_counter() - t0)
+            check(tp4.dispatch_stats().batch_sharding_mode == label,
+                  f"expectation ran in {label} mode")
+    one = traj["traj_per_s"] if traj is not None else None
+    print(f"  trajectories/s: batch mode {rates['batch']:.2f}, amp mode "
+          f"{rates['amp']:.2f}, one device (phase 9) "
+          + (f"{one:.2f}" if one is not None else "not run"))
+    out["traj_per_s"] = rates
+
+    # expectation_grad over one wave in each mode against one device's
+    gw = MESH_TRAJ_GRAD_WAVE
+    gcirc, pv = param_trajectory_circuit(qt, n, np.random.default_rng(2110))
+    g1 = gcirc.compile_trajectories(env1)
+    g4 = gcirc.compile_trajectories(env4)
+    t0 = time.perf_counter()
+    v1, grad1, _ = g1.expectation_grad(terms, coeffs, num_trajectories=gw,
+                                       wave_size=gw, params=pv, seed=29)
+    one_s = time.perf_counter() - t0
+    gmax = float(np.abs(grad1).max())
+    for label, limit, force in (("batch", None, True), ("amp", 1, None)):
+        reset_counts(lk, kk)
+        with BatchMemLimit(limit), \
+                HeldLayers(torch, lk, batched=True) as held, \
+                HeldKraus(torch, kk) as hk:
+            t0 = time.perf_counter()
+            v, g, _ = g4.expectation_grad(
+                terms, coeffs, num_trajectories=gw, wave_size=gw,
+                params=pv, seed=29, shard_trajectories=force)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        mode = g4.dispatch_stats().batch_sharding_mode
+        d = float(np.abs(g - grad1).max())
+        h_abs, h_rel = held.max_err()
+        check(mode == label and d <= 1e-5 * gmax and h_rel <= 1e-5
+              and held.launches > 0 and hk.launches > 0 and hk.ok()
+              and len(held.errs) == held.launches,
+              f"expectation_grad, one wave of {gw} in {label} mode: "
+              f"max|dg| {d:.3e} <= 1e-5 of max|g| {gmax:.3e} (value "
+              f"{v:.6f} vs {v1:.6f}); {held.launches} batched layer and "
+              f"{hk.launches} Kraus launches (forward and adjoint) held "
+              f"against plain ({h_rel:.3e}); {secs:.2f} s with the holds, "
+              f"{one_s:.2f} s on one device")
+        out[f"grad_{label}_rel"] = d / gmax
+        out[f"grad_{label}_s"] = secs
+        out["layer_launches"] += held.launches
+        out["kraus_launches"] += hk.launches
+        out["held_err"] = max(out["held_err"], h_abs)
+        out["kraus_err"] = max(out["kraus_err"], hk.max_err())
+    out["grad_one_device_s"] = one_s
+    if traj_grad is not None:
+        print(f"  gradient trajectories/s: batch mode "
+              f"{gw / out['grad_batch_s']:.2f}, amp mode "
+              f"{gw / out['grad_amp_s']:.2f} (with the holds), one device "
+              f"{gw / one_s:.2f} here, phase 9g {traj_grad['traj_per_s']:.2f}")
+    return out
+
+
+def mesh_dynamics(torch, qt, lk, kk, card, dynamics=None):
+    """22b: phase 15's dynamics-tfim-24q-b4 in amp mode on the mesh."""
+    from quest_tpu_torch.ops import dynamics as dyn
+    n, B, S = DYN_QUBITS, DYN_BATCH, DYN_STEPS
+    print(f"  22b: phase 15's {n}-qubit TFIM, batch {B}, evolve_sweep and "
+          f"ground_sweep (power and Lanczos) in amp mode")
+    ham = tfim(n)
+    pm = np.random.default_rng(2026).normal(size=(B, n)) * 0.3
+    spec = dyn.EvolveSpec(t=DYN_T, steps=S, order=2)
+    gspec = dyn.GroundSpec(steps=GROUND_STEPS, tau=GROUND_TAU)
+    lspec = dyn.GroundSpec(steps=GROUND_STEPS, method="lanczos")
+    if dynamics is not None:
+        ref = {k: dynamics[f"{k}_energies"]
+               for k in ("evolve", "ground", "lanczos")}
+        secs1 = dynamics["seconds"]
+        print("  the one-device energies: phase 15's")
+    else:
+        cc1 = dyn_prep(qt, n).compile(qt.createQuESTEnv(seed=[2026]))
+        ref, secs1 = {}, {}
+        for key, sp, width in (("evolve", spec, S),
+                               ("ground", gspec, GROUND_STEPS),
+                               ("lanczos", lspec, 1)):
+            fn = cc1.evolve_sweep if key == "evolve" else cc1.ground_sweep
+            t0 = time.perf_counter()
+            head = block_head(fn(pm, ham, sp), width)
+            secs1[key] = time.perf_counter() - t0
+            ref[key] = head[:, 0] if key == "lanczos" else head
+        del cc1
+    cc = dyn_prep(qt, n).compile(mesh_env(qt, seed=[2026]))
+    n_layers = sum(1 for op in cc._plan_for(cc.tier, sharded=True)[1]
+                   if op.kind == "layer")
+    out = {"launches": 0, "held_err": 0.0, "seconds": {}}
+    with BatchMemLimit(1):
+        for key, sp, width in (("evolve", spec, S),
+                               ("ground", gspec, GROUND_STEPS),
+                               ("lanczos", lspec, 1)):
+            fn = cc.evolve_sweep if key == "evolve" else cc.ground_sweep
+            reset_counts(lk, kk)
+            with HeldLayers(torch, lk, batched=True) as held:
+                t0 = time.perf_counter()
+                block = fn(pm, ham, sp)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            head = block_head(block, width)
+            got = head[:, 0] if key == "lanczos" else head
+            del block
+            stats = cc.dispatch_stats()
+            scale = float(np.abs(ref[key]).max())
+            err = float(np.abs(got - ref[key]).max()) / scale
+            h_abs, h_rel = held.max_err()
+            check(stats.batch_sharding_mode == "amp" and err <= 1e-5
+                  and stats.evolve_steps_fused == B * sp.steps
+                  and held.launches == n_layers * MESH_SHARDS > 0
+                  and h_rel <= 1e-5,
+                  f"{key}: amp mode, energies max|dE| / max|E| {err:.3e} <="
+                  f" 1e-5 of one device's; {held.launches} batched layer "
+                  f"launches (the prep's {n_layers} layer(s) x "
+                  f"{MESH_SHARDS} chunks) held against plain ({h_rel:.3e});"
+                  f" {secs:.2f} s (one device: "
+                  + (f"{secs1[key]:.2f} s)" if key in secs1 else
+                     f"{secs1.get(key + '_held', float('nan')):.2f} s "
+                     "held)"))
+            out["seconds"][key] = secs
+            out[f"{key}_rel"] = err
+            out["launches"] += held.launches
+            out["held_err"] = max(out["held_err"], h_abs)
+    return out
+
+
+def mesh_density_ensembles(torch, qt, lk, kk, card, density_grad=None):
+    """22c: 12d's density cells in amp mode on the mesh."""
+    n, ng = DENSITY_QUBITS, DENSITY_GRAD_QUBITS
+    print(f"  22c: config 4 ({n} q, batch 2) energies and the {ng}-q "
+          f"gradient cell (batch {DENSITY_GRAD_BATCH}) in amp mode")
+    circ, _, angles = density_noise(qt, n, params=True)
+    terms, coeffs, _ = random_hamiltonian(n, SWEEP_TERMS, 2027)
+    ham = (terms, coeffs)
+    pm = np.stack([angles, np.random.default_rng(2028).uniform(
+        0, 2 * np.pi, n)])
+    gcirc = rate_circuit(qt, ng)
+    gterms, gcoeffs, _ = random_hamiltonian(ng, 8, 2029)
+    gham = (gterms, gcoeffs)
+    rng = np.random.default_rng(2030)
+    gpm = np.concatenate([rng.uniform(0, 2 * np.pi, (DENSITY_GRAD_BATCH,
+                                                     len(gcirc.param_names)
+                                                     - 1)),
+                          rng.uniform(0.05, 0.3, (DENSITY_GRAD_BATCH, 1))],
+                         axis=1)
+    if density_grad is not None:
+        e_ref = density_grad["config4"]["energies"]
+        e1_s = density_grad["config4"]["seconds"]
+        v_ref = density_grad["gradients"]["values"]
+        g_ref = density_grad["gradients"]["grads"]
+        g1_s = density_grad["gradients"]["seconds"]
+        print("  the one-device energies and gradients: phase 12d's")
+    else:
+        env1 = qt.createQuESTEnv()
+        c1 = circ.compile(env1, density=True)
+        t0 = time.perf_counter()
+        e_ref = c1.expectation_sweep(pm, ham)
+        e1_s = time.perf_counter() - t0
+        del c1
+        torch.cuda.empty_cache()
+        c1 = gcirc.compile(env1, density=True)
+        t0 = time.perf_counter()
+        v_ref, g_ref = c1.value_and_grad_sweep(gpm, gham)
+        g1_s = time.perf_counter() - t0
+        del c1
+        torch.cuda.empty_cache()
+    env4 = mesh_env(qt)
+    out = {"launches": 0, "held_err": 0.0}
+    with BatchMemLimit(1):
+        cc = circ.compile(env4, density=True)
+        layers = cc._plan_for(cc.tier, sharded=True)[1]
+        n_layers = sum(1 for op in layers if op.kind == "layer")
+        reset_counts(lk, kk)
+        torch.cuda.reset_peak_memory_stats()
+        with HeldLayers(torch, lk, batched=True) as held:
+            t0 = time.perf_counter()
+            energies = cc.expectation_sweep(pm, ham)
+            torch.cuda.synchronize()
+            e_s = time.perf_counter() - t0
+        peak_e = torch.cuda.max_memory_allocated()
+        err = float(np.abs(energies - e_ref).max() / np.abs(e_ref).max())
+        h_abs, h_rel = held.max_err()
+        check(cc.dispatch_stats().batch_sharding_mode == "amp"
+              and err <= 1e-5 and held.launches == n_layers * MESH_SHARDS
+              and h_rel <= 1e-5 and len(held.errs) == held.launches,
+              f"config 4 energies in amp mode vs one device: max|dE| / "
+              f"max|E| {err:.3e} <= 1e-5; {held.launches} batched layer "
+              f"launches ({n_layers} layers x {MESH_SHARDS} chunks) held "
+              f"against plain ({h_rel:.3e}); {e_s:.2f} s with the holds "
+              f"(one device {e1_s:.2f} s), peak {peak_e / 2**30:.2f} GiB")
+        out.update(energy_rel=err, energy_s=e_s, energy_peak_bytes=peak_e)
+        out["launches"] += held.launches
+        out["held_err"] = max(out["held_err"], h_abs)
+        del cc
+        torch.cuda.empty_cache()
+
+        gc = gcirc.compile(env4, density=True)
+        reset_counts(lk, kk)
+        torch.cuda.reset_peak_memory_stats()
+        with HeldLayers(torch, lk, batched=True) as held:
+            t0 = time.perf_counter()
+            vals, grads = gc.value_and_grad_sweep(gpm, gham)
+            torch.cuda.synchronize()
+            g_s = time.perf_counter() - t0
+        peak_g = torch.cuda.max_memory_allocated()
+        gmax = float(np.abs(g_ref).max())
+        g_err = float(np.abs(grads - g_ref).max()) / gmax
+        v_err = float(np.abs(vals - v_ref).max() / np.abs(v_ref).max())
+        h_abs, h_rel = held.max_err()
+        check(gc.dispatch_stats().batch_sharding_mode == "amp"
+              and g_err <= 1e-5 and v_err <= 1e-5 and h_rel <= 1e-5
+              and len(held.errs) == held.launches,
+              f"{ng}-q gradients in amp mode vs one device: max|dg| / "
+              f"max|g| {g_err:.3e}, values {v_err:.3e}, <= 1e-5; "
+              f"{held.launches} batched layer launches (forward and "
+              f"adjoint) held against plain ({h_rel:.3e}); {g_s:.2f} s "
+              f"with the holds (one device {g1_s:.2f} s); peak "
+              f"{peak_g / 2**30:.2f} GiB (one device: phase 12d's)")
+        out.update(grad_rel=g_err, grad_s=g_s, grad_peak_bytes=peak_g)
+        out["launches"] += held.launches
+        out["held_err"] = max(out["held_err"], h_abs)
+        del gc
+        torch.cuda.empty_cache()
+    return out
+
+
+EXAMPLE_SCRIPTS = ("tutorial_example", "damping_example",
+                   "bernstein_vazirani", "shor", "quad_precision", "vqe",
+                   "qaoa", "noise_fitting", "noisy_trajectories",
+                   "production_workflow", "tpu_features")
+# the Adam loops at tests/test_torch_examples.py's step counts
+EXAMPLE_SIZES = {"vqe": {"steps": 25, "noisy_steps": 10},
+                 "qaoa": {"steps": 40}, "noise_fitting": {"steps": 100}}
+# the deterministic numbers held against the same script on the CPU at
+# DOUBLE (absolute, 1e-5)
+EXAMPLE_HELD = {
+    "tutorial_example": ("prob_amp_111", "prob_q2_is_1"),
+    "damping_example": ("states",),
+    "bernstein_vazirani": ("prob_secret",),
+    "noise_fitting": ("data",),
+    "noisy_trajectories": ("exact",),
+    "production_workflow": ("amps", "total_prob", "prob_q0_is_0"),
+    "tpu_features": ("qft_total_prob", "qft_amps", "param_probs",
+                     "descent_energy", "descent_theta", "sweep_p0",
+                     "mesh_total_prob", "mesh_amps")}
+EXAMPLE_TOL = 1e-5
+
+
+def example_summary(name: str, out: dict) -> str:
+    """The numbers an example returned, one line."""
+    parts = []
+    for key, value in out.items():
+        if isinstance(value, (int, float, np.floating, np.integer)):
+            parts.append(f"{key} {float(value):.6g}")
+        elif isinstance(value, tuple):
+            parts.append(f"{key} {value}")
+        elif isinstance(value, list) and value:
+            last = np.round(np.asarray(value[-1]), 6)
+            parts.append(f"{key}[-1] {last.tolist()}")
+        elif isinstance(value, np.ndarray) and value.size <= 16:
+            parts.append(f"{key} {np.round(value, 6).tolist()}")
+        elif isinstance(value, dict):
+            parts.append(f"{key} " + ", ".join(
+                f"{k} {float(v):.4g}" for k, v in value.items()
+                if isinstance(v, (int, float))))
+    return f"{name}: " + "; ".join(parts)
+
+
+def quiet(fn, **kwargs):
+    """``fn(**kwargs)`` with its prints caught: ``(result, lines)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(**kwargs)
+    return out, buf.getvalue().count("\n")
+
+
+def example_facts(torch, qt, name: str, res: dict, host: dict) -> list:
+    """``(what, ok)`` for an example's card result beyond its own asserts:
+    its deterministic numbers against ``host`` (the same script on the CPU
+    at DOUBLE), an Adam loop's final energy re-evaluated on the CPU at the
+    card's final parameters, and the facts a draw decides."""
+    facts = []
+    for key in EXAMPLE_HELD.get(name, ()):
+        d = float(np.abs(np.asarray(res[key], dtype=np.complex128)
+                         - np.asarray(host[key], dtype=np.complex128)).max())
+        facts.append((f"{key} {d:.2e} off the CPU's", d <= EXAMPLE_TOL))
+    cpu = qt.createQuESTEnv(num_devices=1, device="cpu",
+                            precision=qt.DOUBLE)
+    if name == "vqe":
+        from quest_tpu_torch.examples import vqe
+        terms, coeffs = vqe.hamiltonian_terms()
+        for key, pkey, circ, density in (
+                ("energy", "params", vqe.ansatz(), False),
+                ("noisy_energy", "noisy_params",
+                 vqe.ansatz().with_noise(p1=0.01, damping=0.02), True)):
+            fn = circ.compile(cpu, density=density).expectation_fn(terms,
+                                                                   coeffs)
+            d = abs(float(fn(torch.as_tensor(res[pkey]))) - res[key])
+            facts.append((f"{key} at the card's parameters {d:.2e} off the "
+                          "CPU's", d <= EXAMPLE_TOL))
+        facts.append((f"energy {res['energy']:.6f} >= exact "
+                      f"{res['exact']:.6f}",
+                      res["energy"] >= res["exact"] - EXAMPLE_TOL))
+    elif name == "qaoa":
+        from quest_tpu_torch import algorithms as alg
+        from quest_tpu_torch.examples import qaoa
+        cc = alg.qaoa_maxcut(qaoa.N, qaoa.EDGES, num_layers=qaoa.LAYERS)
+        fn = cc.compile(cpu).expectation_fn(*alg.qaoa_maxcut_terms(
+            qaoa.EDGES))
+        cut = len(qaoa.EDGES) / 2.0 - float(fn(torch.as_tensor(
+            res["params"])))
+        d = abs(cut - res["expected_cut"])
+        facts.append((f"expected cut at the card's parameters {d:.2e} off "
+                      "the CPU's", d <= EXAMPLE_TOL))
+        facts.append((f"best drawn cut {res['best_drawn']} of "
+                      f"{res['num_draws']} draws = max {res['max_cut']}",
+                      res["best_drawn"] == res["max_cut"]))
+    elif name == "noise_fitting":
+        from quest_tpu_torch.examples import noise_fitting as nf
+        d = max(abs(res["rates"][0] - nf.TRUE_DAMP),
+                abs(res["rates"][1] - nf.TRUE_DEPHASE))
+        facts.append((f"fitted rates {d:.2e} off the true ones", d < 0.01))
+    elif name == "noisy_trajectories":
+        facts.append((f"ensemble {res['ensemble']:.4f} within 5 stderr of "
+                      f"exact {res['exact']:.4f}",
+                      abs(res["ensemble"] - res["exact"])
+                      <= 5 * res["ensemble_stderr"]))
+        facts.append((f"<Z> {res['z_mean']:.4f} within 5 stderr",
+                      abs(res["z_mean"] - (1.0 - 2.0 * res["exact"]))
+                      <= 5 * res["z_stderr"]))
+    elif name == "quad_precision":
+        facts.append((f"QUAD {res['quad']['max_err']:.2e} <= 1e-12 off the "
+                      "float64 oracle", res["quad"]["max_err"] <= 1e-12))
+        facts.append((f"SINGLE {res['single']['max_err']:.2e} <= 1e-4",
+                      res["single"]["max_err"] <= 1e-4))
+    elif name == "shor":
+        facts.append((f"factors {res['factors']}",
+                      sorted(res["factors"]) == [3, 5]))
+    elif name == "bernstein_vazirani":
+        facts.append((f"measured {res['measured']} = secret "
+                      f"{res['secret']}", res["measured"] == res["secret"]))
+    return facts
+
+
+def mesh_examples(torch, qt, lk, kk, card):
+    """22d: every example script's main() on the card, with its own
+    asserts and every launch of the layer kernel, the batched layer kernel
+    and the Kraus kernel held against its plain version on its own input;
+    its numbers against the same script on the CPU."""
+    import importlib
+    print(f"  22d: the {len(EXAMPLE_SCRIPTS)} examples "
+          "(quest_tpu_torch/examples/) on the card, every launch held; "
+          f"the Adam loops at {EXAMPLE_SIZES}")
+    out = {"seconds": {}, "layer_launches": 0, "batched_launches": 0,
+           "kraus_launches": 0, "layer_err": 0.0, "batched_err": 0.0,
+           "kraus_err": 0.0}
+    for name in EXAMPLE_SCRIPTS:
+        mod = importlib.import_module(f"quest_tpu_torch.examples.{name}")
+        sizes = EXAMPLE_SIZES.get(name, {})
+        reset_counts(lk, kk)
+        with HeldLayers(torch, lk, batched=False) as h1, \
+                HeldLayers(torch, lk, batched=True) as h2, \
+                HeldKraus(torch, kk) as hk:
+            t0 = time.perf_counter()
+            res, lines = quiet(mod.main, device="cuda", **sizes)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        print(f"    {example_summary(name, res)} ({secs:.2f} s with the "
+              f"holds, {lines} lines printed)")
+        r1, r2 = h1.max_err()[1], h2.max_err()[1]
+        check(len(h1.errs) == h1.launches and len(h2.errs) == h2.launches
+              and len(hk.errs) == hk.launches and r1 <= 1e-5
+              and r2 <= 1e-5 and hk.ok(),
+              f"{name}: {h1.launches} layer, {h2.launches} batched layer "
+              f"and {hk.launches} Kraus launches, each held against plain "
+              f"on its own input ({r1:.2e}, {r2:.2e}, "
+              f"{max((e[1] for e in hk.errs), default=0.0):.2e} of "
+              "max|plain|, Kraus indices equal)")
+        host = quiet(mod.main, device="cpu", **sizes)[0] \
+            if name in EXAMPLE_HELD else None
+        facts = example_facts(torch, qt, name, res, host)
+        if facts:
+            check(all(ok for _, ok in facts),
+                  f"{name} against the CPU: " + "; ".join(w for w, _ in facts))
+        out["seconds"][name] = secs
+        out["layer_launches"] += h1.launches
+        out["batched_launches"] += h2.launches
+        out["kraus_launches"] += hk.launches
+        out["layer_err"] = max(out["layer_err"], h1.max_err()[0])
+        out["batched_err"] = max(out["batched_err"], h2.max_err()[0])
+        out["kraus_err"] = max(out["kraus_err"], hk.max_err())
+    print(f"  22d launches, all held: layer kernel {out['layer_launches']}, "
+          f"batched {out['batched_launches']}, Kraus "
+          f"{out['kraus_launches']}")
+    return out
+
+
+def phase_mesh_ensembles(torch, qt, lk, kk, card, traj=None,
+                         traj_grad=None, dynamics=None, density_grad=None):
+    print(f"phase 22: ensembles on the mesh ({MESH_SHARDS} shards of one "
+          f"card, {card}, SINGLE) and the examples")
+    t0 = time.perf_counter()
+    out, walls = {}, []
+    for key, part in (
+            ("trajectories", lambda *a: mesh_trajectories(
+                *a, traj=traj, traj_grad=traj_grad)),
+            ("dynamics", lambda *a: mesh_dynamics(*a, dynamics=dynamics)),
+            ("density", lambda *a: mesh_density_ensembles(
+                *a, density_grad=density_grad)),
+            ("examples", mesh_examples)):
+        t1 = time.perf_counter()
+        out[key] = part(torch, qt, lk, kk, card)
+        torch.cuda.empty_cache()
+        walls.append(f"{key} {time.perf_counter() - t1:.1f}")
+    print(f"  phase 22 wall time {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(walls)})")
+    return out
+
+
+def ensemble_keys(ens, kraus: bool = False, single: bool = False):
+    """Phase 22's numbers, as keys of the batched layer kernel's row (22a's
+    trajectory waves, 22b's dynamics prep, 22c's density cells and 22d's
+    examples, every launch held against plain), with ``kraus`` the Kraus
+    kernel's (22a's channels, one launch per chunk in amp mode, and 22d's)
+    or with ``single`` the layer kernel's (22d's)."""
+    if ens is None:
+        return {}
+    t, ex = ens["trajectories"], ens["examples"]
+    if single:
+        return {"launches_examples": ex["layer_launches"],
+                "examples_max_abs_err": ex["layer_err"]}
+    if kraus:
+        return {"launches_mesh_ensembles": t["kraus_launches"],
+                "mesh_ensembles_max_abs_err": t["kraus_err"],
+                "launches_examples": ex["kraus_launches"],
+                "examples_max_abs_err": ex["kraus_err"],
+                "mesh_amp_draws_differ": t["amp_draws_differ"],
+                "mesh_batch_rows_differ": t["batch_rows_differ"],
+                "mesh_batch_planes_err": t["batch_planes_err"],
+                "mesh_batch_first_differing_item":
+                    t["batch_first_differing_item"],
+                "mesh_traj_per_s": t["traj_per_s"]}
+    return {"launches_mesh_ensembles": t["layer_launches"]
+            + ens["dynamics"]["launches"] + ens["density"]["launches"],
+            "launches_mesh_trajectories": t["layer_launches"],
+            "launches_mesh_dynamics": ens["dynamics"]["launches"],
+            "launches_mesh_density": ens["density"]["launches"],
+            "launches_examples": ex["batched_launches"],
+            "examples_max_abs_err": ex["batched_err"],
+            "mesh_ensembles_max_abs_err": max(
+                t["held_err"], ens["dynamics"]["held_err"],
+                ens["density"]["held_err"]),
+            "mesh_traj_grad_rel": max(t["grad_batch_rel"],
+                                      t["grad_amp_rel"]),
+            "mesh_dynamics_s": ens["dynamics"]["seconds"],
+            "mesh_density_energy_s": ens["density"]["energy_s"],
+            "mesh_density_grad_s": ens["density"]["grad_s"],
+            "mesh_density_grad_peak_bytes":
+                ens["density"]["grad_peak_bytes"],
+            "examples_s": ex["seconds"]}
+
+
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
           "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18",
-          "19", "20", "21")
+          "19", "20", "21", "22")
 
 
 def parse_only(argv):
@@ -6639,6 +7347,10 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         mesh = phase_mesh(torch, qt, lk, kk, card, sweep) \
             if runs("21") else None
+        torch.cuda.empty_cache()
+        ensembles = phase_mesh_ensembles(
+            torch, qt, lk, kk, card, traj, traj_grad, dynamics,
+            density_grad) if runs("22") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -6653,6 +7365,8 @@ def main(argv) -> int:
             row = dict(row, **serving_rest_keys(serving_rest, single=True))
         if row is not None and mesh is not None:
             row = dict(row, **mesh_keys(mesh))
+        if row is not None and ensembles is not None:
+            row = dict(row, **ensemble_keys(ensembles, single=True))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
@@ -6660,7 +7374,9 @@ def main(argv) -> int:
             rows = kernel_rows(row, sweep, traj, grad, density_grad,
                                traj_grad, dynamics, serving,
                                serving_rest, netserve) + tail
-            rows[1] = dict(rows[1], **mesh_keys(mesh, batched=True))
+            rows[1] = dict(rows[1], **mesh_keys(mesh, batched=True),
+                           **ensemble_keys(ensembles))
+            rows[2] = dict(rows[2], **ensemble_keys(ensembles, kraus=True))
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -6715,6 +7431,14 @@ def main(argv) -> int:
                                  **mesh_keys(mesh)))
                 rows.append(dict(name="layer_kernel_batched", path="mesh",
                                  **mesh_keys(mesh, batched=True)))
+            if ensembles is not None:
+                rows.append(dict(name="layer_kernel", path="mesh_ensembles",
+                                 **ensemble_keys(ensembles, single=True)))
+                rows.append(dict(name="layer_kernel_batched",
+                                 path="mesh_ensembles",
+                                 **ensemble_keys(ensembles)))
+                rows.append(dict(name="kraus_kernel", path="mesh_ensembles",
+                                 **ensemble_keys(ensembles, kraus=True)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

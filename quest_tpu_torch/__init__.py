@@ -16,8 +16,13 @@ C++ for Hopper (``csrc/layer_kernel.cu``), and the precision-tier ladder
 (``createServiceRouter``) with its persistent warm-start cache, the
 optimizer and dynamics handles (``service.optimize``/``evolve``/
 ``ground_state``), and register checkpoints
-(``quest_tpu_torch.checkpoint``). The JAX package ``quest_tpu`` is the reference this
-port is tested against; nothing here imports it or JAX.
+(``quest_tpu_torch.checkpoint``); on a mesh of amplitude shards
+(``createQuESTEnv(num_devices=n)``) registers, compiled programs, the
+batched engine and trajectory ensembles; and runnable examples
+(``quest_tpu_torch.examples``). Every top-level name of the JAX package
+``quest_tpu`` but ``compat`` and ``initialize_multihost`` is here; that
+package is the reference this port is tested against, and nothing here
+imports it or JAX.
 
 ```python
 import quest_tpu_torch as qt
@@ -35,19 +40,30 @@ from .api import __all__ as _api_all
 from .circuits import Circuit, CompiledCircuit, Param
 from .config import (DOUBLE, DOUBLE_TIER, FAST_TIER, QUAD, QUAD64,
                      QUAD_TIER, SINGLE, SINGLE_TIER, TIER_LADDER, Precision,
-                     PrecisionTier, tier_by_name)
+                     PrecisionTier, default_precision, tier_by_name)
 from .profiling import (choose_tier, engine_tiers, modeled_tier_error,
                         tier_runtime_tol)
-from .env import QuESTEnv
+from .env import (QuESTEnv, create_quest_env, default_compensated,
+                  destroy_quest_env)
 from .ops.dynamics import EvolveSpec, GroundSpec
+from .ops.trajectories import DensityMaterialisationError, TrajectoryProgram
 from .qasm_import import ParsedQASM, load_qasm_file, parse_qasm
 from .qureg import Qureg
-from .serve import (AllReplicasUnavailable, Adam, DynamicsHandle,
+from .resilience import (AutoscalePolicy, FaultInjector, FaultSpec,
+                         HealthConfig, NumericalFault, ResiliencePolicy,
+                         SupervisorPolicy)
+from .serve import (AllReplicasUnavailable, Adam, CircuitBreakerOpen,
+                    CoalescePolicy, DeadlineExceeded, DynamicsHandle,
                     DynamicsProblem, GradientDescent, OptimizationHandle,
-                    ServiceRouter, SimulationService, VariationalProblem,
-                    WarmCache)
+                    QueueFull, QuotaExceeded, ServeError, ServiceClosed,
+                    ServiceRouter, SimulationService, TenantPolicy,
+                    VariationalProblem, WarmCache, WFQScheduler)
+from .telemetry import (DispatchProfiler, PerfLedger, TraceContext, Tracer,
+                        metrics_registry, prometheus_text, profiler,
+                        start_http_exporter)
 from .types import (PAULI_I, PAULI_X, PAULI_Y, PAULI_Z, PauliOpType,
-                    QuESTError)
+                    QuESTError, invalid_quest_input_error,
+                    invalidQuESTInputError, set_input_error_handler)
 from .validation import ErrorCode
 
 __all__ = list(_api_all) + [
@@ -62,4 +78,15 @@ __all__ = list(_api_all) + [
     "SimulationService", "ServiceRouter", "AllReplicasUnavailable",
     "WarmCache", "VariationalProblem", "OptimizationHandle",
     "GradientDescent", "Adam", "DynamicsProblem", "DynamicsHandle",
+    "default_precision", "default_compensated", "create_quest_env",
+    "destroy_quest_env", "invalid_quest_input_error",
+    "invalidQuESTInputError", "set_input_error_handler",
+    "TrajectoryProgram", "DensityMaterialisationError",
+    "CoalescePolicy", "ServeError", "QueueFull", "DeadlineExceeded",
+    "ServiceClosed", "CircuitBreakerOpen", "QuotaExceeded", "TenantPolicy",
+    "WFQScheduler",
+    "FaultInjector", "FaultSpec", "HealthConfig", "NumericalFault",
+    "ResiliencePolicy", "SupervisorPolicy", "AutoscalePolicy",
+    "Tracer", "TraceContext", "metrics_registry", "prometheus_text",
+    "start_http_exporter", "DispatchProfiler", "PerfLedger", "profiler",
 ]

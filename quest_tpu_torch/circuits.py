@@ -69,10 +69,8 @@ cache to key).
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import threading
-import warnings
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -90,6 +88,7 @@ from .ops import dynamics as dyn
 from .ops import layer_kernel as lk
 from .ops import reductions as red
 from .parallel import exchange as ex
+from .parallel import shards
 from .parallel.layout import LayoutPlan, is_swap_op, plan_layout
 from .qureg import Qureg
 from .resilience import faults as _faults
@@ -1312,6 +1311,13 @@ def _param_row(theta: torch.Tensor) -> np.ndarray:
     return theta.detach().cpu().numpy().astype(np.float64).reshape(1, -1)
 
 
+def _reset_circuit_twin(tw) -> None:
+    """A shard's twin walks the unsharded plan and keeps its own dispatch
+    record."""
+    tw._shard_bits = 0
+    tw._batch_stats = {}
+
+
 class CompiledCircuit:
     """A planned :class:`Circuit`: layers and gates in program order,
     applied in place to ``(2, 2^N)`` planes on the env's device, at the
@@ -2163,48 +2169,29 @@ class CompiledCircuit:
         return self._batch_policy(batch, mem_factor)["mode"]
 
     def _shard_twin(self, d: int) -> "CompiledCircuit":
-        """This program as it runs on shard ``d``'s device alone (one
-        device env sharing the precision, generator and compensation), for
-        ``batch`` mode: it shares the plan caches, and walks the unsharded
+        """This program as it runs on shard ``d``'s device alone, for
+        ``batch`` mode (:func:`~quest_tpu_torch.parallel.shards.
+        shard_twin`): it shares the plan caches, and walks the unsharded
         plan."""
-        twins = self.__dict__.setdefault("_twins", {})
-        if d not in twins:
-            tw = copy.copy(self)
-            tw.env = dataclasses.replace(
-                self.env, mesh=None, device=self.env.mesh.devices[d])
-            tw._shard_bits = 0
-            tw._batch_stats = {}
-            twins[d] = tw
-        return twins[d]
+        return shards.shard_twin(self, d, _reset_circuit_twin)
 
     def _on_shards(self, pm: np.ndarray, run, state_f=None,
                    owned: bool = False) -> list:
         """``batch`` mode: split the rows over the shards and call
         ``run(twin, rows, state_f)`` on each shard's twin, in shard order.
-        A batch not divisible by the mesh is padded with zero rows (and an
-        owned ``state_f`` batch with zero planes), whose results the
-        caller drops: pad-and-mask, as the JAX package does, with one
-        warning per program."""
-        B = pm.shape[0]
-        D = self.env.num_devices
-        pad = (-B) % D
-        if pad:
-            with self._stats_lock:
-                warn_now = not self._warned_nondivisible
-                self._warned_nondivisible = True
-            if warn_now:
-                warnings.warn(
-                    f"sweep batch of {B} is not divisible by the {D}-shard "
-                    f"mesh; padding to {B + pad} and masking the {pad} "
-                    "extra rows", UserWarning, stacklevel=4)
-            pm = np.concatenate([pm, np.zeros((pad,) + pm.shape[1:])])
-            if owned:
-                sf = torch.as_tensor(state_f)
-                state_f = torch.cat([sf, sf.new_zeros((pad,) + tuple(
-                    sf.shape[1:]))])
-        per = (B + pad) // D
+        A batch not divisible by the mesh is padded (and an owned
+        ``state_f`` batch with it) by
+        :func:`~quest_tpu_torch.parallel.shards.split_rows`, whose extra
+        rows' results the caller drops."""
+        if owned:
+            per, (pm, state_f) = shards.split_rows(
+                self, "sweep batch", pm.shape[0], pm,
+                torch.as_tensor(state_f))
+        else:
+            per, (pm,) = shards.split_rows(self, "sweep batch", pm.shape[0],
+                                           pm)
         out = []
-        for d in range(D):
+        for d in range(self.env.num_devices):
             sf = state_f[d * per:(d + 1) * per] if owned else state_f
             out.append(run(self._shard_twin(d), pm[d * per:(d + 1) * per],
                            sf))
@@ -2227,8 +2214,7 @@ class CompiledCircuit:
                 raise ValueError(f"shared state_f must be (2, "
                                  f"{1 << self.num_qubits}); got "
                                  f"{tuple(sf.shape)}")
-            return [sf[:, d * C:(d + 1) * C].to(dev, dtype).expand(
-                batch, 2, C).contiguous() for d, dev in enumerate(devs)]
+            return shards.start_chunks(sf, devs, lt, batch, dtype)
         if tuple(sf.shape) != (batch, 2, 1 << self.num_qubits):
             raise ValueError(
                 f"state_f must be shared (2, {1 << self.num_qubits}) planes "
@@ -2269,12 +2255,9 @@ class CompiledCircuit:
         over the mesh plan with every row spanning the shards
         (:class:`~quest_tpu_torch.ops.adjoint.ShardedAdjointWalk`), the
         energies and the cotangent ``H psi`` pair of chunks by pair
-        (``parallel/chunks.py``). State-vector programs."""
-        if self.is_density:
-            raise NotImplementedError(
-                "amplitude-sharded gradients of a density program wait "
-                "for ROADMAP Queue 1 item 8's remainder; such a sweep "
-                "runs in batch mode")
+        (``parallel/chunks.py``). For a density program the values are
+        ``Tr(H rho)`` and the cotangent is the flat ``H`` itself, made in
+        chunks from the identity's flat vector."""
         from .parallel import chunks as chk
         s = self._shard_bits
         lt = self.num_qubits - s
@@ -2291,12 +2274,29 @@ class CompiledCircuit:
                 self.param_names, prec, fast, self.is_density)
         start = [c[0] for c in self._amp_start(1, state_f, rdt)]
         xm, ym, zm, coeffs = operands
+        if self.is_density:
+            reg = self._register_qubits
+            eye = chk.density_identity(self.env.mesh.devices, lt, reg, rdt)
+            h_flat = chk.pauli_sum_apply(eye, lt, xm, ym, zm, coeffs,
+                                         [torch.empty_like(c) for c in eye])
+            del eye
+
+            def energies(psi):
+                return chk.pauli_total_dm(psi, lt, reg, xm, ym, zm, coeffs,
+                                          compensated=comp)
+
+            def cotangent(psi, lam):
+                for h, q in zip(h_flat, lam):
+                    q.copy_(h.expand_as(q))
+        else:
+            def energies(psi):
+                return chk.pauli_total(psi, lt, xm, ym, zm, coeffs,
+                                       compensated=comp)
+
+            def cotangent(psi, lam):
+                chk.pauli_sum_apply(psi, lt, xm, ym, zm, coeffs, lam)
         values, grads = self._walks[key].run(
-            pm, start,
-            lambda psi: chk.pauli_total(psi, lt, xm, ym, zm, coeffs,
-                                        compensated=comp),
-            lambda psi, lam: chk.pauli_sum_apply(psi, lt, xm, ym, zm,
-                                                 coeffs, lam),
+            pm, start, energies, cotangent,
             self._store_bytes(pm.shape[0], rdt))
         return (values.cpu().numpy().astype(np.float64),
                 grads.cpu().numpy())
@@ -2408,21 +2408,22 @@ class CompiledCircuit:
         :meth:`expectation_sweep`, which also records the dispatch). On a
         mesh: each shard's rows through the single-device walk (``batch``
         mode), or every row over the shards' chunks, reduced pair of
-        chunks by pair (``amp`` mode, state-vector programs)."""
+        chunks by pair (``amp`` mode; a density program's ``Tr(H rho)``
+        from the entries ``rho[r ^ m, r]`` each shard holds)."""
         if self._shard_bits:
             if self._mesh_mode(pm.shape[0]) == "amp":
-                if self.is_density:
-                    raise NotImplementedError(
-                        "amplitude-sharded energies of a density program "
-                        "wait for ROADMAP Queue 1 item 8's remainder; "
-                        "such a sweep runs in batch mode")
                 from .parallel import chunks as chk
                 xm, ym, zm, coeffs = operands
                 comp = tier is not None and tier.compensated
-                s = self._shard_bits
-                vals = chk.pauli_total(self._run_amp(pm, state_f, tier),
-                                       self.num_qubits - s, xm, ym, zm,
-                                       coeffs, compensated=comp)
+                lt = self.num_qubits - self._shard_bits
+                chunks = self._run_amp(pm, state_f, tier)
+                if self.is_density:
+                    vals = chk.pauli_total_dm(
+                        chunks, lt, self._register_qubits, xm, ym, zm,
+                        coeffs, compensated=comp)
+                else:
+                    vals = chk.pauli_total(chunks, lt, xm, ym, zm, coeffs,
+                                           compensated=comp)
                 return vals.cpu().numpy().astype(np.float64)
             return np.concatenate(self._on_shards(
                 pm, lambda tw, rows, sf: tw._energy_rows(rows, operands, sf,
@@ -2643,7 +2644,12 @@ class CompiledCircuit:
         Pauli-sum energy after each, fold the energies into the Welford
         carry and pack ONE ``(B, W)`` block on the env's device. The step
         loop reads nothing back from the device (Lanczos waits once, for
-        its eigensolver's status). Statevector programs only."""
+        its eigensolver's status). Statevector programs only. On a mesh,
+        each shard's rows run this body on its device (``batch`` mode), or
+        every row spans the shards' chunks (``amp`` mode): the prep through
+        the mesh plan, each term sweep chunk pair by chunk pair, and the
+        norms, inner products and energies summed over the chunks in
+        float64."""
         if self.is_density:
             raise ValueError(
                 f"{kind}_sweep runs on statevector-compiled programs "
@@ -2659,12 +2665,8 @@ class CompiledCircuit:
         xm, ym, zm, coeffs = self._pauli_operands(hamiltonian)
         n = self.num_qubits
         pm = self._validated_param_matrix(param_matrix)
-        if self._shard_bits:
-            mode = self._mesh_mode(pm.shape[0])
-            if mode == "amp":
-                raise NotImplementedError(
-                    f"amplitude-sharded {kind}_sweep waits for ROADMAP "
-                    "Queue 1 item 8's remainder")
+        mode = self._mesh_mode(pm.shape[0])
+        if mode == "batch":
             out = torch.cat([o.to(self.env.device) for o in self._on_shards(
                 pm, lambda tw, rows, sf: tw._dynamics_dispatch(
                     kind, rows, hamiltonian, spec, sf, tier), state_f)])
@@ -2685,42 +2687,60 @@ class CompiledCircuit:
         cf_dev = torch.as_tensor(cf, device=self.env.device)
         comp = tier is not None and tier.compensated
         B, S = pm.shape[0], int(spec.steps)
+        if mode == "amp":
+            # every row spans the shards' chunks: the prep program through
+            # the mesh plan, each term sweep chunk pair by chunk pair, the
+            # norms, inner products and energies summed over the chunks
+            from .parallel import chunks as chk
+            local = n - self._shard_bits
+            z = self._run_amp(pm, state_f, tier)
 
-        def energy(z):
-            vals = red.pauli_sum_expvals_sv(z, xm, ym, zm, compensated=comp)
-            return (vals.to(env_dt) * cf_dev).sum(-1)
+            def energy(z):
+                vals = chk.pauli_expvals(z, local, xm, ym, zm,
+                                         compensated=comp)
+                return (vals.to(env_dt) * cf_dev).sum(-1)
+        else:
+            local = None
 
-        rdt = self._tier_dtypes(tier, self.env)[0]
-        z = self._run_plan_batched(self._start_states(B, state_f, rdt), pm,
-                                   tier)
+            def energy(z):
+                vals = red.pauli_sum_expvals_sv(z, xm, ym, zm,
+                                                compensated=comp)
+                return (vals.to(env_dt) * cf_dev).sum(-1)
+
+            rdt = self._tier_dtypes(tier, self.env)[0]
+            z = self._run_plan_batched(self._start_states(B, state_f, rdt),
+                                       pm, tier)
         es = torch.empty((B, S), dtype=env_dt, device=self.env.device)
         residual = None
         if kind == "evolve":
             dt = env_np(spec.dt)
             for s in range(S):
-                dyn.trotter_step(z, xm, ym, zm, cf, dt, order=spec.order)
+                dyn.trotter_step(z, xm, ym, zm, cf, dt, order=spec.order,
+                                 local=local)
                 es[:, s] = energy(z)
         elif spec.method == "lanczos":
             z, e, residual = dyn.lanczos_ground(z, xm, ym, zm, cf,
-                                                num_vectors=S)
+                                                num_vectors=S, local=local)
             es[:] = e.to(env_dt)[:, None]
             residual = residual.to(env_dt)
         else:
             tau = env_np(spec.tau)
             e0 = energy(z) if S == 1 else None
             for s in range(S):
-                dyn.imag_time_step(z, xm, ym, zm, cf, tau)
+                dyn.imag_time_step(z, xm, ym, zm, cf, tau, local=local)
                 es[:, s] = energy(z)
             residual = (es[:, -1] - (es[:, -2] if S >= 2 else e0)).abs()
         welford = torch.stack(red.welford_wave(es, torch.ones(
             S, dtype=env_dt, device=es.device)), dim=1)
-        planes = z.to(env_dt)
+        planes = torch.cat([c.to(self.env.device, env_dt) for c in z],
+                           dim=-1) if mode == "amp" else z.to(env_dt)
         out = dyn.pack_evolve_block(es, welford, planes) \
             if residual is None else \
             dyn.pack_ground_block(es, residual, welford, planes)
         # a stepping client pays one dispatch and transfer per step per
         # row; the segment leaves as ONE block
-        self._record_batch_stats(B, B * S - 1, evolve_steps_fused=B * S)
+        self._record_batch_stats(B, B * S - 1, evolve_steps_fused=B * S,
+                                 mode=mode)
         return out
 
     def evolve_sweep(self, param_matrix, hamiltonian, spec, state_f=None,

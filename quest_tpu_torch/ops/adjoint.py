@@ -402,30 +402,37 @@ class AdjointWalk:
         grads = torch.zeros((batch, len(self.names)), dtype=torch.float64,
                             device=self._device(psi))
         for k in reversed(range(len(self.steps))):
-            op, item = self.steps[k]
-            derivs = []
-            if op.kind != "layer" and not op.is_static:
-                fn = op.mat_fn if op.kind == "u" else op.diag_fn
-                operator, derivs = bind_with_derivatives(
-                    fn, self.names, pm, _what(op))
-            else:
-                operator = item_operator(op, self.names, pm)
-            adj_op = self.adjoints.get(id(op), op)
-            adjoint = _adjoint_operator(op, operator)
-            if not self.unitary[k]:
-                self._restore(psi, k, stored, start, pm)
-                for col, d in derivs:
-                    self._accumulate(grads, col, psi, lam, op, item, d)
-                self._apply(lam, adj_op, item, adjoint)
-                continue
-            for col, d in derivs:
-                # dU psi_in = (dU U^dag) psi_out
-                g = d @ adjoint if op.kind == "u" else d * adjoint
-                self._accumulate(grads, col, psi, lam, op, item, g)
-            if adjoint is not None and _per_row(op, item, adjoint):
-                adjoint = np.concatenate([adjoint, adjoint])
-            self._apply(pair, adj_op, item, adjoint)
+            self._reverse(k, pair, psi, lam, grads, pm, stored, start)
         return values, grads
+
+    def _reverse(self, k: int, pair, psi, lam, grads, pm, stored: dict,
+                 start) -> None:
+        """Item ``k`` backwards: its parameters' derivatives into
+        ``grads``, then its adjoint on the pair (a unitary item) or on
+        ``lam`` with ``psi`` restored to the item's input (any other)."""
+        op, item = self.steps[k]
+        derivs = []
+        if op.kind != "layer" and not op.is_static:
+            fn = op.mat_fn if op.kind == "u" else op.diag_fn
+            operator, derivs = bind_with_derivatives(
+                fn, self.names, pm, _what(op))
+        else:
+            operator = item_operator(op, self.names, pm)
+        adj_op = self.adjoints.get(id(op), op)
+        adjoint = _adjoint_operator(op, operator)
+        if not self.unitary[k]:
+            self._restore(psi, k, stored, start, pm)
+            for col, d in derivs:
+                self._accumulate(grads, col, psi, lam, op, item, d)
+            self._apply(lam, adj_op, item, adjoint)
+            return
+        for col, d in derivs:
+            # dU psi_in = (dU U^dag) psi_out
+            g = d @ adjoint if op.kind == "u" else d * adjoint
+            self._accumulate(grads, col, psi, lam, op, item, g)
+        if adjoint is not None and _per_row(op, item, adjoint):
+            adjoint = np.concatenate([adjoint, adjoint])
+        self._apply(pair, adj_op, item, adjoint)
 
 
 class ShardedAdjointWalk(AdjointWalk):

@@ -116,91 +116,174 @@ class GroundSpec:
 # ---------------------------------------------------------------------------
 
 
-def _real_np(states: torch.Tensor):
-    return np.float32 if states.dtype == torch.float32 else np.float64
+def _chunks(z) -> tuple:
+    """``(chunks, single)``: a ``(B, 2, N)`` batch as the one-chunk list, or
+    an amplitude-sharded batch's list of ``(B, 2, 2^(n-s))`` chunks as
+    given."""
+    if isinstance(z, (list, tuple)):
+        return list(z), False
+    return [z], True
 
 
-def _angles(states: torch.Tensor, coeffs, theta) -> np.ndarray:
+def _local(chunks, local) -> int:
+    return chunks[0].shape[-1].bit_length() - 1 if local is None \
+        else int(local)
+
+
+def _real_np(states) -> type:
+    first = states[0] if isinstance(states, (list, tuple)) else states
+    return np.float32 if first.dtype == torch.float32 else np.float64
+
+
+def _angles(states, coeffs, theta) -> np.ndarray:
     """``theta * c_t`` for every term, rounded as the JAX package rounds
     it: both factors cast to the planes' real dtype, then multiplied."""
     rdt = _real_np(states)
     return np.asarray(theta).astype(rdt) * np.asarray(coeffs).astype(rdt)
 
 
+def _popcount(v: int) -> int:
+    return bin(int(v)).count("1")
+
+
 def _term_sweep(states, xmask, ymask, zmask, keep, mix, ph_shift: int,
-                reverse: bool = False) -> torch.Tensor:
+                reverse: bool = False, local=None):
     """``z <- keep_t z + mix_t i^ph_shift (P_t z)`` for every term in order
     (``reverse`` descending), IN PLACE; terms with ``mix_t == 0`` and
-    ``keep_t == 1`` are identities and skipped."""
+    ``keep_t == 1`` are identities and skipped. ``states`` is a batch or
+    an amplitude-sharded batch's chunks of ``local`` qubits each: a term's
+    X/Y bits on shard positions pair chunk ``d`` with chunk ``d ^ dx``, both
+    gathered before either is updated, and the partner's shard bits give
+    its sign (``parallel/chunks.py`` :func:`pauli_sum_apply`)."""
+    chunks, _ = _chunks(states)
+    lt = _local(chunks, local)
+    mask = (1 << lt) - 1
     order = range(len(keep) - 1, -1, -1) if reverse else range(len(keep))
     for t in order:
         k, m = float(keep[t]), float(mix[t])
         if m == 0.0 and k == 1.0:
             continue
-        gathered, ph = red.pauli_term_gather(states, xmask[t], ymask[t],
-                                             zmask[t])
-        states.mul_(k)
-        red.add_phased(states, gathered, ph + ph_shift, m)
-        del gathered
+        xm, ym, zm = int(xmask[t]), int(ymask[t]), int(zmask[t])
+        dx, yzd = (xm | ym) >> lt, (ym | zm) >> lt
+        ph = _popcount(ym) % 4
+        for d in range(len(chunks)):
+            if d ^ dx < d:
+                continue
+            group = (d,) if dx == 0 else (d, d ^ dx)
+            gathered = []
+            for e in group:
+                partner = e ^ dx
+                g, _ = red.pauli_term_gather(
+                    chunks[partner].to(chunks[e].device), xm & mask,
+                    ym & mask, zm & mask)
+                if _popcount(partner & yzd) % 2:
+                    g.neg_()
+                gathered.append(g)
+            for e, g in zip(group, gathered):
+                chunks[e].mul_(k)
+                red.add_phased(chunks[e], g, ph + ph_shift, m)
+            del gathered
     return states
 
 
-def trotter_sweep(z, xmask, ymask, zmask, coeffs, theta, reverse=False):
+def trotter_sweep(z, xmask, ymask, zmask, coeffs, theta, reverse=False,
+                  local=None):
     """One ordered product sweep ``prod_t exp(-i theta c_t P_t) |z>`` on
-    every row of a ``(B, 2, N)`` batch, IN PLACE (returns ``z``):
-    ascending term order, ``reverse=True`` descending (the mirror half of
-    a Strang step). Each term is the exact rotation ``cos(a) z - i sin(a)
-    (P z)`` with ``a = theta * c_t``: one xor-gather pass. ``theta`` is a
-    host scalar."""
+    every row of a ``(B, 2, N)`` batch (or of an amplitude-sharded batch's
+    chunks of ``local`` qubits), IN PLACE (returns ``z``): ascending term
+    order, ``reverse=True`` descending (the mirror half of a Strang step).
+    Each term is the exact rotation ``cos(a) z - i sin(a) (P z)`` with ``a
+    = theta * c_t``: one xor-gather pass. ``theta`` is a host scalar."""
     a = _angles(z, coeffs, theta)
     # -i * i^ph = i^(ph + 3)
     return _term_sweep(z, xmask, ymask, zmask, np.cos(a), np.sin(a), 3,
-                       reverse=bool(reverse))
+                       reverse=bool(reverse), local=local)
 
 
-def trotter_step(z, xmask, ymask, zmask, coeffs, dt, order: int = 2):
+def trotter_step(z, xmask, ymask, zmask, coeffs, dt, order: int = 2,
+                 local=None):
     """One Trotter step of ``exp(-i H dt)`` on every row, IN PLACE.
     ``order=1`` is the plain ascending sweep at full ``dt`` (local error
     O(dt^2)); ``order=2`` the Strang splitting, a half-``dt`` forward sweep
-    mirrored by a half-``dt`` reverse sweep (local error O(dt^3))."""
+    mirrored by a half-``dt`` reverse sweep (local error O(dt^3)).
+    ``local`` as in :func:`trotter_sweep`."""
     if order == 1:
-        return trotter_sweep(z, xmask, ymask, zmask, coeffs, dt)
+        return trotter_sweep(z, xmask, ymask, zmask, coeffs, dt, local=local)
     if order != 2:
         raise ValueError("Trotter order must be 1 or 2")
     half = np.asarray(dt) * 0.5
-    z = trotter_sweep(z, xmask, ymask, zmask, coeffs, half)
-    return trotter_sweep(z, xmask, ymask, zmask, coeffs, half, reverse=True)
+    z = trotter_sweep(z, xmask, ymask, zmask, coeffs, half, local=local)
+    return trotter_sweep(z, xmask, ymask, zmask, coeffs, half, reverse=True,
+                         local=local)
 
 
-def _row_norms(z: torch.Tensor) -> torch.Tensor:
-    return z.square().sum(dim=(-2, -1)).sqrt()
+def _rows_total(parts: list) -> torch.Tensor:
+    """Per-row sums, each part a chunk's ``(B,)`` partial in the plane
+    dtype: combined in float64 in shard order on the first part's device,
+    returned in the plane dtype (for one part, the part itself)."""
+    home = parts[0].device
+    total = parts[0].double()
+    for p in parts[1:]:
+        total = total + p.double().to(home)
+    return total.to(parts[0].dtype)
 
 
-def _normalised(z: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+def _row_norms(z) -> torch.Tensor:
+    chunks, _ = _chunks(z)
+    return _rows_total([c.square().sum(dim=(-2, -1)) for c in chunks]).sqrt()
+
+
+def _row_dots(a, b) -> torch.Tensor:
+    return _rows_total([(x * y).sum(dim=(-2, -1)) for x, y in zip(a, b)])
+
+
+def _normalised(z, norms: torch.Tensor):
     """``z / max(norm, 1e-300)`` per row; the clamp is taken in the planes'
     dtype, as the JAX package takes it (at float32 it rounds to 0)."""
-    return z.div_(torch.clamp(norms, min=1e-300)[..., None, None])
+    scale = torch.clamp(norms, min=1e-300)[..., None, None]
+    for c in _chunks(z)[0]:
+        c.div_(scale.to(c.device))
+    return z
 
 
-def imag_time_step(z, xmask, ymask, zmask, coeffs, tau):
+def imag_time_step(z, xmask, ymask, zmask, coeffs, tau, local=None):
     """One imaginary-time Trotter step ``~ exp(-tau H) |z>`` on every row,
     then renormalisation of each row, IN PLACE: per term the exact
     hyperbolic form ``cosh(a) z - sinh(a) (P z)`` with ``a = tau * c_t``.
-    Repeated, it is power iteration toward the ground state of ``H``."""
+    Repeated, it is power iteration toward the ground state of ``H``. On
+    chunks (``local`` as in :func:`trotter_sweep`) each row's norm sums
+    its chunks' partial sums in float64."""
     a = _angles(z, coeffs, tau)
     # -i^ph = i^(ph + 2)
-    _term_sweep(z, xmask, ymask, zmask, np.cosh(a), np.sinh(a), 2)
+    _term_sweep(z, xmask, ymask, zmask, np.cosh(a), np.sinh(a), 2,
+                local=local)
     return _normalised(z, _row_norms(z))
 
 
-def lanczos_ground(z, xmask, ymask, zmask, coeffs, num_vectors: int = 24):
+def _apply_h(vectors: list, xmask, ymask, zmask, coeffs, lt: int) -> list:
+    """``H v`` of chunks (fresh chunks): :func:`~quest_tpu_torch.ops.
+    reductions.pauli_sum_apply_sv` for one chunk, else term by term with
+    the chunk pairs of :func:`quest_tpu_torch.parallel.chunks.
+    pauli_sum_apply`."""
+    if len(vectors) == 1:
+        return [red.pauli_sum_apply_sv(vectors[0], xmask, ymask, zmask,
+                                       coeffs)]
+    from ..parallel import chunks as chk
+    return chk.pauli_sum_apply(vectors, lt, xmask, ymask, zmask, coeffs,
+                               [torch.empty_like(v) for v in vectors])
+
+
+def lanczos_ground(z, xmask, ymask, zmask, coeffs, num_vectors: int = 24,
+                   local=None):
     """Fixed-``num_vectors`` Lanczos recursion toward the ground state of
     every row of a ``(B, 2, N)`` batch (``z`` is left as it was): the
     Krylov basis by the three-term recurrence, an ``(m, m)`` tridiagonal
     eigensolve per row, and the Ritz vector of the lowest Ritz value.
     Returns ``(ritz_vectors (B, 2, N), energies (B,), residuals (B,))``
     with ``residual = |beta_m y_m|``, the classical bound on ``||H x - E
-    x||``.
+    x||``. On an amplitude-sharded batch's chunks (``local`` as in
+    :func:`trotter_sweep`) the Ritz vectors are chunks too, and every inner
+    product sums its chunks' partials in float64.
 
     A row whose Krylov space is exhausted (breakdown, ``beta <= 1e-12``:
     e.g. the start vector is an eigenvector) gets zero basis vectors from
@@ -209,29 +292,37 @@ def lanczos_ground(z, xmask, ymask, zmask, coeffs, num_vectors: int = 24):
     if num_vectors < 2:
         raise ValueError("lanczos needs num_vectors >= 2")
     m = int(num_vectors)
-    rdt = _real_np(z)
+    chunks, single = _chunks(z)
+    lt = _local(chunks, local)
+    rdt = _real_np(chunks)
     cutoff = float(rdt(1e-12))
-    v0 = _normalised(z.clone(), _row_norms(z))
-    basis = torch.empty((m,) + tuple(z.shape), dtype=z.dtype,
-                        device=z.device)
-    batch = z.shape[0]
-    beta_prev = z.new_zeros(batch)
-    alive = torch.ones(batch, dtype=torch.bool, device=z.device)
+    home = chunks[0].device
+    dtype = chunks[0].dtype
+    v0 = [c.clone() for c in chunks]
+    _normalised(v0, _row_norms(chunks))
+    basis = [torch.empty((m,) + tuple(c.shape), dtype=dtype,
+                         device=c.device) for c in chunks]
+    batch = chunks[0].shape[0]
+    beta_prev = chunks[0].new_zeros(batch)
+    alive = torch.ones(batch, dtype=torch.bool, device=home)
     alphas, betas, alives = [], [], []
     v_cur = v0
     for k in range(m):
-        basis[k] = v_cur
-        w = red.pauli_sum_apply_sv(basis[k], xmask, ymask, zmask, coeffs)
+        for b, v in zip(basis, v_cur):
+            b[k] = v
+        w = _apply_h([b[k] for b in basis], xmask, ymask, zmask, coeffs, lt)
         if k:
-            w.sub_(beta_prev[:, None, None] * basis[k - 1])
-        alpha = (basis[k] * w).sum(dim=(-2, -1))
-        w.sub_(alpha[:, None, None] * basis[k])
+            for wi, b in zip(w, basis):
+                wi.sub_(beta_prev.to(wi.device)[:, None, None] * b[k - 1])
+        alpha = _row_dots([b[k] for b in basis], w)
+        for wi, b in zip(w, basis):
+            wi.sub_(alpha.to(wi.device)[:, None, None] * b[k])
         beta = _row_norms(w)
         ok = alive & (beta > cutoff)
-        v_cur = torch.where(
-            ok[:, None, None],
-            w.div_(torch.clamp(beta, min=cutoff)[:, None, None]),
-            torch.zeros((), dtype=z.dtype, device=z.device))
+        scale = torch.clamp(beta, min=cutoff)[:, None, None]
+        v_cur = [torch.where(
+            ok.to(wi.device)[:, None, None], wi.div_(scale.to(wi.device)),
+            torch.zeros((), dtype=dtype, device=wi.device)) for wi in w]
         beta_out = torch.where(ok, beta, torch.zeros_like(beta))
         alphas.append(alpha)
         betas.append(beta_out)
@@ -253,12 +344,15 @@ def lanczos_ground(z, xmask, ymask, zmask, coeffs, num_vectors: int = 24):
     # the recursion
     evals, evecs = torch.linalg.eigh(tri)
     y = evecs[:, :, 0]
-    ritz = torch.zeros_like(z)
-    for k in range(m):
-        ritz.addcmul_(y[:, k, None, None], basis[k])
+    ritz = [torch.zeros_like(c) for c in chunks]
+    for r, b in zip(ritz, basis):
+        yd = y.to(r.device)
+        for k in range(m):
+            r.addcmul_(yd[:, k, None, None], b[k])
     del basis
     _normalised(ritz, _row_norms(ritz))
-    return ritz, evals[:, 0], (betas[:, -1] * y[:, -1]).abs()
+    return (ritz[0] if single else ritz), evals[:, 0], \
+        (betas[:, -1] * y[:, -1]).abs()
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,9 @@ wave walker) —
 - every other op goes through the gate engine's batched form, a channel
   with the same draw rule as the fused kernel.
 
-Channel probabilities come from the targets' reduced density, one
-``torch.matmul`` per channel at full precision (:meth:`_channel_probs`), work
-the JAX package leaves to XLA.
+Channel probabilities come from the targets' reduced density, reduced by
+``torch.matmul`` in float64 (:meth:`_channel_probs`), work the JAX package
+leaves to XLA.
 
 Randomness. Every channel's uniform is drawn up front: a ``(T,
 num_channels)`` float64 block from a :class:`torch.Generator` on the CPU
@@ -71,6 +71,7 @@ bit for bit.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -89,6 +90,12 @@ __all__ = ["TrajectoryProgram", "DensityMaterialisationError",
 
 DENSITY_DEBUG_QUBITS_ENV = "QUEST_TPU_DENSITY_DEBUG_QUBITS"
 _DENSITY_DEBUG_DEFAULT = 14
+# the rows of one group of the walker's batch-count-sensitive work (the
+# channel probabilities' reductions, the gate engine's GEMMs), and the
+# qubits of one block of a probability reduction (each block's products are
+# one small float64 GEMM)
+_ROW_GROUP = 8
+_PROB_BLOCK_BITS = 12
 
 
 class DensityMaterialisationError(ValueError):
@@ -178,6 +185,27 @@ def _one_hot(psel: torch.Tensor, j: torch.Tensor, num_ops: int):
     return p.scatter_(1, j[:, None], psel[:, None])
 
 
+def _rows_unitary(states: torch.Tensor, num_qubits: int, u, targets,
+                  ctrl_mask: int = 0, flip_mask: int = 0) -> None:
+    """:func:`~quest_tpu_torch.core.apply.apply_unitary` on the batch IN
+    PLACE, in groups of ``_ROW_GROUP`` rows (a ``(T, d, d)`` operator
+    stack split with them). The gate engine's GEMMs pick their kernel, and
+    so their rounding, by the batch count: in fixed groups a row's result
+    does not depend on how many rows run, so a mesh shard's sub-batch
+    gives one device's planes bit for bit."""
+    if not isinstance(u, torch.Tensor):
+        # on the device once for every group
+        cdtype = torch.complex64 if states.dtype == torch.float32 \
+            else torch.complex128
+        u = torch.as_tensor(np.asarray(u, dtype=np.complex128)).to(
+            device=states.device, dtype=cdtype)
+    per_row = u.dim() == 3
+    for r0 in range(0, states.shape[0], _ROW_GROUP):
+        g = slice(r0, r0 + _ROW_GROUP)
+        apply_unitary(states[g], num_qubits, u[g] if per_row else u,
+                      targets, ctrl_mask, flip_mask)
+
+
 def _cross_density(lam: torch.Tensor, psi: torch.Tensor, num_qubits: int,
                    targets, ctrl_mask: int = 0, flip_mask: int = 0):
     """``M[t, a, b] = sum conj(lam_t[a, r]) psi_t[b, r]`` over the other
@@ -185,10 +213,13 @@ def _cross_density(lam: torch.Tensor, psi: torch.Tensor, num_qubits: int,
     whose semantics are the gate engine's), ``a`` and ``b`` indexing the
     targets (bit ``j`` is ``targets[j]``): the ``(T, d, d)`` real and
     imaginary parts of the targets' cross density of two ``(T, 2, 2^n)``
-    batches, in their dtype. ``Re <lam, G_ctrl psi> = Re sum_ab G_ab M_ab``
+    batches, in float64. ``Re <lam, G_ctrl psi> = Re sum_ab G_ab M_ab``
     for any operator ``G`` on the targets, so one such pass gives every
-    derivative of an item: :meth:`_channel_probs`' reduction with ``lam``
-    for the second state."""
+    derivative of an item. Reduced as :meth:`TrajectoryProgram.
+    _channel_probs` reduces: by groups of rows and blocks of the lowest
+    other qubits, the blocks summed in float64 (one float32 reduction over
+    a 22-qubit state leaves ~1e-5 of a gradient's largest component to
+    rounding)."""
     n = num_qubits
     k = len(targets)
     num_traj = psi.shape[0]
@@ -197,21 +228,27 @@ def _cross_density(lam: torch.Tensor, psi: torch.Tensor, num_qubits: int,
     ctrl = [2 + n - 1 - c for c in controls]
     rest = [2 + a for a in range(n) if 2 + a not in front + ctrl]
     pick = tuple(0 if (flip_mask >> c) & 1 else 1 for c in controls)
-
-    def gathered(x):
-        v = x.view((num_traj, 2) + (2,) * n).permute([0, 1] + ctrl + front
-                                                      + rest)
-        if controls:
-            v = v[(slice(None), slice(None)) + pick]
-        return v.reshape(num_traj, 2 << k, -1)
-
-    # one batched product over both planes: blocks [[ar br, ar bi], [ai br,
-    # ai bi]], and conj(a) b = ar br + ai bi + i (ar bi - ai br)
+    low = min(_PROB_BLOCK_BITS, len(rest))
+    high = rest[:len(rest) - low]
+    order = [0] + high + [1] + ctrl + front + rest[len(rest) - low:]
     d = 1 << k
-    blocks = torch.matmul(gathered(lam), gathered(psi).transpose(1, 2))
-    m_re = blocks[:, :d, :d] + blocks[:, d:, d:]
-    m_im = blocks[:, :d, d:] - blocks[:, d:, :d]
-    return m_re, m_im
+
+    def gathered(x, g):
+        v = x[g].view((-1, 2) + (2,) * n).permute(order)
+        if controls:
+            v = v[(slice(None),) * (len(high) + 2) + pick]
+        return v.reshape(v.shape[0], 1 << len(high), 2 * d, 1 << low)
+
+    m_re, m_im = [], []
+    for r0 in range(0, num_traj, _ROW_GROUP):
+        g = slice(r0, r0 + _ROW_GROUP)
+        # one batched product over both planes: blocks [[ar br, ar bi],
+        # [ai br, ai bi]], and conj(a) b = ar br + ai bi + i (ar bi - ai br)
+        blocks = torch.matmul(gathered(lam, g), gathered(psi, g)
+                              .transpose(-1, -2)).double().sum(1)
+        m_re.append(blocks[:, :d, :d] + blocks[:, d:, d:])
+        m_im.append(blocks[:, :d, d:] - blocks[:, d:, :d])
+    return torch.cat(m_re), torch.cat(m_im)
 
 
 def _add_derivative(grads: torch.Tensor, col: int, g, m) -> None:
@@ -244,6 +281,13 @@ class _Tape:
             self.stored[k] = states.clone()
 
 
+def _reset_trajectory_twin(tw) -> None:
+    """A shard's twin runs its rows as one device runs them and keeps its
+    own dispatch record."""
+    tw._walk = None
+    tw._batch_stats = {}
+
+
 class TrajectoryProgram:
     """A recorded circuit lowered to a stochastic pure-state program.
 
@@ -251,7 +295,10 @@ class TrajectoryProgram:
     channel consumes one uniform per trajectory. Parameterized gates and
     channels (Param strengths, callable Kraus sets) bind at call time.
     Batch with :meth:`trajectory_sweep` / :meth:`run_batch`; estimate
-    observables with :meth:`expectation` (waves, early stopping).
+    observables with :meth:`expectation` (waves, early stopping). On a
+    mesh env the waves shard by the priced policy (:meth:`_policy`): whole
+    states per shard, or every trajectory spanning the shards' chunks
+    (:mod:`quest_tpu_torch.parallel.trajectories`).
     """
 
     tier = None          # trajectory dispatches run at the env precision
@@ -269,6 +316,7 @@ class TrajectoryProgram:
         self.circuit = circuit
         self.num_qubits = circuit.num_qubits
         self.param_names = tuple(circuit.param_names)
+        self._pallas = pallas
         fused = _peephole_fused(circuit.ops)
         ops = []
         n_channels = 0
@@ -300,6 +348,21 @@ class TrajectoryProgram:
         self._adjoint_ops: Optional[dict] = None
         self._last_traj_stats: dict = {}
         self._batch_stats: dict = {}
+        # the mesh: the priced policy's comm model (made at its first
+        # use), the walk over the chunks (amp mode) and the pad-and-mask
+        # warning latch (parallel/shards.py)
+        self._stats_lock = threading.Lock()
+        self._warned_nondivisible = False
+        self._cost_model_cached = False
+        self._cost_model = None
+        self._host_bits = 0
+        self._walk = None
+        if self._on_mesh:
+            from ..parallel.multihost import host_topology
+            topo = host_topology(env.mesh)
+            shard_bits = env.num_devices.bit_length() - 1
+            self._host_bits = min(topo.host_bits, shard_bits) if topo \
+                else 0
 
     def _build_kernel_items(self, fused_ops):
         """The item stream of the batched walker: ``("layer", LayerOp)`` for
@@ -335,29 +398,67 @@ class TrajectoryProgram:
     # -- the batched walker --------------------------------------------------
 
     def _channel_probs(self, states: torch.Tensor, targets,
-                       estack: torch.Tensor) -> torch.Tensor:
+                       estack: torch.Tensor, num_qubits: Optional[int] = None,
+                       exact: bool = False) -> torch.Tensor:
         """``p_j = <psi| E_j |psi> = tr(E_j rho_T)`` for every trajectory:
-        one pass over the batch builds each trajectory's ``2^t x 2^t``
-        reduced density of the targets (a ``torch.matmul``), then every
-        probability is a small trace against the ``E_j`` stack (``(K, d,
-        d)``, or ``(T, K, d, d)`` for a per-row channel). ``(T, K)`` in the
-        plane dtype."""
-        n = self.num_qubits
+        each trajectory's ``2^t x 2^t`` reduced density of the targets (a
+        ``torch.matmul``), then every probability a small trace against
+        the ``E_j`` stack (``(K, d, d)``, or ``(T, K, d, d)`` for a per-row
+        channel). ``(T, K)`` in the plane dtype, or (``exact``) in float64
+        unrounded. ``num_qubits``: the qubits ``states`` hold (a chunk's
+        local qubits on a mesh, whose call is one chunk's partial sum;
+        default the program's).
+
+        The reductions run in fixed groups of rows, each over blocks of
+        the ``_PROB_BLOCK_BITS`` lowest other qubits in the plane dtype
+        (one batched GEMM of short reductions), the blocks summed in
+        float64. A float32 reduction over a whole 22-qubit state would
+        leave its result ~1e-6 to rounding, which moved with the card's
+        choice of GEMM kernel (by batch count and reduction length). With
+        fixed groups of rows a mesh shard's sub-batch reduces as one
+        device does. A state held as chunks keeps one device's blocks
+        while its targets are local; a sharded target swapped onto a low
+        local position (``parallel/trajectories.py``) moves a qubit out of
+        the blocks, so its blocks group the amplitudes otherwise and its
+        probabilities can differ from one device's by an ulp: the draws
+        are then equal except where a uniform falls within that ulp of a
+        branch boundary."""
+        n = self.num_qubits if num_qubits is None else num_qubits
         k = len(targets)
         num_traj = states.shape[0]
         # bit j of the gathered index is targets[j]
         front = [2 + n - 1 - targets[j] for j in reversed(range(k))]
         rest = [2 + a for a in range(n) if 2 + a not in front]
-        a = states.view((num_traj, 2) + (2,) * n).permute(
-            [0, 1] + front + rest).reshape(num_traj, 2, 1 << k, -1)
-        ar, ai = a[:, 0], a[:, 1]
-        ar_t, ai_t = ar.transpose(1, 2), ai.transpose(1, 2)
-        rho_r = torch.matmul(ar, ar_t) + torch.matmul(ai, ai_t)
-        rho_i = torch.matmul(ai, ar_t) - torch.matmul(ar, ai_t)
-        er = estack.real.to(states.dtype)
-        ei = estack.imag.to(states.dtype)
-        eq = "kab,tba->tk" if estack.dim() == 3 else "tkab,tba->tk"
-        return torch.einsum(eq, er, rho_r) - torch.einsum(eq, ei, rho_i)
+        # the other qubits split into blocks of the lowest ones, the same
+        # blocks whether the state is whole or a mesh's chunk: (row,
+        # block, plane, target index, in-block index)
+        low = min(_PROB_BLOCK_BITS, len(rest))
+        view = states.view((num_traj, 2) + (2,) * n).permute(
+            [0] + rest[:len(rest) - low] + [1] + front
+            + rest[len(rest) - low:])
+        blocks = 1 << (len(rest) - low)
+        er = estack.real.to(torch.float64)
+        ei = estack.imag.to(torch.float64)
+        shared = estack.dim() == 3
+        eq = "kab,tba->tk" if shared else "tkab,tba->tk"
+        parts = []
+        for r0 in range(0, num_traj, _ROW_GROUP):
+            g = slice(r0, r0 + _ROW_GROUP)
+            a = view[g].reshape(-1, blocks, 2, 1 << k, 1 << low)
+            ar, ai = a[:, :, 0], a[:, :, 1]
+            ar_t, ai_t = ar.transpose(-1, -2), ai.transpose(-1, -2)
+            # each block's reduced density, then the blocks summed in
+            # float64
+            rho_r = (torch.matmul(ar, ar_t)
+                     + torch.matmul(ai, ai_t)).double().sum(1)
+            rho_i = (torch.matmul(ai, ar_t)
+                     - torch.matmul(ar, ai_t)).double().sum(1)
+            del a, ar, ai, ar_t, ai_t
+            parts.append(
+                torch.einsum(eq, er if shared else er[g], rho_r)
+                - torch.einsum(eq, ei if shared else ei[g], rho_i))
+        probs = torch.cat(parts)
+        return probs if exact else probs.to(states.dtype)
 
     def _operators(self, data, kind, pm: np.ndarray):
         """The channel's Kraus stack and effect stack as complex device
@@ -416,13 +517,13 @@ class TrajectoryProgram:
             ks, es = self._operators(data, kind, pm)
             probs = self._channel_probs(states, targets, es)
             j, scale = kk.draw_plain(probs, uniforms[:, idx])
-            apply_unitary(states, n, _branch_operators(ks, j, scale), targets)
+            _rows_unitary(states, n, _branch_operators(ks, j, scale), targets)
             if record:
                 return j, probs.gather(1, j[:, None])[:, 0], scale
         elif kind in ("u", "u_fn"):
             _, targets, data, (cmask, fmask) = item
             u = data if kind == "u" else bind_rows(data, self.param_names, pm)
-            apply_unitary(states, n, u, targets, cmask, fmask)
+            _rows_unitary(states, n, u, targets, cmask, fmask)
         else:
             _, targets, data, _ = item
             d = data if kind == "diag" \
@@ -451,7 +552,7 @@ class TrajectoryProgram:
                     torch.zeros_like(psel))
             else:
                 ks, _ = self._operators(data, kind, pm)
-                apply_unitary(states, n, _branch_operators(ks, j, scale),
+                _rows_unitary(states, n, _branch_operators(ks, j, scale),
                               targets)
         return states
 
@@ -659,6 +760,189 @@ class TrajectoryProgram:
                 self._reverse_channel(k, item, pair, grads, pm, tape)
         return values, grads, tape
 
+    # -- the mesh: sharding policy and modes ---------------------------------
+
+    @property
+    def _on_mesh(self) -> bool:
+        return self.env.mesh is not None and self.env.num_devices > 1
+
+    def _comm_model(self):
+        if not self._cost_model_cached:
+            from ..profiling import comm_model
+            self._cost_model = comm_model(self.env) if self._on_mesh \
+                else None
+            self._cost_model_cached = True
+        return self._cost_model
+
+    def _policy(self, batch: int, mem_factor: float = 1.0) -> dict:
+        """The priced sharding decision for a ``batch``-trajectory wave
+        (:func:`quest_tpu_torch.parallel.layout.choose_batch_sharding`):
+        trajectory-parallel while the replicated working set fits,
+        amplitude-sharded past the wall, with the amp mode's exchanges
+        counted by :func:`~quest_tpu_torch.parallel.layout.
+        traj_cross_shard_ops`. ``mem_factor=2.0`` is the gradient waves'
+        pricing (the state and the cotangent live together through the
+        reverse walk)."""
+        if not self._on_mesh:
+            return {"mode": "none"}
+        from ..parallel.layout import (choose_batch_sharding,
+                                       traj_cross_shard_ops)
+        paired = [targets for kind, targets, _, _ in self._ops
+                  if not kind.startswith("diag")]
+        est = traj_cross_shard_ops(paired, self.num_qubits,
+                                   self.env.num_devices)
+        return choose_batch_sharding(
+            self.num_qubits, batch, self.env.num_devices,
+            self.env.precision.real_dtype.itemsize, est,
+            cost_model=self._comm_model(), host_bits=self._host_bits,
+            mem_factor=mem_factor)
+
+    def _device_multiple(self) -> int:
+        return self.env.num_devices if self._on_mesh else 1
+
+    def _resolve_mode(self, batch: int, shard_trajectories,
+                      mem_factor: float = 1.0) -> str:
+        """``shard_trajectories``: None -> the priced policy; True -> force
+        trajectory-parallel (a mesh is required); False -> force unsharded
+        (the first shard's device runs the whole wave)."""
+        if shard_trajectories is True:
+            if not self._on_mesh:
+                raise ValueError(
+                    "shard_trajectories needs a multi-device mesh env")
+            return "batch"
+        if shard_trajectories is False:
+            return "none"
+        mode = self._policy(batch, mem_factor=mem_factor)["mode"]
+        if mode == "amp" and (1 << self.num_qubits) < self.env.num_devices:
+            raise ValueError(
+                f"a {self.num_qubits}-qubit state cannot span the "
+                f"{self.env.num_devices}-shard mesh")
+        return mode
+
+    def _shard_twin(self, d: int) -> "TrajectoryProgram":
+        """This program as it runs on shard ``d``'s device alone (``batch``
+        mode, :func:`~quest_tpu_torch.parallel.shards.shard_twin`): it
+        shares the program's items and their packed layers."""
+        from ..parallel.shards import shard_twin
+        return shard_twin(self, d, _reset_trajectory_twin)
+
+    def _mesh_walk(self):
+        """The walk over the mesh's chunks (``amp`` mode), built at its
+        first use (:func:`quest_tpu_torch.parallel.trajectories.
+        build_walk`)."""
+        if self._walk is None:
+            from ..parallel.trajectories import build_walk
+            self._walk = build_walk(self, self._pallas)
+        return self._walk
+
+    def _on_shards(self, run, start: torch.Tensor, uniforms: torch.Tensor,
+                   pm_rows: np.ndarray, *per_row):
+        """``batch`` mode: the wave's rows split over the shards in shard
+        order, ``run(twin, start, uniforms, pm_rows, *per_row)`` on each
+        shard's one-device twin (the start planes and every ``per_row``
+        tensor on its device), and the outputs (a tensor or a tuple of
+        them) joined on the env's device. A wave the mesh does not divide
+        is padded by :func:`~quest_tpu_torch.parallel.shards.split_rows`
+        and the extra rows' results dropped: the first ``T`` rows are the
+        caller's, so every draw is the one the unpadded wave makes."""
+        from ..parallel.shards import split_rows
+        num = pm_rows.shape[0]
+        per, (uniforms, pm_rows, *per_row) = split_rows(
+            self, "trajectory batch", num, uniforms, pm_rows, *per_row)
+        outs = []
+        for d in range(self.env.num_devices):
+            tw = self._shard_twin(d)
+            dev = tw.env.device
+            rows = slice(d * per, (d + 1) * per)
+            out = run(tw, start.to(dev), uniforms[rows], pm_rows[rows],
+                      *(t[rows].to(dev) for t in per_row))
+            outs.append(out if isinstance(out, tuple) else (out,))
+        joined = tuple(torch.cat([o[k].to(start.device) for o in outs])[:num]
+                       for k in range(len(outs[0])))
+        return joined if len(joined) > 1 else joined[0]
+
+    def _run_mode(self, mode: str, start: torch.Tensor,
+                  uniforms: torch.Tensor, pm_rows: np.ndarray):
+        """The ``(T, 2, 2^n)`` planes of a wave in ``mode`` on the env's
+        device: whole states per shard (``batch``), the mesh's chunks
+        joined (``amp``), or one device (``none``)."""
+        if mode == "none":
+            return self._run_rows(start, uniforms, pm_rows)
+        if mode == "amp":
+            u = uniforms.to(device=start.device, dtype=start.dtype)
+            return torch.cat([c.to(start.device) for c in
+                              self._mesh_walk().wave(u).run_rows(start,
+                                                                 pm_rows)],
+                             dim=-1)
+        return self._on_shards(
+            lambda tw, *args: tw._run_rows(*args), start, uniforms, pm_rows)
+
+    def _wave_values(self, mode: str, start: torch.Tensor,
+                     uniforms: torch.Tensor, pm_rows: np.ndarray,
+                     operands) -> torch.Tensor:
+        """The ``(T,)`` Pauli-sum values of one wave in ``mode``, in the
+        plane dtype on the env's device: each shard reduces its own rows
+        (``batch``), the chunks' partial sums combine in float64 (``amp``)."""
+        xm, ym, zm, cf = operands
+        if mode == "amp":
+            from ..parallel import chunks as chk
+            u = uniforms.to(device=start.device, dtype=start.dtype)
+            walk = self._mesh_walk()
+            states = walk.wave(u).run_rows(start, pm_rows)
+            return chk.pauli_total(states, walk.local, xm, ym, zm,
+                                   cf).to(start.device, start.dtype)
+
+        def values(tw, *args):
+            return red.pauli_sum_total_sv(tw._run_rows(*args), xm, ym, zm,
+                                          cf)
+
+        if mode == "none":
+            return values(self, start, uniforms, pm_rows)
+        return self._on_shards(values, start, uniforms, pm_rows)
+
+    def _wave_grads(self, mode: str, start: torch.Tensor,
+                    uniforms: torch.Tensor, pm_rows: np.ndarray,
+                    baseline: torch.Tensor, operands):
+        """One gradient wave in ``mode``: ``(values, grads)`` as
+        :meth:`_grad_rows` returns them, each shard walking its own rows
+        (``batch``) or every trajectory spanning the chunks (``amp``, the
+        adjoint walk of :class:`~quest_tpu_torch.parallel.trajectories.
+        TrajectoryWalk`)."""
+        if mode == "amp":
+            from ..parallel import chunks as chk
+            xm, ym, zm, cf = operands
+            walk = self._mesh_walk()
+            lt = walk.local
+
+            def cotangent(psi, lam):
+                chk.pauli_sum_apply(psi, lt, xm, ym, zm, cf, lam)
+                for p, q in zip(psi, lam):
+                    q.addcmul_(p, baseline.to(p.device).view(-1, 1, 1),
+                               value=-1.0)
+
+            vals, grads = walk.wave(
+                uniforms.to(device=start.device, dtype=start.dtype)
+            ).run_wave(
+                start, pm_rows,
+                lambda psi: chk.pauli_total(psi, lt, xm, ym, zm, cf),
+                cotangent,
+                self._store_bytes(pm_rows.shape[0], start.dtype))
+            return vals.to(start.device, start.dtype), grads
+
+        def wave(tw, start_d, u, rows, b):
+            return tw._grad_rows(start_d, u, rows, b, operands)[:2]
+
+        if mode == "none":
+            return wave(self, start, uniforms, pm_rows, baseline)
+        return self._on_shards(wave, start, uniforms, pm_rows, baseline)
+
+    def _record_batch_stats(self, batch: int, mode: str,
+                            host_syncs_avoided: int) -> None:
+        with self._stats_lock:
+            self._batch_stats = {"batch_size": batch,
+                                 "batch_sharding_mode": mode,
+                                 "host_syncs_avoided": host_syncs_avoided}
+
     # -- inputs --------------------------------------------------------------
 
     def _param_matrix(self, params) -> np.ndarray:
@@ -748,28 +1032,42 @@ class TrajectoryProgram:
                               self._param_matrix(params))[0]
 
     def trajectory_sweep(self, num_trajectories: int, params=None,
-                         state_f=None, uniforms=None) -> torch.Tensor:
+                         state_f=None, uniforms=None,
+                         shard_trajectories: Optional[bool] = None
+                         ) -> torch.Tensor:
         """``num_trajectories`` independent draws from one start state
         (default |0..0>): the ``(T, 2, 2^n)`` planes on the env's device.
         ``uniforms``: the ``(T, num_channels)`` block to draw with (default:
-        drawn from the env's generator)."""
+        drawn from the env's generator).
+
+        On a mesh env the trajectories shard by the priced policy
+        (:meth:`_policy`): whole states per shard (``batch``) while the
+        per-shard working set fits, every state spanning the shards'
+        chunks (``amp``) past it. The uniforms decide every draw: each mode
+        draws what one device draws, up to a uniform within an ulp of a
+        branch boundary in ``amp`` mode (:meth:`_channel_probs`). A count the mesh does not divide
+        is padded and masked, with one warning. ``shard_trajectories``
+        overrides the policy (True forces ``batch``, False one device)."""
         num_traj = int(num_trajectories)
         if num_traj < 1:
             raise ValueError("num_trajectories must be >= 1")
+        mode = self._resolve_mode(num_traj, shard_trajectories)
         pm = self._param_matrix(params)
         shape = (num_traj, self.num_channels)
         u = self._given_uniforms(uniforms, shape) if uniforms is not None \
             else self._draw_uniforms(self.env.generator, shape)
-        self._batch_stats = {"batch_size": num_traj,
-                             "host_syncs_avoided": num_traj - 1}
-        return self._run_rows(self._start(state_f), u,
-                              np.repeat(pm, num_traj, axis=0))
+        out = self._run_mode(mode, self._start(state_f), u,
+                             np.repeat(pm, num_traj, axis=0))
+        self._record_batch_stats(num_traj, mode, num_traj - 1)
+        return out
 
-    def run_batch(self, state_f, num_trajectories: int, params=None,
-                  uniforms=None) -> torch.Tensor:
+    def run_batch(self, state_f, num_trajectories: int, uniforms=None,
+                  shard_trajectories: Optional[bool] = None,
+                  params=None) -> torch.Tensor:
         """:meth:`trajectory_sweep` with the start state first."""
         return self.trajectory_sweep(num_trajectories, params=params,
-                                     state_f=state_f, uniforms=uniforms)
+                                     state_f=state_f, uniforms=uniforms,
+                                     shard_trajectories=shard_trajectories)
 
     def run(self, qureg, params=None, uniforms=None) -> None:
         """One trajectory, in place on a state-vector register;
@@ -794,6 +1092,7 @@ class TrajectoryProgram:
                     num_trajectories: int = None, *, params=None,
                     sampling_budget: Optional[float] = None,
                     wave_size: Optional[int] = None,
+                    shard_trajectories: Optional[bool] = None,
                     seed: Optional[int] = None,
                     uniforms=None) -> tuple[float, float]:
         """Monte-Carlo estimate of ``<H>`` under the noisy evolution,
@@ -801,14 +1100,17 @@ class TrajectoryProgram:
         pairs, codes 1=X 2=Y 3=Z). Returns ``(mean, stderr)``.
 
         The ensemble runs in WAVES of ``wave_size`` trajectories (default
-        ``min(T, 32)``); each wave's values fold into a device-resident
-        running (count, mean, M2), and the wave's ONE device-to-host
-        transfer is that triple. ``sampling_budget`` (a target standard
+        ``min(T, max(32, D))`` on a ``D``-shard mesh, rounded up to a
+        multiple of ``D``; ``min(T, 32)`` off one); each wave's values
+        fold into a device-resident running (count, mean, M2), and the
+        wave's ONE device-to-host transfer is that triple.
+        ``sampling_budget`` (a target standard
         error) stops the loop at the first wave that meets it. The uniforms
         are drawn up front from ``seed``'s generator (default the env's),
         or given as a ``(T, num_channels)`` block, so the stop decision is
         a function of the seed. The accounting lands in
-        :attr:`last_traj_stats`."""
+        :attr:`last_traj_stats`. ``shard_trajectories`` as in
+        :meth:`trajectory_sweep`."""
         if num_trajectories is None or int(num_trajectories) < 2:
             raise ValueError("expectation needs >= 2 trajectories for a "
                              "standard error")
@@ -834,7 +1136,8 @@ class TrajectoryProgram:
         means, errs, _ = self._converge(
             self._param_matrix(params), terms, [float(c) for c in coeffs],
             state_f, num_traj, self._generator(seed), uniforms,
-            sampling_budget=sampling_budget, wave_size=wave_size)
+            sampling_budget=sampling_budget, wave_size=wave_size,
+            shard_trajectories=shard_trajectories)
         return float(means[0]), float(errs[0])
 
     def expectation_batch(self, param_matrix, hamiltonian,
@@ -877,6 +1180,7 @@ class TrajectoryProgram:
                          num_trajectories: int = None, *, params=None,
                          sampling_budget: Optional[float] = None,
                          wave_size: Optional[int] = None,
+                         shard_trajectories: Optional[bool] = None,
                          seed: Optional[int] = None, uniforms=None):
         """Monte-Carlo estimate of ``<H>`` AND its parameter gradient under
         the noisy evolution, from one wave loop. Returns ``(value, grad,
@@ -891,7 +1195,9 @@ class TrajectoryProgram:
         ``sampling_budget`` stops the loop at the first wave where EVERY
         component's standard error fits. The uniforms are ``expectation``'s
         (``seed``, or a ``(T, num_channels)`` block), so the value is its
-        mean bit for bit."""
+        mean bit for bit. On a mesh the waves are priced at twice the
+        value path's memory (``mem_factor=2``); ``shard_trajectories`` as
+        in :meth:`trajectory_sweep`."""
         if num_trajectories is None or int(num_trajectories) < 2:
             raise ValueError("expectation_grad needs >= 2 trajectories "
                              "for a standard error")
@@ -906,7 +1212,8 @@ class TrajectoryProgram:
         means, errs, _ = self._converge(
             self._param_matrix(params), terms, cfs, state_f, num_traj,
             self._generator(seed), uniforms, sampling_budget=sampling_budget,
-            wave_size=wave_size, grad=True)
+            wave_size=wave_size, shard_trajectories=shard_trajectories,
+            grad=True)
         return float(means[0, 0]), means[0, 1:], errs[0]
 
     def expectation_grad_batch(self, param_matrix, hamiltonian,
@@ -946,7 +1253,8 @@ class TrajectoryProgram:
     def _converge(self, pm: np.ndarray, terms, coeffs, state_f,
                   max_trajectories: int, generator: torch.Generator,
                   uniforms, sampling_budget=None, wave_size=None,
-                  live_rows=None, grad: bool = False, progress=None):
+                  live_rows=None, shard_trajectories=None,
+                  grad: bool = False, progress=None):
         """The shared wave loop over ``(B, P)`` parameter rows. Row ``b``'s
         trajectory ``t`` uses uniform row ``uniforms[b, t]`` of one block
         drawn up front, so wave boundaries never change a draw.
@@ -954,7 +1262,10 @@ class TrajectoryProgram:
         running triple holds the ``P`` gradient components beside the
         value's, the stop decision needs every component's standard error
         to fit, and the returned means and stderrs are ``(B, P + 1)``.
-        The value's triple is folded exactly as the value loop folds it."""
+        The value's triple is folded exactly as the value loop folds it.
+        On a mesh every wave runs in the mode :meth:`_resolve_mode` picks
+        for ``B * bucket`` rows (``mem_factor=2`` for gradients), the
+        bucket a multiple of the mesh."""
         rows = pm.shape[0]
         live = rows if live_rows is None else max(1, min(int(live_rows),
                                                          rows))
@@ -964,8 +1275,12 @@ class TrajectoryProgram:
         if uniforms is None:
             uniforms = self._draw_uniforms(
                 generator, (rows, max_trajectories, num_channels))
-        wave = int(wave_size) if wave_size else min(max_trajectories, 32)
-        waves, bucket = plan_waves(max_trajectories, wave)
+        mult = self._device_multiple()
+        wave = int(wave_size) if wave_size \
+            else min(max_trajectories, max(32, mult))
+        waves, bucket = plan_waves(max_trajectories, wave, mult)
+        mode = self._resolve_mode(rows * bucket, shard_trajectories,
+                                  mem_factor=2.0 if grad else 1.0)
         start = self._start(state_f)
         dtype, device = start.dtype, start.device
         pm_rows = np.repeat(pm, bucket, axis=0)
@@ -990,13 +1305,12 @@ class TrajectoryProgram:
             if grad:
                 # the baseline: each row's running mean over earlier waves
                 # (0 on the first), independent of this wave's draws
-                vals, grads, _ = self._grad_rows(
-                    start, u, pm_rows, carry[1].repeat_interleave(bucket),
-                    (xm, ym, zm, cf))
+                vals, grads = self._wave_grads(
+                    mode, start, u, pm_rows,
+                    carry[1].repeat_interleave(bucket), (xm, ym, zm, cf))
             else:
-                states = self._run_rows(start, u, pm_rows)
-                vals = red.pauli_sum_total_sv(states, xm, ym, zm, cf)
-                del states
+                vals = self._wave_values(mode, start, u, pm_rows,
+                                         (xm, ym, zm, cf))
             wave_stats = red.welford_wave(vals.view(rows, bucket), mask)
             carry = torch.stack(red.welford_merge(
                 (carry[0], carry[1], carry[2]), wave_stats))
@@ -1044,8 +1358,7 @@ class TrajectoryProgram:
         self._last_traj_stats = dict(info)
         # one device-to-host transfer per wave, where a loop over the
         # trajectories would make one each
-        self._batch_stats = {"batch_size": rows * run,
-                             "host_syncs_avoided": rows * run - waves_run}
+        self._record_batch_stats(rows * run, mode, rows * run - waves_run)
         return (np.asarray(snap[1], dtype=np.float64),
                 np.asarray(stderr, dtype=np.float64), info)
 
@@ -1074,17 +1387,19 @@ class TrajectoryProgram:
         """Dispatch accounting (:class:`quest_tpu_torch.profiling.
         DispatchStats`): recorded ops in, program items out (after the
         peephole fusion), and the last batched call's trajectories and
-        host transfers avoided (one per wave, not one per trajectory). On
-        one device there are no relayouts and no sharding; the port keeps
+        host transfers avoided (one per wave, not one per trajectory), and
+        its sharding mode on a mesh (``"none"`` off one). The port keeps
         no executable cache, so its fields keep their defaults."""
         from ..profiling import DispatchStats
+        with self._stats_lock:
+            bs = dict(self._batch_stats)
         return DispatchStats(
             gates_in=len(self.circuit.ops),
             kernels_out=len(self._ops),
             relayouts=0,
-            batch_size=self._batch_stats.get("batch_size", 0),
-            host_syncs_avoided=self._batch_stats.get("host_syncs_avoided",
-                                                     0))
+            batch_size=bs.get("batch_size", 0),
+            host_syncs_avoided=bs.get("host_syncs_avoided", 0),
+            batch_sharding_mode=bs.get("batch_sharding_mode", "none"))
 
     # -- sampling / debug -----------------------------------------------------
 

@@ -33,7 +33,8 @@ from ..ops.statevec import set_weighted
 __all__ = ["init_chunks", "set_amps", "amp_pair", "total_prob",
            "prob_of_outcome", "inner_product", "density_inner_product",
            "hs_distance", "pauli_expvals", "pauli_total",
-           "pauli_sum_apply",
+           "pauli_sum_apply", "pauli_expvals_dm", "pauli_total_dm",
+           "density_identity",
            "init_pure_density", "fidelity_density", "weighted",
            "mix_density", "density_diagonal"]
 
@@ -262,6 +263,80 @@ def pauli_total(chunks: list, lt: int, xmask, ymask, zmask, coeffs,
 
 
 # -- density registers -------------------------------------------------------
+
+def pauli_expvals_dm(chunks: list, lt: int, num_qubits: int, xmask, ymask,
+                     zmask, compensated: bool = False) -> torch.Tensor:
+    """Per-term ``Tr(P_t rho)`` of density registers (``num_qubits`` each,
+    flat ``rho[r, c] = flat[r + c*2^n]``) held as canonical chunks of
+    ``lt`` qubits, ``(2, C)`` or ``(B, 2, C)``: float64 ``(B, T)`` on the
+    first chunk's device. A term reads the ``2^n`` entries ``rho[r ^ m,
+    r]`` (:func:`~quest_tpu_torch.ops.reductions.pauli_sum_expvals_dm`);
+    each shard sums those it holds, in the plane dtype (compensated when
+    asked), and the partial sums combine in float64 in shard order."""
+    batch = [c.unsqueeze(0) if c.dim() == 2 else c for c in chunks]
+    dim = 1 << num_qubits
+    home = batch[0].device
+    rows = np.arange(dim, dtype=np.int64)
+    out = []
+    for xm, ym, zm in zip(xmask, ymask, zmask):
+        xy, yz = int(xm) | int(ym), int(ym) | int(zm)
+        j = rows ^ xy
+        flat = rows * dim + j
+        owner = flat >> lt
+        parity = np.zeros(dim, dtype=np.int64)
+        for q in range(max(yz.bit_length(), 1)):
+            if (yz >> q) & 1:
+                parity ^= (j >> q) & 1
+        sign = 1.0 - 2.0 * parity
+        acc = torch.zeros((batch[0].shape[0], 2), dtype=torch.float64,
+                          device=home)
+        for d, c in enumerate(batch):
+            sel = owner == d
+            if not sel.any():
+                continue
+            idx = torch.as_tensor(flat[sel] - (d << lt), device=c.device)
+            picked = c.index_select(-1, idx) * torch.as_tensor(
+                sign[sel], dtype=c.dtype, device=c.device)
+            if compensated:
+                part = torch.stack([s + e for s, e in (
+                    red._sum_pair_rows(picked[:, p]) for p in (0, 1))],
+                    dim=-1)
+            else:
+                part = picked.sum(-1)
+            acc += part.double().to(home)
+        acc_re, acc_im = acc.unbind(-1)
+        ph = bin(int(ym)).count("1") % 4
+        # i^|y| times the trace: its real part
+        out.append((acc_re, -acc_im, -acc_re, acc_im)[ph])
+    return torch.stack(out, dim=-1)
+
+
+def pauli_total_dm(chunks: list, lt: int, num_qubits: int, xmask, ymask,
+                   zmask, coeffs, compensated: bool = False) -> torch.Tensor:
+    """``sum_t coeffs[t] Tr(P_t rho_b)``: float64 ``(B,)``."""
+    vals = pauli_expvals_dm(chunks, lt, num_qubits, xmask, ymask, zmask,
+                            compensated)
+    cf = torch.as_tensor(np.asarray(coeffs, dtype=np.float64),
+                         dtype=vals.dtype, device=vals.device)
+    return (vals * cf).sum(-1)
+
+
+def density_identity(devices, lt: int, num_qubits: int, dtype) -> list:
+    """The identity's flat vector (``flat[r + r*2^n] = 1``) as ``(1, 2,
+    2^lt)`` chunks, one per device: the density gradient's cotangent is
+    ``H`` applied to it (``Tr(H rho) = Re <H_flat, rho_flat>``)."""
+    dim = 1 << num_qubits
+    C = 1 << lt
+    diag = np.arange(dim, dtype=np.int64) * (dim + 1)
+    out = []
+    for d, dev in enumerate(devices):
+        c = torch.zeros((1, 2, C), dtype=dtype, device=dev)
+        mine = diag[(diag >> lt) == d] - (d << lt)
+        if len(mine):
+            c[0, 0, torch.as_tensor(mine, device=dev)] = 1.0
+        out.append(c)
+    return out
+
 
 def density_diagonal(chunk: torch.Tensor, d: int, n: int, lt: int):
     """``(view, r0)``: the real diagonal entries ``rho[r, r]`` that shard

@@ -51,6 +51,7 @@ import torch
 __all__ = ["LayoutPlan", "plan_layout", "apply_relayout", "is_swap_op",
            "plan_comm_stats", "relayout_comm", "relayout_comm_tiered",
            "reorder_plan_score", "choose_batch_sharding",
+           "traj_cross_shard_ops",
            "permute_positions", "choose_mxu_contraction", "MXU_ROW_CAP",
            "HBM_BYTES_PER_S", "CUDA_CORE_FLOPS", "BF16_TENSOR_FLOPS"]
 
@@ -725,6 +726,29 @@ def choose_batch_sharding(num_qubits: int, batch: int, num_devices: int,
                 "per_device_bytes": batch_mode_bytes}
     return {"mode": "amp", "amp_comm_seconds": amp_comm,
             "per_device_bytes": 2.0 * state_bytes / num_devices}
+
+
+def traj_cross_shard_ops(op_supports, num_qubits: int,
+                         num_devices: int) -> int:
+    """The ``num_relayouts`` estimate a TRAJECTORY ensemble feeds
+    :func:`choose_batch_sharding` when pricing its amplitude-sharded mode:
+    the number of paired (non-diagonal) ops whose support touches a sharded
+    position, i.e. the exchanges each wave pays when every state spans the
+    mesh. A trajectory program carries no layout plan of its own (its
+    channel draws split it), so this op-level count is the upper bound the
+    policy prices; the ``batch`` mode pays none of them, which is why it
+    wins whenever the replicated working set fits (the JAX package's
+    ``parallel/layout.py`` function of the same name).
+
+    ``op_supports``: an iterable of target tuples, one per paired op
+    (diagonal ops commute with the shard split and are left out by the
+    caller)."""
+    shard_bits = max(num_devices.bit_length() - 1, 0)
+    if shard_bits <= 0:
+        return 0
+    lo = num_qubits - shard_bits
+    return sum(1 for support in op_supports
+               if any(int(t) >= lo for t in support))
 
 
 

@@ -86,7 +86,6 @@ from torch_threads import one_blas_thread  # noqa: F401
 
 RNG = ("the RNG decision (ROADMAP): the port draws from a "
        "torch.Generator or caller-given uniforms, never jax.random keys")
-SHARDING = "waits for the multi-device slice (ROADMAP Queue 1 item 8)"
 
 # (qualified name, reference parameter) -> (port parameters in its place,
 # reason)
@@ -94,17 +93,11 @@ ALLOWED = {
     ("CompiledCircuit.sample_sweep", "key"): (("generator",), RNG),
     ("TrajectoryProgram.run", "key"): (("uniforms",), RNG),
     ("TrajectoryProgram.run_batch", "key"): (("uniforms",), RNG),
-    ("TrajectoryProgram.run_batch", "shard_trajectories"): ((), SHARDING),
     ("TrajectoryProgram.trajectory_sweep", "key"): (("uniforms",), RNG),
-    ("TrajectoryProgram.trajectory_sweep", "shard_trajectories"):
-        ((), SHARDING),
     ("TrajectoryProgram.expectation", "key"): (("seed", "uniforms"), RNG),
-    ("TrajectoryProgram.expectation", "shard_trajectories"): ((), SHARDING),
     ("TrajectoryProgram.expectation_batch", "key"): (("seed",), RNG),
     ("TrajectoryProgram.expectation_grad", "key"): (("seed", "uniforms"),
                                                     RNG),
-    ("TrajectoryProgram.expectation_grad", "shard_trajectories"):
-        ((), SHARDING),
     ("TrajectoryProgram.expectation_grad_batch", "key"): (("seed",), RNG),
     ("TrajectoryProgram.apply", "key"): (("uniforms",), RNG),
     ("TrajectoryProgram.sample", "key"): (("seed", "uniforms"), RNG),
