@@ -3959,13 +3959,16 @@ def quad_brickwork(torch, qt, lk, kk, card):
         tp = prog.total_prob(planes)
         check(abs(tp - 1.0) <= 1e-12,
               f"17b {name} {n} q: total_prob {tp!r} within 1e-12 of 1")
+        # the planes' digest: phase 23c's mesh run is held against it
+        digest = planes_digest(torch, planes)
         # one dense dd gate (the first rotation) timed alone
         step = prog._plan[0]
         gate_ms = cuda_ms(torch, lambda: step(planes), reps=3)
         bound = quad_dd_gate_bound_ms(n, itemsize)
         rows[name] = {"qubits": n, "gates_per_s": len(gates) / run_s,
                       "dd_gate_ms": gate_ms, "dd_gate_bound_ms": bound,
-                      "peak_gib": peak / 2**30, "run_s": run_s}
+                      "peak_gib": peak / 2**30, "run_s": run_s,
+                      "digest": digest}
         print(f"  17b {name} compile_dd brickwork, {n} qubits, "
               f"{len(gates)} gates ({prog.num_steps} dd steps) on {card}: "
               f"{run_s:.2f} s, {len(gates) / run_s:.1f} gates/s")
@@ -4065,7 +4068,7 @@ def quad_sweep(torch, qt, lk, kk, card):
           f"{rel:.3e} of max|amp| <= 1e-13")
     return {"points_per_s": batch / quad_s, "peak_gib": peak / 2**30,
             "walk_s": walk_s, "walk_peak_gib": walk_peak / 2**30,
-            "deviation": dev}
+            "deviation": dev, "energies": e_quad, "quad_s": quad_s}
 
 
 def quad_density(torch, qt, lk, kk, card):
@@ -5153,6 +5156,8 @@ def phase_serving_rest(torch, qt, lk, kk, card):
             "held_err": router["held_err"],
             "router_rates": {k: v["rate"]
                              for k, v in router["runs"].items()},
+            "router_p99": {k: v["p99_s"]
+                           for k, v in router["runs"].items()},
             "restart": router["restart"], "wall_s": wall}
 
 
@@ -5807,7 +5812,9 @@ def netserve_keys(net, kraus: bool = False):
 def quad_keys(quad):
     """Phase 17's figures, as keys of the ``layer_kernel`` row (no kernel
     runs on the dd paths)."""
-    b = quad["brickwork"]
+    # the digests are phase 23c's yardsticks, not figures
+    b = {name: {k: v for k, v in row.items() if k != "digest"}
+         for name, row in quad["brickwork"].items()}
     return {"quad": {
         "launches": 0,
         "brickwork": b,
@@ -7226,9 +7233,511 @@ def ensemble_keys(ens, kraus: bool = False, single: bool = False):
             "examples_s": ex["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the single-controller mesh's remainder (Pauli sums and wide
+# passes on sharded registers, QUAD on a mesh, serving on mesh envs)
+# ---------------------------------------------------------------------------
+
+REMAINDER_TERMS = 24                # bench.py:1350's sum, made to 30 q
+WIDE_QUBITS, WIDE_SHARDS = 3, 8     # 23b: 3 local qubits per chunk
+NARROW_QUBITS = 2                   # 23b: half a column per chunk
+QUAD_MESH_QUBITS = 28               # 23c: phase 17's QUAD brickwork
+QUAD_MESH_IMPERATIVE_QUBITS = 24
+MESH_REPLICA_SHARDS = 2             # 23d: 2 replicas x 2 shards
+MESH_SERVE_TRAJ_QUBITS, MESH_SERVE_TRAJ_T = 16, 128
+
+
+def planes_digest(torch, chunks):
+    """A position-sensitive digest of dd planes' raw bits: per plane, the
+    int64 sums of 1024 equal blocks (256 per chunk of a 4-shard list),
+    on the host. Two tensors whose digests agree are taken as equal bit
+    for bit (a difference would have to cancel inside a block)."""
+    if not isinstance(chunks, (list, tuple)):
+        chunks = [chunks]
+    per = 1024 // len(chunks)
+    return torch.cat([raw_bits(torch, c).view(4, per, -1).sum(
+        -1, dtype=torch.int64) for c in chunks], dim=1).cpu()
+
+
+def dd_chunk_err(torch, chunks, whole) -> float:
+    """max |hi + lo of a chunk - the same slice of the whole dd planes|,
+    in float64 on the card, over max |whole|."""
+    width = chunks[0].shape[-1]
+    w = whole.double()
+    wv = torch.stack([w[0] + w[1], w[2] + w[3]])
+    diff = 0.0
+    for d, c in enumerate(chunks):
+        cv = c.double()
+        cv = torch.stack([cv[0] + cv[1], cv[2] + cv[3]])
+        diff = max(diff, float((cv - wv[:, d * width:(d + 1) * width])
+                               .abs().max()))
+    return diff / float(wv.abs().max())
+
+
+def timed_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def remainder_pauli(torch, qt, lk, kk, card):
+    """23a: applyPauliSum on the 30-q brickwork state, and the density
+    register's Pauli expectations, on 4 shards against one device on the
+    same input."""
+    n = MAIN_QUBITS
+    rng = np.random.default_rng(2026)
+    codes = rng.integers(0, 4, size=(REMAINDER_TERMS, n))
+    coeffs = rng.normal(size=REMAINDER_TERMS)
+    codes_flat = [int(c) for c in codes.reshape(-1)]
+    print(f"  23a: applyPauliSum of the {REMAINDER_TERMS}-term sum on phase "
+          f"4's {n}-qubit brickwork state, {MESH_SHARDS} shards")
+    env4, env1 = mesh_env(qt), qt.createQuESTEnv()
+    q4 = qt.createQureg(n, env4)
+    qt.initPlusState(q4)
+    cc = as_circuit(qt, n, brickwork(n, MAIN_LAYERS)).compile(env4)
+    reset_counts(lk, kk)
+    with HeldLayers(torch, lk, batched=False) as held:
+        cc.run(q4)
+        torch.cuda.synchronize()
+    h_abs, h_rel = held.max_err()
+    check(held.launches == cc.num_layers * MESH_SHARDS > 0
+          and h_rel <= 1e-5,
+          f"the brickwork's {held.launches} layer launches ({cc.num_layers}"
+          f" layers x {MESH_SHARDS} shards), each against its plain version"
+          f" on its own chunk: max|diff| {h_abs:.3e}, / max|plain| "
+          f"{h_rel:.3e} <= 1e-5")
+    out = {"layer_launches": held.launches, "layer_err": h_abs}
+    del cc
+    q1 = qt.createQureg(n, env1)
+    q4.ensure_canonical()
+    q1.state = torch.cat(q4.chunks, dim=1)       # the same input
+    o4, o1 = qt.createQureg(n, env4), qt.createQureg(n, env1)
+    _, s4 = timed_s(torch, lambda: qt.applyPauliSum(
+        q4, codes_flat, coeffs, REMAINDER_TERMS, o4))
+    _, s1 = timed_s(torch, lambda: qt.applyPauliSum(
+        q1, codes_flat, coeffs, REMAINDER_TERMS, o1))
+    err = chunk_err(o4.chunks, o1.state)
+    check(o4.is_sharded and err <= 1e-5,
+          f"23a applyPauliSum {n} q: the image's chunks vs one device "
+          f"{err:.3e} of max|amp| <= 1e-5; {s4 * 1e3:.1f} ms on "
+          f"{MESH_SHARDS} shards, {s1 * 1e3:.1f} ms on one device ({card})")
+    out.update(pauli_sum_ms=s4 * 1e3, pauli_sum_single_ms=s1 * 1e3,
+               pauli_sum_err=err)
+    del q4, q1, o4, o1
+    torch.cuda.empty_cache()
+    nd = DENSITY_QUBITS
+    _, calls, _ = density_noise(qt, nd)
+    d4 = qt.createDensityQureg(nd, env4)
+    qt.initPlusState(d4)
+    for fn, args in calls:
+        fn(d4, *args)
+    d4.ensure_canonical()
+    d1 = qt.createDensityQureg(nd, env1)
+    d1.state = torch.cat(d4.chunks, dim=1)
+    dcodes = rng.integers(0, 4, size=(REMAINDER_TERMS, nd))
+    dcoeffs = rng.normal(size=REMAINDER_TERMS)
+    dflat = [int(c) for c in dcodes.reshape(-1)]
+    targets, pcodes = [0, nd // 2, nd - 1], [1, 2, 3]
+    vals = {}
+    for key, d in (("mesh", d4), ("one", d1)):
+        e, es = timed_s(torch, lambda: qt.calcExpecPauliSum(
+            d, dflat, dcoeffs))
+        p, ps = timed_s(torch, lambda: qt.calcExpecPauliProd(
+            d, targets, pcodes))
+        vals[key] = (e, p, es, ps)
+    scale = max(abs(vals["one"][0]), abs(vals["one"][1]), 1.0)
+    derr = max(abs(vals["mesh"][i] - vals["one"][i]) for i in (0, 1)) / scale
+    check(derr <= 1e-5,
+          f"23a config 4 ({nd} q density, {2 * 4 * (1 << 2 * nd) / 2**30:.0f}"
+          f" GiB): calcExpecPauliSum {vals['mesh'][0]!r} vs "
+          f"{vals['one'][0]!r}, calcExpecPauliProd {vals['mesh'][1]!r} vs "
+          f"{vals['one'][1]!r}: {derr:.3e} of max|E| <= 1e-5; "
+          f"{vals['mesh'][2] * 1e3:.1f} and {vals['mesh'][3] * 1e3:.1f} ms "
+          f"on {MESH_SHARDS} shards, {vals['one'][2] * 1e3:.1f} and "
+          f"{vals['one'][3] * 1e3:.1f} ms on one device")
+    out.update(expec_ms=vals["mesh"][2] * 1e3,
+               expec_single_ms=vals["one"][2] * 1e3, expec_err=derr)
+    return out
+
+
+def remainder_wide(torch, qt, lk, kk, card):
+    """23b: wide passes on a 3-q density register over 8 shards of the
+    card, and initPureState/calcFidelity on chunks narrower than a
+    column."""
+    from quest_tpu_torch.parallel import exchange as ex
+    n = WIDE_QUBITS
+    print(f"  23b: wide passes, a {n}-qubit density register over "
+          f"{WIDE_SHARDS} shards of the card ({2 * n - 3} local qubits)")
+    env8 = qt.createQuESTEnv(devices=["cuda:0"] * WIDE_SHARDS)
+    env1 = qt.createQuESTEnv()
+    u = random_unitary(np.random.default_rng(23), 4)
+    res, peaks = {}, []
+    for key, env in (("mesh", env8), ("one", env1)):
+        pure = qt.createQureg(n, env)
+        qt.initPlusState(pure)
+        qt.rotateY(pure, 2, 0.4)
+        qt.controlledPhaseShift(pure, 0, 2, 0.9)
+        d = qt.createDensityQureg(n, env)
+        qt.initPureState(d, pure)
+        for step in (lambda: qt.twoQubitUnitary(d, 0, 2, u),
+                     lambda: qt.mixTwoQubitDepolarising(d, 1, 2, 0.2)):
+            ex.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            step()
+            torch.cuda.synchronize()
+            if key == "mesh":
+                peaks.append((ex.GROUP_PEAK[0],
+                              torch.cuda.max_memory_allocated() - base,
+                              ex.COUNTS["grouped"]))
+        res[key] = (d.to_numpy(), qt.calcPurity(d), qt.calcFidelity(d, pure))
+    chunk = 2 * 4 * (1 << (2 * n)) // WIDE_SHARDS
+    for i, (group, extra, grouped) in enumerate(peaks):
+        print(f"    pass {i}: {grouped} grouped pass(es), the group "
+              f"{group} B ({group // chunk} chunks of {chunk} B), "
+              f"allocated beside the register at its peak {extra} B")
+    check(all(g == 2 * chunk and c >= 1 for g, _, c in peaks),
+          "23b: each wide pass ran on groups of 2 chunks (2^(k - lt), k = "
+          "4 targets, lt = 3)")
+    scale = float(np.abs(res["one"][0]).max())
+    err = float(np.abs(res["mesh"][0] - res["one"][0]).max()) / scale
+    verr = max(abs(a - b) for a, b in zip(res["mesh"][1:], res["one"][1:]))
+    check(err <= 1e-5 and verr <= 1e-5,
+          f"23b twoQubitUnitary + mixTwoQubitDepolarising on {WIDE_SHARDS} "
+          f"shards vs one device: {err:.3e} of max|amp|, purity and "
+          f"fidelity {verr:.3e} <= 1e-5")
+    m = NARROW_QUBITS
+    res = {}
+    for key, env in (("mesh", env8), ("one", env1)):
+        p, p2 = qt.createQureg(m, env), qt.createQureg(m, env)
+        qt.initPlusState(p)
+        qt.rotateX(p, 1, 0.7)
+        qt.initPlusState(p2)
+        qt.rotateY(p2, 0, 1.1)
+        d = qt.createDensityQureg(m, env)
+        qt.initPureState(d, p)
+        qt.mixDephasing(d, 0, 0.2)
+        if key == "mesh":
+            check(d.chunks[0].shape[-1] < (1 << m),
+                  f"23b: a {m}-qubit density register's chunk holds "
+                  f"{d.chunks[0].shape[-1]} of a column's {1 << m} rows")
+        res[key] = (d.to_numpy(), qt.calcFidelity(d, p2))
+    err = float(np.abs(res["mesh"][0] - res["one"][0]).max())
+    check(err <= 1e-5 and abs(res["mesh"][1] - res["one"][1]) <= 1e-5,
+          f"23b narrow chunks: initPureState {err:.3e}, calcFidelity "
+          f"{res['mesh'][1]!r} vs {res['one'][1]!r} <= 1e-5")
+    return {"group_bytes": peaks[0][0], "group_peak_bytes":
+            max(e for _, e, _ in peaks)}
+
+
+def remainder_quad(torch, qt, lk, kk, card, quad=None):
+    """23c: QUAD on the mesh: phase 17's brickwork through compile_dd at
+    28 q, an imperative QUAD register at 24 q, and the QUAD rung of the
+    24-q HEA in amp mode; no kernel launches. ``quad``: phase 17's result,
+    whose one-device planes digest and energies are the yardsticks, else
+    they are computed here."""
+    n = QUAD_MESH_QUBITS
+    print(f"  23c: QUAD on {MESH_SHARDS} shards: phase 17's brickwork "
+          f"through compile_dd at {n} q")
+    env4 = mesh_env(qt, precision=qt.QUAD)
+    circ = as_circuit(qt, n, brickwork(n, MAIN_LAYERS))
+    if quad is not None:
+        want, single_s = quad["brickwork"]["QUAD"]["digest"], \
+            quad["brickwork"]["QUAD"]["run_s"]
+    else:
+        prog1 = circ.compile_dd(qt.createQuESTEnv(precision=qt.QUAD))
+        planes, single_s = timed_s(torch, lambda: prog1.run(
+            prog1.init_zero()))
+        want = planes_digest(torch, planes)
+        del planes, prog1
+        torch.cuda.empty_cache()
+    prog = circ.compile_dd(env4)
+    reset_counts(lk, kk)
+    chunks = prog.init_zero()
+    chunks, mesh_s = timed_s(torch, lambda: prog.run(chunks))
+    no_launches(lk, kk, "23c compile_dd on the mesh")
+    same = torch.equal(planes_digest(torch, chunks), want)
+    tp = prog.total_prob(chunks)
+    check(same and abs(tp - 1.0) <= 1e-12,
+          f"23c compile_dd {n} q: the {MESH_SHARDS} chunks' dd planes equal "
+          f"one device's bit for bit (digest), total_prob {tp!r}; "
+          f"{mesh_s:.2f} s on {MESH_SHARDS} shards ({prog.num_steps} steps, "
+          f"{prog.layout_plan.num_relayouts} relayouts), {single_s:.2f} s "
+          f"on one device")
+    out = {"brickwork_s": mesh_s, "brickwork_single_s": single_s}
+    del chunks, prog
+    torch.cuda.empty_cache()
+    m = QUAD_MESH_IMPERATIVE_QUBITS
+    u = random_unitary(np.random.default_rng(17), 4)
+    regs = {}
+    for key, env in (("mesh", env4),
+                     ("one", qt.createQuESTEnv(precision=qt.QUAD))):
+        q = qt.createQureg(m, env)
+        qt.initPlusState(q)
+        _, secs = timed_s(torch, lambda: (
+            qt.rotateY(q, m - 1, 0.3), qt.hadamard(q, 0),
+            qt.twoQubitUnitary(q, m - 1, 0, u),
+            qt.controlledNot(q, m - 1, 1), qt.tGate(q, m - 2)))
+        regs[key] = (q, secs, qt.calcTotalProb(q),
+                     qt.calcExpecPauliProd(q, [0, m - 1], [1, 3]))
+    q4, s4, t4, e4 = regs["mesh"]
+    q1, s1, t1, e1 = regs["one"]
+    q4.ensure_canonical()
+    err = dd_chunk_err(torch, q4.chunks, q1.state)
+    no_launches(lk, kk, "23c imperative QUAD")
+    check(err <= 1e-12 and abs(t4 - t1) <= 1e-12 and abs(e4 - e1) <= 1e-12,
+          f"23c imperative QUAD {m} q with a cross-shard two-qubit unitary:"
+          f" planes {err:.3e} of max|amp|, total {t4!r} vs {t1!r}, <X0 "
+          f"Z{m - 1}> {e4!r} vs {e1!r} <= 1e-12; {s4 * 1e3:.1f} ms on "
+          f"{MESH_SHARDS} shards, {s1 * 1e3:.1f} ms on one device")
+    del regs, q4, q1
+    torch.cuda.empty_cache()
+    circ, terms, coeffs, _, pm = hea_problem(qt)
+    pm = pm[:QUAD_SWEEP_BATCH]
+    ham = (terms, coeffs)
+    if quad is not None:
+        ref, ref_s = quad["sweep"]["energies"], quad["sweep"]["quad_s"]
+    else:
+        cc1 = circ.compile(qt.createQuESTEnv(precision=qt.DOUBLE))
+        ref, ref_s = timed_s(torch, lambda: cc1.expectation_sweep(
+            pm, ham, tier="quad"))
+    cc = circ.compile(mesh_env(qt, precision=qt.DOUBLE))
+    reset_counts(lk, kk)
+    with BatchMemLimit(1):
+        vals, secs = timed_s(torch, lambda: cc.expectation_sweep(
+            pm, ham, tier="quad"))
+    no_launches(lk, kk, "23c expectation_sweep(tier='quad') in amp mode")
+    mode = cc.dispatch_stats().batch_sharding_mode
+    err = float(np.abs(vals - ref).max()) / float(np.abs(ref).max())
+    check(mode == "amp" and err <= 1e-12,
+          f"23c tier='quad' HEA {SWEEP_QUBITS} q batch {len(pm)} in {mode} "
+          f"mode vs one device's QUAD rung: {err:.3e} of max|E| <= 1e-12; "
+          f"{secs:.2f} s on {MESH_SHARDS} shards, {ref_s:.2f} s on one "
+          "device")
+    out.update(sweep_s=secs, sweep_single_s=ref_s)
+    return out
+
+
+def remainder_serving(torch, qt, lk, kk, card, sweep=None, rest=None):
+    """23d: serving on mesh envs: bench.py:2812's replicated cell through
+    a router of 2 replicas x 2 shards, one 24-q HEA batch of 64 through a
+    service on 4 shards, one 16-q trajectory request; every batched-layer
+    and Kraus launch held against its plain version."""
+    import warnings
+    from quest_tpu_torch.resilience import SupervisorPolicy
+    from quest_tpu_torch.serve import ServiceRouter, replica_envs
+    from quest_tpu_torch.testing import lockcheck
+    n, N = SERVE_QUBITS, ROUTER_REQUESTS
+    circ, ham, pm = router_trace(qt, n)
+    names = circ.param_names
+    want = circ.compile(qt.createQuESTEnv(seed=[ROUTER_SEED])) \
+        .expectation_sweep(pm, ham)
+    scale = float(np.abs(want).max())
+    k = MESH_REPLICA_SHARDS
+    buckets = [1 << j for j in range(ROUTER_BATCH.bit_length())
+               if (1 << j) >= k]
+    print(f"  23d: {N} requests of bench.py:2812's cell through "
+          f"{ROUTER_REPLICAS} replicas x {k} shards on {card}, every "
+          "batched layer launch held against its plain version")
+    was = lockcheck.installed()
+    lockcheck.install()
+    before = len(lockcheck.violations())
+    out = {}
+    try:
+        router = ServiceRouter(
+            replica_envs(ROUTER_REPLICAS, devices_per_replica=k,
+                         seed=[ROUTER_SEED]),
+            supervisor=SupervisorPolicy(poll_s=0.01, stall_timeout_s=30.0,
+                                        restart_backoff_s=0.02),
+            warm_cache=False, max_batch=ROUTER_BATCH, max_wait_s=SERVE_WAIT,
+            max_queue=N + ROUTER_BATCH, request_timeout_s=600.0)
+        router.warm(circ, batch_sizes=buckets, observables=ham)
+        reset_counts(lk, kk)
+        with HeldLayers(torch, lk, batched=True) as held, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            futs = [router.submit(circ, dict(zip(names, pm[i])),
+                                  observables=ham) for i in range(N)]
+            got = np.array([f.result(timeout=600) for f in futs])
+            wall = time.perf_counter() - t0
+        stats = router.dispatch_stats()
+        router.close()
+        r = stats["router"]
+        dev = float(np.abs(got - want).max()) / scale
+        h_abs, h_rel = held.max_err()
+        print(f"  23d router: {N / wall:.1f} requests/s ({wall:.2f} s, with "
+              f"the holds), p99 {r['p99_latency_s'] * 1e3:.1f} ms; phase "
+              "19a's one-device replicas: " + (
+                  f"{rest['router_rates']['clean']:.1f} requests/s, p99 "
+                  f"{rest['router_p99']['clean'] * 1e3:.1f} ms"
+                  if rest is not None else "not run"))
+        for i, rep in enumerate(stats["replicas"]):
+            s = rep["service"]
+            rows = s["coalesced_requests"] + s["padded_rows"]
+            check(s["failed"] == 0 and rows % k == 0 and s["completed"] > 0,
+                  f"23d replica {i}: {s['completed']} served in "
+                  f"{s['batches']} batches, {rows} rows dispatched, a "
+                  f"multiple of its {k} shards")
+        check(r["routed"] == N and r["failovers"] == 0 and dev <= 1e-5
+              and not any("padding" in str(w.message) for w in caught),
+              f"23d: {r['routed']} routed, 0 dropped, no failover, no "
+              f"pad-and-mask; energies vs a direct expectation_sweep "
+              f"{dev:.3e} of max|E| <= 1e-5")
+        check(held.launches > 0 and len(held.errs) == held.launches
+              and h_rel <= 1e-5,
+              f"23d router: {held.launches} batched layer launches, each "
+              f"against its plain version on its own input: max|diff| "
+              f"{h_abs:.3e}, / max|plain| {h_rel:.3e} <= 1e-5")
+        out.update(router_rate=N / wall, router_p99_s=r["p99_latency_s"],
+                   router_launches=held.launches, router_err=h_abs)
+        # one 24-q HEA batch of 64 through a service on 4 shards
+        hcirc, terms, coeffs, _, hpm = hea_problem(qt)
+        hham = (terms, coeffs)
+        env4 = mesh_env(qt, seed=[2026])
+        if sweep is not None:
+            ref = sweep["energies"]
+        else:
+            ref = hcirc.compile(qt.createQuESTEnv(seed=[2026])) \
+                .expectation_sweep(hpm, hham)
+        svc = qt.createSimulationService(env4, max_batch=SWEEP_BATCH,
+                                         max_wait_s=SERVE_WAIT,
+                                         request_timeout_s=600.0)
+        cc = hcirc.compile(env4)
+        svc.pause()
+        futs = [svc.submit(cc, hpm[i], observables=hham)
+                for i in range(len(hpm))]
+        reset_counts(lk, kk)
+        with HeldLayers(torch, lk, batched=True) as held:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.resume()
+            got = np.array([f.result(timeout=600) for f in futs])
+            secs = time.perf_counter() - t0
+        st = svc.dispatch_stats()
+        svc.close()
+        dev = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+        h_abs, h_rel = held.max_err()
+        check_clean(st, "23d service")
+        check(st["service"]["batches"] == 1 and st["batch_size"] == 64
+              and dev <= 1e-5 and held.launches > 0
+              and h_rel <= 1e-5,
+              f"23d service on {MESH_SHARDS} shards: one dispatch of "
+              f"{st['batch_size']} rows in {st['batch_sharding_mode']} mode,"
+              f" {secs:.2f} s with {held.launches} batched layer launches "
+              f"held against plain (max|diff| {h_abs:.3e}, / max|plain| "
+              f"{h_rel:.3e}); energies vs a direct expectation_sweep "
+              f"{dev:.3e} of max|E| <= 1e-5")
+        out.update(hea_s=secs, hea_launches=held.launches,
+                   hea_err=h_abs, hea_mode=st["batch_sharding_mode"])
+        del svc, cc
+        torch.cuda.empty_cache()
+        # one trajectory request of 128 trajectories at 16 q on 4 shards
+        tn, T = MESH_SERVE_TRAJ_QUBITS, MESH_SERVE_TRAJ_T
+        rng = np.random.default_rng(2110)
+        tcirc = trajectory_circuit(qt, tn, rng)
+        tham = ([[(q, 3)] for q in range(tn)], list(rng.normal(size=tn)))
+        svc = qt.createSimulationService(env4, max_batch=8,
+                                         max_wait_s=SERVE_WAIT,
+                                         request_timeout_s=600.0)
+        tp = svc.warm(tcirc, observables=tham, trajectories=T)
+        qt.seedQuEST(env4, [7])
+        reset_counts(lk, kk)
+        with HeldKraus(torch, kk) as hk, \
+                HeldLayers(torch, lk, batched=True) as hl:
+            res, tsecs = timed_s(torch, lambda: svc.submit(
+                tcirc, None, observables=tham,
+                trajectories=T).result(timeout=600))
+        st = svc.dispatch_stats()
+        svc.close()
+        qt.seedQuEST(env4, [7])
+        means, _, _ = tp.expectation_batch(np.zeros((1, 0)), tham, T,
+                                           live_rows=1)
+        tdev = abs(res[0] - means[0]) / max(abs(means[0]), 1.0)
+        check_clean(st, "23d trajectory request")
+        check(hk.launches > 0 and hk.ok() and tdev <= 1e-5
+              and (hl.launches == 0 or hl.max_err()[1] <= 1e-5),
+              f"23d trajectory request ({tn} q, {T} trajectories) on "
+              f"{MESH_SHARDS} shards: {tsecs:.2f} s, {hk.launches} Kraus "
+              f"launches held against plain (max|diff| {hk.max_err():.3e}, "
+              f"indices equal), {hl.launches} batched layer launches held; "
+              f"energy vs a direct expectation_batch {tdev:.3e} <= 1e-5")
+        out.update(kraus_launches=hk.launches, kraus_err=hk.max_err(),
+                   traj_layer_launches=hl.launches,
+                   traj_layer_err=hl.max_err()[0],
+                   traj_per_s=T / tsecs)
+    finally:
+        new = lockcheck.violations()[before:]
+        if not was:
+            lockcheck.uninstall()
+    check(not new and lockcheck.find_cycle() is None,
+          f"23d lock order: {len(new)} violations")
+    return out
+
+
+def phase_mesh_remainder(torch, qt, lk, kk, card, sweep=None, quad=None,
+                         rest=None):
+    print(f"phase 23: the mesh's remainder, {MESH_SHARDS} shards on one card"
+          f" ({card}), SINGLE unless named")
+    t0 = time.perf_counter()
+    out, walls = {}, []
+    for key, part in (
+            ("pauli", remainder_pauli), ("wide", remainder_wide),
+            ("quad", lambda *a: remainder_quad(*a, quad=quad)),
+            ("serving", lambda *a: remainder_serving(*a, sweep=sweep,
+                                                     rest=rest))):
+        t1 = time.perf_counter()
+        out[key] = part(torch, qt, lk, kk, card)
+        torch.cuda.empty_cache()
+        walls.append(f"{key} {time.perf_counter() - t1:.1f}")
+    wall = time.perf_counter() - t0
+    print(f"  phase 23 wall time {wall:.1f} s ({', '.join(walls)})")
+    out["wall_s"] = wall
+    return out
+
+
+def remainder_keys(rem, kind: str):
+    """Phase 23's numbers, as keys of the layer kernel's row (``single``:
+    23a's compiled brickwork), the batched layer kernel's (``batched``:
+    23d's router, service and trajectory request) or the Kraus kernel's
+    (``kraus``: 23d's trajectory request), every launch held against its
+    plain version."""
+    if rem is None:
+        return {}
+    p, s = rem["pauli"], rem["serving"]
+    if kind == "single":
+        return {"launches_mesh_remainder": p["layer_launches"],
+                "mesh_remainder_max_abs_err": p["layer_err"],
+                "mesh_pauli_sum_ms": p["pauli_sum_ms"],
+                "mesh_pauli_sum_single_device_ms": p["pauli_sum_single_ms"],
+                "mesh_density_expec_ms": p["expec_ms"],
+                "mesh_density_expec_single_device_ms":
+                    p["expec_single_ms"],
+                "mesh_quad_brickwork_s": rem["quad"]["brickwork_s"],
+                "mesh_quad_brickwork_single_device_s":
+                    rem["quad"]["brickwork_single_s"],
+                "mesh_wide_group_bytes": rem["wide"]["group_bytes"]}
+    if kind == "kraus":
+        return {"launches_mesh_remainder": s["kraus_launches"],
+                "mesh_remainder_max_abs_err": s["kraus_err"],
+                "mesh_serving_traj_per_s": s["traj_per_s"]}
+    return {"launches_mesh_remainder": s["router_launches"]
+            + s["hea_launches"] + s["traj_layer_launches"],
+            "mesh_remainder_max_abs_err": max(
+                s["router_err"], s["hea_err"], s["traj_layer_err"]),
+            "mesh_router_requests_per_s": s["router_rate"],
+            "mesh_router_p99_s": s["router_p99_s"],
+            "mesh_service_hea_s": s["hea_s"],
+            "mesh_quad_sweep_s": rem["quad"]["sweep_s"]}
+
+
 PHASES = ("3", "3b", "3c", "3d", "3e", "4", "5", "6", "7", "8", "9", "9g",
           "10", "11", "12", "12d", "13", "14", "15", "16", "17", "18",
-          "19", "20", "21", "22")
+          "19", "20", "21", "22", "23")
 
 
 def parse_only(argv):
@@ -7351,6 +7860,10 @@ def main(argv) -> int:
         ensembles = phase_mesh_ensembles(
             torch, qt, lk, kk, card, traj, traj_grad, dynamics,
             density_grad) if runs("22") else None
+        torch.cuda.empty_cache()
+        remainder23 = phase_mesh_remainder(
+            torch, qt, lk, kk, card, sweep, quad, serving_rest) \
+            if runs("23") else None
         if row is not None and density is not None:
             # ``launches`` stays the main path's count; the density QFT's
             # own run is ``launches_density``
@@ -7367,6 +7880,8 @@ def main(argv) -> int:
             row = dict(row, **mesh_keys(mesh))
         if row is not None and ensembles is not None:
             row = dict(row, **ensemble_keys(ensembles, single=True))
+        if row is not None and remainder23 is not None:
+            row = dict(row, **remainder_keys(remainder23, "single"))
         tail = [fast_row, fast_batched_row, mxu_row]
         if density is not None:
             tail.append(diag_row(density))
@@ -7377,6 +7892,9 @@ def main(argv) -> int:
             rows[1] = dict(rows[1], **mesh_keys(mesh, batched=True),
                            **ensemble_keys(ensembles))
             rows[2] = dict(rows[2], **ensemble_keys(ensembles, kraus=True))
+            rows[1] = dict(rows[1], **remainder_keys(remainder23,
+                                                     "batched"))
+            rows[2] = dict(rows[2], **remainder_keys(remainder23, "kraus"))
         else:
             rows = [r for r in [row] + tail if r is not None]
             if row is None and density is not None:
@@ -7439,6 +7957,12 @@ def main(argv) -> int:
                                  **ensemble_keys(ensembles)))
                 rows.append(dict(name="kraus_kernel", path="mesh_ensembles",
                                  **ensemble_keys(ensembles, kraus=True)))
+            if remainder23 is not None:
+                for name, kind in (("layer_kernel", "single"),
+                                   ("layer_kernel_batched", "batched"),
+                                   ("kraus_kernel", "kraus")):
+                    rows.append(dict(name=name, path="mesh_remainder",
+                                     **remainder_keys(remainder23, kind)))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -27,13 +27,17 @@ is layout metadata), density channels as sharded superoperators and
 diagonals, and the ``calc*`` reductions, ``collapseToOutcome``,
 ``measure``, ``sampleOutcomes``, ``getAmp`` and the ``init*`` functions
 chunk by chunk (``parallel/chunks.py``; partial sums combined in float64).
-A function not routed yet raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 8; none computes on a gathered copy.
+A dense pass with more targets than a chunk has local qubits runs on
+groups of chunks (``exchange.apply_op_grouped``). None computes on a
+gathered copy; ``Qureg.state`` of a sharded register raises
+``NotImplementedError``.
 
 A QUAD or QUAD64 register (``(4, 2^N)`` double-double planes) takes the
 same dispatch shapes through the dd kernels of ``ops/doubledouble.py``
 (``ddm``), as the JAX package's ``is_quad`` branches do; its reductions
-come back as compensated pairs combined in host double precision.
+come back as compensated pairs combined in host double precision. On a
+mesh env its ``(4, 2^(N-s))`` chunks take the sharded paths above, with
+the dd kernels on each chunk.
 """
 
 from __future__ import annotations
@@ -138,7 +142,7 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
     uncontrolled, two when controlled)."""
     targets = tuple(int(t) for t in targets)
     ctrl_mask, flip_mask = bitmask(controls), bitmask(flips)
-    if qureg.is_quad:
+    if qureg.is_quad and not _pg.use_lazy(qureg):
         return _dd_gate(qureg, u, targets, ctrl_mask, flip_mask)
     buf = qureg._fusion_buffer
     if buf is not None and not buf.flushing:
@@ -152,7 +156,7 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
             if not qureg.is_density_matrix else dm.gate_passes(
                 targets, ctrl_mask, flip_mask, qureg.num_qubits_represented)
         for lift, ts, cm, fm in passes:
-            _sharded_unitary(qureg, lift(u), ts, cm, fm)
+            _pg.sharded_unitary(qureg, lift(u), ts, cm, fm)
         return
     if not qureg.is_density_matrix:
         apply_unitary(qureg.state, nv, u, targets, ctrl_mask, flip_mask)
@@ -160,20 +164,6 @@ def _apply_gate(qureg: Qureg, u: np.ndarray, targets: Sequence[int],
     for lift, ts, cm, fm in dm.gate_passes(targets, ctrl_mask, flip_mask,
                                            qureg.num_qubits_represented):
         apply_unitary(qureg.state, nv, lift(u), ts, cm, fm)
-
-
-def _sharded_unitary(qureg: Qureg, u, targets, ctrl_mask: int,
-                     flip_mask: int) -> None:
-    """One dense pass on a sharded register through the per-gate engine;
-    a gate wider than the chunk's local positions raises (the JAX
-    package takes its GSPMD path there; the port has no gathered
-    fallback)."""
-    if not _pg.fits_local(qureg, len(targets)):
-        raise qureg._unrouted(
-            f"a {len(targets)}-qubit dense pass wider than the "
-            f"{qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg)} "
-            "local qubits of each chunk")
-    _pg.sharded_unitary(qureg, u, targets, ctrl_mask, flip_mask)
 
 
 def _dd_gate(qureg: Qureg, u: np.ndarray, targets: tuple,
@@ -207,7 +197,7 @@ def _apply_diag_gate(qureg: Qureg, tensor: np.ndarray,
     if qureg.is_density_matrix:
         lift, qs = dm.diagonal_lift(qs, qureg.num_qubits_represented)
         tensor = lift(tensor)
-    if qureg.is_quad:
+    if qureg.is_quad and not _pg.use_lazy(qureg):
         qureg.state = ddm.dd_apply_diag(
             qureg.state, qureg.num_qubits_in_state_vec, tensor, qs)
         return
@@ -888,11 +878,13 @@ def swapGate(qureg: Qureg, q1: int, q2: int) -> None:
     val.validate_unique_targets(qureg.num_qubits_represented, q1, q2,
                                 "swapGate")
     buf = qureg._fusion_buffer
-    if qureg.is_quad or (buf is not None and not buf.flushing):
+    if (qureg.is_quad and not _pg.use_lazy(qureg)) or (
+            buf is not None and not buf.flushing):
         # fusion active: the swap keeps program order with the buffered
         # gates by riding the buffer as a dense 2-qubit member. A QUAD
         # register applies the permutation matrix densely in dd: its
-        # entries are exact 0/1, so it stays error-free
+        # entries are exact 0/1, so it stays error-free (on a mesh it is
+        # layout metadata, below, as for every register)
         _apply_gate(qureg, mats.swap(), (int(q1), int(q2)))
         qureg.qasm_log.record_gate("swap", q2, (q1,))
         return
@@ -1163,8 +1155,13 @@ def sampleOutcomes(qureg: Qureg, num_samples: int,
         uniforms = torch.rand(int(num_samples),
                               generator=qureg.env.generator,
                               dtype=torch.float64)
+        chunks = qureg.chunks
+        if qureg.is_quad:
+            # hi + lo rounded to the plane dtype, as on one device
+            chunks = [torch.stack([c[0] + c[1], c[2] + c[3]])
+                      for c in chunks]
         idx, total = sample_sharded(
-            qureg.chunks, uniforms, qureg.is_density_matrix, n,
+            chunks, uniforms, qureg.is_density_matrix, n,
             qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg))
         if total < qureg.env.precision.eps:
             val._fail("cannot sample a zero-probability register",
@@ -1415,17 +1412,20 @@ def calcExpecPauliProd(qureg: Qureg, targets: Sequence[int],
     codes_flat = [0] * n
     for t, c in zip(targets, codes):
         codes_flat[int(t)] = int(c)
-    if qureg.is_quad:
-        phi = _dd_pauli_image(qureg, codes_flat)
-        if qureg.is_density_matrix:
-            return float(ddm.dd_total_prob_dm(phi, n))
-        return float(ddm.dd_vdot(qureg.state, phi).real)
-    xm, ym, zm = red.pauli_masks(codes_flat, n)
-    if qureg.is_sharded and not qureg.is_density_matrix:
+    if qureg.is_sharded:
         qureg.ensure_canonical()
-        return float(chk.pauli_expvals(
-            qureg.chunks, n - _pg._shard_bits(qureg), xm, ym, zm,
-            qureg.env.compensated)[0, 0])
+    if qureg.is_quad:
+        return chk.dd_pauli_expval(*_dd_chunks(qureg), n,
+                                   qureg.is_density_matrix, codes_flat)
+    xm, ym, zm = red.pauli_masks(codes_flat, n)
+    if qureg.is_sharded:
+        lt = qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg)
+        if qureg.is_density_matrix:
+            return float(chk.pauli_expvals_dm(
+                qureg.chunks, lt, n, xm, ym, zm,
+                qureg.env.compensated)[0, 0])
+        return float(chk.pauli_expvals(qureg.chunks, lt, xm, ym, zm,
+                                       qureg.env.compensated)[0, 0])
     if qureg.is_density_matrix:
         return float(red.pauli_sum_expvals_dm(qureg.state, n, xm, ym,
                                               zm)[0])
@@ -1453,24 +1453,27 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
     val.validate_num_pauli_sum_terms(num_terms, "calcExpecPauliSum")
     val.validate_pauli_codes(all_codes, "calcExpecPauliSum")
     codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    if qureg.is_sharded:
+        qureg.ensure_canonical()
     if qureg.is_quad:
         # term by term on the dd planes: P_t psi, then one dd reduction
+        chunks, lt = _dd_chunks(qureg)
         value = 0.0
         for t in range(num_terms):
-            phi = _dd_pauli_image(qureg, codes_flat[t * n:(t + 1) * n])
-            if qureg.is_density_matrix:
-                value += float(coeffs[t]) * ddm.dd_total_prob_dm(phi, n)
-            else:
-                value += float(coeffs[t]) * ddm.dd_vdot(qureg.state,
-                                                        phi).real
+            value += float(coeffs[t]) * chk.dd_pauli_expval(
+                chunks, lt, n, qureg.is_density_matrix,
+                codes_flat[t * n:(t + 1) * n])
         return value
     xm, ym, zm, coeffs_np = red.pauli_sum_operands(
         codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
-    if qureg.is_sharded and not qureg.is_density_matrix:
-        qureg.ensure_canonical()
-        return float(chk.pauli_total(
-            qureg.chunks, n - _pg._shard_bits(qureg), xm, ym, zm, coeffs_np,
-            qureg.env.compensated)[0])
+    if qureg.is_sharded:
+        lt = qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg)
+        if qureg.is_density_matrix:
+            return float(chk.pauli_total_dm(
+                qureg.chunks, lt, n, xm, ym, zm, coeffs_np,
+                qureg.env.compensated)[0])
+        return float(chk.pauli_total(qureg.chunks, lt, xm, ym, zm,
+                                     coeffs_np, qureg.env.compensated)[0])
     if qureg.is_density_matrix:
         return float(red.pauli_sum_total_dm(qureg.state, n, xm, ym, zm,
                                             coeffs_np))
@@ -1478,17 +1481,14 @@ def calcExpecPauliSum(qureg: Qureg, all_codes: Sequence[int],
                                         zm, coeffs_np)[0])
 
 
-def _dd_pauli_image(qureg: Qureg, codes: Sequence[int]) -> torch.Tensor:
-    """P psi on a QUAD register's planes for one term's per-qubit codes
-    (on a density register the Paulis act on the ket half). Pauli entries
-    are 0, +-1 and +-i, so each dd gate is exact and the order of the
-    qubits does not change a bit."""
-    phi = qureg.state
-    nv = qureg.num_qubits_in_state_vec
-    for q, code in enumerate(codes):
-        if code:
-            phi = ddm.dd_apply_kq(phi, nv, mats.PAULI_MATS[code], (q,))
-    return phi
+def _dd_chunks(qureg: Qureg) -> tuple:
+    """A QUAD register's dd planes as ``(chunks, local qubits)``: a
+    sharded register's canonical chunks, else its whole planes as one
+    chunk (``parallel/chunks.py``'s dd functions take either)."""
+    if qureg.is_sharded:
+        return qureg.chunks, \
+            qureg.num_qubits_in_state_vec - _pg._shard_bits(qureg)
+    return [qureg.state], qureg.num_qubits_in_state_vec
 
 
 def applyPauliSum(in_qureg: Qureg, all_codes: Sequence[int],
@@ -1510,23 +1510,31 @@ def applyPauliSum(in_qureg: Qureg, all_codes: Sequence[int],
     val.validate_pauli_codes(all_codes, "applyPauliSum")
     n = in_qureg.num_qubits_represented
     codes_flat = tuple(int(c) for c in all_codes[:num_terms * n])
+    if in_qureg.is_sharded:
+        in_qureg.ensure_canonical()
     if in_qureg.is_quad:
-        acc = None
-        for t in range(num_terms):
-            phi = _dd_pauli_image(in_qureg, codes_flat[t * n:(t + 1) * n])
-            acc = ddm.dd_weighted(float(coeffs[t]), phi, 0.0, phi, 0.0,
-                                  phi) if acc is None else \
-                ddm.dd_weighted(1.0, acc, float(coeffs[t]), phi, 0.0, acc)
-        out_qureg.state = acc.to(out_qureg.device)
-        out_qureg.qasm_log.record_comment(
-            "the register was set to a Pauli-sum image (possibly "
-            "unphysical)")
-        return
-    xm, ym, zm, coeffs_np = red.pauli_sum_operands(
-        codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
-    out = red.pauli_sum_apply(in_qureg.state.unsqueeze(0), xm, ym, zm,
-                              coeffs_np)
-    out_qureg.state = out[0].to(out_qureg.device)
+        out = chk.dd_pauli_sum_apply(*_dd_chunks(in_qureg), n, codes_flat,
+                                     coeffs, num_terms)
+    else:
+        xm, ym, zm, coeffs_np = red.pauli_sum_operands(
+            codes_flat, n, np.asarray(coeffs[:num_terms], np.float64))
+        if in_qureg.is_sharded:
+            # each term's X/Y bits on device positions pair chunk d with
+            # chunk d ^ dx (parallel/chunks.py)
+            chunks = in_qureg.chunks
+            out = chk.pauli_sum_apply(
+                chunks, in_qureg.num_qubits_in_state_vec
+                - _pg._shard_bits(in_qureg), xm, ym, zm, coeffs_np,
+                [torch.empty_like(c) for c in chunks])
+        else:
+            out = red.pauli_sum_apply(in_qureg.state.unsqueeze(0), xm, ym,
+                                      zm, coeffs_np)
+    if in_qureg.is_sharded:
+        # fresh chunks of the output register, on the same layout
+        out_qureg.chunks = [c.to(dev) for c, dev in
+                            zip(out, out_qureg.env.mesh.devices)]
+    else:
+        out_qureg.state = out[0].to(out_qureg.device)
     out_qureg.qasm_log.record_comment(
         "the register was set to a Pauli-sum image (possibly unphysical)")
 
@@ -1540,17 +1548,13 @@ def _apply_kraus(qureg: Qureg, targets: Sequence[int], ops) -> None:
     density vector (``densmatr_applyMultiQubitKrausSuperoperator``
     ``QuEST_common.c:598-604``)."""
     superop = dm.kraus_superoperator(ops)
-    if qureg.is_quad:
-        n = qureg.num_qubits_represented
-        t2 = tuple(int(t) for t in targets) \
-            + tuple(int(t) + n for t in targets)
-        qureg.state = ddm.dd_apply_kq(qureg.state, 2 * n, superop, t2)
-        return
+    n = qureg.num_qubits_represented
+    t2 = tuple(int(t) for t in targets) + tuple(int(t) + n for t in targets)
     if qureg.is_sharded:
-        n = qureg.num_qubits_represented
-        t2 = tuple(int(t) for t in targets) \
-            + tuple(int(t) + n for t in targets)
-        _sharded_unitary(qureg, superop, t2, 0, 0)
+        _pg.sharded_unitary(qureg, superop, t2, 0, 0)
+        return
+    if qureg.is_quad:
+        qureg.state = ddm.dd_apply_kq(qureg.state, 2 * n, superop, t2)
         return
     dm.apply_kraus_superoperator(qureg.state, qureg.num_qubits_represented,
                                  targets, superop)
@@ -1561,16 +1565,16 @@ def mixDephasing(qureg: Qureg, target: int, prob: float) -> None:
     val.validate_target(qureg.num_qubits_represented, target, "mixDephasing")
     val.validate_prob(prob, "mixDephasing", 0.5, "dephasing probability",
                       code=val.ErrorCode.E_INVALID_ONE_QUBIT_DEPHASE_PROB)
-    if qureg.is_quad:
-        n = qureg.num_qubits_represented
-        qureg.state = ddm.dd_apply_diag(qureg.state, 2 * n,
-                                        dm.dephasing_factors(float(prob)),
-                                        (int(target) + n, int(target)))
-    elif qureg.is_sharded:
+    if qureg.is_sharded:
         # dephasing is diagonal on (target+n, target): position-free
         n = qureg.num_qubits_represented
         _pg.sharded_diag(qureg, dm.dephasing_factors(float(prob)),
                          (int(target) + n, int(target)))
+    elif qureg.is_quad:
+        n = qureg.num_qubits_represented
+        qureg.state = ddm.dd_apply_diag(qureg.state, 2 * n,
+                                        dm.dephasing_factors(float(prob)),
+                                        (int(target) + n, int(target)))
     else:
         dm.mix_dephasing(qureg.state, qureg.num_qubits_represented,
                          int(target), float(prob))
@@ -1588,18 +1592,16 @@ def mixTwoQubitDephasing(qureg: Qureg, q1: int, q2: int,
     val.validate_prob(prob, "mixTwoQubitDephasing", 0.75,
                       "two-qubit dephasing probability",
                       code=val.ErrorCode.E_INVALID_TWO_QUBIT_DEPHASE_PROB)
-    if qureg.is_quad:
+    n = qureg.num_qubits_represented
+    hi, lo = max(int(q1), int(q2)), min(int(q1), int(q2))
+    if qureg.is_sharded:
+        _pg.sharded_diag(qureg, dm.two_qubit_dephasing_factors(float(prob)),
+                         (hi + n, lo + n, hi, lo))
+    elif qureg.is_quad:
         # diagonal on (q1, q2, q1+n, q2+n)
-        n = qureg.num_qubits_represented
-        hi, lo = max(int(q1), int(q2)), min(int(q1), int(q2))
         qureg.state = ddm.dd_apply_diag(
             qureg.state, 2 * n, dm.two_qubit_dephasing_factors(float(prob)),
             (hi + n, lo + n, hi, lo))
-    elif qureg.is_sharded:
-        n = qureg.num_qubits_represented
-        hi, lo = max(int(q1), int(q2)), min(int(q1), int(q2))
-        _pg.sharded_diag(qureg, dm.two_qubit_dephasing_factors(float(prob)),
-                         (hi + n, lo + n, hi, lo))
     else:
         dm.mix_two_qubit_dephasing(qureg.state,
                                    qureg.num_qubits_represented, int(q1),

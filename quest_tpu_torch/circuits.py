@@ -704,13 +704,18 @@ class Circuit:
         dtype: float32 planes give a ~48-bit significand, float64 planes
         ~106 bits (the reference's quad build analogue). Raises
         ``ValueError`` for ops outside the dd subset (parameterised or
-        multi-target dense gates)."""
+        multi-target dense gates). On a mesh env the program's planes are
+        chunks over the mesh, scheduled by the layout planner (a register
+        smaller than the mesh stays whole on the first shard, as a
+        ``Qureg`` does)."""
         from .ops.doubledouble import DDProgram
         if dtype is None:
             dtype = np.float32 if env.precision.real_dtype == torch.float32 \
                 else np.float64
+        mesh = env.mesh if env.mesh is not None \
+            and (1 << self.num_qubits) >= env.num_devices else None
         return DDProgram(list(self.ops), self.num_qubits, dtype=dtype,
-                         device=env.device)
+                         device=env.device, mesh=mesh)
 
     def compile_trajectories(self, env: QuESTEnv,
                              pallas=None) -> "TrajectoryProgram":
@@ -2227,18 +2232,16 @@ class CompiledCircuit:
         """``amp`` mode: every row spans the mesh as chunks; the mesh plan
         walks ``(B, 2, 2^(n-s))`` chunks, a layer as one launch of the
         batched layer kernel per shard, a parameter op's operator bound per
-        row. Returns the chunks in the tier's plane dtype."""
-        if tier is not None and tier.name == "quad":
-            raise NotImplementedError(
-                "the QUAD tier on a mesh waits for ROADMAP Queue 1 item "
-                "8's remainder")
+        row. Returns the chunks in the tier's plane dtype (float64 for
+        QUAD, whose walk is :meth:`_run_amp_dd`)."""
         rdt = self._tier_dtypes(tier, self.env)[0]
         prec, fast = self._tier_exec_mode(tier)
         plan, ops, _ = self._plan_for(tier, sharded=True)
         s = plan.shard_bits
-        lt = self.num_qubits - s
         chunks = self._amp_start(pm.shape[0], state_f, rdt)
         expl = self._exchange_plans(plan)
+        if tier is not None and tier.name == "quad":
+            return self._run_amp_dd(chunks, pm, plan, ops, expl)
         for j, item in enumerate(plan.items):
             if item[0] == "relayout":
                 ex.run_exchange(chunks, expl[j])
@@ -2248,6 +2251,42 @@ class CompiledCircuit:
                                  adj.item_operator(op, self.param_names, pm),
                                  prec, fast)
         return chunks
+
+    def _run_amp_dd(self, chunks: list, pm: np.ndarray, plan, ops,
+                    expl: dict) -> list:
+        """The QUAD rung in ``amp`` mode: each float64 ``(B, 2, 2^(n-s))``
+        chunk split into float32 double-double planes ``(B, 4,
+        2^(n-s))``, which walk the layer-free mesh plan as
+        :meth:`_run_dd_batched` walks the whole states: a relayout moves
+        the four planes of every chunk together, a gate runs through the
+        dd kernel on each chunk (a cross-shard 1q item on each pair of
+        chunks as one operand, ``exchange.apply_op_grouped``), a diagonal
+        with its device-bit axes sliced per shard. The chunks recombine to
+        float64 at the boundary. No kernel of the layer engine runs."""
+        from .ops import doubledouble as dd
+        s = plan.shard_bits
+        lt = self.num_qubits - s
+        planes = [dd.dd_split_planes(c[:, 0], c[:, 1], QUAD_TIER.real_dtype)
+                  for c in chunks]
+        del chunks
+        for j, item in enumerate(plan.items):
+            if item[0] == "relayout":
+                ex.run_exchange(planes, expl[j])
+                continue
+            kind, i, targets, cmask, fmask, axis_order = item
+            op = ops[i]
+            operator = adj.item_operator(op, self.param_names, pm)
+            if kind == "xshard":
+                ex.apply_op_grouped(planes, operator, targets, cmask, fmask,
+                                    lt, s, dd=True)
+            elif op.kind == "u":
+                ex.apply_op_local(planes, "u", operator, targets, cmask,
+                                  fmask, lt, dd=True)
+            else:
+                ex.apply_op_local(planes, "diag", adj._diag_in_plan_order(
+                    operator, targets, axis_order), targets, 0, 0, lt,
+                    dd=True)
+        return [dd.dd_join_planes(p) for p in planes]
 
     def _amp_value_and_grad(self, pm: np.ndarray, operands, state_f,
                             tier):
@@ -2819,6 +2858,10 @@ class CompiledCircuit:
         tier = self._grad_tier(tier) if kind == "grad" \
             else self._effective_tier(tier)
         mode = self._batch_policy(int(batch))["mode"]
+        if mode != "none":
+            raise ValueError(
+                f"warm AOT lowering covers the unsharded batch mode; "
+                f"batch {batch} chose {mode!r} on this mesh env")
         n = self.num_qubits
         shapes = ((2, 1 << n), (int(batch), len(self.param_names)))
         if kind in ("energy", "grad"):

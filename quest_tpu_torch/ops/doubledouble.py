@@ -53,7 +53,7 @@ __all__ = ["dd_pack", "dd_unpack", "dd_apply_1q", "dd_apply_perm_1q",
            "dd_join_planes", "dd_apply_kq_traced", "dd_apply_diag_traced",
            "dd_relayout", "dd_prob_zero_sv", "dd_prob_zero_dm",
            "dd_total_prob_dm", "dd_collapse", "dd_vdot", "dd_outer",
-           "dd_weighted"]
+           "dd_weighted", "dd_times_i_power"]
 
 # elements of one product stream of a dense gate: the columns of a group
 # are computed together while rows x group x block stays under this
@@ -516,21 +516,45 @@ def dd_vdot(a_planes: torch.Tensor, b_planes: torch.Tensor,
                    _diag_sum(p.reshape(-1) for p in im))
 
 
-def dd_outer(planes: torch.Tensor, conj_left: bool = False) -> torch.Tensor:
+def dd_outer(planes: torch.Tensor, conj_left: bool = False,
+             cols: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(4, dim) psi -> (4, dim^2) outer-product flat vector with
     ``flat[r + c*dim] = left(psi_r) * right(psi_c)``, where ``conj_left``
     selects ``conj(psi_r) * psi_c`` (fidelity weights) over ``psi_r *
     conj(psi_c)`` (|psi><psi| in the register's flat layout). Full dd
-    arithmetic: the lo planes survive, so QUAD64 keeps its envelope."""
+    arithmetic: the lo planes survive, so QUAD64 keeps its envelope.
+    ``cols`` gives the ``psi_c`` of a block of columns (``planes`` then
+    holds the block's ``psi_r``): a shard's chunk of the flat vector."""
+    cp = planes if cols is None else cols
     rh, rl, ih, il = planes[0], planes[1], planes[2], planes[3]
     ls = -1.0 if conj_left else 1.0
     rs = 1.0 if conj_left else -1.0
     # r varies fastest in the flat index: r is the LAST axis
-    u_re = (rh[:, None], rl[:, None])                 # c axis first
-    u_im = (rs * ih[:, None], rs * il[:, None])
+    u_re = (cp[0][:, None], cp[1][:, None])           # c axis first
+    u_im = (rs * cp[2][:, None], rs * cp[3][:, None])
     z = (rh[None, :], rl[None, :], ls * ih[None, :], ls * il[None, :])
     out = _cplx_mul_acc(None, u_re, u_im, z)          # (dim_c, dim_r) each
     return torch.stack([p.reshape(-1) for p in out])
+
+
+def dd_times_i_power(planes: torch.Tensor, power: int) -> torch.Tensor:
+    """``i^power`` times dd planes ``(..., 4, n)``, IN PLACE where it
+    moves anything: swaps and negations of the planes, exact."""
+    p = power % 4
+    if p == 0:
+        return planes
+    rh, rl, ih, il = (planes[..., j, :] for j in range(4))
+    if p == 2:
+        return planes.neg_()
+    re = torch.stack([rh, rl], dim=-2)
+    im = torch.stack([ih, il], dim=-2)
+    if p == 1:                       # (re, im) -> (-im, re)
+        planes[..., 0:2, :] = -im
+        planes[..., 2:4, :] = re
+    else:                            # (re, im) -> (im, -re)
+        planes[..., 0:2, :] = im
+        planes[..., 2:4, :] = -re
+    return planes
 
 
 def dd_weighted(fac1, s1: torch.Tensor, fac2, s2: torch.Tensor, fac3,
@@ -566,25 +590,43 @@ class DDProgram:
     permutations — exact). Parameterised gates and multi-target dense
     gates run in the batched engine's QUAD rung instead.
 
+    With a ``mesh`` (:class:`~quest_tpu_torch.parallel.mesh.Mesh`) the
+    planes are sharded on the amplitude axis as every register's are: a
+    state is a list of ``(4, 2^(n-s))`` chunks, one per shard. The program
+    is scheduled by the layout planner (``parallel/layout.py``): a dense
+    step on a sharded qubit waits for a relayout that makes it local
+    (``parallel/exchange.py``, the four planes of a chunk moving
+    together), a control on a device bit skips whole shards, a diagonal's
+    device-bit axes are sliced per shard, and a final relayout restores
+    the canonical order. Every step does per element what it does on one
+    device, so the planes equal one device's bit for bit.
+
     Built by :meth:`quest_tpu_torch.circuits.Circuit.compile_dd`, on the
-    environment's device. Constructed directly, it runs on ``cuda:0``
-    unless ``device`` names another device.
+    environment's device or mesh. Constructed directly, it runs on
+    ``cuda:0`` unless ``device`` names another device.
     """
 
     def __init__(self, ops, num_qubits: int, dtype=np.float32,
-                 device=None):
+                 device=None, mesh=None):
         from ..env import _resolve_device
         self.num_qubits = num_qubits
         self.dtype = _np_dtype(dtype)
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.device = _resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         plan = []
-        for op in ops:
-            plan.extend(self._lower(op))
+        if mesh is None:
+            for op in ops:
+                plan.extend(self._lower(op))
+        else:
+            for op in ops:
+                self._lower(op)          # the same subset is refused
+            plan = self._lower_mesh(list(ops))
         self._plan = plan
 
-    def _host_planes(self, z) -> torch.Tensor:
+    def _host_planes(self, z, device=None) -> torch.Tensor:
         return torch.from_numpy(_dd_split_host(z, self.dtype)).to(
-            self.device)
+            self.device if device is None else device)
 
     def _lower(self, op):
         n = self.num_qubits
@@ -598,8 +640,7 @@ class DDProgram:
                 p, f, n, d)]
         if op.kind != "u":
             raise ValueError(f"op kind {op.kind!r} unsupported in dd mode")
-        if len(op.targets) == 2 and np.array_equal(op.mat, _SWAP_MAT) \
-                and not op.ctrl_mask:
+        if _is_swap(op):
             a, b = op.targets
             return [lambda p, t=t, c=c: dd_apply_perm_1q(p, n, t, c)
                     for t, c in ((a, b), (b, a), (a, b))]
@@ -607,8 +648,7 @@ class DDProgram:
             raise ValueError(
                 "multi-target dense gates are not supported in dd mode")
         target = op.targets[0]
-        if np.array_equal(op.mat, _X_MAT) and not op.flip_mask \
-                and bin(op.ctrl_mask).count("1") <= 1:
+        if _is_perm_x(op):
             ctrl = op.ctrl_mask.bit_length() - 1 if op.ctrl_mask else -1
             return [lambda p, t=target, c=ctrl: dd_apply_perm_1q(p, n, t, c)]
         u_dd = self._host_planes(op.mat)
@@ -616,33 +656,128 @@ class DDProgram:
         return [lambda p, u=u_dd, t=(target,), c=cm, f=fm: _masked(
             _dd_apply_kq_body(p, u, n, t), p, c, f)]
 
+    def _lower_mesh(self, ops) -> list:
+        """The mesh plan's items as steps on a list of chunks (each step
+        replaces the entries it changes)."""
+        from ..parallel.exchange import plan_exchange, run_exchange
+        from ..parallel.layout import plan_layout
+        n = self.num_qubits
+        s = self.mesh.shard_bits
+        lt = n - s
+        devs = self.mesh.devices
+        plan = plan_layout(ops, n, s)
+        self.layout_plan = plan
+        steps = []
+        for item in plan.items:
+            if item[0] == "relayout":
+                ex = plan_exchange(n, s, tuple(int(p) for p in item[1]),
+                                   tuple(int(p) for p in item[2]))
+                steps.append(lambda ch, ex=ex: run_exchange(ch, ex))
+                continue
+            _, i, targets, cm, fm, axis_order = item
+            op = ops[i]
+            dev_c, loc_c = cm >> lt, cm & ((1 << lt) - 1)
+            want, loc_f = dev_c & ~(fm >> lt), fm & ((1 << lt) - 1)
+            shards = [d for d in range(len(devs))
+                      if not dev_c or (d & dev_c) == want]
+            if op.kind == "diag":
+                f = np.transpose(np.asarray(op.diag, np.complex128),
+                                 axis_order)
+                dev_pos = [p for p in targets if p >= lt]
+                loc_pos = tuple(p for p in targets if p < lt)
+                per = [self._host_planes(f[tuple(
+                    (d >> (p - lt)) & 1 for p in dev_pos)].reshape(-1),
+                    devs[d]) for d in range(len(devs))]
+                fns = {d: (lambda c, f=per[d], q=loc_pos: _dd_diag_traced(
+                    c, f, lt, q)) for d in shards}
+            elif _is_swap(op):
+                a, b = targets
+                fns = {d: (lambda c, a=a, b=b: dd_apply_perm_1q(
+                    dd_apply_perm_1q(dd_apply_perm_1q(c, lt, a, b), lt, b,
+                                     a), lt, a, b)) for d in shards}
+            elif _is_perm_x(op):
+                ctrl = loc_c.bit_length() - 1 if loc_c else -1
+                fns = {d: (lambda c, t=targets[0], k=ctrl: dd_apply_perm_1q(
+                    c, lt, t, k)) for d in shards}
+            else:
+                u_dd = {dev: self._host_planes(op.mat, dev)
+                        for dev in set(devs)}
+                fns = {d: (lambda c, u=u_dd[devs[d]], t=targets, lc=loc_c,
+                           lf=loc_f: _masked(_dd_apply_kq_body(c, u, lt, t),
+                                             c, lc, lf))
+                       for d in shards}
+            steps.append(lambda ch, fns=fns: [
+                ch.__setitem__(d, fn(ch[d])) for d, fn in fns.items()])
+        return steps
+
     @property
     def num_steps(self) -> int:
-        """dd steps the program runs (a SWAP is three)."""
+        """dd steps the program runs (a SWAP is three; on a mesh, one per
+        plan item, a relayout included)."""
         return len(self._plan)
 
     # -- execution --------------------------------------------------------
 
-    def init_zero(self) -> torch.Tensor:
+    def _split_host(self, host: np.ndarray):
+        """Host dd planes ``(4, 2^n)`` as the program's planes: one tensor,
+        or on a mesh one chunk per shard."""
+        if self.mesh is None:
+            return torch.from_numpy(host).to(self.device)
+        per = host.shape[1] // self.mesh.size
+        return [torch.from_numpy(np.ascontiguousarray(
+            host[:, d * per:(d + 1) * per])).to(dev)
+            for d, dev in enumerate(self.mesh.devices)]
+
+    def init_zero(self):
+        if self.mesh is not None:
+            per = (1 << self.num_qubits) // self.mesh.size
+            chunks = [torch.zeros((4, per), dtype=_torch_dtype(self.dtype),
+                                  device=dev) for dev in self.mesh.devices]
+            chunks[0][0, 0] = 1.0
+            return chunks
         planes = torch.zeros((4, 1 << self.num_qubits),
                              dtype=_torch_dtype(self.dtype),
                              device=self.device)
         planes[0, 0] = 1.0
         return planes
 
-    def pack(self, host_state: np.ndarray) -> torch.Tensor:
-        return self._host_planes(np.asarray(host_state, np.complex128))
+    def pack(self, host_state: np.ndarray):
+        return self._split_host(_dd_split_host(
+            np.asarray(host_state, np.complex128), self.dtype))
 
-    def unpack(self, planes: torch.Tensor) -> np.ndarray:
+    def unpack(self, planes) -> np.ndarray:
+        if isinstance(planes, (list, tuple)):
+            planes = np.concatenate([c.cpu().numpy() for c in planes],
+                                    axis=-1)
         return dd_unpack(planes)
 
-    def run(self, planes: torch.Tensor) -> torch.Tensor:
+    def run(self, planes):
         """Run every step on ``planes`` and return the result (fresh
         planes: the input is released once the first step has read it,
-        when the caller keeps no reference)."""
+        when the caller keeps no reference; on a mesh a new list of
+        chunks, in canonical order)."""
+        if self.mesh is not None:
+            chunks = list(planes)
+            for step in self._plan:
+                step(chunks)
+            return chunks
         for step in self._plan:
             planes = step(planes)
         return planes
 
-    def total_prob(self, planes: torch.Tensor) -> float:
+    def total_prob(self, planes) -> float:
+        if isinstance(planes, (list, tuple)):
+            import math
+            return math.fsum(dd_total_prob(c) for c in planes)
         return dd_total_prob(planes)
+
+
+def _is_swap(op) -> bool:
+    return len(op.targets) == 2 and np.array_equal(op.mat, _SWAP_MAT) \
+        and not op.ctrl_mask
+
+
+def _is_perm_x(op) -> bool:
+    """X with at most one control: the error-free permutation kernel."""
+    return len(op.targets) == 1 and np.array_equal(op.mat, _X_MAT) \
+        and not op.flip_mask and bin(op.ctrl_mask).count("1") <= 1

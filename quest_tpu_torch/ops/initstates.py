@@ -66,12 +66,14 @@ def classical(num_amps: int, dtype: torch.dtype, device: torch.device,
 
 
 def debug(num_amps: int, dtype: torch.dtype, device: torch.device,
-          quad: bool = False) -> torch.Tensor:
+          quad: bool = False, start: int = 0) -> torch.Tensor:
     """amp[k] = (2k + i(2k+1))/10 (``QuEST_cpu.c:1591-1593``), with k
     formed in the plane dtype as the JAX package forms it. On QUAD planes
     re = k * dd(0.2) and im = re + dd(0.1), as the JAX package forms them:
-    the constants carry the bits 1/10 loses in the plane dtype."""
-    k = torch.arange(num_amps, dtype=torch.int64, device=device).to(dtype)
+    the constants carry the bits 1/10 loses in the plane dtype. ``start``
+    is the first k (a shard's chunk of a larger register)."""
+    k = torch.arange(start, start + num_amps, dtype=torch.int64,
+                     device=device).to(dtype)
     if not quad:
         return torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0])
     c2h, c2l = _dd_scalar(0.2, dtype)

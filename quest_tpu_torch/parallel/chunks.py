@@ -11,7 +11,14 @@ reference's ``MPI_Allreduce`` of partial sums
 one device; the two functions that need a PURE state whole beside a
 density register's chunks (``init_pure_density``, ``fidelity_density``)
 copy that n-qubit state, as the reference replicates it
-(``copyVecIntoMatrixPairState``).
+(``copyVecIntoMatrixPairState``), and each chunk takes its own block of
+``|psi><psi|``: whole columns, or part of one column when the chunk is
+narrower than a column.
+
+A QUAD register's chunks are ``(4, C)`` double-double planes: the same
+functions reduce them in dd arithmetic (``ops/doubledouble.py``), each
+shard's partial sum a compensated pair rounded to one float64, combined
+exactly on the host.
 
 Positional reads and writes need the canonical qubit layout; the callers
 in ``api.py`` restore it first (``Qureg.ensure_canonical``) where the
@@ -27,6 +34,9 @@ import numpy as np
 import torch
 
 from ..core.apply import split_shape
+from ..core.matrices import PAULI_MATS
+from ..ops import doubledouble as ddm
+from ..ops import initstates as ist
 from ..ops import reductions as red
 from ..ops.statevec import set_weighted
 
@@ -36,7 +46,8 @@ __all__ = ["init_chunks", "set_amps", "amp_pair", "total_prob",
            "pauli_sum_apply", "pauli_expvals_dm", "pauli_total_dm",
            "density_identity",
            "init_pure_density", "fidelity_density", "weighted",
-           "mix_density", "density_diagonal"]
+           "mix_density", "density_diagonal", "dd_pauli_image",
+           "dd_pauli_expval", "dd_pauli_sum_apply"]
 
 
 def _lt(qureg) -> int:
@@ -61,35 +72,33 @@ def _dot(a: torch.Tensor, b: torch.Tensor, compensated: bool) -> float:
 def init_chunks(qureg, kind: str, *args) -> None:
     """Fill a sharded register's chunks fresh (the ``init*`` states):
     ``kind`` is ``blank``, ``classical`` (global index), ``plus``
-    (amplitude), ``debug`` or ``single`` (qubit, outcome)."""
-    devs = qureg.env.mesh.devices
+    (amplitude), ``debug`` or ``single`` (qubit, outcome); each chunk made
+    by ``ops/initstates.py`` on its shard's device (dd planes on a QUAD
+    register)."""
     lt = _lt(qureg)
     C = 1 << lt
-    dtype = qureg.real_dtype
+    dtype, quad = qureg.real_dtype, qureg.is_quad
     out = []
-    for d, dev in enumerate(devs):
-        c = torch.zeros((2, C), dtype=dtype, device=dev)
+    for d, dev in enumerate(qureg.env.mesh.devices):
+        if kind == "plus":
+            c = ist.plus(C, dtype, dev, args[0], quad)
+        elif kind == "debug":
+            c = ist.debug(C, dtype, dev, quad, start=d * C)
+        else:
+            c = ist.blank(C, dtype, dev, quad)
         if kind == "classical":
             if int(args[0]) >> lt == d:
                 c[0, int(args[0]) & (C - 1)] = 1.0
-        elif kind == "plus":
-            c[0].fill_(args[0])
-        elif kind == "debug":
-            # amp[k] = (2k + i(2k+1))/10 with the global k formed in the
-            # plane dtype, as ops/initstates.debug forms it
-            k = (torch.arange(C, dtype=torch.int64, device=dev)
-                 + d * C).to(dtype)
-            c = torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0])
         elif kind == "single":
             qubit, outcome = int(args[0]), int(args[1])
             amp = 1.0 / math.sqrt(qureg.num_amps_total // 2)
             if qubit >= lt:
                 if (d >> (qubit - lt)) & 1 == outcome:
-                    c[0].fill_(amp)
+                    ist._fill_real(c, amp, quad)
             else:
-                c[0].view(C >> (qubit + 1), 2, 1 << qubit)[
-                    :, outcome, :].fill_(amp)
-        elif kind != "blank":
+                ist._fill_real(c, amp, quad, lambda p: p.view(
+                    C >> (qubit + 1), 2, 1 << qubit)[:, outcome, :])
+        elif kind not in ("blank", "plus", "debug"):
             raise ValueError(f"unknown init kind {kind!r}")
         out.append(c)
     qureg.chunks = out
@@ -115,8 +124,10 @@ def amp_pair(qureg, phys: int) -> tuple:
     ``statevec_getRealAmp``, ``QuEST_cpu_distributed.c:195-203``)."""
     lt = _lt(qureg)
     pair = qureg.chunks[phys >> lt][:, phys & ((1 << lt) - 1)]
-    pair = pair.double().cpu()
-    return float(pair[0]), float(pair[1])
+    p = [float(x) for x in pair.double().cpu()]
+    if qureg.is_quad:
+        return p[0] + p[1], p[2] + p[3]
+    return p[0], p[1]
 
 
 # -- reductions of state vectors --------------------------------------------
@@ -125,6 +136,8 @@ def total_prob(qureg) -> float:
     """sum |amp|^2 over every element (a density register's purity
     Tr(rho^2) too): the order of the elements does not matter, so neither
     does the layout."""
+    if qureg.is_quad:
+        return _combine(ddm.dd_total_prob(c) for c in qureg.chunks)
     comp = qureg.env.compensated
     return _combine(_dot(c, c, comp) for c in qureg.chunks)
 
@@ -139,7 +152,11 @@ def prob_of_outcome(qureg, phys: int, outcome: int) -> float:
     for d, c in enumerate(qureg.chunks):
         if phys >= lt:
             if (d >> (phys - lt)) & 1 == 0:
-                parts.append(_dot(c, c, comp))
+                parts.append(ddm.dd_total_prob(c) if qureg.is_quad
+                             else _dot(c, c, comp))
+            continue
+        if qureg.is_quad:
+            parts.append(ddm.dd_prob_zero_sv(c, lt, phys))
             continue
         pre, _, post = split_shape(lt, (phys,))
         half = c.view(2, pre, 2, post)[:, :, 0, :]
@@ -150,6 +167,11 @@ def prob_of_outcome(qureg, phys: int, outcome: int) -> float:
 
 def inner_product(bra, ket) -> complex:
     """<bra|ket> over matching chunks (both canonical)."""
+    if bra.is_quad:
+        parts = [ddm.dd_vdot(a, b.to(a.device))
+                 for a, b in zip(bra.chunks, ket.chunks)]
+        return complex(_combine(p.real for p in parts),
+                       _combine(p.imag for p in parts))
     comp = bra.env.compensated
     re, im = [], []
     for a, b in zip(bra.chunks, ket.chunks):
@@ -160,6 +182,9 @@ def inner_product(bra, ket) -> complex:
 
 
 def density_inner_product(a, b) -> float:
+    if a.is_quad:
+        return _combine(ddm.dd_vdot(x, y.to(x.device)).real
+                        for x, y in zip(a.chunks, b.chunks))
     comp = a.env.compensated
     return _combine(_dot(x, y.to(x.device), comp)
                     for x, y in zip(a.chunks, b.chunks))
@@ -169,6 +194,10 @@ def hs_distance(a, b) -> float:
     comp = a.env.compensated
     parts = []
     for x, y in zip(a.chunks, b.chunks):
+        if a.is_quad:
+            parts.append(ddm.dd_total_prob(ddm.dd_weighted(
+                1.0, x, -1.0, y.to(x.device), 0.0, x)))
+            continue
         diff = x - y.to(x.device)
         parts.append(_dot(diff, diff, comp))
     return math.sqrt(max(0.0, _combine(parts)))
@@ -338,31 +367,52 @@ def density_identity(devices, lt: int, num_qubits: int, dtype) -> list:
     return out
 
 
-def density_diagonal(chunk: torch.Tensor, d: int, n: int, lt: int):
+def density_diagonal(chunk: torch.Tensor, d: int, n: int, lt: int,
+                     plane: int = 0):
     """``(view, r0)``: the real diagonal entries ``rho[r, r]`` that shard
     ``d``'s chunk holds (``flat[r + r*2^n]``; consecutive outcomes ``r0,
-    r0+1, ...``), as a strided view, or ``(None, None)`` when it holds
-    none."""
+    r0+1, ...``), as a strided view of ``chunk[plane]`` (a QUAD chunk's
+    lo plane is 1), or ``(None, None)`` when it holds none."""
     if lt >= n:
         r0 = d << (lt - n)
-        return chunk[0][r0::(1 << n) + 1], r0
+        return chunk[plane][r0::(1 << n) + 1], r0
     start = d << lt
     c = start >> n
     r_start = start & ((1 << n) - 1)
     if r_start <= c < r_start + (1 << lt):
-        return chunk[0][c - r_start:c - r_start + 1], c
+        return chunk[plane][c - r_start:c - r_start + 1], c
     return None, None
 
 
-def density_total_prob(qureg) -> float:
-    n = qureg.num_qubits_represented
-    lt = _lt(qureg)
+def _diag_parts(chunks: list, n: int, lt: int, quad: bool,
+                compensated: bool, qubit: int = -1) -> float:
+    """The sum of the diagonal entries the chunks hold (those whose
+    outcome has ``qubit`` == 0 when ``qubit >= 0``), each shard's part
+    summed in the plane dtype (compensated, or in dd over a QUAD chunk's
+    hi and lo planes), combined in float64."""
     parts = []
-    for d, c in enumerate(qureg.chunks):
-        diag, _ = density_diagonal(c, d, n, lt)
-        if diag is not None:
-            parts.append(_sum(diag, qureg.env.compensated))
+    for d, c in enumerate(chunks):
+        diag, r0 = density_diagonal(c, d, n, lt)
+        if diag is None:
+            continue
+        views = [diag]
+        if quad:
+            views.append(density_diagonal(c, d, n, lt, plane=1)[0])
+        cnt = diag.shape[0]
+        if qubit >= 0 and (1 << qubit) >= cnt:
+            if (r0 >> qubit) & 1:
+                continue
+        elif qubit >= 0:
+            views = [v.reshape(cnt >> (qubit + 1), 2, 1 << qubit)[:, 0, :]
+                     for v in views]
+        parts.append(ddm._diag_sum(v.reshape(-1) for v in views) if quad
+                     else _sum(views[0], compensated))
     return _combine(parts)
+
+
+def density_total_prob(qureg) -> float:
+    return _diag_parts(qureg.chunks, qureg.num_qubits_represented,
+                       _lt(qureg), qureg.is_quad, qureg.env.compensated)
 
 
 def _sum(x: torch.Tensor, compensated: bool) -> float:
@@ -376,89 +426,88 @@ def density_prob_of_outcome(qureg, qubit: int, outcome: int) -> float:
     """P(outcome) of ``qubit`` on a canonical density register: the
     diagonal entries whose outcome index has ``qubit`` == 0, summed over
     the shards, complemented for outcome 1."""
-    n = qureg.num_qubits_represented
-    lt = _lt(qureg)
-    parts = []
-    for d, c in enumerate(qureg.chunks):
-        diag, r0 = density_diagonal(c, d, n, lt)
-        if diag is None:
-            continue
-        cnt = diag.shape[0]
-        if (1 << qubit) >= cnt:
-            if (r0 >> qubit) & 1 == 0:
-                parts.append(_sum(diag, qureg.env.compensated))
-            continue
-        half = diag.reshape(cnt >> (qubit + 1), 2, 1 << qubit)[:, 0, :]
-        parts.append(_sum(half, qureg.env.compensated))
-    p0 = _combine(parts)
+    p0 = _diag_parts(qureg.chunks, qureg.num_qubits_represented,
+                     _lt(qureg), qureg.is_quad, qureg.env.compensated,
+                     qubit)
     return p0 if outcome == 0 else 1.0 - p0
 
 
 def _pure_whole(pure, device) -> torch.Tensor:
-    """A pure state's whole ``(2, 2^n)`` planes on ``device``."""
+    """A pure state's whole ``(2, 2^n)`` (QUAD: ``(4, 2^n)``) planes on
+    ``device``."""
     if pure.is_sharded:
         pure.ensure_canonical()
         return torch.cat([c.to(device) for c in pure.chunks], dim=1)
     return pure.state.to(device)
 
 
-def _column_block(c: torch.Tensor, n: int) -> torch.Tensor:
-    """A chunk of whole density columns as ``(2, cols, 2^n)``:
-    ``[p, c_local, r] = rho[r, c]``."""
-    return c.view(2, -1, 1 << n)
+def _block(d: int, n: int, lt: int) -> tuple:
+    """``(c0, cols, r0, rows)``: shard ``d``'s chunk of a density register
+    is the block ``rho[r0:r0+rows, c0:c0+cols]``, column by column
+    (``flat[r + c*2^n]``): whole columns when a chunk holds at least one,
+    else ``2^lt`` rows of one column."""
+    if lt >= n:
+        cols = 1 << (lt - n)
+        return d * cols, cols, 0, 1 << n
+    start = d << lt
+    return start >> n, 1, start & ((1 << n) - 1), 1 << lt
 
 
 def init_pure_density(qureg, pure) -> None:
     """rho = |psi><psi| into a density register's chunks: each chunk's
-    columns ``c`` take ``conj(psi_c) psi_r`` by rank-one updates."""
+    block ``mat[c, r] = conj(psi_c) psi_r`` by rank-one updates (a dd
+    outer product on a QUAD register)."""
     n = qureg.num_qubits_represented
     lt = _lt(qureg)
-    if lt < n:
-        raise qureg._unrouted("initPureState onto chunks narrower than one "
-                              "density column")
-    cols = 1 << (lt - n)
     out = []
     for d, dev in enumerate(qureg.env.mesh.devices):
         psi = _pure_whole(pure, dev).to(qureg.real_dtype)
-        pr, pi = psi[0], psi[1]
-        cr, ci = pr[d * cols:(d + 1) * cols], pi[d * cols:(d + 1) * cols]
-        c = torch.empty((2, cols, 1 << n), dtype=psi.dtype, device=dev)
-        # mat[c, r] = conj(psi_c) psi_r
-        torch.outer(cr, pr, out=c[0])
-        c[0].addr_(ci, pi)
-        torch.outer(cr, pi, out=c[1])
-        c[1].addr_(ci, pr, alpha=-1.0)
+        c0, cols, r0, rows = _block(d, n, lt)
+        pc, pr = psi[:, c0:c0 + cols], psi[:, r0:r0 + rows]
+        if qureg.is_quad:
+            out.append(ddm.dd_outer(pr, conj_left=False, cols=pc))
+            continue
+        c = torch.empty((2, cols, rows), dtype=psi.dtype, device=dev)
+        torch.outer(pc[0], pr[0], out=c[0])
+        c[0].addr_(pc[1], pr[1])
+        torch.outer(pc[0], pr[1], out=c[1])
+        c[1].addr_(pc[1], pr[0], alpha=-1.0)
         out.append(c.view(2, -1))
     qureg.chunks = out
 
 
 def fidelity_density(qureg, pure) -> float:
     """<psi|rho|psi> = Re sum_c psi_c sum_r mat[c, r] conj(psi_r), each
-    shard over its own columns."""
+    shard over its own block (a dd dot with the dd outer product's
+    weights on a QUAD register)."""
     n = qureg.num_qubits_represented
     lt = _lt(qureg)
-    if lt < n:
-        raise qureg._unrouted("calcFidelity on chunks narrower than one "
-                              "density column")
-    cols = 1 << (lt - n)
+    comp = qureg.env.compensated
     parts = []
     for d, c in enumerate(qureg.chunks):
         psi = _pure_whole(pure, c.device).to(c.dtype)
-        m = _column_block(c, n)
+        c0, cols, r0, rows = _block(d, n, lt)
+        pc, pr = psi[:, c0:c0 + cols], psi[:, r0:r0 + rows]
+        if qureg.is_quad:
+            w = ddm.dd_outer(pr, conj_left=True, cols=pc)
+            parts.append(ddm.dd_vdot(w, c, conj_a=False).real)
+            continue
+        m = c.view(2, cols, rows)
         # w_c = sum_r mat[c, r] conj(psi_r)
-        wr = torch.mv(m[0], psi[0]) + torch.mv(m[1], psi[1])
-        wi = torch.mv(m[1], psi[0]) - torch.mv(m[0], psi[1])
-        pr = psi[0][d * cols:(d + 1) * cols]
-        pi = psi[1][d * cols:(d + 1) * cols]
-        comp = qureg.env.compensated
-        parts += [_dot(pr, wr, comp), -_dot(pi, wi, comp)]
+        wr = torch.mv(m[0], pr[0]) + torch.mv(m[1], pr[1])
+        wi = torch.mv(m[1], pr[0]) - torch.mv(m[0], pr[1])
+        parts += [_dot(pc[0], wr, comp), -_dot(pc[1], wi, comp)]
     return _combine(parts)
 
 
 def weighted(fac1, q1, fac2, q2, fac_out, out) -> None:
     """out = fac1 q1 + fac2 q2 + fac_out out, chunk by chunk (all three
-    canonical, on one mesh)."""
+    canonical, on one mesh; in dd on QUAD registers)."""
     for a, b, t in zip(q1.chunks, q2.chunks, out.chunks):
+        if out.is_quad:
+            t.copy_(ddm.dd_weighted(fac1, a.to(t.device), fac2,
+                                    b.to(t.device), fac_out, t))
+            continue
         set_weighted(fac1, a.to(t.device), fac2, b.to(t.device), fac_out, t)
 
 
@@ -467,6 +516,72 @@ def mix_density(qureg, other_prob: float, other) -> None:
     from ..ops.densmatr import mix_density_matrix
     for c, o in zip(qureg.chunks, other.chunks):
         src = o.to(c.device)
+        if qureg.is_quad:
+            c.copy_(ddm.dd_weighted(1.0 - float(other_prob), c,
+                                    float(other_prob), src, 0.0, c))
+            continue
         if src.data_ptr() == c.data_ptr():
             src = src.clone()
         mix_density_matrix(c, float(other_prob), src)
+
+
+# -- QUAD Pauli images -------------------------------------------------------
+
+def dd_pauli_image(chunks: list, lt: int, codes) -> list:
+    """``P |z>`` of one Pauli product (``codes[q]`` on qubit ``q``; a
+    density register's ket half) on canonical dd chunks: chunk ``d`` of
+    the image is the chunk-local Paulis applied to chunk ``d ^ dx`` (``dx``
+    the product's X/Y bits on device positions), times ``i^p`` for the
+    Y/Z factors of the device bits at ``d`` (``Y|0> = i|1>``, ``Y|1> =
+    -i|0>``). Pauli entries are 0, +-1 and +-i, so every step is exact and
+    the image equals the one-device image bit for bit."""
+    dx = 0
+    for q, code in enumerate(codes):
+        if code in (1, 2) and q >= lt:
+            dx |= 1 << (q - lt)
+    out = []
+    for d, c in enumerate(chunks):
+        phi = chunks[d ^ dx].to(c.device)
+        local = False
+        power = 0
+        for q, code in enumerate(codes):
+            if not code:
+                continue
+            if q < lt:
+                phi = ddm.dd_apply_kq(phi, lt, PAULI_MATS[code], (q,))
+                local = True
+                continue
+            bit = (d >> (q - lt)) & 1
+            if code == 2:
+                power += 1 if bit else 3
+            elif code == 3:
+                power += 2 * bit
+        out.append(ddm.dd_times_i_power(phi if local else phi.clone(),
+                                        power))
+    return out
+
+
+def dd_pauli_expval(chunks: list, lt: int, num_qubits: int,
+                    density: bool, codes) -> float:
+    """``<psi|P|psi>`` (``Tr(P rho)`` of a density register of
+    ``num_qubits``) of canonical dd chunks of ``lt`` qubits for one term,
+    in dd; one chunk of the whole planes off a mesh."""
+    phi = dd_pauli_image(chunks, lt, codes)
+    if density:
+        return _diag_parts(phi, num_qubits, lt, True, False)
+    return _combine(ddm.dd_vdot(a, b).real for a, b in zip(chunks, phi))
+
+
+def dd_pauli_sum_apply(chunks: list, lt: int, num_qubits: int, codes_flat,
+                       coeffs, num_terms: int) -> list:
+    """``sum_t coeffs[t] P_t |z>`` of canonical dd chunks, term after term
+    in dd: fresh chunks."""
+    n = num_qubits
+    acc = None
+    for t in range(num_terms):
+        phi = dd_pauli_image(chunks, lt, codes_flat[t * n:(t + 1) * n])
+        c = float(coeffs[t])
+        acc = [ddm.dd_weighted(c, p, 0.0, p, 0.0, p) for p in phi] \
+            if acc is None else [ddm.dd_weighted(1.0, a, c, p, 0.0, a)
+                                 for a, p in zip(acc, phi)]
+    return acc

@@ -25,9 +25,16 @@ package's ``shard_map`` program becomes copies between shard tensors:
 - gates on chunk-local targets run on each chunk through the gate engine
   (``core/apply.py``) or the layer kernel; a control on a device bit is a
   per-shard skip (``QuEST_cpu_distributed.c:888-908``) and a diagonal
-  factor indexed by device bits is sliced per shard.
+  factor indexed by device bits is sliced per shard;
+- a gate with more targets than a chunk has local positions runs on
+  groups of chunks (:func:`apply_op_grouped`), one group at a time.
 
-No step holds more than one chunk of scratch beside the register.
+Double-double chunks ``(..., 4, 2^(n-s))`` move through the same steps
+(the hi and lo planes travel together in one copy) and take the dd
+kernels where a gate runs (``dd=True``).
+
+No step holds more than one chunk (or, for a grouped gate, one group) of
+scratch beside the register.
 :data:`COUNTS` counts exchanges, launches of each collective and the bytes
 copied between shards; :func:`start_log` records each exchange's kind,
 bytes and time (CUDA events on the card).
@@ -46,13 +53,16 @@ from ..core.apply import apply_diagonal, apply_unitary, split_shape
 from .layout import permute_positions
 
 __all__ = ["ExchangePlan", "plan_exchange", "run_exchange",
-           "apply_op_local", "apply_1q_cross_shard", "overlap_eligible",
-           "run_exchange_overlapped", "slab_remap", "COUNTS",
-           "reset_counts", "start_log", "stop_log"]
+           "apply_op_local", "apply_op_grouped", "apply_1q_cross_shard",
+           "overlap_eligible", "run_exchange_overlapped", "slab_remap",
+           "COUNTS", "GROUP_PEAK", "reset_counts", "start_log", "stop_log"]
 
 # exchanges run, collective launches and bytes copied between shards
 COUNTS = {"relayouts": 0, "all_to_all": 0, "ppermute": 0, "xshard": 0,
-          "overlapped": 0, "bytes": 0}
+          "overlapped": 0, "grouped": 0, "bytes": 0}
+# the largest group operand :func:`apply_op_grouped` has gathered, in
+# bytes (reset with the counts)
+GROUP_PEAK = [0]
 _LOG: Optional[list] = None
 
 # amplitudes per slab of the cross-shard combine: its scratch stays two
@@ -63,6 +73,7 @@ _SLAB_AMPS = 1 << 22
 def reset_counts() -> None:
     for key in COUNTS:
         COUNTS[key] = 0
+    GROUP_PEAK[0] = 0
 
 
 def start_log() -> None:
@@ -347,10 +358,32 @@ def _on(operand, device: torch.device, cache: dict):
     return cache[device]
 
 
+def _dense_engine(dd: bool, precision):
+    """``apply(x, num_qubits, u, targets, ctrl_mask, flip_mask)`` of the
+    planes' arithmetic, IN PLACE on ``x``: the gate engine, or on
+    ``(4, 2^n)`` double-double planes the dd kernel
+    (``ops/doubledouble.py``, a fresh result copied back)."""
+    if not dd:
+        return lambda x, nq, u, t, cm, fm: apply_unitary(
+            x, nq, u, t, cm, fm, precision=precision)
+    from ..ops import doubledouble as ddm
+
+    def apply(x, nq, u, t, cm, fm):
+        return x.copy_(ddm.dd_apply_kq_traced(x, nq, u, t, cm, fm))
+    return apply
+
+
+def _dd_operand(operand):
+    """A numpy operator as the complex128 tensor the dd kernels take."""
+    if isinstance(operand, torch.Tensor):
+        return operand
+    return torch.as_tensor(np.asarray(operand, dtype=np.complex128))
+
+
 def apply_op_local(chunks: list, kind: str, operand, phys_targets: tuple,
                    ctrl_mask: int, flip_mask: int, local_top: int,
-                   precision=None, shard_ids: Optional[Sequence[int]] = None
-                   ) -> list:
+                   precision=None, shard_ids: Optional[Sequence[int]] = None,
+                   dd: bool = False) -> list:
     """Apply one planned op to every chunk, IN PLACE.
 
     Dense targets must be chunk-local (< local_top); the planner
@@ -359,20 +392,24 @@ def apply_op_local(chunks: list, kind: str, operand, phys_targets: tuple,
     positions being sorted descending) are indexed with each shard's bits.
     ``operand`` is numpy or a tensor, shared or one per batch row.
     ``shard_ids[i]`` is the shard index ``chunks[i]`` stands for (default
-    ``i``)."""
+    ``i``). ``dd`` marks ``(..., 4, 2^lt)`` double-double chunks, which
+    take the dd kernels of ``ops/doubledouble.py``."""
     lt = local_top
     ids = range(len(chunks)) if shard_ids is None else shard_ids
     moved: dict = {}
+    if dd:
+        operand = _dd_operand(operand)
     if kind == "u":
         dev_c = ctrl_mask >> lt
         want = dev_c & ~(flip_mask >> lt)
         loc_c = ctrl_mask & ((1 << lt) - 1)
         loc_f = flip_mask & ((1 << lt) - 1)
+        apply = _dense_engine(dd, precision)
         for c, d in zip(chunks, ids):
             if dev_c and (d & dev_c) != want:
                 continue
-            apply_unitary(c, lt, _on(operand, c.device, moved),
-                          phys_targets, loc_c, loc_f, precision=precision)
+            apply(c, lt, _on(operand, c.device, moved), phys_targets,
+                  loc_c, loc_f)
         return chunks
     dev_pos = tuple(p for p in phys_targets if p >= lt)
     loc_pos = tuple(p for p in phys_targets if p < lt)
@@ -382,7 +419,61 @@ def apply_op_local(chunks: list, kind: str, operand, phys_targets: tuple,
             lead = op.ndim - len(phys_targets)
             sel = tuple((d >> (p - lt)) & 1 for p in dev_pos)
             op = op[(slice(None),) * lead + sel]
-        apply_diagonal(c, lt, loc_pos, op)
+        if dd:
+            from ..ops import doubledouble as ddm
+            c.copy_(ddm.dd_apply_diag_traced(c, lt, op, loc_pos))
+        else:
+            apply_diagonal(c, lt, loc_pos, op)
+    return chunks
+
+
+def apply_op_grouped(chunks: list, u, phys_targets: tuple, ctrl_mask: int,
+                     flip_mask: int, local_top: int, shard_bits: int,
+                     precision=None, dd: bool = False) -> list:
+    """A dense op whose targets include device-index bits, IN PLACE,
+    with no relayout: the ``2^g`` chunks that differ only in the ``g``
+    device bits among the targets form a group, viewed as ONE operand of
+    ``lt + g`` qubits (chunk ``m`` of the group at offset ``m * 2^lt``, so
+    the device bits are its top ``g`` qubits), on which the gate runs
+    with those targets remapped; the result is written back into the
+    chunks. One group is gathered at a time (on its first member's
+    device), so the scratch is one group beside the register
+    (:data:`GROUP_PEAK`). A control on a device bit skips whole groups.
+    This is the dense pass wider than a chunk's local positions (a lifted
+    density channel on a small register over many shards), and on dd
+    chunks the cross-shard 1q gate (``g = 1``)."""
+    lt = local_top
+    gbits = sorted({p - lt for p in phys_targets if p >= lt})
+    g = len(gbits)
+    gmask = sum(1 << j for j in gbits)
+    tgt = tuple(p if p < lt else lt + gbits.index(p - lt)
+                for p in phys_targets)
+    dev_c = ctrl_mask >> lt
+    want = dev_c & ~(flip_mask >> lt)
+    loc_c = ctrl_mask & ((1 << lt) - 1)
+    loc_f = flip_mask & ((1 << lt) - 1)
+    if dd:
+        u = _dd_operand(u)
+    apply = _dense_engine(dd, precision)
+    timer = _Timed(chunks, "group", g)
+    moved: dict = {}
+    width = chunks[0].shape[-1]
+    for base in range(1 << shard_bits):
+        if base & gmask or (dev_c and (base & dev_c) != want):
+            continue
+        members = [base | sum(((m >> r) & 1) << j
+                              for r, j in enumerate(gbits))
+                   for m in range(1 << g)]
+        home = chunks[members[0]].device
+        x = torch.cat([chunks[m].to(home) for m in members], dim=-1)
+        GROUP_PEAK[0] = max(GROUP_PEAK[0], _nbytes(x))
+        timer.add_bytes(2 * (_nbytes(x) - _nbytes(chunks[members[0]])))
+        apply(x, lt + g, _on(u, home, moved), tgt, loc_c, loc_f)
+        for i, m in enumerate(members):
+            chunks[m].copy_(x[..., i * width:(i + 1) * width])
+        del x
+    COUNTS["grouped"] += 1
+    timer.done()
     return chunks
 
 

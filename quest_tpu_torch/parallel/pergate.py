@@ -15,11 +15,19 @@ logical->physical permutation (``Qureg.layout``), so:
   swaps its targets onto the exchange's staging slots and leaves them
   there: the swap-back waits until a reader needs canonical order
   (``Qureg.ensure_canonical``);
-- diagonal gates and controls run at any position with no communication.
+- diagonal gates and controls run at any position with no communication;
+- a dense gate with more targets than a chunk has local positions (a
+  lifted density channel on a small register over many shards) brings
+  as many targets local as there are free local positions, then runs on
+  groups of the ``2^g`` chunks that differ in the ``g`` device bits left
+  among its targets (``exchange.apply_op_grouped``).
 
 Every step acts on the register's chunks through
-:mod:`quest_tpu_torch.parallel.exchange`. QUAD registers never take this
-path (the port keeps them off meshes, ROADMAP Queue 1 item 8).
+:mod:`quest_tpu_torch.parallel.exchange`. A QUAD register's ``(4,
+2^(N-s))`` double-double chunks take the same steps, its relayouts moving
+the hi and lo planes together; its gates run through the dd kernels, and
+a 1q gate on a device bit as a group of two chunks (no role-split combine
+exists in dd arithmetic).
 """
 
 from __future__ import annotations
@@ -31,11 +39,11 @@ import numpy as np
 from ..resilience import faults as _faults
 from ..telemetry import profile as _profile
 from ..telemetry.tracing import dispatch_annotation
-from .exchange import (apply_1q_cross_shard, apply_op_local,
-                       overlap_eligible, plan_exchange, run_exchange,
-                       run_exchange_overlapped)
+from .exchange import (apply_1q_cross_shard, apply_op_grouped,
+                       apply_op_local, overlap_eligible, plan_exchange,
+                       run_exchange, run_exchange_overlapped)
 
-__all__ = ["use_lazy", "fits_local", "phys_targets", "localise_targets",
+__all__ = ["use_lazy", "phys_targets", "localise_targets",
            "canonicalise", "sharded_unitary", "sharded_diag",
            "metadata_swap", "phys_index", "GateFusionBuffer",
            "overlap_enabled"]
@@ -87,22 +95,11 @@ def overlap_enabled() -> bool:
 def use_lazy(qureg) -> bool:
     """True when the register runs the sharded per-gate path: a mesh env
     and a register at least as large as the mesh."""
-    return (qureg.env.mesh is not None and qureg.sharding() is not None
-            and not qureg.is_quad)
+    return qureg.env.mesh is not None and qureg.sharding() is not None
 
 
 def _shard_bits(qureg) -> int:
     return qureg.env.num_devices.bit_length() - 1
-
-
-def fits_local(qureg, k: int) -> bool:
-    """A k-qubit dense gather needs k chunk-local positions (the
-    ``validateMultiQubitMatrixFitsInNode`` predicate,
-    ``QuEST_validation.c:116``); 1q gates always fit (a sharded position
-    rides the role-split exchange)."""
-    if k <= 1:
-        return True
-    return k <= qureg.num_qubits_in_state_vec - _shard_bits(qureg)
 
 
 def _perm(qureg) -> np.ndarray:
@@ -161,10 +158,11 @@ def canonicalise(qureg) -> None:
     qureg.layout = None
 
 
-def _localise_perm(qureg, targets):
+def _localise_perm(qureg, targets, partial: bool = False):
     """The permutation a swap-to-local relayout realises: every sharded
-    logical target lands on a staging slot. Returns ``(perm, new_perm)``,
-    ``new_perm`` None when nothing is sharded."""
+    logical target lands on a staging slot (with ``partial``, as many as
+    there are local positions the gate does not use). Returns ``(perm,
+    new_perm)``, ``new_perm`` None when nothing moves."""
     n = qureg.num_qubits_in_state_vec
     lt = n - _shard_bits(qureg)
     perm = _perm(qureg)
@@ -182,6 +180,10 @@ def _localise_perm(qureg, targets):
         stages.append(p)
         if len(stages) == len(sharded):
             break
+    if partial:
+        sharded = sharded[:len(stages)]
+        if not sharded:
+            return perm, None
     if len(stages) < len(sharded):
         raise ValueError(
             f"a {len(targets)}-qubit unitary cannot be localised with "
@@ -196,11 +198,12 @@ def _localise_perm(qureg, targets):
     return perm, new_perm
 
 
-def localise_targets(qureg, targets) -> np.ndarray:
-    """Bring every logical target to a local position with at most ONE
-    relayout (the swap-to-local of ``QuEST_cpu_distributed.c:1426-1448``,
-    batched, its swap-back deferred). Returns the active permutation."""
-    perm, new_perm = _localise_perm(qureg, targets)
+def localise_targets(qureg, targets, partial: bool = False) -> np.ndarray:
+    """Bring every logical target (with ``partial``, as many as fit) to a
+    local position with at most ONE relayout (the swap-to-local of
+    ``QuEST_cpu_distributed.c:1426-1448``, batched, its swap-back
+    deferred). Returns the active permutation."""
+    perm, new_perm = _localise_perm(qureg, targets, partial)
     if new_perm is None:
         return perm
     _relayout(qureg, perm, new_perm)
@@ -212,15 +215,28 @@ def sharded_unitary(qureg, u, targets, ctrl_mask: int,
                     flip_mask: int) -> None:
     """Apply a dense (controlled) unitary ``u`` (complex numpy) on LOGICAL
     targets: local positions -> each chunk; one sharded 1q target -> the
-    role-split pair exchange; sharded multi-qubit targets -> one
-    swap-to-local relayout, then each chunk. Controls never move."""
+    role-split pair exchange (on dd chunks, a group of two); sharded
+    multi-qubit targets -> one swap-to-local relayout, then each chunk;
+    more targets than local positions -> the grouped pass. Controls never
+    move."""
     n = qureg.num_qubits_in_state_vec
     s = _shard_bits(qureg)
     lt = n - s
     chunks = qureg.chunks
     perm = _perm(qureg)
+    dd = qureg.is_quad
     targets = tuple(int(t) for t in targets)
     phys_t = tuple(int(perm[t]) for t in targets)
+    wide = len(targets) > lt
+    if wide or (dd and len(targets) == 1 and phys_t[0] >= lt):
+        if wide:
+            perm = localise_targets(qureg, targets, partial=True)
+            phys_t = tuple(int(perm[t]) for t in targets)
+        cmask, fmask = _phys_masks(perm, ctrl_mask, flip_mask)
+        _profiled(qureg, "pergate.gate", "gate", "group",
+                  lambda: apply_op_grouped(chunks, u, phys_t, cmask, fmask,
+                                           lt, s, dd=dd))
+        return
     if len(targets) == 1 and phys_t[0] >= lt:
         cmask, fmask = _phys_masks(perm, ctrl_mask, flip_mask)
         _profiled(qureg, "pergate.gate", "gate", "xshard",
@@ -228,7 +244,7 @@ def sharded_unitary(qureg, u, targets, ctrl_mask: int,
                                                cmask, fmask))
         return
     if any(p >= lt for p in phys_t):
-        if overlap_enabled():
+        if overlap_enabled() and not dd:
             old_perm, new_perm = _localise_perm(qureg, targets)
             phys_new = tuple(int(new_perm[t]) for t in targets)
             cmask, fmask = _phys_masks(new_perm, ctrl_mask, flip_mask)
@@ -247,7 +263,7 @@ def sharded_unitary(qureg, u, targets, ctrl_mask: int,
     cmask, fmask = _phys_masks(perm, ctrl_mask, flip_mask)
     _profiled(qureg, "pergate.gate", "gate", "local",
               lambda: apply_op_local(chunks, "u", u, phys_t, cmask, fmask,
-                                     lt))
+                                     lt, dd=dd))
 
 
 def sharded_diag(qureg, tensor_np, qs_desc) -> None:
@@ -262,7 +278,8 @@ def sharded_diag(qureg, tensor_np, qs_desc) -> None:
     order = tuple(int(i) for i in np.argsort(phys)[::-1])
     phys_desc = tuple(phys[i] for i in order)
     t = np.ascontiguousarray(np.transpose(np.asarray(tensor_np), order))
-    apply_op_local(qureg.chunks, "diag", t, phys_desc, 0, 0, lt)
+    apply_op_local(qureg.chunks, "diag", t, phys_desc, 0, 0, lt,
+                   dd=qureg.is_quad)
 
 
 def metadata_swap(qureg, q1: int, q2: int) -> None:

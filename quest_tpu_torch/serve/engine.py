@@ -1362,10 +1362,11 @@ class SimulationService:
 
     @staticmethod
     def _device_multiple(compiled: CompiledCircuit) -> int:
-        """Batch-bucket floor: the JAX package pads to a device multiple
-        wherever its engine would batch-shard over a mesh; one card
-        never shards, so the floor is 1."""
-        return 1
+        """Batch-bucket floor: pad to a device multiple on a mesh env, so
+        a batch-sharded dispatch splits evenly over the shards and never
+        takes the engine's pad-and-mask path."""
+        return compiled.env.num_devices if compiled.env.mesh is not None \
+            else 1
 
     def _idle_wait(self) -> float:
         """The longest the dispatcher may sleep with no scheduled wake

@@ -46,7 +46,9 @@ assert: ``torch.AcceleratorError``) poisons every replica at once. Such
 an error, like a kernel that failed to build or launch, classifies
 FATAL (:mod:`quest_tpu_torch.resilience.recovery`): the router never
 fails it over or restarts onto it, and the caller gets the typed error.
-Replicas on separate cards are ROADMAP Queue 1 item 8.
+A replica of ``k`` shards (``replica_envs(devices_per_replica=k)``) runs
+its mesh on the same card; replicas on separate cards are ROADMAP Queue 1
+item 8's four-card part.
 """
 
 from __future__ import annotations
@@ -93,13 +95,14 @@ def replica_envs(num_replicas: int,
     device (``device``: None is ``cuda:0``, as ``createQuESTEnv``): the
     JAX package's shared-devices mode, where the failure domains are the
     replicas' threads, not silicon. ``devices_per_replica`` of None or 1
-    is that; a power of two above 1 (an amplitude-sharded replica) raises
-    ``NotImplementedError``: multi-device replicas are ROADMAP Queue 1
-    item 8. Replica ``i`` seeds its measurement stream from ``seed + [i]``
-    (default: time and pid)."""
+    gives one-device replicas; a power of two ``k`` above 1 gives each
+    replica a ``k``-shard mesh env over that device repeated (``devices=
+    [device] * k``; on the CPU, ``k`` host shards). Replica ``i`` seeds its
+    measurement stream from ``seed + [i]`` (default: time and pid)."""
     from ..env import create_quest_env
     if num_replicas < 1:
         raise ValueError("num_replicas must be >= 1")
+    k = 1
     if devices_per_replica is not None:
         k = int(devices_per_replica)
         if k < 1:
@@ -107,13 +110,10 @@ def replica_envs(num_replicas: int,
         if k & (k - 1):
             raise ValueError("devices_per_replica must be a power of 2 "
                              "(amplitude sharding halves per device)")
-        if k > 1:
-            raise NotImplementedError(
-                f"replica_envs(devices_per_replica={k}): the port's "
-                "replicas share one device; multi-device replicas wait "
-                "for ROADMAP Queue 1 item 8")
+    devices = [device if device is not None else "cuda:0"] * k \
+        if k > 1 else None
     return [create_quest_env(
-        precision=precision, device=device,
+        precision=precision, device=device, devices=devices,
         seed=list(seed) + [i] if seed is not None else None)
         for i in range(num_replicas)]
 
@@ -211,8 +211,8 @@ class ServiceRouter:
     envs : sequence of QuESTEnv | None
         One env per replica (:func:`replica_envs` builds them, all on
         the one card). ``None`` builds ``num_replicas`` envs with
-        ``devices_per_replica`` devices each (1: more raise
-        ``NotImplementedError``, ROADMAP Queue 1 item 8).
+        ``devices_per_replica`` shards each (more than 1: a mesh env over
+        the card repeated).
     num_replicas, devices_per_replica :
         The :func:`replica_envs` shape when ``envs`` is None.
     supervisor : SupervisorPolicy
@@ -805,13 +805,15 @@ class ServiceRouter:
         if self._env_factory is not None:
             env = self._env_factory()
         else:
-            # mirror the live pool: its device and precision
+            # mirror the live pool: its device, shards and precision
             with self._lock:
                 live = [r for r in self._replicas if r.state != "failed"]
             like = live[0].env if live else None
+            k = self._devices_per_replica
+            if k is None and like is not None:
+                k = like.num_devices
             env = replica_envs(
-                1, self._devices_per_replica,
-                precision=like.precision if like is not None else None,
+                1, k, precision=like.precision if like is not None else None,
                 device=like.device if like is not None else None)[0]
         svc = self._new_service(env, index=idx)
         with self._lock:
@@ -914,7 +916,10 @@ class ServiceRouter:
             cc = h.service.warm(route, batch_sizes=batch_sizes,
                                 observables=observables, shots=shots)
             if reference is None:
-                pm0 = np.zeros((1, len(cc.param_names)), dtype=np.float64)
+                # device-multiple rows: a 1-row sweep on a mesh replica
+                # would take the engine's pad-and-mask path
+                pm0 = np.zeros((max(1, cc.env.num_devices),
+                                len(cc.param_names)), dtype=np.float64)
                 if observables is not None:
                     ham = (observables[0], observables[1])
                     reference = float(cc.expectation_sweep(pm0, ham)[0])

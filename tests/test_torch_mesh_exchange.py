@@ -221,15 +221,37 @@ def test_counters_and_log():
     assert all(rec["ms"] >= 0.0 for rec in log)
 
 
-def test_comm_model_measured_cached_and_pinned(monkeypatch):
+@pytest.mark.parametrize("t0,t1", [(2e-6, 6e-6), (5e-6, 5e-6)],
+                         ids=["rising", "flat"])
+def test_comm_model_measured_cached_and_pinned(monkeypatch, t0, t1):
+    """The fit's logic on fixed probe seconds: probes that rise with the
+    bytes give a measured (alpha, beta); probes that do not give the
+    default model. Either is cached until invalidated, and the pin
+    returns the default unmeasured."""
     import quest_tpu_torch as tq
     from quest_tpu_torch import profiling as prof
     env = tq.createQuESTEnv(num_devices=4, device="cpu")
     assert prof.comm_model(env) is prof.DEFAULT_COMM_MODEL   # host shards
     prof.invalidate_comm_model()
+    probes = {1 << 14: t0, 1 << 20: t1}
+    asked = []
+
+    def fixed(mesh, nbytes, trials):
+        asked.append(nbytes)
+        return probes[nbytes]
+
+    monkeypatch.setattr(prof, "_time_exchange", fixed)
     model = prof.comm_model(env, measure=True)
-    assert model.source == "measured" and model.beta_s_per_byte > 0.0
+    assert asked == [1 << 14, 1 << 20]
+    if t1 > t0:
+        beta = (t1 - t0) / float((1 << 20) - (1 << 14))
+        assert model.source == "measured"
+        assert model.beta_s_per_byte == beta
+        assert model.alpha_s == max(t0 - beta * (1 << 14), 0.0)
+    else:
+        assert model is prof.DEFAULT_COMM_MODEL
     assert prof.comm_model(env) is model                      # cached
+    assert len(asked) == 2
     assert prof.invalidate_comm_model() >= 1
     monkeypatch.setenv("QUEST_TPU_COMM_MODEL", "default")
     assert prof.measure_comm_model(env.mesh) is prof.DEFAULT_COMM_MODEL

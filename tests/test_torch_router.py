@@ -123,10 +123,11 @@ class TestReplicaEnvs:
             replica_envs(0, device="cpu")
         with pytest.raises(ValueError, match="power of 2"):
             replica_envs(2, devices_per_replica=3, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            replica_envs(2, devices_per_replica=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            ServiceRouter(num_replicas=2, devices_per_replica=4)
+        # k > 1: each replica a k-shard mesh over the device repeated
+        es = replica_envs(2, devices_per_replica=2, device="cpu")
+        assert [e.num_devices for e in es] == [2, 2]
+        assert all(e.mesh.devices == (torch.device("cpu"),) * 2
+                   for e in es)
 
 
 class TestRouterOracle:
